@@ -1,0 +1,52 @@
+"""Load reference-layout weights into the port's ``Model``.
+
+The input is a ``{key: np.ndarray}`` dict of the reference's parameter tree
+flattened with ``/``-joined paths, bf16 widened to float32 — the layout of
+``repro/checkpoint/npz.py`` ``_flatten`` (``embed/table``, ``mod_proj/w``,
+``unit/<j>/attn/wq``, ``unit/<j>/mlp/up/w``, ``final_norm/scale``,
+``lm_head/w``).  Block parameters are stacked over the repeats of the
+reference's repeating unit, which for the port's stacks of identical layers
+is one layer long, so port layer ``i`` reads ``unit/0/...[i]``.  Nothing
+here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+
+
+def reference_key(name: str) -> Tuple[str, int]:
+    """Port parameter name -> (reference key, index into the repeat axis).
+
+    ``layers.5.attn.wq`` -> (``unit/0/attn/wq``, 5); top-level names map to
+    their key with index -1 (no repeat axis).
+    """
+
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return "/".join(parts), -1
+    return "/".join(["unit", "0"] + parts[2:]), int(parts[1])
+
+
+@torch.no_grad()
+def load_reference_params(model: Model, flat: Dict[str, np.ndarray]) -> Model:
+    """Copy every parameter of ``model`` from ``flat`` (cast to the
+    parameter's dtype and device).  Raises on a missing key or a shape
+    mismatch; returns ``model``."""
+
+    for name, p in model.named_parameters():
+        key, idx = reference_key(name)
+        if key not in flat:
+            raise KeyError(f"reference weights lack {key!r} (for {name})")
+        arr = np.asarray(flat[key])
+        if idx >= 0:
+            arr = arr[idx]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != port {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return model

@@ -1,0 +1,35 @@
+"""Launcher of the hand-written causal flash attention kernel
+(``csrc/flash_attention.cu``; replaces ``repro/kernels/flash_attention.py``).
+
+q [B, S, H, D], k/v [B, S, KV, D] -> [B, S, H, D]; GQA by ``h // (H/KV)``,
+any S (the ragged edge is masked in the kernel).  Serves the port's
+prefill.  Only CUDA tensors are accepted.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+
+NAME = "flash_attention"
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_cap: float = 0.0):
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    _lib.check_attention_args(q, k, v)
+    if k.shape != (b, s, kv, d) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    if h % kv:
+        raise ValueError(f"H={h} must be a multiple of KV={kv}")
+    out = torch.empty_like(q)
+    status = _lib.load(NAME)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, d,
+        int(bool(causal)), int(window), d**-0.5, float(logit_cap), _lib.dtype_code(q),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _lib.check(status, NAME)
+    _lib.LAUNCHES[NAME] += 1
+    return out

@@ -1,0 +1,147 @@
+"""Attention of the port (counterpart of ``repro/models/attention.py``).
+
+Every attention call goes through ``kernels.ops``: prefill through the flash
+kernel, dense decode through the decode kernel, paged decode through the
+paged kernel — on a CUDA tensor the hand-written Hopper kernel, on a CPU
+tensor its plain version.  (The reference's jnp ``_sdpa`` and
+``_sdpa_chunked`` have no separate twin here: ``kernels/ref.py`` is the
+plain path.)  Caches are updated in place, where the reference returns new
+arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense, normal_
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        nh, nkv = cfg.num_heads, cfg.num_kv_heads
+
+        def p(shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+        self.wq, self.wk, self.wv = p((d, nh * hd)), p((d, nkv * hd)), p((d, nkv * hd))
+        self.wo = p((nh * hd, d))
+
+    def init(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            normal_(w, w.shape[0] ** -0.5, generator)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: [B, S, H, Dh]; positions: [B, S] or [S].
+
+    Parity: the head is split in halves, not interleaved, and the
+    frequencies and angles are float32 (repro/models/attention.py:37-40).
+    """
+
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freq
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _qkv(x, p: Attention, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = dense(x, p.wq).reshape(b, s, nh, hd)
+    k = dense(x, p.wk).reshape(b, s, nkv, hd)
+    v = dense(x, p.wv).reshape(b, s, nkv, hd)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def attention_forward(x, p: Attention, cfg: ModelConfig, positions, window: int):
+    """Causal self-attention over a prompt (the prefill path).
+
+    x [B, S, D]; positions [B, S] or [S].  Returns (out [B, S, D], k, v) with
+    the RoPE'd keys and the values [B, S, KV, Dh] for the decode cache.
+    """
+
+    b, s, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              logit_cap=cfg.attn_logit_softcap)
+    return dense(out.reshape(b, s, -1), p.wo), k, v
+
+
+def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
+                          cache_len: Union[int, torch.Tensor], window: int):
+    """One-token decode over dense slabs.  x [B,1,D]; cache_k/v [B,S,KV,Dh].
+
+    ``cache_len`` is an int (the whole batch at one depth: the single-robot
+    serving loop) or a [B] int32 tensor (each row at its own depth; the
+    row's token lands at ``min(len, S-1)``).  The new K/V are written into
+    the caches in place; the row attends positions ``<= len`` (the
+    reference's ``k_pos <= pos`` mask, as a length of ``len + 1``).
+    Returns out [B, 1, D].
+    """
+
+    b = x.shape[0]
+    s_cache = cache_k.shape[1]
+    if isinstance(cache_len, torch.Tensor):
+        pos_b = cache_len.to(torch.int32)
+        q, k, v = _qkv(x, p, cfg, pos_b[:, None])
+        rows = torch.arange(b, device=x.device)
+        slot = torch.clamp(pos_b, max=s_cache - 1).long()
+        cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+        lens = pos_b + 1
+    else:
+        pos = int(cache_len)
+        q, k, v = _qkv(x, p, cfg, torch.full((b, 1), pos, device=x.device))
+        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+        lens = pos + 1
+    out = ops.decode_attention(
+        q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype), cache_len=lens,
+        window=window, logit_cap=cfg.attn_logit_softcap,
+    )
+    return dense(out.reshape(b, 1, -1), p.wo)
+
+
+def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_pool,
+                                page_table, cache_len, cap, window: int):
+    """One-token decode against the shared KV page pool.  x [B,1,D].
+
+    k/v_pool [P+1, page, KV, Dh]: the last page is trash.  Each row's new
+    K/V land at the flat slot its page table maps ``cache_len`` to; rows at
+    or over ``cap`` (idle rows, rows decoding past their chunk) write the
+    trash page and attend over ``min(len + 1, cap)`` tokens
+    (repro/models/attention.py:512-523).  Pools are updated in place.
+    Returns out [B, 1, D].
+    """
+
+    b = x.shape[0]
+    n_pages, page = k_pool.shape[0] - 1, k_pool.shape[1]
+    maxp = page_table.shape[1]
+    pos_b = cache_len.to(torch.int32).expand(b)
+    cap_b = cap.to(torch.int32).expand(b)
+    q, k, v = _qkv(x, p, cfg, pos_b[:, None])
+
+    page_idx = torch.clamp(pos_b // page, max=maxp - 1).long()
+    rows = torch.arange(b, device=x.device)
+    slot = page_table[rows, page_idx].long() * page + (pos_b % page).long()
+    slot = torch.where(pos_b < cap_b, slot, torch.full_like(slot, n_pages * page))
+    flat = (-1,) + tuple(k_pool.shape[2:])
+    k_pool.view(flat).index_copy_(0, slot, k[:, 0].to(k_pool.dtype))
+    v_pool.view(flat).index_copy_(0, slot, v[:, 0].to(v_pool.dtype))
+
+    lens_eff = torch.minimum(pos_b + 1, cap_b)
+    out = ops.paged_decode_attention(
+        q[:, 0], k_pool[:n_pages].to(q.dtype), v_pool[:n_pages].to(q.dtype),
+        page_table, lens_eff, window=window, logit_cap=cfg.attn_logit_softcap,
+    )
+    return dense(out.reshape(b, 1, -1), p.wo)

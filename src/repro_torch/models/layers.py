@@ -1,0 +1,99 @@
+"""Shared layers of the port (counterpart of ``repro/models/layers.py``).
+
+Parameters live in small ``nn.Module``s whose attribute names follow the
+reference's parameter tree (``norm1.scale``, ``attn.wq``, ``mlp.up.w``...),
+so ``checkpoint/bridge.py`` maps keys one for one.  Initialisers draw the
+reference's distributions from an explicit ``torch.Generator``: normal x
+``d_in ** -0.5`` for dense weights, std 1.0 for the embedding (vocab padded
+to a multiple of 256), zeros for norm scales.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+VOCAB_PAD = 256
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill ``p`` with N(0, std^2) drawn in float32, then cast (as ``_normal``)."""
+
+    draw = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+    p.copy_(draw.mul_(std))
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, dtype, device):
+        super().__init__()
+        self.w = _param((d_in, d_out), dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        normal_(self.w, self.w.shape[0] ** -0.5, generator)
+
+
+class Norm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        self.scale.zero_()
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, device, pad_to: int = VOCAB_PAD):
+        super().__init__()
+        vpad = -(-vocab // pad_to) * pad_to
+        self.table = _param((vpad, d), dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        normal_(self.table, 1.0, generator)
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__()
+        self.up = Dense(d_model, d_ff, dtype, device)
+        self.gate = Dense(d_model, d_ff, dtype, device)
+        self.down = Dense(d_ff, d_model, dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for m in (self.up, self.gate, self.down):
+            m.init(generator)
+
+
+# ---------------------------------------------------------------------------
+# forward ops
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    # parity: float32 math and gemma-style (1 + scale), zeros-init scale ==
+    # identity at init (repro/models/layers.py:85-91)
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def mlp(x: torch.Tensor, m: MLP) -> torch.Tensor:
+    return dense(F.silu(dense(x, m.gate.w)) * dense(x, m.up.w), m.down.w)
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    # parity: the reference casts the table to bf16 even in f32 stacks
+    # (repro/models/layers.py:133); casting the gathered rows is the same
+    return table[tokens].to(torch.bfloat16)
