@@ -4,18 +4,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
 
 1. environment: the card's name and power limit, the PyTorch and CUDA
    versions; TF32 is switched off for float32 matmuls and convolutions;
-2. build: the three attention kernels from ``src/repro_torch/csrc/``;
+2. build: the five kernels from ``src/repro_torch/csrc/`` (three attention
+   kernels, the Mamba scan, the monitor statistics), one nvcc each, in
+   parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   inputs (numpy, seeded), at the serving path's shapes and at harder ones,
-   with times: the kernel, the plain version, one PyTorch library call of
-   the same function (a yardstick the port never calls) and the least time
-   the card could take (the bound);
-4. model: the smoke-size stack in float32 on the card against the same
-   weights on the CPU (plain attention), then the main path: openvla-7b at
+   inputs (numpy, seeded, or a fleet's episodes), at the main paths' shapes
+   and at harder ones, with times: the kernel, the plain version, one
+   PyTorch library call of the same function where one exists (a yardstick
+   the port never calls) and the least time the card could take (the
+   bound);
+4. model: for each served stack, its smoke size in float32 on the card
+   against the same weights on the CPU (plain versions), then the stack at
    full width in bf16 serving one robot's closed loop with
    ``serve_episode`` twice, dense and paged, with the kernels' launch counts
-   read around each run; the two runs' chunks must agree under the
-   greedy-margin rule;
+   read around each run and the two runs' chunks held to the greedy-margin
+   rule: openvla-7b (32 layers), freed, then jamba-1.5-large-398b cut to
+   its first 4 layers (mamba+MLP, mamba+MoE, mamba+MLP, attn+MoE; ~46 GB);
+   then the monitor path: ``ops.rolling_stats`` over a fleet's bank of
+   1024 episode streams, held against the port's ``run_trigger`` scores;
 5. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Needs one CUDA card; takes no arguments.
@@ -23,6 +29,7 @@ Needs one CUDA card; takes no arguments.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -38,13 +45,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import kinematics as kin  # noqa: E402
+from repro_torch.core.trigger import TriggerConfig, run_trigger  # noqa: E402
 from repro_torch.data.pipeline import EpisodeTokenizer  # noqa: E402
 from repro_torch.kernels import _lib, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
+from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.robotics.episodes import generate_episode  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and flop/s by input type
 # (bf16 on the tensor cores; float32 outside them)
@@ -61,6 +73,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # plus that worst case up to |out| 2, and a step alone up to |out| 4; a
 # limit of 1e-3 would fail the one-step difference seen at S=300.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+# mamba_scan is held against its plain version evaluated in float64 (the
+# kernel keeps its prefix sums in float64; a float32 plain version carries
+# ~1e-4 relative error on the decay factors of fast heads, where the prefix
+# sums reach ~-10^3): atol 5e-4, rtol 5e-3, the JAX package's tolerance for
+# its own kernel (tests/test_kernels.py:147-148).
+MAMBA_TOL = (5e-4, 5e-3)
+# rolling_stats: the JAX package's tolerances (tests/test_kernels.py:88-90):
+# scores 5e-4, the moving average 5e-5 — the kernel's incremental window
+# sums drift from the plain version's recomputed ones.  On episode streams
+# the torque power spikes to ~1e6 at contacts, and a running window sum
+# keeps rounding errors of the largest value it held (~ulp(1e6) = 0.06)
+# after the spike leaves the window: there the moving average's error is
+# held to 5e-5 of its stream's peak instead of its current value.
+STATS_TOL = (5e-4, 5e-4, 5e-5)
 # greedy-margin rule for the bf16 runs: two paths' tokens may differ only
 # where the reference path's top-two logit gap is at most this (logits are
 # O(1); 0.1 is ~13 bf16 steps there)
@@ -71,7 +97,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
     "decode_attention": "src/repro/kernels/decode_attention.py:87",
     "paged_attention": "src/repro/kernels/paged_attention.py:100",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:85",
+    "rolling_stats": "src/repro/kernels/rolling_stats.py:104",
 }
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weights
+FLEET = 1024      # robots in the monitor's episode bank
+TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
 
 def log(*a):
@@ -90,6 +122,11 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # slow plain versions: about half a second of calls, at least 3
+    iters = max(3, min(iters, int(0.5 / max(time.perf_counter() - t0, 1e-6))))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -117,14 +154,22 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 
 
+def sdpa(q, k, v, **kw):
+    """One SDPA call on [B, H, S, D] (the yardstick); GQA through
+    ``enable_gqa`` where the heads differ."""
+
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
 def flash_case(rng, dtype, s, h, kv, window=0, cap=0.0, d=128):
     q, k, v = _t(rng, (1, s, h, d), dtype), _t(rng, (1, s, kv, d), dtype), _t(rng, (1, s, kv, d), dtype)
     kw = dict(causal=True, window=window, logit_cap=cap)
     pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     lib = None
-    if not window and not cap and h == kv:
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    if not window and not cap:
+        lib = sdpa(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=True)
     return dict(
         kernel=lambda: kfa.flash_attention(q, k, v, **kw),
         plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
@@ -141,10 +186,9 @@ def decode_case(rng, dtype, s, h, kv, cache_len, window=0, cap=0.0, b=1, d=128):
     lens = (cache_len.tolist() if isinstance(cache_len, torch.Tensor) else [cache_len] * b)
     live = sum(min(n, window) if window else n for n in lens)
     lib = None
-    if not window and not cap and h == kv and not isinstance(cache_len, torch.Tensor):
-        qt = q[:, :, None, :]
-        kt, vt = ck[:, :cache_len].transpose(1, 2), cv[:, :cache_len].transpose(1, 2)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    if not window and not cap and not isinstance(cache_len, torch.Tensor):
+        lib = sdpa(q[:, :, None, :], ck[:, :cache_len].transpose(1, 2),
+                   cv[:, :cache_len].transpose(1, 2))
     return dict(
         kernel=lambda: kdec.decode_attention(q, ck, cv, **kw),
         plain=lambda: ref.decode_attention_ref(q, ck, cv, **kw),
@@ -166,12 +210,10 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
     kw = dict(window=window, logit_cap=cap)
     live = sum(min(n, window) if window else n for n in lens)
     lib = None
-    if identity and b == 1 and not window and not cap and h == kv:
+    if identity and b == 1 and not window and not cap:
         # identity page table: the pool is the row's dense cache
-        qt = q[:, :, None, :]
-        kt = kp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2)
-        vt = vp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+        lib = sdpa(q[:, :, None, :], kp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2),
+                   vp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2))
     return dict(
         kernel=lambda: kpa.paged_decode_attention(q, kp, vp, table, cl, **kw),
         plain=lambda: ref.paged_decode_attention_ref(q, kp, vp, table, cl, **kw),
@@ -181,9 +223,88 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
     )
 
 
-def kernel_cases(rng):
+def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
+    """x, dt = softplus(normal), a = -exp(normal), B, C, and h0 as the JAX
+    package's kernel tests draw them; compared in float64."""
+
+    f32 = torch.float32
+    x, bm, c = _t(rng, (b, s, h, p), f32), _t(rng, (b, s, n), f32), _t(rng, (b, s, n), f32)
+    dt = F.softplus(_t(rng, (b, s, h), f32))
+    a = -torch.exp(_t(rng, (h,), f32))
+    h0 = _t(rng, (b, h, p, n), f32) if with_h0 else None
+    args = (x, dt, a, bm, c)
+    wide = [t.double() for t in args]
+    h0_wide = None if h0 is None else h0.double()
+    nc, L = s // min(chunk, s), min(chunk, s)
+    pairs = L * (L + 1) // 2
+    flops = b * h * nc * (pairs * (2 * n + 4 + 2 * p) + L * p * (2 * n + 2)
+                          + p * n * (3 * L + 2) + 5 * L)
+    return dict(
+        kernel=lambda: kms.mamba_scan(*args, h0=h0, chunk=chunk),
+        plain=lambda: ref.mamba_scan_ref(*args, h0=h0, chunk=chunk),
+        oracle=lambda: ref.mamba_scan_ref(*wide, h0=h0_wide, chunk=chunk),
+        tols=[MAMBA_TOL + (0.0,)] * 2,
+        library=None,
+        bytes=2 * nbytes(x) + nbytes(dt, a, bm, c) + (2 if with_h0 else 1) * b * h * p * n * 4,
+        flops=float(flops),
+    )
+
+
+def stats_case(m_acc, tau_pow, peak_relative=False, **kw):
+    """The monitor kernel over [N, T] streams; ~44 float32 operations a
+    tick a stream (csrc/rolling_stats.cu)."""
+
+    n, t = m_acc.shape
+    tols = [STATS_TOL[:2] + (0.0,), STATS_TOL[:2] + (0.0,),
+            (STATS_TOL[2], STATS_TOL[2], STATS_TOL[2] if peak_relative else 0.0)]
+    return dict(
+        kernel=lambda: krs.rolling_stats(m_acc, tau_pow, **kw),
+        plain=lambda: ref.rolling_stats_ref(m_acc, tau_pow, **kw),
+        tols=tols,
+        library=None,
+        bytes=5 * n * t * 4,
+        flops=44.0 * n * t,
+    )
+
+
+def random_streams(rng, n, t):
+    """|normal| * 2 and |normal| streams, as the JAX package's kernel tests."""
+
+    return (torch.as_tensor(np.abs(rng.standard_normal((n, t))) * 2, dtype=torch.float32,
+                            device="cuda"),
+            torch.as_tensor(np.abs(rng.standard_normal((n, t))), dtype=torch.float32,
+                            device="cuda"))
+
+
+def fleet_streams(n_robots=FLEET, t_len=600):
+    """One fleet's episodes: tasks in turn, seeds 0..n-1, cut to the
+    shortest task's 600 ticks -> (q, qd, tau [T, R, 7] on the card)."""
+
+    eps = [generate_episode(TASKS[r % 3], seed=r) for r in range(n_robots)]
+    return tuple(
+        torch.as_tensor(np.stack([getattr(e, k)[:t_len] for e in eps], axis=1), device="cuda")
+        for k in ("q", "qd", "tau")
+    )
+
+
+def monitor_features(qd, tau, cfg: TriggerConfig):
+    """m_acc, tau_pow [R, T] from [T, R, 7] streams, as the trigger forms
+    them tick by tick (core.kinematics; the previous frame is 0 at t = 0)."""
+
+    w = kin.end_joint_weights(qd.shape[-1], cfg.end_joint_emphasis, qd.device)
+    prev = lambda v: torch.cat([torch.zeros_like(v[:1]), v[:-1]])  # noqa: E731
+    m_acc = kin.accel_magnitude(kin.finite_diff_accel(qd, prev(qd), cfg.dt), w)
+    tau_pow = kin.torque_power(kin.torque_variation(tau, prev(tau)), w)
+    return m_acc.T.contiguous(), tau_pow.T.contiguous()
+
+
+def kernel_cases(rng, fleet):
     bf, f32 = torch.bfloat16, torch.float32
     ragged = [1, 1000, 0, 17, 250, 16, 999, 64]
+    tcfg = TriggerConfig()
+    fleet_acc, fleet_tau = monitor_features(*fleet[1:], tcfg)
+    wins = dict(window_acc=tcfg.window_acc, window_tau=tcfg.window_tau,
+                sigma_floor_acc=tcfg.sigma_floor_acc, sigma_floor_tau=tcfg.sigma_floor_tau)
     return [
         # (kernel, label, dtype, case, main-path shape?)
         ("flash_attention", "S=14 H=KV=32 D=128", bf, flash_case(rng, bf, 14, 32, 32), True),
@@ -211,27 +332,73 @@ def kernel_cases(rng):
          paged_case(rng, f32, ragged, 16, 32, 32), False),
         ("paged_attention", "B=8 ragged page 128 H=32 KV=8 win 64 cap 50", f32,
          paged_case(rng, f32, ragged, 128, 32, 8, window=64, cap=50.0), False),
+        # Jamba's attention layer: H=64, KV=8
+        ("flash_attention", "Jamba S=14 H=64 KV=8", bf, flash_case(rng, bf, 14, 64, 8), False),
+        ("decode_attention", "Jamba S=70 len=70 H=64 KV=8", bf,
+         decode_case(rng, bf, 70, 64, 8, 70), False),
+        ("paged_attention", "Jamba B=1 len=70 page 16 identity H=64 KV=8", bf,
+         paged_case(rng, bf, [70], 16, 64, 8, identity=True), False),
+        # the Mamba scan: Jamba's prefill shape, long sequences, a carried state
+        ("mamba_scan", "Jamba B=1 S=14 H=256 P=64 N=16", f32,
+         mamba_case(rng, 1, 14, 256, 64, 16, 256), True),
+        ("mamba_scan", "B=2 S=512 H=256 P=64 N=16 chunk 256", f32,
+         mamba_case(rng, 2, 512, 256, 64, 16, 256), False),
+        ("mamba_scan", "B=2 S=512 H=256 chunk 256 with h0", f32,
+         mamba_case(rng, 2, 512, 256, 64, 16, 256, with_h0=True), False),
+        ("mamba_scan", "B=1 S=14 H=256 with h0", f32,
+         mamba_case(rng, 1, 14, 256, 64, 16, 256, with_h0=True), False),
+        ("mamba_scan", "B=1 S=128 H=2 P=16 N=4 chunk 64", f32,
+         mamba_case(rng, 1, 128, 2, 16, 4, 64), False),
+        ("mamba_scan", "B=2 S=64 H=3 P=8 N=32 chunk 16 with h0", f32,
+         mamba_case(rng, 2, 64, 3, 8, 32, 16, with_h0=True), False),
+        # the monitor: a fleet's 1024 episodes, a 16x replay bank, a ragged tile
+        ("rolling_stats", f"fleet N={fleet_acc.shape[0]} T=600 episodes", f32,
+         stats_case(fleet_acc, fleet_tau, peak_relative=True, **wins), True),
+        ("rolling_stats", f"replay bank N={16 * fleet_acc.shape[0]} T=600 (fleet x16)", f32,
+         stats_case(fleet_acc.repeat(16, 1), fleet_tau.repeat(16, 1), peak_relative=True,
+                    **wins), False),
+        ("rolling_stats", "N=130 T=96 windows 32/8 random", f32,
+         stats_case(*random_streams(rng, 130, 96), window_acc=32, window_tau=8), False),
+        ("rolling_stats", "N=4 T=200 random", f32,
+         stats_case(*random_streams(rng, 4, 200)), False),
     ]
 
 
-def check_kernels():
+def compare(outs, wants, tols):
+    """Max abs error over the outputs, and whether every element of each
+    output is finite and within atol + rtol * |want| + peak * max|want row|."""
+
+    worst, ok = 0.0, True
+    for out, want, (atol, rtol, peak) in zip(outs, wants, tols):
+        want = want.to(torch.float64)
+        err = (out.to(torch.float64) - want).abs()
+        lim = atol + rtol * want.abs()
+        if peak:
+            lim = lim + peak * want.abs().amax(dim=-1, keepdim=True)
+        worst = max(worst, float(err.max()))
+        ok = ok and bool((err <= lim).all()) and bool(torch.isfinite(out).all())
+    return worst, ok
+
+
+def check_kernels(fleet):
     rng = np.random.default_rng(0)
     main = {}
-    for name, label, dtype, case, is_main in kernel_cases(rng):
+    for name, label, dtype, case, is_main in kernel_cases(rng, fleet):
         out = case["kernel"]()
-        want = case["plain"]()
+        want = case.get("oracle", case["plain"])()
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs()
-        atol, rtol = TOL[dtype]
-        ok = bool((err <= atol + rtol * want.float().abs()).all()) and bool(torch.isfinite(out).all())
+        outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+        tols = case.get("tols", [TOL[dtype] + (0.0,)] * len(outs))
+        err, ok = compare(outs, wants, tols)
+        atol, rtol, _ = tols[0]
         row = dict(
-            max_abs_err=float(err.max()),
+            max_abs_err=err,
             ms=time_ms(case["kernel"]),
             plain_ms=time_ms(case["plain"]),
             library_ms=time_ms(case["library"]) if case["library"] else None,
         )
         row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], dtype)
-        log(f"  {name:17s} {label:42s} {str(dtype)[6:]:8s} err={row['max_abs_err']:.3g} "
+        log(f"  {name:17s} {label:44s} {str(dtype)[6:]:8s} err={row['max_abs_err']:.3g} "
             f"(atol {atol:g} rtol {rtol:g}) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
@@ -261,11 +428,11 @@ class RecordingPolicy(CloudPolicy):
         return toks
 
 
-def check_small_model_against_cpu():
-    """Smoke-size f32 stack: kernels on the card vs plain attention on the
+def check_small_model_against_cpu(arch: str):
+    """Smoke-size f32 stack: kernels on the card vs plain versions on the
     CPU, same weights; chunk tokens equal, prefill logits within 1e-4."""
 
-    cfg = get_smoke_config("openvla-7b").replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -282,8 +449,8 @@ def check_small_model_against_cpu():
         if not np.array_equal(tg, tc):
             raise AssertionError(f"smoke f32 chunk tokens differ card vs CPU (paged={paged})")
     if err > 1e-4:
-        raise AssertionError(f"smoke f32 prefill logits differ card vs CPU by {err:.3g}")
-    log(f"  smoke f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
+        raise AssertionError(f"{cfg.name} f32 prefill logits differ card vs CPU by {err:.3g}")
+    log(f"  {cfg.name} f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
         "dense and paged chunk tokens equal")
 
 
@@ -319,11 +486,13 @@ def serve_main_path(model, tok, paged: bool):
         f"(steady, excluding the first chunk: {chunk * (n_off - 1) / (ms[1:].sum() / 1e3):.1f}) "
         f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"launches={counts}")
-    layers = model.cfg.num_layers
+    attn_layers, mamba_layers = model.n_attn, model.n_mamba
     want = {
-        "flash_attention": layers * n_off,
-        "decode_attention": 0 if paged else layers * chunk * n_off,
-        "paged_attention": layers * chunk * n_off if paged else 0,
+        "flash_attention": attn_layers * n_off,
+        "decode_attention": 0 if paged else attn_layers * chunk * n_off,
+        "paged_attention": attn_layers * chunk * n_off if paged else 0,
+        "mamba_scan": mamba_layers * n_off,
+        "rolling_stats": 0,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -332,7 +501,7 @@ def serve_main_path(model, tok, paged: bool):
 
 def profile_chunk(model, tok):
     """One dense chunk under torch.profiler: wall ms, the device's busy share
-    and the kernels that take the device's time."""
+    and the kernels that take the device's time (the ten largest)."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,7 +517,7 @@ def profile_chunk(model, tok):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"  profiled dense chunk: wall {wall_ms:.1f} ms; device time not measured "
+        log(f"  profiled dense chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not measured "
             "(the profiler recorded no CUDA kernels)")
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -356,7 +525,7 @@ def profile_chunk(model, tok):
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    log(f"  profiled dense chunk: wall {wall_ms:.1f} ms (profiler on), device kernels "
+    log(f"  profiled dense chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device kernels "
         f"{busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {t:9.2f} ms {n:6d}x  {name[:110]}")
@@ -377,6 +546,59 @@ def check_greedy_margin(model, tok, dense_rec, paged_rec):
                 raise AssertionError(f"paged token differs at step {diff[0]} where the dense "
                                      f"top-two gap is {gap:.3g} > {MARGIN_TOL}")
     log(f"  greedy-margin rule: {len(dense_rec)} chunks, {diverged} diverged within the margin")
+
+
+def serve_stack(cfg, launches):
+    """Build ``cfg`` at full width on the card (weights from a seeded card
+    generator), serve it dense and paged, hold the two to the greedy-margin
+    rule, profile one chunk; adds the runs' launch counts to ``launches``."""
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} ({cfg.num_layers} layers {list(cfg.blocks)}): "
+        f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    dense_rec, c_dense = serve_main_path(model, tok, paged=False)
+    paged_rec, c_paged = serve_main_path(model, tok, paged=True)
+    check_greedy_margin(model, tok, dense_rec, paged_rec)
+    for n in launches:
+        launches[n] += c_dense[n] + c_paged[n]
+    profile_chunk(model, tok)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def monitor_path(fleet, launches):
+    """The batched monitor entry point over a fleet's bank of episode
+    streams; its scores on the first streams must match the port's own
+    trigger run tick by tick."""
+
+    cfg = TriggerConfig()
+    q, qd, tau = fleet
+    m_acc, tau_pow = monitor_features(qd, tau, cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    score_acc, score_tau, _ = ops.rolling_stats(
+        m_acc, tau_pow, window_acc=cfg.window_acc, window_tau=cfg.window_tau,
+        sigma_floor_acc=cfg.sigma_floor_acc, sigma_floor_tau=cfg.sigma_floor_tau,
+    )
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    if counts["rolling_stats"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"monitor launch counts {counts}, expected one rolling_stats")
+    launches["rolling_stats"] += 1
+    head = 8
+    _, out = run_trigger(cfg, kin.KinematicFrame(q[:, :head], qd[:, :head], tau[:, :head]))
+    err, ok = compare((score_acc[:head], score_tau[:head]),
+                      (out.score_acc.T, out.score_tau.T), [(1e-3, 1e-3, 0.0)] * 2)
+    if not ok:
+        raise AssertionError(f"monitor scores differ from run_trigger by {err:.3g}")
+    log(f"  monitor: ops.rolling_stats over {m_acc.shape[0]} streams x {m_acc.shape[1]} ticks, "
+        f"1 launch; scores of the first {head} streams vs run_trigger max err {err:.3g} "
+        "(atol = rtol = 1e-3, the JAX package's kernel-vs-trigger tolerance)")
 
 
 def main() -> int:
@@ -403,22 +625,16 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("== 3. kernels against their plain versions")
-    main_rows = check_kernels()
+    fleet = fleet_streams()
+    main_rows = check_kernels(fleet)
 
     log("== 4. model")
-    check_small_model_against_cpu()
-    cfg = get_config("openvla-7b")
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, "
-        f"built in {time.perf_counter() - t0:.1f} s")
-    tok = EpisodeTokenizer(cfg.vocab_size)
-    dense_rec, c_dense = serve_main_path(model, tok, paged=False)
-    paged_rec, c_paged = serve_main_path(model, tok, paged=True)
-    check_greedy_margin(model, tok, dense_rec, paged_rec)
-    launches = {n: c_dense[n] + c_paged[n] for n in _lib.KERNELS}
-    profile_chunk(model, tok)
+    launches = {n: 0 for n in _lib.KERNELS}
+    for arch, cfg in (("openvla-7b", get_config("openvla-7b")),
+                      (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS))):
+        check_small_model_against_cpu(arch)
+        serve_stack(cfg, launches)
+    monitor_path(fleet, launches)
 
     log("== 5. result")
     rows = []

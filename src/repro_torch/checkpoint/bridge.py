@@ -3,11 +3,14 @@
 The input is a ``{key: np.ndarray}`` dict of the reference's parameter tree
 flattened with ``/``-joined paths, bf16 widened to float32 — the layout of
 ``repro/checkpoint/npz.py`` ``_flatten`` (``embed/table``, ``mod_proj/w``,
-``unit/<j>/attn/wq``, ``unit/<j>/mlp/up/w``, ``final_norm/scale``,
-``lm_head/w``).  Block parameters are stacked over the repeats of the
-reference's repeating unit, which for the port's stacks of identical layers
-is one layer long, so port layer ``i`` reads ``unit/0/...[i]``.  Nothing
-here imports JAX.
+``unit/<j>/attn/wq``, ``unit/<j>/mamba/in_proj``, ``unit/<j>/moe/up``,
+``unit/<j>/mlp/up/w``, ``final_norm/scale``, ``lm_head/w``).  Block
+parameters are stacked over the repeats of the reference's repeating unit
+of ``period`` layers (``models.model.unit_period``), so port layer ``i``
+reads ``unit/{i % period}/...[i // period]``: a stack of identical layers
+has period 1, jamba-smoke (mamba, attn) period 2.  Float32 parameters
+(router, ``dt_bias``, ``a_log``, ``d_skip``) stay float32.  Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -20,17 +23,19 @@ import torch
 from repro_torch.models.model import Model
 
 
-def reference_key(name: str) -> Tuple[str, int]:
+def reference_key(name: str, period: int = 1) -> Tuple[str, int]:
     """Port parameter name -> (reference key, index into the repeat axis).
 
-    ``layers.5.attn.wq`` -> (``unit/0/attn/wq``, 5); top-level names map to
-    their key with index -1 (no repeat axis).
+    ``layers.5.attn.wq`` -> (``unit/0/attn/wq``, 5) with period 1, and
+    (``unit/1/attn/wq``, 2) with period 2; top-level names map to their key
+    with index -1 (no repeat axis).
     """
 
     parts = name.split(".")
     if parts[0] != "layers":
         return "/".join(parts), -1
-    return "/".join(["unit", "0"] + parts[2:]), int(parts[1])
+    i = int(parts[1])
+    return "/".join(["unit", str(i % period)] + parts[2:]), i // period
 
 
 @torch.no_grad()
@@ -40,7 +45,7 @@ def load_reference_params(model: Model, flat: Dict[str, np.ndarray]) -> Model:
     mismatch; returns ``model``."""
 
     for name, p in model.named_parameters():
-        key, idx = reference_key(name)
+        key, idx = reference_key(name, model.period)
         if key not in flat:
             raise KeyError(f"reference weights lack {key!r} (for {name})")
         arr = np.asarray(flat[key])

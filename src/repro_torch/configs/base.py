@@ -1,9 +1,9 @@
-"""Model config for the port: the fields the attention-only stack reads.
+"""Model config for the port: the fields its served stacks read.
 
 An own copy of the subset of ``repro.configs.base.ModelConfig`` that the
-dense-attention path needs (the port imports nothing of ``repro``).  Field
-names and defaults match the reference, so a config built here describes
-the same model as its reference twin.
+dense-attention and the hybrid Mamba/MoE paths need (the port imports
+nothing of ``repro``).  Field names and defaults match the reference, so a
+config built here describes the same model as its reference twin.
 """
 
 from __future__ import annotations
@@ -11,13 +11,34 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    # MoE layers replace the dense MLP every ``every`` layers (1 = all)
+    every: int = 1
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba block dims (SSD heads of ``models.ssm.HEAD_P`` channels)."""
+
+    state_dim: int = 16
+    conv_width: int = 4
+    expand: int = 2
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A pre-norm decoder of identical layers: RoPE attention (every layer
-    windowed when ``sliding_window`` is set), a SwiGLU MLP, and a stub
-    vision projector in front, as openvla-7b is built in the reference."""
+    """A pre-norm decoder: each layer's mixer is RoPE attention (windowed
+    when ``sliding_window`` is set) or a Mamba block, as ``block_pattern``
+    tiles them, and its FFN is a SwiGLU MLP or, on the layers ``moe``
+    selects, a top-k mixture of SwiGLU experts.  Vision and audio stacks
+    carry a stub frontend projector in front, as openvla-7b is built in the
+    reference."""
 
     name: str
     num_layers: int
@@ -31,24 +52,61 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = global attention
     attn_logit_softcap: float = 0.0
     norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # per-layer mixers ("attn" | "mamba"), tiled over the layers; None -> all "attn"
+    block_pattern: Optional[Tuple[str, ...]] = None
+    modality: str = "text"  # text | vision | audio
     dtype: str = "bfloat16"  # activations and parameters
+    # global attention layers take ``long_context_window`` beyond that length
+    subquadratic_decode: bool = False
+    long_context_window: int = 32_768
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def blocks(self) -> Tuple[str, ...]:
+        if self.block_pattern is None:
+            return ("attn",) * self.num_layers
+        pat = self.block_pattern
+        reps = -(-self.num_layers // len(pat))
+        return (pat * reps)[: self.num_layers]
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None or self.moe.num_experts == 0:
+            return False
+        return (i % self.moe.every) == (self.moe.every - 1)
+
     def param_count(self) -> int:
-        """Total parameters (untied embedding and head, SwiGLU MLP)."""
+        """Total parameters the port's ``Model`` holds: untied embedding and
+        head (vocab padded to 256), the stub projector of vision/audio
+        stacks, and per layer its mixer, two norms and its MLP or experts."""
 
         d, hd = self.d_model, self.resolved_head_dim
-        attn = d * hd * (2 * self.num_heads + 2 * self.num_kv_heads)
-        return self.num_layers * (attn + 3 * d * self.d_ff) + 2 * self.vocab_size * d
+        vpad = -(-self.vocab_size // 256) * 256
+        total = 2 * vpad * d + d + (d * d if self.modality in ("vision", "audio") else 0)
+        for i, blk in enumerate(self.blocks):
+            if blk == "attn":
+                total += d * hd * (2 * self.num_heads + 2 * self.num_kv_heads)
+            else:
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                nh = max(d_in // 64, 1)  # SSD heads of models.ssm.HEAD_P channels
+                total += (3 * d * d_in + s.conv_width * d_in + d_in * nh
+                          + d_in * 2 * s.state_dim + 3 * nh)
+            ffn = 3 * d * self.d_ff
+            if self.is_moe_layer(i):
+                ffn = self.moe.num_experts * ffn + d * self.moe.num_experts
+            total += 2 * d + ffn
+        return total
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-_MODULE_FOR = {"openvla-7b": "openvla"}
+_MODULE_FOR = {"openvla-7b": "openvla", "jamba-1.5-large-398b": "jamba_15_large"}
 
 
 def _module(arch_id: str):

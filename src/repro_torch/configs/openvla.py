@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     vocab_size=32000,
     head_dim=128,
     rope_theta=10_000.0,
+    modality="vision",
 )
 
 

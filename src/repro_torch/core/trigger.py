@@ -1,5 +1,6 @@
 """RAPID dual-threshold trigger (paper §IV-C, Eq. 6-8); torch twin of
-``repro/core/trigger.py``.  One kinematic frame per tick, O(1) state."""
+``repro/core/trigger.py``.  One kinematic frame per tick, O(1) state;
+``run_trigger`` walks a whole [T, ..., N] stream."""
 
 from __future__ import annotations
 
@@ -117,3 +118,18 @@ def trigger_step(state: TriggerState, frame: kin.KinematicFrame, cfg: TriggerCon
         score_acc=score_acc, score_tau=score_tau, w_acc=omega_a, raw_acc=m_acc, raw_tau=m_tau,
     )
     return new_state, out
+
+
+def run_trigger(cfg: TriggerConfig, frames: kin.KinematicFrame,
+                state: Optional[TriggerState] = None) -> Tuple[TriggerState, TriggerOutput]:
+    """The monitor over a [T, ..., N] stream, one ``trigger_step`` a tick
+    (the reference's ``lax.scan``).  Returns the final state and each
+    output field stacked over T."""
+
+    if state is None:
+        state = trigger_init(cfg, tuple(frames.q.shape[1:-1]), frames.q.device)
+    outs = []
+    for t in range(frames.q.shape[0]):
+        state, out = trigger_step(state, kin.KinematicFrame(*(f[t] for f in frames)), cfg)
+        outs.append(out)
+    return state, TriggerOutput(*(torch.stack(field) for field in zip(*outs)))

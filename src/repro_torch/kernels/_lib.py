@@ -37,6 +37,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_F, _F, _I, _P]),
     "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P] + [_I] * 6 + [_F, _F, _I, _P]),
     "paged_attention": ("paged_decode_attention", [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
+    "mamba_scan": ("mamba_scan", [_P] * 8 + [_I] * 6 + [_P]),
+    "rolling_stats": ("rolling_stats", [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -137,20 +139,27 @@ def dtype_code(t) -> int:
     raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
 
 
+def check_tensors(first, *rest, align: int = 16):
+    """Shared validation of the launchers' tensor arguments: CUDA, one
+    device, one dtype, contiguous, ``align``-byte aligned."""
+
+    for t in (first, *rest):
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel launch needs CUDA tensors, got {t.device}")
+        if t.device != first.device:
+            raise ValueError("all tensors must be on one device")
+        if t.dtype != first.dtype:
+            raise TypeError(f"dtype mismatch: {t.dtype} vs {first.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel tensors must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"kernel tensors must be {align}-byte aligned")
+
+
 def check_attention_args(q, *caches):
     """Shared validation of the attention launchers' tensor arguments."""
 
-    for t in (q, *caches):
-        if t.device.type != "cuda":
-            raise ValueError(f"kernel launch needs CUDA tensors, got {t.device}")
-        if t.device != q.device:
-            raise ValueError("all tensors must be on one device")
-        if t.dtype != q.dtype:
-            raise TypeError(f"dtype mismatch: {t.dtype} vs {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel tensors must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel tensors must be 16-byte aligned")
+    check_tensors(q, *caches)
     dtype_code(q)
     d = q.shape[-1]
     if d > 256 or d % 8:

@@ -1,0 +1,47 @@
+"""Launcher of the hand-written chunked SSD scan kernel
+(``csrc/mamba_scan.cu``; replaces ``repro/kernels/mamba_scan.py``).
+
+x [B, S, H, P], dt [B, S, H], a [H], bm/c [B, S, N], optional h0
+[B, H, P, N], all float32 -> (y [B, S, H, P], hT [B, H, P, N]).  The scan
+runs in chunks of ``min(chunk, S)`` steps, which must divide S, as the
+reference's ``ssd_chunked`` asserts; it starts from ``h0`` when given and
+from a zero state otherwise.  Only CUDA tensors are accepted.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+
+NAME = "mamba_scan"
+MAX_CHUNK, MAX_P, MAX_N = 256, 64, 32
+
+
+def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    extra = () if h0 is None else (h0,)
+    _lib.check_tensors(x, dt, a, bm, c, *extra, align=4)
+    if x.dtype != torch.float32:
+        raise TypeError(f"mamba_scan takes float32, got {x.dtype}")
+    want = {"dt": (b, s, h), "a": (h,), "bm": (b, s, n), "c": (b, s, n), "h0": (b, h, p, n)}
+    for name, t in zip(want, (dt, a, bm, c, h0)):
+        if t is not None and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+    if chunk > MAX_CHUNK or p > MAX_P or 256 % p or n > MAX_N:
+        raise ValueError(f"kernel takes chunk <= {MAX_CHUNK}, P <= {MAX_P} dividing 256 and "
+                         f"N <= {MAX_N}; got chunk {chunk}, P {p}, N {n}")
+    y = torch.empty_like(x)
+    h_t = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    status = _lib.load(NAME)(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), c.data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), h_t.data_ptr(),
+        b, s, h, p, n, chunk, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _lib.check(status, NAME)
+    _lib.LAUNCHES[NAME] += 1
+    return y, h_t

@@ -1,4 +1,4 @@
-"""Dispatch for the attention kernels: the tensor's device decides.
+"""Dispatch for the hand-written kernels: the tensor's device decides.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises; a CPU tensor goes to the plain PyTorch version in ``kernels.ref``.
@@ -12,19 +12,21 @@ from __future__ import annotations
 from repro_torch.kernels import _lib
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rolling_stats as _rs
 
 LAUNCHES = _lib.LAUNCHES
 reset_launch_counts = _lib.reset_launch_counts
 
 
-def _on_cuda(t) -> bool:
+def _on_cuda(t, what: str = "attention") -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no attention path for device {t.device}")
+    raise ValueError(f"no {what} path for device {t.device}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0):
@@ -48,3 +50,20 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_lens, *,
 
     fn = _pa.paged_decode_attention if _on_cuda(q) else _ref.paged_decode_attention_ref
     return fn(q, k_pages, v_pages, page_table, cache_lens, window=window, logit_cap=logit_cap)
+
+
+def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
+    """Chunked SSD scan (Mamba-2) -> (y [B,S,H,P], hT [B,H,P,N]); starts
+    from ``h0`` [B,H,P,N] when given.  ``min(chunk, S)`` must divide S."""
+
+    fn = _ms.mamba_scan if _on_cuda(x, "mamba_scan") else _ref.mamba_scan_ref
+    return fn(x, dt, a, bm, c, h0=h0, chunk=chunk)
+
+
+def rolling_stats(m_acc, tau_pow, *, window_acc=64, window_tau=16, sigma_floor_acc=1.0,
+                  sigma_floor_tau=0.05, eps=1e-6):
+    """RAPID monitor over [N, T] streams -> (score_acc, score_tau, m_tau)."""
+
+    fn = _rs.rolling_stats if _on_cuda(m_acc, "rolling_stats") else _ref.rolling_stats_ref
+    return fn(m_acc, tau_pow, window_acc=window_acc, window_tau=window_tau,
+              sigma_floor_acc=sigma_floor_acc, sigma_floor_tau=sigma_floor_tau, eps=eps)

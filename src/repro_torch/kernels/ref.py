@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention kernels (CPU path and card oracle).
+"""Plain PyTorch versions of the kernels (CPU path and card oracle).
 
-Each function computes what its CUDA kernel computes — scores, softmax and
-the value sum all in float32, output cast to the query dtype — and is what
-``kernels.ops`` runs for a tensor on the CPU.  ``chip_smoke.py`` holds each
+Each function computes what its CUDA kernel computes and is what
+``kernels.ops`` runs for a tensor on the CPU.  The attention ones keep
+scores, softmax and the value sum in float32 and cast the output to the
+query dtype.  ``chip_smoke.py`` holds each
 kernel against these on the card.  They mirror ``repro.kernels.ref``:
 
 * masked logits are ``NEG_INF = -1e30`` as in the kernels (the model's
@@ -101,3 +102,97 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, cache_lens, *,
     v = v_pages[table].reshape(b, -1, kv, d)
     valid = _valid(cache_lens.long(), k.shape[1], window, q.device)
     return _attend_rows(q, k, v, valid, logit_cap)
+
+
+def mamba_scan_ref(x, dt, a, bm, c, h0=None, chunk: int = 256):
+    """Chunked SSD scan; torch twin of ``repro.models.ssm.ssd_chunked``.
+
+    x [B,S,H,P], dt [B,S,H] (post-softplus), a [H] (negative), bm/c
+    [B,S,N], h0 [B,H,P,N] or None (zeros) -> (y [B,S,H,P], hT [B,H,P,N]).
+    Materialises the [B, chunks, L, L, H] decay tensor.
+    """
+
+    b, s, nh, p = x.shape
+    n = bm.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    nc = s // chunk
+    xr = x.reshape(b, nc, chunk, nh, p)
+    dtr = dt.reshape(b, nc, chunk, nh)
+    bmr = bm.reshape(b, nc, chunk, n)
+    cr = c.reshape(b, nc, chunk, n)
+
+    cum = torch.cumsum(dtr * a, dim=2)  # inclusive cumsum of the log-decay
+    # ---- intra-chunk quadratic form ----
+    g = torch.einsum("bctn,bcsn->bcts", cr, bmr)
+    m = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # decay s -> t: cum[t] - cum[s]
+    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    # mask BEFORE exp: above the diagonal m > 0 can overflow
+    m = torch.exp(torch.where(tril[None, None, :, :, None], m, torch.full_like(m, -1e30)))
+    w = g[..., None] * m * dtr[:, :, None, :, :]
+    y = torch.einsum("bctsh,bcshp->bcthp", w, xr)
+
+    # ---- inter-chunk recurrence over chunk states ----
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    sc = torch.einsum("bcsh,bcsn,bcshp->bchpn", decay_to_end * dtr, bmr, xr)
+    chunk_decay = torch.exp(cum[:, :, -1, :])
+    h = torch.zeros((b, nh, p, n), dtype=x.dtype, device=x.device) if h0 is None else h0
+    h_prev = []
+    for ci in range(nc):
+        h_prev.append(h)  # the state entering chunk ci
+        h = h * chunk_decay[:, ci, :, None, None] + sc[:, ci]
+    h_prev = torch.stack(h_prev, dim=1)
+    y_carry = torch.einsum("bctn,bchpn,bcth->bcthp", cr, h_prev, torch.exp(cum))
+    return (y + y_carry).reshape(b, s, nh, p), h
+
+
+def rolling_stats_ref(m_acc, tau_pow, *, window_acc=64, window_tau=16, sigma_floor_acc=1.0,
+                      sigma_floor_tau=0.05, eps=1e-6):
+    """RAPID monitor over [N, T] streams; torch twin of
+    ``repro.kernels.ref.rolling_stats_ref`` -> (score_acc, score_tau, m_tau).
+
+    Tick by tick, as ``core.trigger`` updates its state: the acceleration
+    window's mean and variance recomputed over the ring (the kernel keeps
+    incremental sums instead), floored by a Welford running sigma; the Eq. 5
+    moving average of the torque power and its running z-score.
+    """
+
+    n, t_len = m_acc.shape
+    f32 = dict(dtype=torch.float32, device=m_acc.device)
+    m_acc, tau_pow = m_acc.float(), tau_pow.float()
+    abuf, tbuf = torch.zeros((n, window_acc), **f32), torch.zeros((n, window_tau), **f32)
+    slots_a = torch.arange(window_acc, device=m_acc.device)
+    slots_t = torch.arange(window_tau, device=m_acc.device)
+    r_cnt, r_mean, r_m2 = (torch.zeros(n, **f32) for _ in range(3))
+    tr_cnt, tr_mean, tr_m2 = (torch.zeros(n, **f32) for _ in range(3))
+    outs = [torch.empty((n, t_len), **f32) for _ in range(3)]
+    for t in range(t_len):
+        ma, tp = m_acc[:, t], tau_pow[:, t]
+
+        abuf[:, t % window_acc] = ma
+        acnt = min(t + 1, window_acc)
+        live = slots_a < acnt
+        mean_a = torch.where(live, abuf, 0.0).sum(-1) / acnt
+        var_a = torch.where(live, torch.square(abuf - mean_a[:, None]), 0.0).sum(-1) / acnt
+        r_cnt = r_cnt + 1
+        d1 = ma - r_mean
+        r_mean = r_mean + d1 / r_cnt
+        r_m2 = r_m2 + d1 * (ma - r_mean)
+        sig_run = torch.sqrt(torch.clamp(r_m2 / torch.clamp(r_cnt, min=1), min=0))
+        sig_a = torch.clamp(torch.maximum(torch.sqrt(torch.clamp(var_a, min=0)), sig_run),
+                            min=sigma_floor_acc)
+        outs[0][:, t] = (ma - mean_a) / (sig_a + eps)
+
+        tbuf[:, t % window_tau] = tp
+        tcnt = min(t + 1, window_tau)
+        m_tau = torch.where(slots_t < tcnt, tbuf, 0.0).sum(-1) / tcnt
+        tr_cnt = tr_cnt + 1
+        d2 = m_tau - tr_mean
+        tr_mean = tr_mean + d2 / tr_cnt
+        tr_m2 = tr_m2 + d2 * (m_tau - tr_mean)
+        sig_t = torch.clamp(torch.sqrt(torch.clamp(tr_m2 / torch.clamp(tr_cnt, min=1), min=0)),
+                            min=sigma_floor_tau)
+        outs[1][:, t] = (m_tau - tr_mean) / (sig_t + eps)
+        outs[2][:, t] = m_tau
+    return tuple(outs)

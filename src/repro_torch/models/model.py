@@ -1,15 +1,21 @@
-"""The port's model (counterpart of ``repro/models/model.py``) for
-attention-only stacks such as openvla-7b.
+"""The port's model (counterpart of ``repro/models/model.py``) for stacks
+whose layers mix with attention or Mamba and whose FFN is a SwiGLU MLP or a
+mixture of experts: openvla-7b (all attention + MLP) and the Jamba hybrid.
 
 Where the reference stacks parameters over repeats of a repeating unit and
-scans, the port keeps an ``nn.ModuleList`` of per-layer blocks and loops.
-The port's layers are all alike, so the reference's unit is one layer and
-``checkpoint/bridge.py`` maps layer ``i`` to ``unit/0/...[i]``.  Caches hold every layer in one
-tensor with a leading layer axis and are updated in place:
+scans, the port keeps an ``nn.ModuleList`` of per-layer blocks and loops;
+``checkpoint/bridge.py`` maps layer ``i`` to ``unit/{i % period}/...[i //
+period]``, the unit being ``unit_period(layer_specs(cfg))`` layers long.
+Caches hold each kind of layer state in one tensor with a leading axis over
+the layers of that kind (K/V over the attention layers, ``h``/``conv`` over
+the Mamba layers, which stacks without Mamba layers leave out) and are
+updated in place:
 
-  dense  {"k", "v": [L, B, S, KV, Dh], "len": int or [B] int32}
-  paged  {"kp", "vp": [L, P+1, page, KV, Dh] (last page is trash),
-          "len": [B] int32, "pt": [B, MAXP] int32, "cap": [B] int32}
+  dense  {"k", "v": [La, B, S, KV, Dh], "len": int or [B] int32,
+          "h": [Lm, B, H, P, N] f32, "conv": [Lm, B, K-1, d_in]}
+  paged  {"kp", "vp": [La, P+1, page, KV, Dh] (last page is trash),
+          "len": [B] int32, "pt": [B, MAXP] int32, "cap": [B] int32,
+          "h", "conv" as in the dense cache}
 
 Entry points: ``prefill``, ``decode_step``, ``decode_chunk``,
 ``init_cache``, ``init_paged_cache``, ``cache_to_paged``.
@@ -17,13 +23,15 @@ Entry points: ``prefill``, ``decode_step``, ``decode_chunk``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     MLP,
     Dense,
@@ -37,16 +45,43 @@ from repro_torch.models.layers import (
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
 
+def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
+    """Per-layer (block type, is_moe, is_local_window)."""
+
+    return [(blk, cfg.is_moe_layer(i), bool(cfg.sliding_window))
+            for i, blk in enumerate(cfg.blocks)]
+
+
+def unit_period(specs: List[Tuple[str, bool, bool]]) -> int:
+    """Length of the shortest unit whose repeats give ``specs``."""
+
+    n = len(specs)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(specs[i] == specs[i % p] for i in range(n)):
+            return p
+    return n
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, spec: Tuple[str, bool, bool], dtype, device):
         super().__init__()
+        self.spec = spec
+        blk, is_moe, _ = spec
         self.norm1 = Norm(cfg.d_model, dtype, device)
-        self.attn = attn.Attention(cfg, dtype, device)
+        if blk == "attn":
+            self.attn = attn.Attention(cfg, dtype, device)
+        elif blk == "mamba":
+            self.mamba = ssm_lib.Mamba(cfg, dtype, device)
+        else:
+            raise ValueError(f"the port has no {blk!r} block")
         self.norm2 = Norm(cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        if is_moe:
+            self.moe = moe_lib.MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
     def init(self, generator: torch.Generator) -> None:
-        for m in (self.norm1, self.attn, self.norm2, self.mlp):
+        for m in self.children():
             m.init(generator)
 
 
@@ -58,15 +93,22 @@ class Model(nn.Module):
 
         super().__init__()
         if cfg.d_ff <= 0:
-            raise ValueError("the port's Model serves attention + MLP stacks")
+            raise ValueError("the port's Model serves stacks with an MLP or MoE FFN")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.specs = layer_specs(cfg)
+        self.period = unit_period(self.specs)
+        # layer i's index among the layers of its kind (its row in the caches)
+        kinds = [spec[0] for spec in self.specs]
+        self.n_attn, self.n_mamba = kinds.count("attn"), kinds.count("mamba")
+        self.slot = [kinds[:i].count(kind) for i, kind in enumerate(kinds)]
         dt, dev = self.dtype, self.device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
-        # stub frontend projector (precomputed patch embeddings -> d_model)
-        self.mod_proj = Dense(cfg.d_model, cfg.d_model, dt, dev)
-        self.layers = nn.ModuleList(Block(cfg, dt, dev) for _ in range(cfg.num_layers))
+        if cfg.modality in ("vision", "audio"):
+            # stub frontend projector (precomputed patch embeddings -> d_model)
+            self.mod_proj = Dense(cfg.d_model, cfg.d_model, dt, dev)
+        self.layers = nn.ModuleList(Block(cfg, spec, dt, dev) for spec in self.specs)
         self.final_norm = Norm(cfg.d_model, dt, dev)
         vpad = self.embed.table.shape[0]
         self.lm_head = Dense(cfg.d_model, vpad, dt, dev)
@@ -75,13 +117,25 @@ class Model(nn.Module):
         self.init(generator)
 
     def init(self, generator: torch.Generator) -> None:
-        for m in (self.embed, self.mod_proj, *self.layers, self.final_norm, self.lm_head):
+        front = [self.mod_proj] if hasattr(self, "mod_proj") else []
+        for m in (self.embed, *front, *self.layers, self.final_norm, self.lm_head):
             m.init(generator)
+
+    def _window_for(self, spec, seq_len: int) -> int:
+        cfg = self.cfg
+        if spec[2]:
+            return cfg.sliding_window
+        # beyond-window long-context serving of global layers
+        if seq_len > cfg.long_context_window and cfg.subquadratic_decode:
+            return cfg.long_context_window
+        return 0
 
     # ------------------------------------------------------------------
 
     def _ffn(self, blk: Block, x):
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
+        if blk.spec[1]:
+            return x + moe_lib.moe_forward(h, blk.moe, self.cfg)[0]
         return x + mlp(h, blk.mlp)
 
     def _embed_inputs(self, batch):
@@ -117,13 +171,18 @@ class Model(nn.Module):
         b, s = x.shape[:2]
         cache = self.init_cache(b, s + extra)
         positions = torch.arange(s, device=x.device)[None, :]
-        for i, blk in enumerate(self.layers):
+        for blk, j in zip(self.layers, self.slot):
             h = rms_norm(x, blk.norm1.scale, self.cfg.norm_eps)
-            out, k, v = attn.attention_forward(
-                h, blk.attn, self.cfg, positions, self.cfg.sliding_window
-            )
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            if blk.spec[0] == "attn":
+                out, k, v = attn.attention_forward(
+                    h, blk.attn, self.cfg, positions, self._window_for(blk.spec, s)
+                )
+                cache["k"][j, :, :s] = k
+                cache["v"][j, :, :s] = v
+            else:
+                out, state = ssm_lib.mamba_forward(h, blk.mamba, self.cfg)
+                cache["h"][j] = state["h"]
+                cache["conv"][j] = state["conv"]
             x = self._ffn(blk, x + out)
         cache["len"] = s
         x = rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
@@ -134,23 +193,30 @@ class Model(nn.Module):
         """token [B,1] -> (logits [B,1,V], cache with ``len`` advanced).
 
         A paged cache (``"pt"`` present) reads and writes the shared page
-        pool; a dense cache its per-row slabs.  Caches update in place.
+        pool; a dense cache its per-row slabs.  Mamba state is dense in both.
+        Caches update in place.
         """
 
         cfg = self.cfg
         x = embed_lookup(token, self.embed.table).to(self.dtype)
         paged = "pt" in cache
-        window = cfg.sliding_window
-        for i, blk in enumerate(self.layers):
+        for blk, j in zip(self.layers, self.slot):
             h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
-            if paged:
+            if blk.spec[0] == "mamba":
+                state = {"h": cache["h"][j], "conv": cache["conv"][j]}
+                out, state = ssm_lib.mamba_decode_step(h, blk.mamba, cfg, state)
+                cache["h"][j] = state["h"]
+                cache["conv"][j] = state["conv"]
+            elif paged:
+                capacity = cache["pt"].shape[1] * cache["kp"].shape[2]
                 out = attn.attention_decode_step_paged(
-                    h, blk.attn, cfg, cache["kp"][i], cache["vp"][i],
-                    cache["pt"], cache["len"], cache["cap"], window,
+                    h, blk.attn, cfg, cache["kp"][j], cache["vp"][j], cache["pt"],
+                    cache["len"], cache["cap"], self._window_for(blk.spec, capacity),
                 )
             else:
                 out = attn.attention_decode_step(
-                    h, blk.attn, cfg, cache["k"][i], cache["v"][i], cache["len"], window,
+                    h, blk.attn, cfg, cache["k"][j], cache["v"][j], cache["len"],
+                    self._window_for(blk.spec, cache["k"].shape[2]),
                 )
             x = self._ffn(blk, x + out)
         x = rms_norm(x, self.final_norm.scale, cfg.norm_eps)
@@ -186,20 +252,29 @@ class Model(nn.Module):
     def _kv_shape(self):
         return (self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
 
+    def _mamba_state(self, batch: int):
+        """Zero Mamba state of every Mamba layer ({} for stacks without)."""
+
+        if not self.n_mamba:
+            return {}
+        one = ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
+        return {k: v.expand((self.n_mamba,) + v.shape).clone() for k, v in one.items()}
+
     def init_cache(self, batch: int, seq: int):
         """Dense decode cache of ``seq`` slots per row."""
 
-        shape = (self.cfg.num_layers, batch, seq) + self._kv_shape()
+        shape = (self.n_attn, batch, seq) + self._kv_shape()
         z = dict(dtype=self.dtype, device=self.device)
-        return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z), "len": 0}
+        return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z), "len": 0,
+                **self._mamba_state(batch)}
 
     def init_paged_cache(self, batch: int, spec: PagedSpec):
         """Page pools of ``spec.num_pages + 1`` pages per layer (the extra page
         absorbs writes of idle and over-capacity rows); the page table and
         per-row capacity are shared by every layer; ``cap == 0`` rows are
-        inactive."""
+        inactive.  Mamba state is O(1) a row and stays dense."""
 
-        shape = (self.cfg.num_layers, spec.num_pages + 1, spec.page_size) + self._kv_shape()
+        shape = (self.n_attn, spec.num_pages + 1, spec.page_size) + self._kv_shape()
         z = dict(dtype=self.dtype, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
         return {
@@ -208,6 +283,7 @@ class Model(nn.Module):
             "len": torch.zeros((batch,), **i32),
             "pt": torch.zeros((batch, spec.max_pages_per_seq), **i32),
             "cap": torch.zeros((batch,), **i32),
+            **self._mamba_state(batch),
         }
 
     @torch.no_grad()
@@ -217,6 +293,7 @@ class Model(nn.Module):
 
         ``page_table`` [B, MAXP] / ``caps`` [B] come from the page
         allocator; ``lens`` defaults to the prefill length for every row.
+        The Mamba state of ``cache`` carries over as it is.
         """
 
         pt = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
@@ -224,13 +301,16 @@ class Model(nn.Module):
         if lens is None:
             lens = torch.full((b,), int(cache["len"]), dtype=torch.int32, device=self.device)
         lens = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
-        for i in range(self.cfg.num_layers):
+        for i in range(self.n_attn):
             scatter_prompt_into_pool(paged["kp"][i], cache["k"][i], pt, lens)
             scatter_prompt_into_pool(paged["vp"][i], cache["v"][i], pt, lens)
-        return {
+        out = {
             "kp": paged["kp"],
             "vp": paged["vp"],
             "len": lens,
             "pt": pt,
             "cap": torch.as_tensor(caps, dtype=torch.int32, device=self.device),
         }
+        if self.n_mamba:
+            out["h"], out["conv"] = cache["h"], cache["conv"]
+        return out
