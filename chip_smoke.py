@@ -24,7 +24,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
    1024 episode streams, held against the port's ``run_trigger`` scores;
 5. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
-Needs one CUDA card; takes no arguments.
+Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
+issued back to back, so at least the host's cost of a call), ``device_ms``
+(the calls captured in a CUDA graph and replayed: the device's own time)
+and ``host_us`` (the host clock around calls with no synchronise: the
+launcher's cost), and the library yardstick the same ways.
+
+Needs one CUDA card; takes no arguments.  ``--kernels-only`` stops after
+phase 3 and prints no result line (a short call for kernel work).
 """
 
 from __future__ import annotations
@@ -134,6 +141,54 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=20, seconds=0.2) -> float:
+    """The device's time for one call, without the host's: ``calls`` calls
+    captured in one CUDA graph, the graph replayed back to back between two
+    CUDA events.  Launchers count their launches at capture only."""
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    reps = max(3, min(500, int(seconds / max(time.perf_counter() - t0, 1e-6))))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def host_us(fn, calls=200, rounds=5) -> float:
+    """The host's time to issue one call: the host clock around ``calls``
+    calls with no synchronise inside (few enough that the launch queue
+    never fills), the least of ``rounds`` rounds (the host's cores are
+    shared, so single rounds spread)."""
+
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, dtype):
@@ -338,6 +393,19 @@ def kernel_cases(rng, fleet):
          decode_case(rng, bf, 70, 64, 8, 70), False),
         ("paged_attention", "Jamba B=1 len=70 page 16 identity H=64 KV=8", bf,
          paged_case(rng, bf, [70], 16, 64, 8, identity=True), False),
+        # long and ragged contexts: many KV splits, splits cut by a window,
+        # splits left empty by a short row
+        ("decode_attention", "Jamba S=4096 len=4096 H=64 KV=8", bf,
+         decode_case(rng, bf, 4096, 64, 8, 4096), False),
+        ("decode_attention", "S=4096 len=3000 H=KV=32 win 700", bf,
+         decode_case(rng, bf, 4096, 32, 32, 3000, window=700), False),
+        ("decode_attention", "B=3 S=4096 per-row lens 1/4096/0", bf,
+         decode_case(rng, bf, 4096, 32, 32, torch.tensor([1, 4096, 0], dtype=torch.int32,
+                                                           device="cuda"), b=3), False),
+        ("paged_attention", "Jamba B=8 ragged 0..1000 page 16 shuffled H=64 KV=8", bf,
+         paged_case(rng, bf, ragged, 16, 64, 8), False),
+        ("paged_attention", "B=2 lens 1/4096 page 16 shuffled", bf,
+         paged_case(rng, bf, [1, 4096], 16, 32, 32), False),
         # the Mamba scan: Jamba's prefill shape, long sequences, a carried state
         ("mamba_scan", "Jamba B=1 S=14 H=256 P=64 N=16", f32,
          mamba_case(rng, 1, 14, 256, 64, 16, 256), True),
@@ -391,16 +459,24 @@ def check_kernels(fleet):
         tols = case.get("tols", [TOL[dtype] + (0.0,)] * len(outs))
         err, ok = compare(outs, wants, tols)
         atol, rtol, _ = tols[0]
+        lib = case["library"]
         row = dict(
             max_abs_err=err,
             ms=time_ms(case["kernel"]),
             plain_ms=time_ms(case["plain"]),
-            library_ms=time_ms(case["library"]) if case["library"] else None,
+            library_ms=time_ms(lib) if lib else None,
+            device_ms=device_ms(case["kernel"]),
+            host_us=host_us(case["kernel"]),
+            library_device_ms=device_ms(lib) if lib else None,
+            library_host_us=host_us(lib) if lib else None,
         )
         row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], dtype)
-        log(f"  {name:17s} {label:44s} {str(dtype)[6:]:8s} err={row['max_abs_err']:.3g} "
-            f"(atol {atol:g} rtol {rtol:g}) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
+        fmt = lambda x, n=4: "-" if x is None else f"{x:.{n}f}"  # noqa: E731
+        log(f"  {name:17s} {label:52s} {str(dtype)[6:]:8s} err={row['max_abs_err']:.3g} "
+            f"(atol {atol:g} rtol {rtol:g}) ms={row['ms']:.4f} device_ms={row['device_ms']:.5f} "
+            f"host_us={row['host_us']:.1f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={fmt(row['library_ms'])} library_device_ms={fmt(row['library_device_ms'], 5)} "
+            f"library_host_us={fmt(row['library_host_us'], 1)} "
             f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
         if not ok:
             raise AssertionError(f"{name} [{label}, {dtype}] disagrees with its plain version: "
@@ -499,13 +575,15 @@ def serve_main_path(model, tok, paged: bool):
     return policy.record, counts
 
 
-def profile_chunk(model, tok):
-    """One dense chunk under torch.profiler: wall ms, the device's busy share
-    and the kernels that take the device's time (the ten largest)."""
+def profile_chunk(model, tok, paged: bool):
+    """One chunk (dense or paged) under torch.profiler: wall ms, the
+    device's busy share, the decode attention kernels' device time and the
+    kernels that take the device's time (the ten largest)."""
 
     from torch.profiler import ProfilerActivity, profile
 
-    policy = CloudPolicy(model, tok)
+    mode = "paged" if paged else "dense"
+    policy = CloudPolicy(model, tok, paged=paged)
     rng = np.random.default_rng(2)
     qd, tau = rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))
     policy.chunk_tokens(qd, tau)
@@ -517,16 +595,19 @@ def profile_chunk(model, tok):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"  profiled dense chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not measured "
-            "(the profiler recorded no CUDA kernels)")
+        log(f"  profiled {mode} chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
+            "measured (the profiler recorded no CUDA kernels)")
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    log(f"  profiled dense chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device kernels "
-        f"{busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
+    log(f"  profiled {mode} chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device "
+        f"kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
+    dec = [(n, t) for name, (n, t) in by_name.items() if "decode" in name]
+    log(f"    decode attention kernels: {sum(t for _, t in dec):.3f} ms in "
+        f"{sum(n for n, _ in dec)} launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {t:9.2f} ms {n:6d}x  {name[:110]}")
 
@@ -565,7 +646,8 @@ def serve_stack(cfg, launches):
     check_greedy_margin(model, tok, dense_rec, paged_rec)
     for n in launches:
         launches[n] += c_dense[n] + c_paged[n]
-    profile_chunk(model, tok)
+    profile_chunk(model, tok, paged=False)
+    profile_chunk(model, tok, paged=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -601,7 +683,12 @@ def monitor_path(fleet, launches):
         "(atol = rtol = 1e-3, the JAX package's kernel-vs-trigger tolerance)")
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = argv == ["--kernels-only"]
+    if argv and not kernels_only:
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or --kernels-only",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -620,13 +707,19 @@ def main() -> int:
     secs = _lib.build_all(force=True)
     log(f"  built {list(_lib.KERNELS)} in {secs:.1f} s")
     for name, text in _lib.BUILD_LOG.items():
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
 
     log("== 3. kernels against their plain versions")
     fleet = fleet_streams()
     main_rows = check_kernels(fleet)
+    if kernels_only:
+        log("== --kernels-only: phases 4-5 skipped, no result line")
+        return 0
 
     log("== 4. model")
     launches = {n: 0 for n in _lib.KERNELS}
@@ -654,4 +747,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

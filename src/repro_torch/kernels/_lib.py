@@ -14,6 +14,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -35,8 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every entry point returns cudaGetLastError() as an int
 SIGNATURES = {
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_F, _F, _I, _P]),
-    "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P] + [_I] * 6 + [_F, _F, _I, _P]),
-    "paged_attention": ("paged_decode_attention", [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
+    "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_F, _F]
+                         + [_I] * 3 + [_P]),
+    "paged_attention": ("paged_decode_attention", [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3
+                        + [_P]),
     "mamba_scan": ("mamba_scan", [_P] * 8 + [_I] * 6 + [_P]),
     "rolling_stats": ("rolling_stats", [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]),
 }
@@ -129,14 +132,7 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
 
 
-def dtype_code(t) -> int:
-    """The kernels' element-type code: 0 float32, 1 bfloat16."""
-
-    if t.dtype == torch.float32:
-        return 0
-    if t.dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' element types
 
 
 def check_tensors(first, *rest, align: int = 16):
@@ -156,18 +152,75 @@ def check_tensors(first, *rest, align: int = 16):
             raise ValueError(f"kernel tensors must be {align}-byte aligned")
 
 
-def check_attention_args(q, *caches):
-    """Shared validation of the attention launchers' tensor arguments."""
+def check_attention_args(q, *caches, ints=()) -> int:
+    """One pass over an attention launcher's tensors: all CUDA, on q's
+    device and contiguous; q and ``caches`` float32 or bfloat16 alike and
+    16-byte aligned, ``ints`` int32; head_dim <= 256 and a multiple of 8.
+    Returns the kernels' element-type code (0 float32, 1 bfloat16)."""
 
-    check_tensors(q, *caches)
-    dtype_code(q)
+    dev, dt = q.device, q.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
+    code = DTYPE_CODES.get(dt)
+    if code is None:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
     d = q.shape[-1]
     if d > 256 or d % 8:
         raise ValueError(f"head_dim must be <= 256 and a multiple of 8, got {d}")
+    for want, align, ts in ((dt, 16, (q, *caches)), (torch.int32, 4, ints)):
+        for t in ts:
+            if t.device != dev:
+                raise ValueError(f"kernel launch needs CUDA tensors on {dev}, got {t.device}")
+            if t.dtype != want:
+                raise TypeError(f"expected {want}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError("kernel tensors must be contiguous")
+            if t.data_ptr() % align:
+                raise ValueError(f"kernel tensors must be {align}-byte aligned")
+    return code
 
 
-def check_int_vector(t, name, n, device):
-    if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous int32 tensor on {device}")
-    if t.shape[0] != n:
-        raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+# Splitting a decode call's KV length over blocks (flash-decoding).  A
+# block's work is its tokens times the G query heads it serves: aim for
+# CTAS_PER_SM blocks on each of the H100's SMS, each with at least
+# MIN_SPLIT token-heads and at most MAX_SPLIT tokens (the paged kernel keeps
+# a block's page-table entries in shared memory).  Measured on an H100
+# (PERF.md): below ~128 tokens at G = 1 one block a row beats a split,
+# whose combine kernel costs more than the split saves.
+SMS, CTAS_PER_SM, MIN_SPLIT, MAX_SPLIT = 132, 8, 128, 4096
+
+
+def decode_splits(pairs: int, group: int, max_len: int, gran: int = 16):
+    """-> (n_split, split_len) for a decode call over ``pairs`` (row, KV
+    head) pairs of ``group`` query heads each, whose rows hold at most
+    ``max_len`` tokens: ranges ``[i * split_len, (i + 1) * split_len)``,
+    ``i < n_split``, cover ``[0, max_len)`` and each starts on a multiple of
+    ``gran`` (the page size for the paged kernel).  Host integers only:
+    nothing is read from the device, so the launch can be captured in a
+    CUDA graph."""
+
+    if type(pairs) is not int or type(group) is not int or type(max_len) is not int \
+            or type(gran) is not int:
+        raise TypeError(f"decode_splits takes host ints, got {pairs!r}, {group!r}, "
+                        f"{max_len!r}, {gran!r}")
+    return _plan(pairs, group, max_len, gran)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(pairs, group, max_len, gran):
+    max_len = max(max_len, 1)
+    work = max(pairs * group, 1)
+    n = min(-(-SMS * CTAS_PER_SM // work), -(-max_len // -(-MIN_SPLIT // max(group, 1))))
+    n = max(n, -(-max_len // MAX_SPLIT), 1)
+    split_len = -(-max_len // n)
+    split_len = -(-split_len // gran) * gran
+    return -(-max_len // split_len), split_len
+
+
+def decode_workspace(q, pairs: int, n_split: int, g: int, d: int):
+    """The float32 partials of a split decode call, (m, l, o[G, D]) per
+    (pair, split); None when n_split == 1 (the kernel writes the output)."""
+
+    if n_split == 1:
+        return None
+    return torch.empty(pairs * n_split * g * (d + 2), dtype=torch.float32, device=q.device)

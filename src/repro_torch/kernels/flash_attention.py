@@ -19,7 +19,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0):
     b, s, h, d = q.shape
     kv = k.shape[2]
-    _lib.check_attention_args(q, k, v)
+    code = _lib.check_attention_args(q, k, v)
     if k.shape != (b, s, kv, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     if h % kv:
@@ -27,7 +27,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     status = _lib.load(NAME)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, d,
-        int(bool(causal)), int(window), d**-0.5, float(logit_cap), _lib.dtype_code(q),
+        int(bool(causal)), int(window), d**-0.5, float(logit_cap), code,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _lib.check(status, NAME)

@@ -9,6 +9,12 @@ Layout, as in the reference:
 
 Only CUDA tensors are accepted; ``kernels.ops`` sends CPU tensors to the
 plain version in ``kernels.ref``.
+
+The table's MAXP * page slots are split over blocks in whole pages by
+``_lib.decode_splits`` (host integers only; no length is read from the
+device); a split call runs the split kernel and then the combine kernel.
+``_lib.LAUNCHES`` counts one per call of this function, whatever the
+number of kernels it runs.
 """
 
 from __future__ import annotations
@@ -18,26 +24,32 @@ import torch
 from repro_torch.kernels import _lib
 
 NAME = "paged_attention"
+_fn = None  # the C entry point, once loaded
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_lens, *,
                            window: int = 0, logit_cap: float = 0.0):
+    global _fn
     b, h, d = q.shape
     _, page, kv, dk = k_pages.shape
-    _lib.check_attention_args(q, k_pages, v_pages)
+    code = _lib.check_attention_args(q, k_pages, v_pages, ints=(page_table, cache_lens))
     if v_pages.shape != k_pages.shape or dk != d:
         raise ValueError(f"pool shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)} vs q {tuple(q.shape)}")
     if h % kv or h // kv > 16:
         raise ValueError(f"H={h} must be a multiple of KV={kv}, at most 16 per KV head")
-    _lib.check_int_vector(page_table, "page_table", b, q.device)
-    _lib.check_int_vector(cache_lens, "cache_lens", b, q.device)
-    if page_table.dim() != 2:
-        raise ValueError("page_table must be [B, MAXP]")
+    if page_table.dim() != 2 or page_table.shape[0] != b or cache_lens.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} must be [B, MAXP] and "
+                         f"cache_lens {tuple(cache_lens.shape)} [B], B = {b}")
+    maxp = page_table.shape[1]
+    n_split, split_len = _lib.decode_splits(b * kv, h // kv, maxp * page, page)
     out = torch.empty_like(q)
-    status = _lib.load(NAME)(
+    ws = _lib.decode_workspace(q, b * kv, n_split, h // kv, d)
+    if _fn is None:
+        _fn = _lib.load(NAME)
+    status = _fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        cache_lens.data_ptr(), out.data_ptr(), b, h, kv, d, page, page_table.shape[1],
-        int(window), d**-0.5, float(logit_cap), _lib.dtype_code(q),
+        cache_lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h,
+        kv, d, page, maxp, int(window), d**-0.5, float(logit_cap), n_split, split_len, code,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _lib.check(status, NAME)
