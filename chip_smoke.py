@@ -72,10 +72,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # float32: the same math summed in another order.  bf16: each output is a
 # weighted mean of standard-normal v rows, so |out| reaches ~3 where a row
 # sees few keys (the first rows of a prefill) and ~0.2 over 70+ keys.  The
-# plain version rounds the probabilities to bf16 before P.V, as the reference
-# does, and the kernel keeps them in float32; both round the output to bf16
+# plain versions keep the probabilities in float32 (ref.py); the bf16
+# kernels differ: the flash kernel rounds its unnormalised probabilities to
+# bf16 before P.V on the tensor cores, as the model's attention rounds its
+# probabilities to the value dtype (repro/models/attention.py:110), and the
+# decode kernels keep them in float32.  Both sides round the output to bf16
 # once.  So the two may differ by a bf16 step at |out| (2^-8 at 0.5-1, the
-# 0.0039 that flash S=300 shows) plus the probability rounding, at most
+# 0.0039 that flash S=300 showed) plus the probability rounding, at most
 # 2^-9 * max|v| ~ 0.009 and far less where signs cancel.  2e-2 holds a step
 # plus that worst case up to |out| 2, and a step alone up to |out| 4; a
 # limit of 1e-3 would fail the one-step difference seen at S=300.
@@ -218,19 +221,20 @@ def sdpa(q, k, v, **kw):
     return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
 
 
-def flash_case(rng, dtype, s, h, kv, window=0, cap=0.0, d=128):
-    q, k, v = _t(rng, (1, s, h, d), dtype), _t(rng, (1, s, kv, d), dtype), _t(rng, (1, s, kv, d), dtype)
-    kw = dict(causal=True, window=window, logit_cap=cap)
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+def flash_case(rng, dtype, s, h, kv, window=0, cap=0.0, d=128, b=1, causal=True):
+    q, k, v = _t(rng, (b, s, h, d), dtype), _t(rng, (b, s, kv, d), dtype), _t(rng, (b, s, kv, d), dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    lim = (lambda i: i + 1) if causal else (lambda i: s)
+    pairs = sum(min(lim(i), window) if window else lim(i) for i in range(s))
     lib = None
     if not window and not cap:
-        lib = sdpa(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=True)
+        lib = sdpa(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
     return dict(
         kernel=lambda: kfa.flash_attention(q, k, v, **kw),
         plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
         library=lib,
         bytes=2 * nbytes(q) + 2 * nbytes(k),
-        flops=4.0 * h * d * pairs,
+        flops=4.0 * b * h * d * pairs,
     )
 
 
@@ -389,6 +393,24 @@ def kernel_cases(rng, fleet):
          paged_case(rng, f32, ragged, 128, 32, 8, window=64, cap=50.0), False),
         # Jamba's attention layer: H=64, KV=8
         ("flash_attention", "Jamba S=14 H=64 KV=8", bf, flash_case(rng, bf, 14, 64, 8), False),
+        # the prefill kernel's tensor-core body: a long prompt (operations-bound),
+        # a batched prefill, window + softcap with GQA, and the shapes its
+        # templates take (D 64/256, D 40 padded to 48, MQA, non-causal)
+        ("flash_attention", "S=4096 H=KV=32", bf, flash_case(rng, bf, 4096, 32, 32), False),
+        ("flash_attention", "B=8 S=14 H=KV=32", bf, flash_case(rng, bf, 14, 32, 32, b=8), False),
+        ("flash_attention", "S=300 H=32 KV=8 win 64 cap 50", bf,
+         flash_case(rng, bf, 300, 32, 8, window=64, cap=50.0), False),
+        ("flash_attention", "B=2 S=33 H=8 KV=2 D=64", bf,
+         flash_case(rng, bf, 33, 8, 2, d=64, b=2), False),
+        ("flash_attention", "S=70 H=KV=4 D=256", bf, flash_case(rng, bf, 70, 4, 4, d=256), False),
+        ("flash_attention", "S=17 H=4 KV=1 D=40 win 5 cap 20", bf,
+         flash_case(rng, bf, 17, 4, 1, window=5, cap=20.0, d=40), False),
+        ("flash_attention", "S=100 H=KV=4 D=64 non-causal", bf,
+         flash_case(rng, bf, 100, 4, 4, d=64, causal=False), False),
+        # two m-tiles a warp (long prompts): ragged S, and GQA with window + cap
+        ("flash_attention", "B=2 S=1031 H=KV=8", bf, flash_case(rng, bf, 1031, 8, 8, b=2), False),
+        ("flash_attention", "B=4 S=1000 H=16 KV=4 D=64 win 300 cap 30", bf,
+         flash_case(rng, bf, 1000, 16, 4, window=300, cap=30.0, d=64, b=4), False),
         ("decode_attention", "Jamba S=70 len=70 H=64 KV=8", bf,
          decode_case(rng, bf, 70, 64, 8, 70), False),
         ("paged_attention", "Jamba B=1 len=70 page 16 identity H=64 KV=8", bf,

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -35,7 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name (= source csrc/<name>.cu) -> (C entry point, its argument types);
 # every entry point returns cudaGetLastError() as an int
 SIGNATURES = {
-    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_F, _F, _I, _P]),
+    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_F, _F]
                          + [_I] * 3 + [_P]),
     "paged_attention": ("paged_decode_attention", [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3
@@ -224,3 +224,63 @@ def decode_workspace(q, pairs: int, n_split: int, g: int, d: int):
     if n_split == 1:
         return None
     return torch.empty(pairs * n_split * g * (d + 2), dtype=torch.float32, device=q.device)
+
+
+# The prefill kernel's tile plan.  In bf16 (tensor cores) a block takes
+# ``rows`` = 16 x m-tiles x ``warps`` packed rows of one (batch row, KV head) pair:
+# packed row r is position r // G of query head kvh * G + r % G, so the G
+# query heads of a KV head share each K/V tile.  Blocks run longest first:
+# linear block L is pair L % pairs, query tile tiles - 1 - L // pairs.  The
+# float32 (SIMT) kernel keeps one block per (16 positions, query head,
+# batch row).  A block visits key tiles of ``key_tile`` keys from its
+# window's lower bound up to its last row's causal limit.
+FLASH_SHAPES = ((2, 4), (1, 4), (1, 2), (1, 1))  # (m-tiles a warp, warps), first fit
+FLASH_F32_ROWS, FLASH_F32_WARPS, FLASH_F32_KEYS = 16, 4, 32
+
+
+class FlashPlan(NamedTuple):
+    packed: bool                # tensor cores: rows packed over the G heads of a KV head
+    rows: int                   # packed rows (bf16) or positions (float32) a block takes
+    warps: int                  # warps a block has
+    key_tile: int               # keys a K/V tile holds
+    grid: Tuple[int, int, int]  # the launch grid
+    tiles: int                  # query tiles a (row, KV head) pair (bf16) or a head (f32)
+    group: int                  # G = H / KV
+
+
+def flash_plan(b: int, s: int, h: int, kv: int, d: int, dtype) -> FlashPlan:
+    """The launch plan of the prefill kernel for q [b, s, h, d] and k/v
+    [b, s, kv, d].  Host integers only (a CUDA graph can capture the launch);
+    cached.  bf16: the most warps (at most 4, none idle) whose blocks still
+    number at least ``SMS``, else one warp a block, so that short prompts
+    spread over the SMs; a warp owns two m-tiles of 16 rows where the
+    blocks still cover the SMs (long prompts) and D <= 128."""
+
+    for x in (b, s, h, kv, d):
+        if type(x) is not int:
+            raise TypeError(f"flash_plan takes host ints, got {x!r}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_plan: float32 or bfloat16, got {dtype!r}")
+    if min(b, s, h, kv, d) < 1 or h % kv:
+        raise ValueError(f"flash_plan: bad shape b={b} s={s} h={h} kv={kv} d={d}")
+    return _flash_plan(b, s, h, kv, d, dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=4096)
+def _flash_plan(b, s, h, kv, d, tensor_cores):
+    g = h // kv
+    if not tensor_cores:
+        tiles = -(-s // FLASH_F32_ROWS)
+        return FlashPlan(False, FLASH_F32_ROWS, FLASH_F32_WARPS, FLASH_F32_KEYS, (tiles, h, b),
+                         tiles, g)
+    rows_total, pairs, dk = s * g, b * kv, -(-d // 16) * 16
+    # (m-tiles a warp, warps): two m-tiles share every K/V fragment a warp
+    # loads (D <= 128 only: registers); no warp idle
+    shapes = [(mt, w) for mt, w in FLASH_SHAPES
+              if (mt == 1 or dk <= 128) and 16 * mt * (w - 1) < rows_total]
+    for mt, warps in shapes:
+        tiles = -(-rows_total // (16 * mt * warps))
+        if pairs * tiles >= SMS:
+            break
+    key_tile = 64 if dk <= 128 else 32
+    return FlashPlan(True, 16 * mt * warps, warps, key_tile, (tiles * pairs, 1, 1), tiles, g)

@@ -2,8 +2,11 @@
 (``csrc/flash_attention.cu``; replaces ``repro/kernels/flash_attention.py``).
 
 q [B, S, H, D], k/v [B, S, KV, D] -> [B, S, H, D]; GQA by ``h // (H/KV)``,
-any S (the ragged edge is masked in the kernel).  Serves the port's
-prefill.  Only CUDA tensors are accepted.
+any S (the ragged edge is masked in the kernel).  bf16 runs on the tensor
+cores, float32 on a scalar body; the tile plan comes from
+``_lib.flash_plan`` (host ints only) and the kernel refuses a plan that
+does not fit it.  Serves the port's prefill.  Only CUDA tensors are
+accepted.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     if h % kv:
         raise ValueError(f"H={h} must be a multiple of KV={kv}")
+    plan = _lib.flash_plan(b, s, h, kv, d, q.dtype)
     out = torch.empty_like(q)
     status = _lib.load(NAME)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kv, d,
         int(bool(causal)), int(window), d**-0.5, float(logit_cap), code,
+        plan.rows, plan.warps, plan.key_tile, *plan.grid,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _lib.check(status, NAME)
