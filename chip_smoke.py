@@ -296,8 +296,13 @@ def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
     h0_wide = None if h0 is None else h0.double()
     nc, L = s // min(chunk, s), min(chunk, s)
     pairs = L * (L + 1) // 2
-    flops = b * h * nc * (pairs * (2 * n + 4 + 2 * p) + L * p * (2 * n + 2)
-                          + p * n * (3 * L + 2) + 5 * L)
+    # per head and chunk: the weights and y over the causal pairs, the
+    # carried state's term, sc and the state update, the prefix sums; G =
+    # C B^T once per (batch row, chunk), for all heads (its B and C have no
+    # head axis).  The earlier count took G once per head (flops_old).
+    per_head = pairs * (4 + 2 * p) + L * p * (2 * n + 2) + p * n * (3 * L + 2) + 5 * L
+    flops = b * nc * pairs * 2 * n + b * h * nc * per_head
+    flops_old = b * h * nc * (pairs * 2 * n + per_head)
     return dict(
         kernel=lambda: kms.mamba_scan(*args, h0=h0, chunk=chunk),
         plain=lambda: ref.mamba_scan_ref(*args, h0=h0, chunk=chunk),
@@ -306,6 +311,7 @@ def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
         library=None,
         bytes=2 * nbytes(x) + nbytes(dt, a, bm, c) + (2 if with_h0 else 1) * b * h * p * n * 4,
         flops=float(flops),
+        flops_old=float(flops_old),
     )
 
 
@@ -441,6 +447,9 @@ def kernel_cases(rng, fleet):
          mamba_case(rng, 1, 128, 2, 16, 4, 64), False),
         ("mamba_scan", "B=2 S=64 H=3 P=8 N=32 chunk 16 with h0", f32,
          mamba_case(rng, 2, 64, 3, 8, 32, 16, with_h0=True), False),
+        # a long Jamba prompt: 16 chunks of 256 (operations-bound)
+        ("mamba_scan", "B=1 S=4096 H=256 P=64 N=16 chunk 256", f32,
+         mamba_case(rng, 1, 4096, 256, 64, 16, 256), False),
         # the monitor: a fleet's 1024 episodes, a 16x replay bank, a ragged tile
         ("rolling_stats", f"fleet N={fleet_acc.shape[0]} T=600 episodes", f32,
          stats_case(fleet_acc, fleet_tau, peak_relative=True, **wins), True),
@@ -451,6 +460,9 @@ def kernel_cases(rng, fleet):
          stats_case(*random_streams(rng, 130, 96), window_acc=32, window_tau=8), False),
         ("rolling_stats", "N=4 T=200 random", f32,
          stats_case(*random_streams(rng, 4, 200)), False),
+        # 5 s streams at 500 Hz: longer than one super-tile of 32 x 32 ticks
+        ("rolling_stats", "N=256 T=2500 random", f32,
+         stats_case(*random_streams(rng, 256, 2500)), False),
     ]
 
 
@@ -494,12 +506,16 @@ def check_kernels(fleet):
         )
         row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], dtype)
         fmt = lambda x, n=4: "-" if x is None else f"{x:.{n}f}"  # noqa: E731
+        old = ""
+        if "flops_old" in case:  # the bound by the count of earlier runs, for comparison
+            old_ms, old_by = bound_ms(case["bytes"], case["flops_old"], dtype)
+            old = f" bound_old_ms={old_ms:.5f} ({old_by})"
         log(f"  {name:17s} {label:52s} {str(dtype)[6:]:8s} err={row['max_abs_err']:.3g} "
             f"(atol {atol:g} rtol {rtol:g}) ms={row['ms']:.4f} device_ms={row['device_ms']:.5f} "
             f"host_us={row['host_us']:.1f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={fmt(row['library_ms'])} library_device_ms={fmt(row['library_device_ms'], 5)} "
             f"library_host_us={fmt(row['library_host_us'], 1)} "
-            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){old}")
         if not ok:
             raise AssertionError(f"{name} [{label}, {dtype}] disagrees with its plain version: "
                                  f"max abs err {row['max_abs_err']:.3g}")

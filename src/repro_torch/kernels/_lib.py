@@ -40,8 +40,8 @@ SIGNATURES = {
                          + [_I] * 3 + [_P]),
     "paged_attention": ("paged_decode_attention", [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3
                         + [_P]),
-    "mamba_scan": ("mamba_scan", [_P] * 8 + [_I] * 6 + [_P]),
-    "rolling_stats": ("rolling_stats", [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]),
+    "mamba_scan": ("mamba_scan", [_P] * 11 + [_I] * 10 + [_P]),
+    "rolling_stats": ("rolling_stats", [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -284,3 +284,64 @@ def _flash_plan(b, s, h, kv, d, tensor_cores):
             break
     key_tile = 64 if dk <= 128 else 32
     return FlashPlan(True, 16 * mt * warps, warps, key_tile, (tiles * pairs, 1, 1), tiles, g)
+
+
+# The Mamba scan's plan (csrc/mamba_scan.cu).  A chunk of L steps is cut into
+# row tiles of ``rows`` = 16, 32 or 64 query steps (the chunk's class); a
+# block takes ``heads`` consecutive heads of one (batch row, chunk), so G =
+# C B^T of a row tile is built once for them.  Scan block ``i`` (linear) is
+# row tile ``row_tiles - 1 - i % row_tiles`` of group ``(i // row_tiles) %
+# groups`` of (batch row, chunk) ``i // (row_tiles * groups)`` (b * chunks +
+# c); state block ``j`` is group ``j % groups`` of (batch row, chunk) ``j //
+# groups``.  A thread owns 4 x 4 outputs: 4 rows x 4 channels of y, or 4
+# channels x 4 state columns of sc; ``threads`` covers a head's tile (P and N
+# padded to multiples of 4) for as many heads at once as fit.
+MAMBA_HEADS = (4, 2, 1)  # heads a block, most first; the most that still fills the SMs
+
+
+class MambaPlan(NamedTuple):
+    chunk: int         # L = min(chunk, S)
+    chunks: int        # S // L
+    rows: int          # query rows a scan tile
+    row_tiles: int     # ceil(L / rows)
+    heads: int         # heads a block
+    groups: int        # ceil(H / heads)
+    threads: int       # threads a block
+    scan_blocks: int   # row_tiles * B * chunks * groups
+    state_blocks: int  # B * chunks * groups
+    fused: bool        # one chunk: scan and state blocks in one launch, no pass
+
+
+def mamba_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> MambaPlan:
+    """The launch plan of the Mamba scan for x [b, s, h, p], B/C [b, s, n]
+    and ``chunk``.  Host integers only (a CUDA graph can capture the
+    launch); cached.  The most heads a block (at most 4) whose launch still
+    has at least ``SMS`` blocks, else one; threads: the next power of two
+    >= a head's 4 x 4 tiles times the heads, in [32, 256]."""
+
+    for x in (b, s, h, p, n, chunk):
+        if type(x) is not int:
+            raise TypeError(f"mamba_plan takes host ints, got {x!r}")
+    if min(b, s, h, p, n, chunk) < 1:
+        raise ValueError(f"mamba_plan: bad shape b={b} s={s} h={h} p={p} n={n} chunk={chunk}")
+    return _mamba_plan(b, s, h, p, n, chunk)
+
+
+@functools.lru_cache(maxsize=4096)
+def _mamba_plan(b, s, h, p, n, chunk):
+    L = min(chunk, s)
+    nc = s // L
+    rows = 16 if L <= 16 else 32 if L <= 32 else 64
+    row_tiles = -(-L // rows)
+    p4, n4 = -(-p // 4) * 4, -(-n // 4) * 4
+    units = max(rows // 4 * (p4 // 4), p4 // 4 * (n4 // 4))
+    for heads in MAMBA_HEADS:
+        groups = -(-h // heads)
+        blocks = (row_tiles + (nc == 1)) * b * nc * groups
+        if blocks >= SMS:
+            break
+    threads = 32
+    while threads < min(units * heads, 256):
+        threads *= 2
+    return MambaPlan(L, nc, rows, row_tiles, heads, groups, threads,
+                     row_tiles * b * nc * groups, b * nc * groups, nc == 1)
