@@ -14,15 +14,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the port never calls) and the least time the card could take (the
    bound);
 4. model: for each served stack, its smoke size in float32 on the card
-   against the same weights on the CPU (plain versions), then the stack at
-   full width in bf16 serving one robot's closed loop with
-   ``serve_episode`` twice, dense and paged, with the kernels' launch counts
-   read around each run and the two runs' chunks held to the greedy-margin
-   rule: openvla-7b (32 layers), freed, then jamba-1.5-large-398b cut to
-   its first 4 layers (mamba+MLP, mamba+MoE, mamba+MLP, attn+MoE; ~46 GB);
-   then the monitor path: ``ops.rolling_stats`` over a fleet's bank of
-   1024 episode streams, held against the port's ``run_trigger`` scores;
-5. the result: a ``{"kernels": [...]}`` line and, last, the device line.
+   against the same weights on the CPU (plain versions; ``CloudPolicy``
+   chunks and a scheduler run whose decode rounds are CUDA graphs), then
+   the stack at full width in bf16 serving one robot's closed loop with
+   ``serve_episode`` twice, dense and paged (``CloudPolicy`` replaying its
+   CUDA graphs), with the kernels' launch counts read around each run and
+   the two runs' chunks held to the greedy-margin rule; ``CloudPolicy``'s
+   graphs against the same chunks run eagerly (tokens equal, cloud_ms of
+   both); one profiled graph chunk a mode: openvla-7b (32 layers), then
+   jamba-1.5-large-398b cut to its first 4 layers (mamba+MLP, mamba+MoE,
+   mamba+MLP, attn+MoE; ~46 GB); then the monitor path:
+   ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
+   against the port's ``run_trigger`` scores;
+5. scheduler, on the same full-width model before it is freed: the
+   continuous-batching scheduler through ``submit`` / ``submit_batch``,
+   ``step``, ``cancel_batch`` and ``drain``, its decode rounds replayed as
+   CUDA graphs.  openvla-7b: (a) parity, 8 robots staggered at
+   ``scan_rounds`` 1 and 4, each chunk held to ``CloudPolicy(paged=True)``
+   by the greedy-margin rule; (b) load, 64 robots arriving 4 a round,
+   admission bounded by pages at 32 resident sequences, 6 cancels (3
+   queued, 3 mid-window), run cold and warm, with tokens/s, latency and
+   queue-wait percentiles, pool, window, graph and admission numbers, then
+   all 64 at once (admission bounded by pages at 32 resident), and one
+   profiled window.  Jamba: (a) at ``scan_rounds=4``.  Every run's
+   launch counts are checked exactly, graph replays included;
+6. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
 issued back to back, so at least the host's cost of a call), ``device_ms``
@@ -63,7 +79,9 @@ from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
+from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and flop/s by input type
 # (bf16 on the tensor cores; float32 outside them)
@@ -257,7 +275,13 @@ def decode_case(rng, dtype, s, h, kv, cache_len, window=0, cap=0.0, b=1, d=128):
     )
 
 
-def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False, d=128):
+def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False, d=128,
+               masked_library=False):
+    """``masked_library``: the yardstick is SDPA over each row's pages
+    gathered into a dense [B, KV, MAXP * page, D] cache (outside the timed
+    call) with a mask of the row's length (rows of length 0 give NaN there
+    and 0 in the kernel; the yardstick is only timed)."""
+
     b = len(lens)
     maxp = max(1, -(-max(lens) // page))
     pool = b * maxp + 3
@@ -273,6 +297,11 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
         # identity page table: the pool is the row's dense cache
         lib = sdpa(q[:, :, None, :], kp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2),
                    vp.view(1, -1, kv, d)[:, : lens[0]].transpose(1, 2))
+    elif masked_library:
+        gather = lambda pages: pages[table.long()].reshape(b, maxp * page, kv, d).transpose(1, 2)  # noqa: E731
+        mask = (torch.arange(maxp * page, device="cuda")[None, :] < cl[:, None].long())
+        lib = sdpa(q[:, :, None, :], gather(kp).contiguous(), gather(vp).contiguous(),
+                   attn_mask=mask[:, None, None, :])
     return dict(
         kernel=lambda: kpa.paged_decode_attention(q, kp, vp, table, cl, **kw),
         plain=lambda: ref.paged_decode_attention_ref(q, kp, vp, table, cl, **kw),
@@ -363,6 +392,14 @@ def monitor_features(qd, tau, cfg: TriggerConfig):
     return m_acc.T.contiguous(), tau_pow.T.contiguous()
 
 
+def scheduler_lens(rng, rows=32, idle=8, longest=70):
+    """A scheduler round's ragged lengths: ``idle`` rows at length 0 (cap
+    0), the rest between 1 and ``longest`` (one of them ``longest``)."""
+
+    lens = [0] * idle + [longest] + rng.integers(1, longest + 1, rows - idle - 1).tolist()
+    return [int(x) for x in rng.permutation(lens)]
+
+
 def kernel_cases(rng, fleet):
     bf, f32 = torch.bfloat16, torch.float32
     ragged = [1, 1000, 0, 17, 250, 16, 999, 64]
@@ -387,8 +424,11 @@ def kernel_cases(rng, fleet):
         ("decode_attention", "B=4 S=70 per-row lens", f32,
          decode_case(rng, f32, 70, 32, 32, torch.tensor([70, 1, 33, 0], dtype=torch.int32,
                                                           device="cuda"), b=4), False),
+        # the scheduler's decode round: 32 rows, ragged lengths, idle rows at 0
+        ("paged_attention", "scheduler rows=32 lens 0..70 (8 idle) page 16 shuffled", bf,
+         paged_case(rng, bf, scheduler_lens(rng), 16, 32, 32, masked_library=True), True),
         ("paged_attention", "B=1 len=70 page 16 identity", bf,
-         paged_case(rng, bf, [70], 16, 32, 32, identity=True), True),
+         paged_case(rng, bf, [70], 16, 32, 32, identity=True), False),
         ("paged_attention", "B=1 len=70 page 16 identity", f32,
          paged_case(rng, f32, [70], 16, 32, 32, identity=True), False),
         ("paged_attention", "B=8 ragged 0..1000 page 16 shuffled", bf,
@@ -404,6 +444,9 @@ def kernel_cases(rng, fleet):
         # templates take (D 64/256, D 40 padded to 48, MQA, non-causal)
         ("flash_attention", "S=4096 H=KV=32", bf, flash_case(rng, bf, 4096, 32, 32), False),
         ("flash_attention", "B=8 S=14 H=KV=32", bf, flash_case(rng, bf, 14, 32, 32, b=8), False),
+        # the scheduler's batched admission prefill (16 prompts)
+        ("flash_attention", "admission B=16 S=14 H=KV=32", bf,
+         flash_case(rng, bf, 14, 32, 32, b=16), False),
         ("flash_attention", "S=300 H=32 KV=8 win 64 cap 50", bf,
          flash_case(rng, bf, 300, 32, 8, window=64, cap=50.0), False),
         ("flash_attention", "B=2 S=33 H=8 KV=2 D=64", bf,
@@ -564,8 +607,20 @@ def check_small_model_against_cpu(arch: str):
             raise AssertionError(f"smoke f32 chunk tokens differ card vs CPU (paged={paged})")
     if err > 1e-4:
         raise AssertionError(f"{cfg.name} f32 prefill logits differ card vs CPU by {err:.3g}")
+    # the scheduler: decode rounds as CUDA graphs (rows doubling 2 -> 4)
+    # against the same requests served eagerly on the CPU
+    out = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        sched = ContinuousBatchingScheduler(model, tok, max_slots=2, scan_rounds=4,
+                                            num_pages=4 * -(-(14 + 56) // 16))
+        res = staggered(sched, requests(np.random.default_rng(2), 6))
+        out[name] = [(r.robot_id, r.admitted_round, r.completed_round, r.tokens.tolist())
+                     for r in res]
+    if out["card"] != out["cpu"]:
+        raise AssertionError(f"{cfg.name} f32 scheduler results differ card (graphs) vs CPU")
     log(f"  {cfg.name} f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
-        "dense and paged chunk tokens equal")
+        "dense and paged chunk tokens equal (CloudPolicy graphs on the card); scheduler "
+        f"(R = 4, rows 2 -> 4, decode rounds as graphs): {len(res)} chunks and rounds equal")
 
 
 def top2_gap_at(model, tok, qd, tau, toks, step):
@@ -614,9 +669,10 @@ def serve_main_path(model, tok, paged: bool):
 
 
 def profile_chunk(model, tok, paged: bool):
-    """One chunk (dense or paged) under torch.profiler: wall ms, the
-    device's busy share, the decode attention kernels' device time and the
-    kernels that take the device's time (the ten largest)."""
+    """One chunk (dense or paged; a replay of ``CloudPolicy``'s CUDA graph)
+    under torch.profiler: wall ms, the device's busy share, the decode
+    attention kernels' device time and the kernels that take the device's
+    time (the ten largest)."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,7 +689,7 @@ def profile_chunk(model, tok, paged: bool):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"  profiled {mode} chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
+        log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
             "measured (the profiler recorded no CUDA kernels)")
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -641,7 +697,7 @@ def profile_chunk(model, tok, paged: bool):
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    log(f"  profiled {mode} chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device "
+    log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device "
         f"kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
     dec = [(n, t) for name, (n, t) in by_name.items() if "decode" in name]
     log(f"    decode attention kernels: {sum(t for _, t in dec):.3f} ms in "
@@ -667,10 +723,50 @@ def check_greedy_margin(model, tok, dense_rec, paged_rec):
     log(f"  greedy-margin rule: {len(dense_rec)} chunks, {diverged} diverged within the margin")
 
 
-def serve_stack(cfg, launches):
+def graph_vs_eager(model, tok, n_obs=3):
+    """``CloudPolicy``'s CUDA graph against the same chunk run eagerly
+    (``Model.prefill`` + ``Model.decode_chunk``), dense and paged: tokens
+    equal, token for token; the largest difference of the chunk's final
+    logits; cloud_ms of each, in turns (eager, graph, graph, eager)."""
+
+    rng = np.random.default_rng(3)
+    obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(n_obs)]
+    for paged in (False, True):
+        mode = "paged" if paged else "dense"
+        policy = CloudPolicy(model, tok, paged=paged)
+        policy.chunk_tokens(*obs[0])  # the first call of a shape: eager, then the capture
+        tokens = [torch.as_tensor(np.concatenate([tok.encode_state(qd), tok.encode_state(tau)],
+                                                 axis=1), device="cuda") for qd, tau in obs]
+        worst = 0.0
+        for t in tokens:
+            te, le = policy.eager_chunk(t)
+            tg, lg = policy.chunk(t)
+            if not torch.equal(te, tg):
+                raise AssertionError(f"{mode} CloudPolicy graph tokens differ from eager")
+            worst = max(worst, float((le.float() - lg.float()).abs().max()))
+        # cloud_ms as CloudPolicy.chunk_tokens takes it: tokens on the host
+        ms = {"eager": [], "graph": []}
+        for which in ("eager", "graph", "graph", "eager"):
+            run = policy.eager_chunk if which == "eager" else policy.chunk
+            for t in tokens:
+                t0 = time.perf_counter()
+                run(t)[0].cpu()
+                ms[which].append((time.perf_counter() - t0) * 1e3)
+        call = policy._graphs[(1, 14)][1]
+        log(f"  {mode} CloudPolicy graph vs eager ({model.cfg.name}): {n_obs} chunks' tokens "
+            f"equal, final logits max abs diff {worst:.3g}; cloud_ms eager mean "
+            f"{np.mean(ms['eager']):.2f} (min {min(ms['eager']):.2f}) graph mean "
+            f"{np.mean(ms['graph']):.2f} (min {min(ms['graph']):.2f}) over {len(ms['graph'])} "
+            f"chunks each; capture {call.capture_s:.2f} s, {sum(call.launches.values())} "
+            f"hand-kernel launches a replay {call.launches}")
+
+
+def serve_stack(cfg, launches, scheduler_phase):
     """Build ``cfg`` at full width on the card (weights from a seeded card
     generator), serve it dense and paged, hold the two to the greedy-margin
-    rule, profile one chunk; adds the runs' launch counts to ``launches``."""
+    rule, hold ``CloudPolicy``'s graphs against eager chunks, profile a graph
+    chunk, then run ``scheduler_phase(model, tok, launches)``; adds the
+    runs' launch counts to ``launches``."""
 
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
@@ -684,11 +780,245 @@ def serve_stack(cfg, launches):
     check_greedy_margin(model, tok, dense_rec, paged_rec)
     for n in launches:
         launches[n] += c_dense[n] + c_paged[n]
+    graph_vs_eager(model, tok)
     profile_chunk(model, tok, paged=False)
     profile_chunk(model, tok, paged=True)
+    log(f"== 5. scheduler ({cfg.name})")
+    scheduler_phase(model, tok, launches)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the continuous-batching scheduler
+# ---------------------------------------------------------------------------
+
+
+def requests(rng, n):
+    return [(r, rng.normal(0, 0.5, (1, 7)).astype(np.float32),
+             rng.normal(0, 0.5, (1, 7)).astype(np.float32)) for r in range(n)]
+
+
+def staggered(sched, reqs):
+    """Three requests at once, then one every 2 rounds (joining mid-decode),
+    through ``submit`` and ``step`` -> the results in harvest order."""
+
+    for req in reqs[:3]:
+        sched.submit(*req)
+    results, nxt = [], 3
+    while len(results) < len(reqs):
+        results += sched.step()
+        if nxt < len(reqs) and sched.round % 2 == 0:
+            sched.submit(*reqs[nxt])
+            nxt += 1
+    return results
+
+
+def sched_launches(model, sched, admits: int, rounds: int):
+    """The launches a scheduler run must count: one flash (per attention
+    layer) and one Mamba scan (per Mamba layer) per admission prefill, one
+    paged decode per attention layer per decoded token of every round."""
+
+    return {
+        "flash_attention": model.n_attn * admits,
+        "decode_attention": 0,
+        "paged_attention": model.n_attn * rounds * sched.decode_block,
+        "mamba_scan": model.n_mamba * admits,
+        "rolling_stats": 0,
+    }
+
+
+def check_sched_counts(model, sched, admits0, rounds0, launches):
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = sched_launches(model, sched, len(sched.admit_ms) - admits0,
+                          sched.decode_rounds - rounds0)
+    if counts != want:
+        raise AssertionError(f"scheduler launch counts {counts}, expected {want}")
+    for n in launches:
+        launches[n] += counts[n]
+    return counts
+
+
+def check_chunks(model, tok, results, reference, obs_of):
+    """Each result's tokens: 56 action tokens, and equal to ``reference``
+    (CloudPolicy(paged=True) on the same observation) under the
+    greedy-margin rule -> the number of chunks that diverged."""
+
+    diverged = 0
+    for r in results:
+        toks = np.asarray(r.tokens)
+        if toks.shape != (56,) or (toks < tok.action_base).any() or (toks >= tok.vocab_size).any():
+            raise AssertionError(f"robot {r.robot_id}: bad chunk {toks}")
+        want = reference[r.robot_id]
+        diff = np.flatnonzero(want != toks)
+        if diff.size:
+            diverged += 1
+            qd, tau = obs_of[r.robot_id]
+            gap = top2_gap_at(model, tok, qd, tau, want[None], int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"robot {r.robot_id}: scheduler token differs at step "
+                                     f"{diff[0]} where the top-two gap is {gap:.3g}")
+    return diverged
+
+
+def sched_parity(model, tok, launches, rounds_list=(1, 4), n=8):
+    """8 robots, ``max_slots=4`` with room for 8 (rows double to 8), 3
+    submitted at once then one every 2 rounds; each chunk against
+    ``CloudPolicy(paged=True)`` by the greedy-margin rule; exact counts."""
+
+    reqs = requests(np.random.default_rng(7), n)
+    obs_of = {r: (qd, tau) for r, qd, tau in reqs}
+    policy = CloudPolicy(model, tok, paged=True)
+    reference = {r: policy.chunk_tokens(qd, tau)[0] for r, qd, tau in reqs}
+    for rounds in rounds_list:
+        sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=rounds,
+                                            num_pages=n * -(-(14 + 56) // 16))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = staggered(sched, reqs)
+        counts = check_sched_counts(model, sched, 0, 0, launches)
+        wall = time.perf_counter() - t0
+        if sorted(r.robot_id for r in results) != list(range(n)):
+            raise AssertionError(f"scheduler served {[r.robot_id for r in results]}")
+        diverged = check_chunks(model, tok, results, reference, obs_of)
+        log(f"  parity R={rounds}: {n} robots, rows {sched.rows}, peak_active "
+            f"{sched.peak_active}, {sched.decode_rounds} rounds in {sched.windows} windows, "
+            f"wall {wall:.2f} s; vs CloudPolicy(paged=True): {diverged} of {n} chunks diverged "
+            f"within the margin; graphs {sched.graph_captures} captured in "
+            f"{sched.capture_s:.2f} s; launches {counts} (exact)")
+
+
+def sched_load_run(model, tok, sched, reqs, per_round, launches):
+    """One load run: ``per_round`` arrivals a round through ``submit_batch``,
+    3 queued and 3 mid-window requests cancelled through ``cancel_batch``;
+    exact launch counts -> (results, wall s, cancelled robots)."""
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    admits0, rounds0 = len(sched.admit_ms), sched.decode_rounds
+    t0 = time.perf_counter()
+    results, cancelled, nxt = [], {"queued": [], "window": []}, 0
+    while nxt < len(reqs) or sched.n_pending or sched.n_active:
+        if nxt < len(reqs):
+            batch = reqs[nxt:nxt + per_round]
+            sched.submit_batch([r for r, _, _ in batch], np.concatenate([b[1] for b in batch]),
+                               np.concatenate([b[2] for b in batch]))
+            nxt += len(batch)
+        results += sched.step()
+        if not cancelled["queued"] and sched.round >= 6 and sched.n_pending >= 3:
+            ids = [q.robot_id for q in sched._queue][-3:]
+            if not sched.cancel_batch(ids).all():
+                raise AssertionError("queued cancels missed")
+            cancelled["queued"] = ids
+        if not cancelled["window"] and sched.round >= 10 and sched._window is not None:
+            live = [q.robot_id for q in sched._window.seqs if not q.dead]
+            if len(live) >= 3:
+                ids = sorted(live)[-3:]
+                if not sched.cancel_batch(ids).all():
+                    raise AssertionError("mid-window cancels missed")
+                cancelled["window"] = ids
+    counts = check_sched_counts(model, sched, admits0, rounds0, launches)
+    return results, time.perf_counter() - t0, cancelled, counts, sched.admit_ms[admits0:]
+
+
+def sched_load(model, tok, launches, n=64, per_round=4):
+    """64 robots, one chunk each, 4 arrivals a round; ``max_slots=8`` (rows
+    double on demand), a pool of 32 requests' pages, ``scan_rounds=4``,
+    ``decode_block=7``; 6 cancels.  Run cold (the graphs are captured on
+    the way) and warm (after ``reset``, the graphs replayed); at 4 arrivals
+    a round at most 29 sequences are resident, so a third run submits all
+    64 at once, where the pages bound admission at 32 resident; then one
+    profiled window."""
+
+    ppr = -(-(14 + 56) // 16)
+    reqs = requests(np.random.default_rng(11), n)
+    sched = ContinuousBatchingScheduler(model, tok, max_slots=8, num_pages=32 * ppr,
+                                        scan_rounds=4, decode_block=7)
+    kv_gib = 2 * model.n_attn * (32 * ppr + 1) * 16 * model.cfg.num_kv_heads * \
+        model.cfg.resolved_head_dim * 2 / 2**30
+    for run, arrivals in (("cold", per_round), ("warm", per_round), ("burst", n)):
+        if run != "cold":
+            sched.reset()
+        sched.obs = Observability(trace=False)
+        captures0, capture_s0 = sched.graph_captures, sched.capture_s
+        results, wall, cancelled, counts, admit_ms = sched_load_run(
+            model, tok, sched, reqs, arrivals, launches)
+        done = sorted(r.robot_id for r in results)
+        gone = set(cancelled["queued"] + cancelled["window"])
+        if len(gone) != 6 or done != sorted(set(range(n)) - gone) or sched.cancelled != 6:
+            raise AssertionError(f"load run served {len(done)} robots, cancelled {cancelled}")
+        m = sched.obs.metrics
+        lat, qw = m.get("serve.chunk_latency_ms"), m.get("serve.queue_wait_ms")
+        a = sched.allocator
+        log(f"  load {run}: {n} robots, {arrivals} arrivals a round, cancelled queued "
+            f"{cancelled['queued']} and mid-window {cancelled['window']}; {len(results)} chunks "
+            f"in {wall:.3f} s: action tokens/s {len(results) * 56 / wall:.1f}; chunk latency "
+            f"p50 {lat.quantile(0.5):.2f} p99 {lat.quantile(0.99):.2f} ms; queue wait p50 "
+            f"{qw.quantile(0.5):.2f} p99 {qw.quantile(0.99):.2f} ms; peak_active "
+            f"{sched.peak_active}, rows {sched.rows}, pool high_water {a.high_water} of "
+            f"{a.num_pages} pages ({kv_gib:.2f} GiB of KV); {sched.decode_rounds} rounds, "
+            f"windows {sched.windows}, window closes {sched.window_closes}; graphs captured "
+            f"{sched.graph_captures - captures0} in {sched.capture_s - capture_s0:.2f} s; "
+            f"admissions {len(admit_ms)}, host ms a boundary mean {np.mean(admit_ms):.2f} max "
+            f"{max(admit_ms):.2f}; launches {counts} (exact)")
+    # spot check: four robots' chunks against CloudPolicy(paged=True)
+    policy = CloudPolicy(model, tok, paged=True)
+    pick = results[:: max(1, len(results) // 4)][:4]
+    obs_of = {r: (qd, tau) for r, qd, tau in reqs}
+    reference = {r.robot_id: policy.chunk_tokens(*obs_of[r.robot_id])[0] for r in pick}
+    diverged = check_chunks(model, tok, pick, reference, obs_of)
+    log(f"  load spot check vs CloudPolicy(paged=True): {len(pick)} chunks, {diverged} diverged "
+        "within the margin")
+    profile_window(model, tok, sched, reqs[:32])
+
+
+def profile_window(model, tok, sched, reqs):
+    """One scan window under torch.profiler: 32 requests admitted at once
+    (the eager admission prefill), then the window's 4 graph replays and its
+    harvest: wall ms, device busy share, time by kernel."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sched.reset()
+    for r, qd, tau in reqs:
+        sched.submit(r, qd, tau)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step()
+        while sched._window is not None:
+            sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sched.drain()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"  profiled window: wall {wall_ms:.1f} ms; device time not measured (the profiler "
+            "recorded no CUDA kernels)")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        k, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (k + 1, t + e.time_range.elapsed_us() / 1e3)
+    log(f"  profiled window ({len(reqs)} admitted, R = {sched.scan_rounds}, rows {sched.rows}): "
+        f"wall {wall_ms:.1f} ms (profiler on; admission {sched.admit_ms[-1]:.1f} ms of host), "
+        f"device kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share "
+        f"{busy_ms / wall_ms:.3f}")
+    for name, (k, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"    {t:9.2f} ms {k:6d}x  {name[:110]}")
+
+
+def openvla_scheduler(model, tok, launches):
+    sched_parity(model, tok, launches)
+    sched_load(model, tok, launches)
+
+
+def jamba_scheduler(model, tok, launches):
+    sched_parity(model, tok, launches, rounds_list=(4,))
 
 
 def monitor_path(fleet, launches):
@@ -756,18 +1086,20 @@ def main(argv) -> int:
     fleet = fleet_streams()
     main_rows = check_kernels(fleet)
     if kernels_only:
-        log("== --kernels-only: phases 4-5 skipped, no result line")
+        log("== --kernels-only: phases 4-6 skipped, no result line")
         return 0
 
-    log("== 4. model")
     launches = {n: 0 for n in _lib.KERNELS}
-    for arch, cfg in (("openvla-7b", get_config("openvla-7b")),
-                      (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS))):
+    for arch, cfg, phase in (
+            ("openvla-7b", get_config("openvla-7b"), openvla_scheduler),
+            (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), jamba_scheduler)):
+        log(f"== 4. model ({arch})")
         check_small_model_against_cpu(arch)
-        serve_stack(cfg, launches)
+        serve_stack(cfg, launches, phase)
+    log("== 4. monitor")
     monitor_path(fleet, launches)
 
-    log("== 5. result")
+    log("== 6. result")
     rows = []
     for name in _lib.KERNELS:
         rows.append(dict(

@@ -6,8 +6,10 @@ dispatcher monitors simulated robot kinematics tick by tick, and on each
 dispatch the cloud VLA (prefill + greedy decode of an action chunk through
 the KV cache) produces a fresh chunk.  ``CloudPolicy`` decodes through dense
 per-row slabs (``fused``: no host sync per token; or the per-token loop) or
-through the paged KV substrate (``paged=True``).  The fleet scheduler and
-the partitioned lanes come in later slices.
+through the paged KV substrate (``paged=True``); on a CUDA model both
+replay a CUDA graph per shape.  The continuous-batching scheduler that
+serves many robots is ``runtime.scheduler``; fleet serving and the
+partitioned lanes come in later slices.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch.data.pipeline import EpisodeTokenizer
 from repro_torch.models.model import Model
 from repro_torch.obs.clock import clock
 from repro_torch.robotics.episodes import generate_episode
+from repro_torch.runtime.graphs import GraphedCall
 from repro_torch.runtime.kv_cache import PagedSpec
 
 
@@ -34,10 +37,19 @@ class CloudPolicy:
     ``fused=True`` (default) decodes the ``chunk_len * n_joints`` tokens with
     ``Model.decode_chunk`` (tokens stay on the device until the chunk is
     done); ``fused=False`` keeps the per-token loop that copies each token
-    to the host.  ``paged=True`` scatters the prompt KV into a page pool of
+    to the host (the reference's own baseline; always eager).
+    ``paged=True`` scatters the prompt KV into a page pool of
     ``page_size``-token pages after prefill and decodes through the paged
     attention kernel.  All three give the same greedy chunks up to
     floating-point ties.
+
+    On a CUDA model the fused and the paged chunk (prefill included) replay
+    a CUDA graph built per ``(B, prompt_len)`` (the reference jits per
+    shape; ``runtime.graphs.GraphedCall``).  A dense chunk's decode lengths
+    are host ints (prompt_len .. prompt_len + n_steps - 1), the same at
+    every call of a shape, so the graph holds the whole chunk and the
+    decode kernel keeps its host-int length path.  On a CPU model the same
+    function runs eagerly (``eager_chunk``).
     """
 
     def __init__(self, model: Model, tokenizer: EpisodeTokenizer, chunk_len: int = 8,
@@ -51,34 +63,68 @@ class CloudPolicy:
         self.paged = paged
         self.page_size = page_size
         self.n_steps = chunk_len * n_joints
+        self._graphs = {}  # (B, prompt_len) -> (static tokens, GraphedCall)
 
-    def _paged_tokens(self, tokens):
-        b, prompt = tokens.shape
+    def _page_plan(self, b: int, prompt: int):
+        """(spec, page table, caps) of a chunk: ``b`` rows, each with its own
+        pages for the prompt and the chunk."""
+
         page = self.page_size
         maxp = -(-(prompt + self.n_steps) // page)
         spec = PagedSpec(num_pages=b * maxp, page_size=page, max_pages_per_seq=maxp)
-        pt = np.arange(b * maxp, dtype=np.int32).reshape(b, maxp)
-        caps = np.full((b,), maxp * page, np.int32)
-        logits, dcache = self.model.prefill({"tokens": tokens}, extra=0)
-        pcache = self.model.cache_to_paged(
-            dcache, self.model.init_paged_cache(b, spec), pt, caps
-        )
-        return self.model.decode_chunk(logits, pcache, self.n_steps, self.tok.action_base)[0]
+        i32 = dict(dtype=torch.int32, device=self.model.device)
+        pt = torch.arange(b * maxp, **i32).reshape(b, maxp)
+        return spec, pt, torch.full((b,), maxp * page, **i32)
+
+    def _chunk(self, tokens, plan=None):
+        """Prefill + greedy decode of one chunk -> (tokens [B, n_steps], the
+        next logits [B, 1, V])."""
+
+        m, floor = self.model, self.tok.action_base
+        if self.paged:
+            spec, pt, caps = plan
+            logits, dcache = m.prefill({"tokens": tokens}, extra=0)
+            cache = m.cache_to_paged(dcache, m.init_paged_cache(tokens.shape[0], spec), pt, caps)
+        else:
+            logits, cache = m.prefill({"tokens": tokens}, extra=self.n_steps)
+        toks, logits, _ = m.decode_chunk(logits, cache, self.n_steps, floor)
+        return toks, logits
+
+    def eager_chunk(self, tokens):
+        """The chunk that ``chunk`` replays, run eagerly: ``Model.prefill`` and
+        ``Model.decode_chunk`` -> (action tokens [B, n_steps], the next
+        logits [B, 1, V])."""
+
+        b, prompt = tokens.shape
+        return self._chunk(tokens, self._page_plan(b, prompt) if self.paged else None)
+
+    def chunk(self, tokens):
+        """tokens [B, S] on the model's device -> (action tokens [B, n_steps],
+        the next logits [B, 1, V]); on a CUDA model a graph replay (its
+        outputs hold until the next call)."""
+
+        if self.model.device.type != "cuda":
+            return self.eager_chunk(tokens)
+        b, prompt = tokens.shape
+        entry = self._graphs.get((b, prompt))
+        if entry is None:
+            plan = self._page_plan(b, prompt) if self.paged else None
+            static = tokens.clone()
+            entry = (static, GraphedCall(lambda: self._chunk(static, plan)))
+            self._graphs[(b, prompt)] = entry
+        static, call = entry
+        static.copy_(tokens)
+        return call()
 
     def chunk_tokens(self, qd: np.ndarray, tau: np.ndarray) -> np.ndarray:
         """qd/tau [B, N] -> greedy action tokens [B, chunk_len * n_joints]."""
 
         obs = np.concatenate([self.tok.encode_state(qd), self.tok.encode_state(tau)], axis=1)
         tokens = torch.as_tensor(obs, device=self.model.device)
-        if self.paged:
-            return self._paged_tokens(tokens).cpu().numpy()
-        logits, cache = self.model.prefill({"tokens": tokens}, extra=self.n_steps)
-        if self.fused:
-            toks, _, _ = self.model.decode_chunk(
-                logits, cache, self.n_steps, self.tok.action_base
-            )
-            return toks.cpu().numpy()
+        if self.fused or self.paged:
+            return self.chunk(tokens)[0].cpu().numpy()
         # per-token loop: mask to the action bins, argmax, sync to host
+        logits, cache = self.model.prefill({"tokens": tokens}, extra=self.n_steps)
         floor = torch.arange(logits.shape[-1], device=logits.device) < self.tok.action_base
         acts = []
         for _ in range(self.n_steps):

@@ -18,13 +18,15 @@ updated in place:
           "h", "conv" as in the dense cache}
 
 Entry points: ``prefill``, ``decode_step``, ``decode_chunk``,
-``init_cache``, ``init_paged_cache``, ``cache_to_paged``.
+``init_cache``, ``init_paged_cache``, ``cache_to_paged``,
+``merge_prefill_into_paged``.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -314,3 +316,36 @@ class Model(nn.Module):
         if self.n_mamba:
             out["h"], out["conv"] = cache["h"], cache["conv"]
         return out
+
+    @torch.no_grad()
+    def merge_prefill_into_paged(self, cache, paged, page_table, row_idx, lens, caps):
+        """Merge an admission batch's dense prefill into the live paged cache,
+        in place; returns ``paged``.
+
+        ``cache`` is a dense prefill over ``n`` new sequences; ``row_idx``
+        [n] (host ints) names the batch rows they take over, ``page_table``
+        [n, MAXP] their pages, ``lens`` / ``caps`` [n] their prompt lengths
+        and token capacities.  Rows at or beyond the batch's row count are
+        admission padding: they are dropped (the reference's
+        ``mode="drop"``), and their length 0 routes their prompt K/V to the
+        trash page.  The claimed rows' ``len``, ``pt`` and ``cap`` and their
+        Mamba ``h`` / ``conv`` state are overwritten.
+        """
+
+        i32 = dict(dtype=torch.int32, device=self.device)
+        pt_new = torch.as_tensor(page_table, **i32)
+        lens_t = torch.as_tensor(lens, **i32)
+        for i in range(self.n_attn):
+            scatter_prompt_into_pool(paged["kp"][i], cache["k"][i], pt_new, lens_t)
+            scatter_prompt_into_pool(paged["vp"][i], cache["v"][i], pt_new, lens_t)
+        row_idx = np.asarray(row_idx)
+        keep = np.flatnonzero(row_idx < paged["len"].shape[0])
+        src = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+        dst = torch.as_tensor(row_idx[keep], dtype=torch.long, device=self.device)
+        for name, new in (("len", lens_t), ("pt", pt_new), ("cap", torch.as_tensor(caps, **i32))):
+            paged[name].index_copy_(0, dst, new.index_select(0, src))
+        if self.n_mamba:
+            for name in ("h", "conv"):  # [Lm, B, ...]: axis 1 is the row
+                live = paged[name]
+                live.index_copy_(1, dst, cache[name].index_select(1, src).to(live.dtype))
+        return paged

@@ -1,0 +1,62 @@
+"""CUDA graphs for the serving loops: the port's counterpart of the
+reference's ``jax.jit`` over a decode chunk or a scan window.
+
+A graph replays a whole chunk (or decode round) of kernels with one host
+call, where the eager chain issues each of its thousands of launches from
+Python.  ``GraphedCall`` wraps a function of the caller's static buffers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.obs.clock import clock
+
+
+class GraphedCall:
+    """``fn()`` replayed as one CUDA graph.
+
+    The first call runs ``fn`` eagerly (a real call: the kernels it reaches
+    load and the library workspaces it needs are set up on the way) and
+    then captures it; every later call replays the graph.  ``fn`` may read
+    and write only tensors that outlive the graph (the caller's static
+    buffers, updated in place) and host values that stay the same from call
+    to call.  A replay returns the tensors that ``fn`` returned at capture:
+    the next replay overwrites them.
+
+    The kernel launchers count their launches in Python (``_lib.LAUNCHES``),
+    which a replay does not run: the counts that the capture added are
+    taken back after it (a capture launches nothing) and added again at
+    each replay, so the counts stay those of the kernels that ran.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = None
+        self.out = None
+        self.launches = {}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def __call__(self):
+        if self.graph is None:
+            out = self.fn()
+            self._capture()
+            return out
+        self.graph.replay()
+        self.replays += 1
+        for name, n in self.launches.items():
+            _lib.LAUNCHES[name] += n
+        return self.out
+
+    def _capture(self) -> None:
+        before = dict(_lib.LAUNCHES)
+        t0 = clock()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self.fn()
+        self.capture_s = clock() - t0
+        self.launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
+        _lib.LAUNCHES.update(before)
+        self.graph = graph
