@@ -38,7 +38,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
    all 64 at once (admission bounded by pages at 32 resident), and one
    profiled window.  Jamba: (a) at ``scan_rounds=4``.  Every run's
    launch counts are checked exactly, graph replays included;
-6. the result: a ``{"kernels": [...]}`` line and, last, the device line.
+6. fleet, on the same full-width openvla-7b model (run between its phase 5
+   and Jamba's phase 4): (a) f32 openvla-smoke, the same weights on the
+   card and on the CPU, ``serve_fleet(trigger="rapid")`` with 8 robots, R =
+   4, both ticks: decision streams, telemetry, rounds, cancels and latency
+   draws equal, chunks equal or inside the f32 greedy margin, a differing
+   decision only within 1e-5 (relative) of its threshold; (b) full width,
+   16 robots, R = 4, ``max_slots=8``, with ``Observability``: rapid cold (a
+   new scheduler, its round graph captured on the way), rapid warm (the
+   same scheduler, reset), the legacy tick and the decision core on the
+   model's stream (a contrast; both equal to the warm run) and ``always``,
+   each with offloads, cancels, tokens/s, latency and
+   queue-wait percentiles, the wall split per tick (decision core, engine
+   at a window close and inside a window, host) and exact launch counts;
+   (c) ``serve_trace``, 64 robots x 240 ticks, ``max_slots=16``, Poisson
+   arrivals with churn and bursty arrivals, its SLO report, pages all back
+   after a drain; (d) the offline engine's six strategies, the decision
+   core on the card against the CPU.  Fleet runs last 300 ticks: the
+   episodes' first contact phases start at tick 220-260;
+7. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
 issued back to back, so at least the host's cost of a call), ``device_ms``
@@ -77,10 +95,25 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
-from repro_torch.launch.serve import CloudPolicy, serve_episode  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.obs import Observability  # noqa: E402
+from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
+from repro_torch.runtime.engine import (  # noqa: E402
+    STRATEGIES,
+    EngineConfig,
+    episode_suite,
+    evaluate_strategy,
+    rapid_trigger_stream,
+)
+from repro_torch.runtime.fleet import make_trace, serve_trace  # noqa: E402
+from repro_torch.runtime.policy import (  # noqa: E402
+    DecisionCore,
+    PolicyConfig,
+    fleet_policy_config,
+    rollout,
+)
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and flop/s by input type
@@ -121,6 +154,15 @@ STATS_TOL = (5e-4, 5e-4, 5e-5)
 MARGIN_TOL = 0.1
 # control ticks per served episode: the 64-tick trigger warm-up and 56 more
 STEPS = 120
+# control ticks of a fleet run: the episodes' first contact phases start at
+# tick 220-260, so 120 ticks would see only the 16 bootstrap fetches and no
+# trigger fire or cancel
+FLEET_TICKS = 300
+# a decision (float32 kinematic z-scores) may differ between the card and the
+# CPU only at a tick whose trigger term lies within this (relative) of its
+# threshold; the f32 greedy margin of the port's scheduler tests
+DECISION_RTOL = 1e-5
+F32_MARGIN = 1e-4
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
     "decode_attention": "src/repro/kernels/decode_attention.py:87",
@@ -1015,10 +1057,313 @@ def profile_window(model, tok, sched, reqs):
 def openvla_scheduler(model, tok, launches):
     sched_parity(model, tok, launches)
     sched_load(model, tok, launches)
+    log(f"== 6. fleet ({model.cfg.name})")
+    fleet_phase(model, tok, launches)
 
 
 def jamba_scheduler(model, tok, launches):
     sched_parity(model, tok, launches, rounds_list=(4,))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the fleet
+# ---------------------------------------------------------------------------
+
+
+class RecordingScheduler(ContinuousBatchingScheduler):
+    """A scheduler that keeps each harvested chunk's robot, prompt tokens and
+    action tokens, in harvest order."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.record = []
+
+    def _close_window(self):
+        prompt = {q.robot_id: q.request.obs for q in self._window.seqs if not q.dead}
+        done = super()._close_window()
+        self.record += [(r.robot_id, prompt[r.robot_id], r.tokens) for r in done]
+        return done
+
+
+def fleet_frames(n_robots, seed, t_len):
+    tasks = list(TASKS)
+    eps = [generate_episode(tasks[i % 3], seed=seed + i) for i in range(n_robots)]
+    return kin.KinematicFrame(*(torch.as_tensor(np.stack([getattr(e, n)[:t_len] for e in eps], 1))
+                                for n in ("q", "qd", "tau")))
+
+
+def threshold_distance(pcfg, frames, t, r):
+    """Relative distance of tick ``t``, robot ``r``'s trigger terms from
+    their thresholds, from the CPU decision core over ``frames``."""
+
+    _, dec = rollout(pcfg, kin.KinematicFrame(*(f[: t + 1] for f in frames)))
+    o = dec.trig
+    tc, tr = pcfg.trigger.theta_comp, pcfg.trigger.theta_red
+    acc = float(o.w_acc[t, r] * o.score_acc[t, r])
+    tau = float((1.0 - o.w_acc[t, r]) * o.score_tau[t, r])
+    return min(abs(acc - tc) / tc, abs(tau - tr) / tr)
+
+
+def first_decision_flip(card, cpu, pcfg, frames):
+    """None when the two runs' decision streams are equal; else (t, r) of
+    the first tick whose decision differs, which must lie within
+    ``DECISION_RTOL`` of a threshold (the runs part ways from there)."""
+
+    sc, sp = card["telemetry"].streams(), cpu["telemetry"].streams()
+    diff = np.zeros_like(sc["offload"])
+    for k in sc:
+        diff |= sc[k] != sp[k]
+    if not diff.any():
+        return None
+    t, r = (int(x) for x in np.argwhere(diff)[0])
+    dist = threshold_distance(pcfg, frames, t, r)
+    if dist > DECISION_RTOL:
+        raise AssertionError(f"card and CPU decisions differ at tick {t} robot {r}, "
+                             f"{dist:.3g} (relative) from its threshold")
+    return t, r, dist
+
+
+def top2_gap_tokens(model, tok, obs_tokens, toks, step):
+    """``model``'s top-two logit gap over the action bins at decode step
+    ``step`` of the prompt ``obs_tokens``, teacher-forced with ``toks``."""
+
+    dev = model.device
+    logits, cache = model.prefill({"tokens": torch.as_tensor(obs_tokens[None], device=dev)},
+                                  extra=step + 1)
+    for j in range(step):
+        logits, cache = model.decode_step(torch.as_tensor(toks[None, j:j + 1], device=dev), cache)
+    top = logits[0, -1, tok.action_base:].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def fleet_card_vs_cpu():
+    """(a) f32 openvla-smoke, the same weights on the card (kernels, graphs,
+    the decision core on its stream) and on the CPU (plain versions):
+    ``serve_fleet(trigger="rapid")``, 8 robots, R = 4, both ticks; the
+    decision streams, counters, rounds, cancels and latency draws equal,
+    chunk tokens equal or inside the f32 greedy margin."""
+
+    cfg = get_smoke_config("openvla-7b").replace(dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    kw = dict(n_robots=8, max_steps=FLEET_TICKS, scan_rounds=4, trigger="rapid",
+              record_streams=True, verbose=False)
+    pcfg = fleet_policy_config("rapid", 8, 7)
+    frames = fleet_frames(8, 0, FLEET_TICKS)
+    serve_mod.ContinuousBatchingScheduler = RecordingScheduler
+    try:
+        for tick in ("vectorized", "legacy"):
+            out = {name: serve_fleet(m, tok, tick=tick, **kw) for name, m in
+                   (("card", gpu), ("cpu", cpu))}
+            card, ref_ = out["card"], out["cpu"]
+            flip = first_decision_flip(card, ref_, pcfg, frames)
+            if flip is not None:
+                log(f"  (a) {tick}: decisions part ways at tick {flip[0]} robot {flip[1]}, "
+                    f"{flip[2]:.3g} from its threshold (within {DECISION_RTOL:g}); "
+                    "the rest of the run is not compared")
+                continue
+            for k in ("service_rounds", "decode_rounds", "scan_windows", "cancelled",
+                      "offload_ms", "offload_ms_by_robot", "deferred"):
+                if card[k] != ref_[k]:
+                    raise AssertionError(f"(a) {tick}: {k} differs card vs CPU")
+            tc, tp = card["telemetry"].summary(), ref_["telemetry"].summary()
+            if {**tc, "host_gap_ms": 0} != {**tp, "host_gap_ms": 0}:
+                raise AssertionError(f"(a) {tick}: telemetry differs card vs CPU")
+            rc, rp = card["sched"].record, ref_["sched"].record
+            if [(r, o.tolist()) for r, o, _ in rc] != [(r, o.tolist()) for r, o, _ in rp]:
+                raise AssertionError(f"(a) {tick}: chunks harvested in another order")
+            near = set()
+            for (r, obs_t, tg), (_, _, tp_) in zip(rc, rp):
+                diff = np.flatnonzero(tg != tp_)
+                if diff.size:
+                    gap = top2_gap_tokens(cpu, tok, obs_t, tp_, int(diff[0]))
+                    if gap > F32_MARGIN:
+                        raise AssertionError(f"(a) {tick}: robot {r}'s chunk differs at step "
+                                             f"{diff[0]} where the top-two gap is {gap:.3g}")
+                    near.add(r)
+            same = [r for r in range(8) if r not in near]
+            if not np.array_equal(card["actions"][:, same], ref_["actions"][:, same]):
+                raise AssertionError(f"(a) {tick}: actions differ card vs CPU")
+            log(f"  (a) f32 smoke {tick}: card vs CPU over {FLEET_TICKS} ticks: decision streams, "
+                f"telemetry, {len(rc)} chunks ({len(near)} robots' chunks inside the "
+                f"{F32_MARGIN:g} margin), {card['decode_rounds']} rounds in "
+                f"{card['scan_windows']} windows, {card['cancelled']} cancels, offload_ms and "
+                f"actions equal; offloads {int(card['offloads'].sum())}")
+    finally:
+        serve_mod.ContinuousBatchingScheduler = ContinuousBatchingScheduler
+
+
+def fleet_run_line(name, out, counts, captures):
+    t, chunks = out["steps"], int(out["telemetry"].completions.sum())
+    tel, pool, sched = out["telemetry"], out["pool"], out["sched"]
+    m = out["obs"].metrics
+    lat, qw = m.get("serve.chunk_latency_ms"), m.get("serve.queue_wait_ms")
+    core, eng, close = out["core_tick_ms"], out["engine_tick_ms"], out["close_ticks"]
+    inside = eng[~close]
+    log(f"  (b) {name}: offloads {int(out['offloads'].sum())} replays {int(tel.replays.sum())} "
+        f"cancels {int(tel.cancels.sum())} f_off {out['offload_fraction']:.4f}; "
+        f"{chunks} chunks in {out['wall_s']:.3f} s: decode action tokens/s "
+        f"{56 * chunks / out['wall_s']:.1f}; chunk latency p50 {lat.quantile(0.5):.2f} p99 "
+        f"{lat.quantile(0.99):.2f} ms; queue wait p50 {qw.quantile(0.5):.2f} p99 "
+        f"{qw.quantile(0.99):.2f} ms; the decision core a tick mean "
+        f"{core.mean():.3f} p99 {np.percentile(core, 99):.3f} max {core.max():.3f} ms; per tick "
+        f"core {out['core_s'] / t * 1e3:.3f} engine {out['engine_s'] / t * 1e3:.3f} host "
+        f"{out['host_s'] / t * 1e3:.3f} ms; engine ms a tick at a window close mean "
+        f"{eng[close].mean() if close.any() else 0:.2f}, inside a window mean "
+        f"{inside.mean():.3f} max {inside.max():.2f}; host_gap_ms {out['host_gap_ms']:.2f}; "
+        f"peak_batch {out['peak_batch']} rows {sched.rows}; pool high_water {pool.high_water} of "
+        f"{sched.allocator.num_pages}; {out['decode_rounds']} rounds in {out['scan_windows']} "
+        f"windows; graphs captured {captures}; launches {counts} (exact)")
+
+
+class SharedStreamCore(DecisionCore):
+    """The decision core on the model's stream (no stream of its own): each
+    tick's host read then waits for the decode rounds queued before it.  A
+    contrast for phase 6(b), not a path of the port."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.stream = None
+
+
+def same_fleet_run(a, b):
+    sa, sb = a["telemetry"].streams(), b["telemetry"].streams()
+    ta, tb = (o["telemetry"].summary() | {"host_gap_ms": 0} for o in (a, b))
+    return (np.array_equal(a["actions"], b["actions"]) and ta == tb
+            and all(np.array_equal(sa[k], sb[k]) for k in sa)
+            and all(a[k] == b[k] for k in ("service_rounds", "decode_rounds", "scan_windows",
+                                           "cancelled", "offload_ms")))
+
+
+def fleet_full_width(model, tok, launches):
+    """(b) the main path at full width: ``serve_fleet`` on 16 robots, R = 4,
+    ``max_slots=8``, with ``Observability``: rapid cold (a new scheduler,
+    its graph captured on the way), rapid warm (the same scheduler, reset),
+    the legacy tick and the decision core on the model's stream (both equal
+    to the warm run), and ``always`` once."""
+
+    kw = dict(n_robots=16, max_steps=FLEET_TICKS, max_slots=8, scan_rounds=4,
+              record_streams=True, verbose=False)
+    sched, outs = None, {}
+    for name, extra in (("rapid cold", {}), ("rapid warm", {}),
+                        ("rapid legacy", {"tick": "legacy"}), ("rapid, core on the model's stream",
+                                                               {}),
+                        ("always", {"trigger": "always"})):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        admits0 = len(sched.admit_ms) if sched is not None else 0
+        captures0 = sched.graph_captures if sched is not None else 0
+        args = {"trigger": "rapid", **kw, **extra}
+        if "model's stream" in name:
+            serve_mod.DecisionCore = SharedStreamCore
+        try:
+            out = serve_fleet(model, tok, obs=Observability(trace=False), sched=sched, **args)
+        finally:
+            serve_mod.DecisionCore = DecisionCore
+        sched = out["sched"]
+        counts = check_sched_counts(model, sched, admits0, 0, launches)
+        acts = out["actions"]
+        if not (acts.shape == (FLEET_TICKS, 16, 7) and np.isfinite(acts).all()
+                and out["offloads"].sum() > 0 and out["telemetry"].completions.sum() > 0):
+            raise AssertionError(f"(b) {name}: bad fleet output")
+        if args["trigger"] == "rapid" and out["cancelled"] == 0:
+            raise AssertionError(f"(b) {name}: no cancels")
+        fleet_run_line(name, out, counts, sched.graph_captures - captures0)
+        outs[name] = out
+    for other in ("rapid legacy", "rapid, core on the model's stream"):
+        if not same_fleet_run(outs["rapid warm"], outs[other]):
+            raise AssertionError(f"(b) {other} differs from the warm vectorized run")
+    sched.drain()
+    if sched.pool_stats().pages_in_use != 0:
+        raise AssertionError("(b) pages left after drain")
+    log("  (b) the legacy tick and the core on the model's stream against the warm run (same "
+        "scheduler): actions, decision streams, counters, rounds and offload_ms equal")
+
+
+def fleet_trace_runs(model, tok, launches):
+    """(c) ``serve_trace`` at full width: 64 robots, horizon 240, R = 4,
+    ``max_slots=16``; Poisson arrivals with churn (mean dwell 96 ticks) and
+    bursty arrivals (a burst every 32 ticks); its SLO report; churn returns
+    pages without a reset, and a drain returns them all."""
+
+    for name, trace in (("poisson churn", make_trace(64, 240, arrivals="poisson", mean_dwell=96,
+                                                     seed=0)),
+                        ("bursty", make_trace(64, 240, arrivals="bursty", burst_every=32,
+                                              seed=0))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        obs = Observability(trace=False)
+        out = serve_trace(model, tok, trace, horizon=240, max_slots=16, scan_rounds=4, obs=obs,
+                          verbose=False)
+        sched = out["sched"]
+        left_pages = sched.pool_stats().pages_in_use
+        if left_pages != sched.n_active * sched.pages_per_req:
+            raise AssertionError(f"(c) {name}: {left_pages} pages held by "
+                                 f"{sched.n_active} live sequences")
+        rounds = sched.decode_rounds
+        sched.drain()
+        counts = check_sched_counts(model, sched, 0, 0, launches)
+        if sched.pool_stats().pages_in_use != 0 or out["completions"] == 0:
+            raise AssertionError(f"(c) {name}: pages left after drain or no completions")
+        log(f"  (c) serve_trace {name}: joined {out['joined']} left {out['left']} churn cancels "
+            f"{out['churn_cancels']} peak_active_robots {out['peak_active_robots']}; completions "
+            f"{out['completions']} fires {out['fires']} cancels {out['cancels']}; ticks_per_s "
+            f"{out['ticks_per_s']:.2f} (wall {out['wall_s']:.3f} s); peak_batch "
+            f"{out['peak_batch']}, {rounds} rounds in {out['scan_windows']} windows; pages at the "
+            f"horizon {left_pages} (live sequences' only), after drain 0 of "
+            f"{sched.allocator.num_pages}; graphs captured {sched.graph_captures}; launches "
+            f"{counts} (exact, drain included)")
+        for line in build_slo_report(obs.metrics).lines():
+            log(f"      {line}")
+
+
+def engine_card_vs_cpu():
+    """(d) the offline engine: ``evaluate_strategy`` over ``episode_suite()``
+    for the six strategies, the decision core on the card against the CPU;
+    a differing report must come from a tick within ``DECISION_RTOL`` of a
+    threshold."""
+
+    rows = []
+    for strategy in STRATEGIES:
+        t0 = time.perf_counter()
+        card = evaluate_strategy(strategy, device="cuda")
+        t1 = time.perf_counter()
+        cpu = evaluate_strategy(strategy, device="cpu")
+        t2 = time.perf_counter()
+        if vars(card["report"]) != vars(cpu["report"]) or card["accuracy"] != cpu["accuracy"] \
+                or card["mean_error"] != cpu["mean_error"]:
+            tcfg = EngineConfig().trigger
+            if strategy == "rapid_no_comp":
+                tcfg = type(tcfg)(**{**tcfg.__dict__, "theta_comp": 1e9})
+            if strategy == "rapid_no_red":
+                tcfg = type(tcfg)(**{**tcfg.__dict__, "theta_red": 1e9})
+            pcfg = PolicyConfig(trigger=tcfg, chunk_len=8, on_empty="edge")
+            for ep in episode_suite():
+                a = rapid_trigger_stream(ep, tcfg, device="cuda")
+                b = rapid_trigger_stream(ep, tcfg, device="cpu")
+                if not np.array_equal(a, b):
+                    t = int(np.flatnonzero(a != b)[0])
+                    frames = kin.KinematicFrame(*(torch.as_tensor(x[:, None])
+                                                  for x in (ep.q, ep.qd, ep.tau)))
+                    dist = threshold_distance(pcfg, frames, t, 0)
+                    if dist > DECISION_RTOL:
+                        raise AssertionError(f"(d) {strategy}: card and CPU dispatch differ "
+                                             f"at tick {t} of {ep.task}, {dist:.3g} from its "
+                                             "threshold")
+                    log(f"  (d) {strategy}: {ep.task} parts ways at tick {t}, {dist:.3g} from "
+                        "its threshold")
+        rows.append(f"{strategy} {card['total_ms']:.2f} ms acc {card['accuracy']:.4f} "
+                    f"(card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
+    log(f"  (d) evaluate_strategy, card vs CPU: reports equal for all six: {'; '.join(rows)}")
+
+
+def fleet_phase(model, tok, launches):
+    fleet_card_vs_cpu()
+    fleet_full_width(model, tok, launches)
+    fleet_trace_runs(model, tok, launches)
+    engine_card_vs_cpu()
 
 
 def monitor_path(fleet, launches):
@@ -1086,7 +1431,7 @@ def main(argv) -> int:
     fleet = fleet_streams()
     main_rows = check_kernels(fleet)
     if kernels_only:
-        log("== --kernels-only: phases 4-6 skipped, no result line")
+        log("== --kernels-only: phases 4-7 skipped, no result line")
         return 0
 
     launches = {n: 0 for n in _lib.KERNELS}
@@ -1099,7 +1444,7 @@ def main(argv) -> int:
     log("== 4. monitor")
     monitor_path(fleet, launches)
 
-    log("== 6. result")
+    log("== 7. result")
     rows = []
     for name in _lib.KERNELS:
         rows.append(dict(

@@ -43,15 +43,17 @@ class DispatchOutput(NamedTuple):
     trig: TriggerOutput
 
 
-def dispatcher_init(cfg: DispatcherConfig, batch_shape=(), device="cuda") -> DispatcherState:
-    return DispatcherState(
-        trigger=trigger_init(cfg.trigger, batch_shape, device),
-        queue=QueueState(
-            chunk=torch.zeros(batch_shape + (cfg.chunk_len, cfg.action_dim),
-                              dtype=torch.float32, device=device),
-            head=torch.full(batch_shape, cfg.chunk_len, dtype=torch.int32, device=device),
-        ),
+def queue_init(cfg: DispatcherConfig, batch_shape=(), device="cuda") -> QueueState:
+    return QueueState(
+        chunk=torch.zeros(batch_shape + (cfg.chunk_len, cfg.action_dim),
+                          dtype=torch.float32, device=device),
+        head=torch.full(batch_shape, cfg.chunk_len, dtype=torch.int32, device=device),  # empty
     )
+
+
+def dispatcher_init(cfg: DispatcherConfig, batch_shape=(), device="cuda") -> DispatcherState:
+    return DispatcherState(trigger=trigger_init(cfg.trigger, batch_shape, device),
+                           queue=queue_init(cfg, batch_shape, device))
 
 
 def dispatcher_step(state: DispatcherState, frame: kin.KinematicFrame, cloud_chunk,

@@ -1,21 +1,31 @@
-"""Single-robot serving driver of the port:
-``python -m repro_torch.launch.serve [--arch openvla-7b] [--paged] [--device cuda]``.
+"""Serving entry point of the port:
+``python -m repro_torch.launch.serve [--arch openvla-7b] [--paged] [--device cuda]``,
+or a fleet: ``... --fleet 16 --trigger rapid --scan-rounds 4``.
 
-Counterpart of the single-robot path of ``repro/launch/serve.py``: the RAPID
-dispatcher monitors simulated robot kinematics tick by tick, and on each
-dispatch the cloud VLA (prefill + greedy decode of an action chunk through
-the KV cache) produces a fresh chunk.  ``CloudPolicy`` decodes through dense
-per-row slabs (``fused``: no host sync per token; or the per-token loop) or
-through the paged KV substrate (``paged=True``); on a CUDA model both
-replay a CUDA graph per shape.  The continuous-batching scheduler that
-serves many robots is ``runtime.scheduler``; fleet serving and the
-partitioned lanes come in later slices.
+Counterpart of ``repro/launch/serve.py`` without its partitioned lanes,
+mesh and prefill disaggregation.  Two serving modes:
+
+  * ``serve_episode`` — one robot: the RAPID dispatcher monitors simulated
+    robot kinematics tick by tick, and on each dispatch the cloud VLA
+    (prefill + greedy decode of an action chunk through the KV cache)
+    produces a fresh chunk.  ``CloudPolicy`` decodes through dense per-row
+    slabs (``fused``: no host sync per token; or the per-token loop) or
+    through the paged KV substrate (``paged=True``); on a CUDA model both
+    replay a CUDA graph per shape.
+  * ``serve_fleet`` — many robots sharing one cloud engine through the
+    continuous-batching scheduler (``runtime/scheduler.py``, decode rounds
+    replayed as CUDA graphs): each tick the fleet's decision core
+    (``runtime/policy.py`` ``DecisionCore``) decides, triggers become
+    requests that join in-flight decode batches, and chunks come back a few
+    rounds later.  ``--trigger rapid`` replays cached chunks on redundant
+    depletions and cancels in-flight work on contact-phase preemption.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+import json
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -23,12 +33,23 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.dispatcher import DispatcherConfig, dispatcher_init, dispatcher_step
 from repro_torch.core.kinematics import KinematicFrame
+from repro_torch.core.trigger import TriggerConfig
 from repro_torch.data.pipeline import EpisodeTokenizer
 from repro_torch.models.model import Model
+from repro_torch.obs import Observability, build_slo_report
 from repro_torch.obs.clock import clock
 from repro_torch.robotics.episodes import generate_episode
+from repro_torch.runtime.channel import (
+    ChannelConfig,
+    PRNGKey,
+    fold_in,
+    sample_latency_ms,
+    sample_latency_ms_batch,
+)
 from repro_torch.runtime.graphs import GraphedCall
 from repro_torch.runtime.kv_cache import PagedSpec
+from repro_torch.runtime.policy import DecisionCore, FleetTelemetry, fleet_policy_config
+from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
 
 
 class CloudPolicy:
@@ -179,6 +200,287 @@ def serve_episode(policy: CloudPolicy, task: str = "pick_place", seed: int = 0,
             "cloud_ms": cloud_ms}
 
 
+def serve_fleet(
+    model: Model,
+    tokenizer: EpisodeTokenizer,
+    n_robots: int = 4,
+    tasks: Optional[List[str]] = None,
+    seed: int = 0,
+    chunk_len: int = 8,
+    n_joints: int = 7,
+    max_steps: int = 300,
+    max_slots: int = 8,
+    channel: Optional[ChannelConfig] = None,
+    defer_hot_admission: Optional[float] = None,
+    num_pages: Optional[int] = None,
+    scan_rounds: int = 1,
+    trigger: str = "always",
+    trigger_cfg: Optional[TriggerConfig] = None,
+    record_streams: bool = False,
+    obs: Optional[Observability] = None,
+    tick: str = "vectorized",
+    verbose: bool = True,
+    sched: Optional[ContinuousBatchingScheduler] = None,
+):
+    """A robot fleet served by one continuous-batching cloud engine.
+
+    Each control tick the fleet's batched decision core runs on the model's
+    device (``DecisionCore``: the same ``trigger_step`` the offline
+    ``rollout`` walks); triggered robots submit chunk requests, the
+    scheduler advances one decode round, and finished chunks land back in
+    the robots' queues — possibly several ticks after the trigger, so the
+    fleet exercises ragged in-flight batches.
+
+    ``trigger``: ``"always"`` — every queue depletion forces a cloud fetch;
+    ``"rapid"`` — redundant steps replay the cached chunk and never touch
+    the scheduler, only kinematic trigger fires offload, and a fire while a
+    previous request is still decoding cancels it (``cancel_batch`` frees
+    its pages) and resubmits against the fresh observation.
+
+    ``scan_rounds=R``: the scheduler dispatches R decode rounds a window
+    (CUDA-graph replays on a CUDA model); admission, harvest and
+    cancellation land at window boundaries.  ``telemetry.scan_windows``
+    counts the harvested windows and ``telemetry.host_gap_ms()`` the mean
+    host milliseconds the scheduler took over a window.
+
+    ``defer_hot_admission`` (a preempt-rate threshold, e.g. ``0.2``): a
+    robot that fires a mid-chunk preempt while its realized preempt rate is
+    at or above the threshold has its resubmitted request's admission held
+    back one round.
+
+    ``obs`` (an ``Observability``) turns on request tracing and SLO
+    accounting; the run's ``SLOReport`` is returned under ``"slo"``.
+    Actions are identical with and without it.
+
+    ``tick``: ``"vectorized"`` (default) — frames sliced from (T, R, N)
+    arrays stacked once, one ``cancel_batch`` / ``submit_batch`` per tick,
+    one batched decode and jitter draw per harvest; ``"legacy"`` — the
+    per-robot loop (per-robot ``submit`` / ``cancel``, an ``in_flight``
+    set), kept as the parity reference.  Both give identical actions,
+    counters, decision streams and latency draws.
+
+    The wall time splits into ``core_s`` (the decision core, its host read
+    included), ``engine_s`` (``sched.step``) and ``host_s`` (the rest);
+    ``core_tick_ms`` / ``engine_tick_ms`` [T] and ``close_ticks`` [T] (the
+    ticks whose step harvested a window) show where the time falls.
+
+    ``sched``: serve through this scheduler of ``model`` instead of a new
+    one — it is ``reset()`` first and keeps its CUDA graphs, so a second run
+    is warm; its own ``max_slots``, ``num_pages`` and ``scan_rounds`` stand.
+    """
+
+    if tick not in ("vectorized", "legacy"):
+        raise ValueError(f"tick must be 'vectorized' or 'legacy', got {tick!r}")
+    pcfg = fleet_policy_config(trigger, chunk_len, n_joints, trigger_cfg)
+    all_tasks = tasks or ["pick_place", "drawer_open", "peg_insertion"]
+    eps = [generate_episode(all_tasks[i % len(all_tasks)], seed=seed + i)
+           for i in range(n_robots)]
+    t_len = min(max_steps, min(ep.q.shape[0] for ep in eps))
+
+    core = DecisionCore(pcfg, n_robots, model.device)
+    telemetry = FleetTelemetry(n_robots, record_streams=record_streams, obs=obs)
+    if sched is None:
+        sched = ContinuousBatchingScheduler(
+            model, tokenizer, max_slots=max_slots, chunk_len=chunk_len, n_joints=n_joints,
+            num_pages=num_pages, scan_rounds=scan_rounds, obs=obs,
+        )
+    else:
+        sched.reset()
+        sched.obs = obs
+
+    cached = np.zeros((n_robots, chunk_len, n_joints), np.float32)
+    actions = np.zeros((t_len, n_robots, n_joints), np.float32)
+    n_off = np.zeros(n_robots, np.int64)
+    wait_rounds: List[int] = []
+    # stochastic channel: every completed offload draws a jittered latency
+    # keyed by (robot id, per-robot offload ordinal), so each robot's stream
+    # is reproducible whatever order chunks complete in
+    channel = channel or ChannelConfig()
+    net_key = PRNGKey(seed + 7919)
+    offload_ms: List[float] = []
+    offload_ms_by_robot: List[List[float]] = [[] for _ in range(n_robots)]
+    rows = np.arange(n_robots)
+    engine_s = 0.0
+    core_tick_ms = np.zeros(t_len)
+    engine_tick_ms = np.zeros(t_len)
+    close_ticks = np.zeros(t_len, bool)
+    # the scheduler's host time accumulates until a window closes, so a
+    # boundary's sample includes the closing call's sync
+    window_host_ms = 0.0
+    prev_closes = 0
+
+    def engine_step(t):
+        nonlocal engine_s, window_host_ms, prev_closes
+        t0 = clock()
+        results = sched.step()
+        step_s = clock() - t0
+        engine_s += step_s
+        engine_tick_ms[t] = step_s * 1e3
+        window_host_ms += step_s * 1e3
+        if sched.window_closes > prev_closes:
+            close_ticks[t] = True
+            telemetry.note_boundary(window_host_ms)
+            window_host_ms = 0.0
+            prev_closes = sched.window_closes
+        return results
+
+    t_start = clock()
+    if tick == "legacy":
+        in_flight = set()
+        for t in range(t_len):
+            c0 = clock()
+            dec = core.step(np.stack([ep.q[t] for ep in eps]), np.stack([ep.qd[t] for ep in eps]),
+                            np.stack([ep.tau[t] for ep in eps]))
+            core_tick_ms[t] = (clock() - c0) * 1e3
+            trig, pre = dec.offload, dec.preempt
+            telemetry.observe(dec)
+            # execute before this round's completions land: a chunk arriving
+            # in round t is first executable at t+1
+            actions[t] = cached[rows, dec.slot]
+            for r in np.flatnonzero(trig):
+                r = int(r)
+                if r in in_flight:
+                    if trigger != "rapid":
+                        continue  # previous request still decoding
+                    # contact-phase preemption: cancel the stale sequence
+                    if sched.cancel(r):
+                        telemetry.note_cancel(r)
+                    in_flight.discard(r)
+                defer = int(
+                    defer_hot_admission is not None
+                    and bool(pre[r])
+                    and telemetry.preempts[r] / max(int(telemetry.fires[r]), 1)
+                    >= defer_hot_admission
+                )
+                sched.submit(r, eps[r].qd[t][None], eps[r].tau[t][None], defer_rounds=defer)
+                in_flight.add(r)
+                n_off[r] += 1
+            for res in engine_step(t):
+                cached[res.robot_id] = tokenizer.decode_action(res.tokens).reshape(
+                    chunk_len, n_joints)
+                in_flight.discard(res.robot_id)
+                telemetry.note_completion(res.robot_id)
+                wait_rounds.append(res.completed_round - res.submitted_round)
+                rkey = fold_in(fold_in(net_key, res.robot_id),
+                               len(offload_ms_by_robot[res.robot_id]))
+                ms = sample_latency_ms(channel, chunk_len, rkey)
+                offload_ms.append(ms)
+                offload_ms_by_robot[res.robot_id].append(ms)
+    else:
+        # the array-at-a-time image of the legacy loop: cancels land before
+        # submits within a tick (a cancel only touches that robot's own
+        # request), so the queues, FIFO stamps and counters are identical
+        q_all = np.stack([ep.q[:t_len] for ep in eps], axis=1)
+        qd_all = np.stack([ep.qd[:t_len] for ep in eps], axis=1)
+        tau_all = np.stack([ep.tau[:t_len] for ep in eps], axis=1)
+        in_flight_mask = np.zeros(n_robots, bool)
+        n_done = np.zeros(n_robots, np.int64)  # per-robot offload ordinal
+        for t in range(t_len):
+            c0 = clock()
+            dec = core.step(q_all[t], qd_all[t], tau_all[t])
+            core_tick_ms[t] = (clock() - c0) * 1e3
+            trig, pre = dec.offload, dec.preempt
+            telemetry.observe(dec)
+            actions[t] = cached[rows, dec.slot]
+            if trigger == "rapid":
+                cancel_ids = np.flatnonzero(trig & in_flight_mask)
+                if cancel_ids.size:
+                    hits = sched.cancel_batch(cancel_ids)
+                    telemetry.note_cancels(cancel_ids[hits])
+                    in_flight_mask[cancel_ids] = False
+                ids = np.flatnonzero(trig)
+            else:
+                # fires landing while a request is in flight are skipped
+                ids = np.flatnonzero(trig & ~in_flight_mask)
+            if ids.size:
+                defer = None
+                if defer_hot_admission is not None:
+                    defer = (pre[ids] & (telemetry.preempts[ids] / np.maximum(
+                        telemetry.fires[ids], 1) >= defer_hot_admission)).astype(np.int64)
+                sched.submit_batch(ids, qd_all[t][ids], tau_all[t][ids], defer_rounds=defer)
+                in_flight_mask[ids] = True
+                n_off[ids] += 1
+            results = engine_step(t)
+            if results:
+                # at most one outstanding request per robot: no duplicate ids
+                res_ids = np.fromiter((res.robot_id for res in results), np.int64,
+                                      count=len(results))
+                toks = np.stack([res.tokens for res in results])
+                cached[res_ids] = tokenizer.decode_action(toks).reshape(
+                    len(results), chunk_len, n_joints)
+                in_flight_mask[res_ids] = False
+                telemetry.note_completions(res_ids)
+                wait_rounds.extend(res.completed_round - res.submitted_round for res in results)
+                ms = sample_latency_ms_batch(channel, chunk_len, net_key, res_ids,
+                                             n_done[res_ids])
+                n_done[res_ids] += 1
+                offload_ms.extend(ms)
+                for i, r in enumerate(res_ids):
+                    offload_ms_by_robot[r].append(ms[i])
+
+    wall_s = clock() - t_start
+    core_s = float(core_tick_ms.sum()) / 1e3
+    pool = sched.pool_stats()
+    slo = None
+    if obs is not None:
+        obs.metrics.gauge("serve.wall_s").set(wall_s)
+        slo = build_slo_report(obs.metrics)
+    if verbose:
+        print(
+            f"fleet={n_robots} steps={t_len} trigger={trigger} "
+            f"offloads={int(n_off.sum())} "
+            f"replays={int(telemetry.replays.sum())} "
+            f"cancels={int(telemetry.cancels.sum())} "
+            f"f_off={telemetry.fleet_offload_fraction():.2f} "
+            f"mean_service_rounds={np.mean(wait_rounds) if wait_rounds else 0:.1f} "
+            f"decode_rounds={sched.decode_rounds} "
+            f"scan_windows={telemetry.scan_windows} "
+            f"host_gap_ms={telemetry.host_gap_ms():.2f} "
+            f"peak_batch={sched.peak_active} "
+            f"kv_pages={pool.pages_in_use}/{pool.pages_in_use + pool.pages_free} "
+            f"(high-water {pool.high_water}) "
+            + (f"deferred={sched.deferred} " if sched.deferred else "")
+            + f"net_ms={np.mean(offload_ms) if offload_ms else 0:.1f}"
+            f"±{np.std(offload_ms) if offload_ms else 0:.1f}"
+        )
+        if slo is not None:
+            for line in slo.lines():
+                print(line)
+    return {
+        "slo": slo.to_json() if slo is not None else None,
+        "obs": obs,
+        "offloads": n_off,
+        "steps": t_len,
+        "wall_s": wall_s,
+        "core_s": core_s,
+        "engine_s": engine_s,
+        "host_s": max(wall_s - core_s - engine_s, 0.0),
+        "core_tick_ms": core_tick_ms,
+        "engine_tick_ms": engine_tick_ms,
+        "close_ticks": close_ticks,
+        "actions": actions,
+        "service_rounds": wait_rounds,
+        "offload_ms": offload_ms,
+        "offload_ms_by_robot": offload_ms_by_robot,
+        "peak_batch": sched.peak_active,
+        "pool": pool,
+        "mixed_rounds": sched.mixed_rounds,
+        "hetero_rounds": sched.hetero_rounds,
+        "decode_rounds": sched.decode_rounds,
+        "scan_windows": telemetry.scan_windows,
+        "host_gap_ms": telemetry.host_gap_ms(),
+        "cancelled": sched.cancelled,
+        "deferred": sched.deferred,
+        "split_robots": [],
+        "robot_cuts": {},
+        "active_cuts": [],
+        "trigger": trigger,
+        "telemetry": telemetry,
+        "offload_fraction": telemetry.fleet_offload_fraction(),
+        "sched": sched,
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--arch", default="openvla-7b")
@@ -188,11 +490,48 @@ def main(argv=None):
                    help="single-robot decode through the paged KV substrate")
     p.add_argument("--device", default="cuda",
                    help="where the model and the dispatcher run (cuda or cpu)")
+    p.add_argument("--fleet", type=int, default=0,
+                   help="serve N robots through the continuous-batching scheduler")
+    p.add_argument("--trigger", default="always", choices=["always", "rapid"],
+                   help="fleet dispatch policy: always-offload or the closed-loop "
+                        "redundancy-aware RAPID trigger")
+    p.add_argument("--scan-rounds", type=int, default=1,
+                   help="decode rounds per scan window (1 = per-round stepping)")
+    p.add_argument("--defer-hot", type=float, default=None,
+                   help="cancellation-aware admission: preempt-rate threshold above "
+                        "which a preempting robot's admission is held one round")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write a Chrome-trace/Perfetto JSON of the fleet run's "
+                        "request lifecycles")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="dump the run's metrics registry as flat JSON")
+    p.add_argument("--metrics-prom", default=None, metavar="PATH",
+                   help="dump the metrics in Prometheus text exposition")
     args = p.parse_args(argv)
 
     cfg = get_smoke_config(args.arch)
     model = Model(cfg, device=args.device)
-    policy = CloudPolicy(model, EpisodeTokenizer(cfg.vocab_size), paged=args.paged)
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    if args.fleet:
+        want_obs = bool(args.trace_out or args.metrics_json or args.metrics_prom)
+        obs = Observability(trace=args.trace_out is not None) if want_obs else None
+        out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
+                          trigger=args.trigger, defer_hot_admission=args.defer_hot,
+                          scan_rounds=args.scan_rounds, obs=obs)
+        if obs is not None:
+            if args.trace_out:
+                obs.trace.write(args.trace_out)
+                print(f"trace: {obs.trace.n_events} events -> {args.trace_out}")
+            if args.metrics_json:
+                with open(args.metrics_json, "w") as f:
+                    json.dump(obs.metrics.to_json(), f, indent=1)
+                print(f"metrics: -> {args.metrics_json}")
+            if args.metrics_prom:
+                with open(args.metrics_prom, "w") as f:
+                    f.write(obs.metrics.to_prometheus())
+                print(f"metrics: -> {args.metrics_prom}")
+        return out
+    policy = CloudPolicy(model, tok, paged=args.paged)
     return serve_episode(policy, task=args.task, max_steps=args.steps, device=args.device)
 
 

@@ -3,6 +3,9 @@
 
 Episode tensors (all [T, ...]): q, qd, tau (the RAPID inputs), tau_ext
 (contact torque), critical (phase label), ref_actions [T, A], phase_id.
+``reference_chunks`` and ``edge_policy_chunks`` give the chunks a perfect
+cloud policy and the small edge policy return at each step (the offline
+engine's accounting).
 """
 
 from __future__ import annotations
@@ -119,3 +122,30 @@ def generate_episode(task: str, seed: int = 0, arm: ArmModel = ArmModel(),
         q=q, qd=qd_meas, tau=tau, tau_ext=tau_ext, critical=np.concatenate(crit_parts),
         ref_actions=ref_actions, phase_id=np.concatenate(phase_parts), task=task, dt=dt,
     )
+
+
+def reference_chunks(ep: Episode, chunk_len: int) -> np.ndarray:
+    """[T, k, A] — the chunk a *perfect* (cloud) policy returns if queried
+    at step t: the next k reference actions."""
+
+    t_len = ep.ref_actions.shape[0]
+    idx = np.minimum(np.arange(t_len)[:, None] + np.arange(chunk_len)[None, :], t_len - 1)
+    return ep.ref_actions[idx]
+
+
+def edge_policy_chunks(ep: Episode, chunk_len: int, seed: int = 0, base_noise: float = 0.02,
+                       contact_degradation: float = 6.0) -> np.ndarray:
+    """Chunks from the small resident edge policy: accurate in free space,
+    degraded during contact (it lacks the full VLA's context)."""
+
+    rng = np.random.default_rng(seed + 1)
+    chunks = reference_chunks(ep, chunk_len)
+    scale = base_noise * (1.0 + contact_degradation * ep.critical[:, None, None])
+    vel_scale = np.maximum(np.abs(chunks), 0.05)
+    return (chunks + rng.standard_normal(chunks.shape) * scale * vel_scale).astype(np.float32)
+
+
+def stale_penalty_mask(ep: Episode, executed_from: np.ndarray) -> np.ndarray:
+    """Helper for accuracy scoring — see runtime.engine."""
+
+    return ep.critical.astype(np.float32) * executed_from
