@@ -12,7 +12,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    and at harder ones, with times: the kernel, the plain version, one
    PyTorch library call of the same function where one exists (a yardstick
    the port never calls) and the least time the card could take (the
-   bound);
+   bound); the three attention kernels also at each stack of ``NEW_ARCHS``'
+   shapes (its heads, KV heads, head dim, window and softcap): prompt 14,
+   decode length 70, the scheduler's 32 ragged rows, phi-3-vision's 590
+   and gemma2-9b's 4608-token prompt and 4664-token decode;
 4. model: for each served stack, its smoke size in float32 on the card
    against the same weights on the CPU (plain versions; ``CloudPolicy``
    chunks and a scheduler run whose decode rounds are CUDA graphs), then
@@ -23,7 +26,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
    graphs against the same chunks run eagerly (tokens equal, cloud_ms of
    both); one profiled graph chunk a mode: openvla-7b (32 layers), then
    jamba-1.5-large-398b cut to its first 4 layers (mamba+MLP, mamba+MoE,
-   mamba+MLP, attn+MoE; ~46 GB); then the monitor path:
+   mamba+MLP, attn+MoE; ~46 GB); then the five dense attention stacks of
+   ``NEW_ARCHS`` at full width and depth (gemma-7b, gemma2-9b,
+   h2o-danube-3-4b, starcoder2-3b, phi-3-vision-4.2b), each with its
+   figures (cloud_ms graph and eager, busy share, launches a chunk) beside
+   its weight-read floor, its scheduler run (a) at R = 4, and, for
+   gemma2-9b, a 4608-token prompt decoded dense and paged (greedy-margin
+   rule; the kernels held to their plain versions on the arguments of one
+   local and one global layer), for phi-3-vision a prefill with 576 stub
+   patch embeddings (its flash call at S = 590 held the same way); then
+   the monitor path:
    ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
    against the port's ``run_trigger`` scores;
 5. scheduler, on the same full-width model before it is freed: the
@@ -64,7 +76,8 @@ issued back to back, so at least the host's cost of a call), ``device_ms``
 and ``host_us`` (the host clock around calls with no synchronise: the
 launcher's cost), and the library yardstick the same ways.
 
-Needs one CUDA card; takes no arguments.  ``--kernels-only`` stops after
+Each phase prints the seconds it took.  Needs one CUDA card; takes no
+arguments.  ``--kernels-only`` stops after
 phase 3 and prints no result line (a short call for kernel work).
 """
 
@@ -152,8 +165,24 @@ STATS_TOL = (5e-4, 5e-4, 5e-5)
 # where the reference path's top-two logit gap is at most this (logits are
 # O(1); 0.1 is ~13 bf16 steps there)
 MARGIN_TOL = 0.1
+# The new stacks' capped cases draw q at this scale: scores (q.k / sqrt(D),
+# k ~ N(0, 1)) then spread with a deviation of 30, and the cap of 50 moves
+# the large ones (60 becomes 41.7, 100 becomes 48.2), so the softmax leans
+# on a few keys, |out| is O(1), and a kernel that dropped the cap (or, past
+# the window, the window) misses by far more than the limits below: each
+# such case also holds the kernel against the plain version run without
+# it, which must disagree.
+CAP_Q_SCALE = 30.0
+# The new stacks' cases, and the arguments captured from the long and the
+# frontend prompt, are held besides TOL to a limit on each output row's
+# scale: 1e-4 + 2^-6 * max|row|, four bf16 steps at the row's largest
+# value (one step from the final rounding of either side, plus the flash
+# kernel's bf16 probabilities, at most 2^-9 of the weighted |v|).
+ROW_TOL = (1e-4, 0.0, 2.0**-6)
 # control ticks per served episode: the 64-tick trigger warm-up and 56 more
 STEPS = 120
+# the stacks of NEW_ARCHS: 70 ticks (the warm-up and 6 more, 9 chunks)
+NEW_STEPS = 70
 # control ticks of a fleet run: the episodes' first contact phases start at
 # tick 220-260, so 120 ticks would see only the 16 bootstrap fetches and no
 # trigger fire or cancel
@@ -171,6 +200,8 @@ REPLACES = {
     "rolling_stats": "src/repro/kernels/rolling_stats.py:104",
 }
 JAMBA = "jamba-1.5-large-398b"
+# the dense attention stacks served at full width and depth after openvla-7b
+NEW_ARCHS = ("gemma-7b", "gemma2-9b", "h2o-danube-3-4b", "starcoder2-3b", "phi-3-vision-4.2b")
 JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weights
 FLEET = 1024      # robots in the monitor's episode bank
 TASKS = ("pick_place", "drawer_open", "peg_insertion")
@@ -178,6 +209,20 @@ TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
 def log(*a):
     print(*a, flush=True)
+
+
+_PHASE = {"title": "", "t0": 0.0}
+
+
+def phase(title: str = "") -> None:
+    """Log the seconds the current phase took, then open ``title`` (if any)."""
+
+    now = time.perf_counter()
+    if _PHASE["title"]:
+        log(f"  [{_PHASE['title']}: {now - _PHASE['t0']:.1f} s]")
+    _PHASE.update(title=title, t0=now)
+    if title:
+        log(f"== {title}")
 
 
 def card_line() -> str:
@@ -281,25 +326,43 @@ def sdpa(q, k, v, **kw):
     return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
 
 
-def flash_case(rng, dtype, s, h, kv, window=0, cap=0.0, d=128, b=1, causal=True):
+def checked_case(case, plain, kw, controls):
+    """``case`` held to ROW_TOL as well, and against the plain version
+    without each of ``controls`` ("cap", "window"): what a kernel that
+    ignored it would match, and must not."""
+
+    key = {"cap": "logit_cap", "window": "window"}
+    case["row_tol"] = ROW_TOL
+    case["controls"] = [(f"{c} 0", lambda c=c: plain(**dict(kw, **{key[c]: 0}))) for c in controls]
+    return case
+
+
+def flash_case(rng, dtype, s, h, kv, window=0, cap=0.0, d=128, b=1, causal=True,
+               q_scale=1.0, checked=False, controls=()):
+    """``q_scale`` scales q; ``checked``: see ``checked_case``."""
+
     q, k, v = _t(rng, (b, s, h, d), dtype), _t(rng, (b, s, kv, d), dtype), _t(rng, (b, s, kv, d), dtype)
+    q.mul_(q_scale)
     kw = dict(causal=causal, window=window, logit_cap=cap)
     lim = (lambda i: i + 1) if causal else (lambda i: s)
     pairs = sum(min(lim(i), window) if window else lim(i) for i in range(s))
     lib = None
     if not window and not cap:
         lib = sdpa(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
-    return dict(
+    plain = lambda **a: ref.flash_attention_ref(q, k, v, **a)  # noqa: E731
+    case = dict(
         kernel=lambda: kfa.flash_attention(q, k, v, **kw),
-        plain=lambda: ref.flash_attention_ref(q, k, v, **kw),
+        plain=lambda: plain(**kw),
         library=lib,
         bytes=2 * nbytes(q) + 2 * nbytes(k),
         flops=4.0 * b * h * d * pairs,
     )
+    return checked_case(case, plain, kw, controls) if checked else case
 
 
-def decode_case(rng, dtype, s, h, kv, cache_len, window=0, cap=0.0, b=1, d=128):
-    q = _t(rng, (b, h, d), dtype)
+def decode_case(rng, dtype, s, h, kv, cache_len, window=0, cap=0.0, b=1, d=128,
+                q_scale=1.0, checked=False, controls=()):
+    q = _t(rng, (b, h, d), dtype).mul_(q_scale)
     ck, cv = _t(rng, (b, s, kv, d), dtype), _t(rng, (b, s, kv, d), dtype)
     kw = dict(cache_len=cache_len, window=window, logit_cap=cap)
     lens = (cache_len.tolist() if isinstance(cache_len, torch.Tensor) else [cache_len] * b)
@@ -308,17 +371,20 @@ def decode_case(rng, dtype, s, h, kv, cache_len, window=0, cap=0.0, b=1, d=128):
     if not window and not cap and not isinstance(cache_len, torch.Tensor):
         lib = sdpa(q[:, :, None, :], ck[:, :cache_len].transpose(1, 2),
                    cv[:, :cache_len].transpose(1, 2))
-    return dict(
+    plain = lambda **a: ref.decode_attention_ref(q, ck, cv, cache_len=cache_len, **a)  # noqa: E731
+    case = dict(
         kernel=lambda: kdec.decode_attention(q, ck, cv, **kw),
         plain=lambda: ref.decode_attention_ref(q, ck, cv, **kw),
         library=lib,
         bytes=2 * nbytes(q) + 2 * live * kv * d * ck.element_size(),
         flops=4.0 * live * h * d,
     )
+    return (checked_case(case, plain, dict(window=window, logit_cap=cap), controls)
+            if checked else case)
 
 
 def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False, d=128,
-               masked_library=False):
+               masked_library=False, q_scale=1.0, checked=False, controls=()):
     """``masked_library``: the yardstick is SDPA over each row's pages
     gathered into a dense [B, KV, MAXP * page, D] cache (outside the timed
     call) with a mask of the row's length (rows of length 0 give NaN there
@@ -328,7 +394,7 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
     maxp = max(1, -(-max(lens) // page))
     pool = b * maxp + 3
     kp, vp = _t(rng, (pool, page, kv, d), dtype), _t(rng, (pool, page, kv, d), dtype)
-    q = _t(rng, (b, h, d), dtype)
+    q = _t(rng, (b, h, d), dtype).mul_(q_scale)
     perm = np.arange(pool) if identity else rng.permutation(pool)
     table = torch.as_tensor(perm[: b * maxp].reshape(b, maxp).astype(np.int32), device="cuda")
     cl = torch.as_tensor(np.asarray(lens, np.int32), device="cuda")
@@ -344,13 +410,15 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
         mask = (torch.arange(maxp * page, device="cuda")[None, :] < cl[:, None].long())
         lib = sdpa(q[:, :, None, :], gather(kp).contiguous(), gather(vp).contiguous(),
                    attn_mask=mask[:, None, None, :])
-    return dict(
+    plain = lambda **a: ref.paged_decode_attention_ref(q, kp, vp, table, cl, **a)  # noqa: E731
+    case = dict(
         kernel=lambda: kpa.paged_decode_attention(q, kp, vp, table, cl, **kw),
-        plain=lambda: ref.paged_decode_attention_ref(q, kp, vp, table, cl, **kw),
+        plain=lambda: plain(**kw),
         library=lib,
         bytes=2 * nbytes(q) + 2 * live * kv * d * kp.element_size() + nbytes(table, cl),
         flops=4.0 * live * h * d,
     )
+    return checked_case(case, plain, kw, controls) if checked else case
 
 
 def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
@@ -440,6 +508,63 @@ def scheduler_lens(rng, rows=32, idle=8, longest=70):
 
     lens = [0] * idle + [longest] + rng.integers(1, longest + 1, rows - idle - 1).tolist()
     return [int(x) for x in rng.permutation(lens)]
+
+
+def arch_shape(arch: str):
+    """(label prefix, heads, KV heads, head dim, window, softcap) of an
+    arch's attention layers at published widths (gemma2's local layers:
+    its global ones differ only in window 0)."""
+
+    cfg = get_config(arch)
+    return (f"{arch} H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.resolved_head_dim}"
+            + (f" win {cfg.sliding_window}" if cfg.sliding_window else "")
+            + (f" cap {cfg.attn_logit_softcap:g}" if cfg.attn_logit_softcap else ""),
+            cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.sliding_window,
+            cfg.attn_logit_softcap)
+
+
+def arch_kernel_cases(rng):
+    """The three attention kernels at the new stacks' shapes (bf16, the
+    served dtype): the closed loop's prompt (flash S = 14) and decode length
+    70 (dense and paged), the scheduler round's 32 ragged rows, phi-3-vision's
+    prompt with its 576 patch tokens (S = 590), and gemma2-9b's long prompt
+    (S = 4608) and its decode at length 4664 (window 4096, softcap 50).
+    Each is held to ROW_TOL as well; capped ones draw q at CAP_Q_SCALE and
+    must disagree with the plain version run without the cap (and, at
+    gemma2's long lengths, without the window)."""
+
+    bf = torch.bfloat16
+    cases = []
+    for arch in NEW_ARCHS:
+        label, h, kv, d, win, cap = arch_shape(arch)
+        wc = dict(window=win, cap=cap, q_scale=CAP_Q_SCALE if cap else 1.0, checked=True,
+                  controls=("cap",) if cap else ())
+        if cap:
+            label += f" q x{CAP_Q_SCALE:g}"
+        cases += [
+            ("flash_attention", f"{label} S=14", bf, flash_case(rng, bf, 14, h, kv, d=d, **wc)),
+            ("decode_attention", f"{label} S=70 len=70", bf,
+             decode_case(rng, bf, 70, h, kv, 70, d=d, **wc)),
+            ("paged_attention", f"{label} B=1 len=70 page 16 identity", bf,
+             paged_case(rng, bf, [70], 16, h, kv, identity=True, d=d, **wc)),
+            ("paged_attention", f"{label} scheduler rows=32 lens 0..70 (8 idle)", bf,
+             paged_case(rng, bf, scheduler_lens(rng), 16, h, kv, d=d,
+                        masked_library=not (win or cap), **wc)),
+        ]
+        if arch == "phi-3-vision-4.2b":
+            cases.append(("flash_attention", f"{label} S=590 (576 patches + 14)", bf,
+                          flash_case(rng, bf, 590, h, kv, d=d, **wc)))
+        if arch == "gemma2-9b":  # past the window: the window is live too
+            wc["controls"] = ("cap", "window")
+            cases += [
+                ("flash_attention", f"{label} S=4608", bf,
+                 flash_case(rng, bf, 4608, h, kv, d=d, **wc)),
+                ("decode_attention", f"{label} S=4664 len=4664", bf,
+                 decode_case(rng, bf, 4664, h, kv, 4664, d=d, **wc)),
+                ("paged_attention", f"{label} B=1 len=4664 page 16 shuffled", bf,
+                 paged_case(rng, bf, [4664], 16, h, kv, d=d, **wc)),
+            ]
+    return [(name, label, dtype, case, False) for name, label, dtype, case in cases]
 
 
 def kernel_cases(rng, fleet):
@@ -548,7 +673,7 @@ def kernel_cases(rng, fleet):
         # 5 s streams at 500 Hz: longer than one super-tile of 32 x 32 ticks
         ("rolling_stats", "N=256 T=2500 random", f32,
          stats_case(*random_streams(rng, 256, 2500)), False),
-    ]
+    ] + arch_kernel_cases(rng)
 
 
 def compare(outs, wants, tols):
@@ -567,10 +692,9 @@ def compare(outs, wants, tols):
     return worst, ok
 
 
-def check_kernels(fleet):
-    rng = np.random.default_rng(0)
+def check_kernels(cases):
     main = {}
-    for name, label, dtype, case, is_main in kernel_cases(rng, fleet):
+    for name, label, dtype, case, is_main in cases:
         out = case["kernel"]()
         want = case.get("oracle", case["plain"])()
         torch.cuda.synchronize()
@@ -578,6 +702,20 @@ def check_kernels(fleet):
         tols = case.get("tols", [TOL[dtype] + (0.0,)] * len(outs))
         err, ok = compare(outs, wants, tols)
         atol, rtol, _ = tols[0]
+        checks, blind = "", []
+        if "row_tol" in case:
+            row_ok = compare(outs, wants, [case["row_tol"]])[1]
+            ok = ok and row_ok
+            checks = (f" row limit {'met' if row_ok else 'MISSED'} (|want| max "
+                      f"{max(float(w.abs().max()) for w in wants):.3g})")
+            for what, control in case["controls"]:
+                c = (control(),)
+                c_err, c_ok = compare(outs, c, tols)
+                c_ok = c_ok and compare(outs, c, [case["row_tol"]])[1]
+                checks += (f"; vs plain with {what}: err {c_err:.3g} "
+                           f"({'AGREES' if c_ok else 'disagrees'})")
+                if c_ok:
+                    blind.append(what)
         lib = case["library"]
         row = dict(
             max_abs_err=err,
@@ -600,7 +738,10 @@ def check_kernels(fleet):
             f"host_us={row['host_us']:.1f} plain_ms={row['plain_ms']:.4f} "
             f"library_ms={fmt(row['library_ms'])} library_device_ms={fmt(row['library_device_ms'], 5)} "
             f"library_host_us={fmt(row['library_host_us'], 1)} "
-            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){old}")
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){old}{checks}")
+        if blind:
+            raise AssertionError(f"{name} [{label}]: the plain version with {', '.join(blind)} "
+                                 "agrees with the kernel too: the case cannot tell them apart")
         if not ok:
             raise AssertionError(f"{name} [{label}, {dtype}] disagrees with its plain version: "
                                  f"max abs err {row['max_abs_err']:.3g}")
@@ -663,6 +804,58 @@ def check_small_model_against_cpu(arch: str):
     log(f"  {cfg.name} f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
         "dense and paged chunk tokens equal (CloudPolicy graphs on the card); scheduler "
         f"(R = 4, rows 2 -> 4, decode rounds as graphs): {len(res)} chunks and rounds equal")
+    if cfg.sliding_window:
+        ring_on_card(gpu, cpu)
+
+
+RING_STEPS = 80  # past the smoke stacks' window of 64
+
+
+def ring_on_card(gpu, cpu):
+    """``Model(windowed_cache=True)`` on the card: ``RING_STEPS`` tokens
+    stepped from an empty cache through the decode kernel over rings of the
+    window's size, one row (host-int lengths) and two rows at different
+    depths (a [B] length tensor, one row 20 tokens behind), each step's
+    logits against the full cache on the card and the ring on the CPU
+    (f32, 1e-4); exact decode launches."""
+
+    cfg = gpu.cfg
+    rings = {}
+    for name, full in (("card", gpu), ("cpu", cpu)):
+        rings[name] = Model(cfg, device=full.device, windowed_cache=True)
+        rings[name].load_state_dict(full.state_dict())
+    sizes = [c.shape[1] for c in rings["card"].init_cache(1, RING_STEPS)["k"]]
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, RING_STEPS))
+    worst = {"full cache": 0.0, "CPU ring": 0.0}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b in (1, 2):
+        caches = {"ring": rings["card"].init_cache(b, RING_STEPS),
+                  "full": gpu.init_cache(b, RING_STEPS),
+                  "cpu": rings["cpu"].init_cache(b, RING_STEPS)}
+        for t in range(RING_STEPS):
+            lens = t if b == 1 else torch.tensor([t, max(t - 20, 0)], dtype=torch.int32)
+            x = toks[:b, t:t + 1]
+            out = {}
+            for key, model in (("ring", rings["card"]), ("full", gpu), ("cpu", rings["cpu"])):
+                dev = model.device
+                c = dict(caches[key], len=lens.to(dev) if b == 2 else lens)
+                out[key], c = model.decode_step(torch.as_tensor(x, device=dev), c)
+                caches[key] = c
+            got = out["ring"].float().cpu()
+            for key, other in (("full cache", out["full"].float().cpu()), ("CPU ring", out["cpu"])):
+                worst[key] = max(worst[key], float((got - other).abs().max()))
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = 2 * 2 * RING_STEPS * gpu.n_attn  # B = 1 and 2; ring and full cache on the card
+    log(f"  {cfg.name} f32 ring cache on the card: rings of {sizes} slots, {RING_STEPS} tokens "
+        f"stepped at B = 1 and 2 (ragged); logits max err vs the full cache on the card "
+        f"{worst['full cache']:.3g}, vs the ring on the CPU {worst['CPU ring']:.3g} (limit 1e-4); "
+        f"decode launches {counts['decode_attention']} (expected {want})")
+    if counts["decode_attention"] != want:
+        raise AssertionError(f"ring decode launches {counts['decode_attention']}, expected {want}")
+    if max(worst.values()) > 1e-4:
+        raise AssertionError(f"{cfg.name} ring cache differs on the card: {worst}")
 
 
 def top2_gap_at(model, tok, qd, tau, toks, step):
@@ -678,17 +871,17 @@ def top2_gap_at(model, tok, qd, tau, toks, step):
     return float(top[0] - top[1])
 
 
-def serve_main_path(model, tok, paged: bool):
+def serve_main_path(model, tok, paged: bool, steps: int = STEPS):
     policy = RecordingPolicy(model, tok, paged=paged)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve_episode(policy, task="pick_place", max_steps=STEPS, verbose=False, device="cuda")
+    out = serve_episode(policy, task="pick_place", max_steps=steps, verbose=False, device="cuda")
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
     n_off, ms = out["offloads"], np.asarray(out["cloud_ms"])
     acts = out["actions"]
-    if not (n_off > 0 and acts.shape == (STEPS, 7) and np.isfinite(acts).all()):
+    if not (n_off > 0 and acts.shape == (steps, 7) and np.isfinite(acts).all()):
         raise AssertionError(f"bad serve output: offloads={n_off} actions {acts.shape}")
     chunk = policy.n_steps
     log(f"  {'paged' if paged else 'dense'}: offloads={n_off} cloud_ms mean={ms.mean():.2f} "
@@ -707,19 +900,20 @@ def serve_main_path(model, tok, paged: bool):
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    return policy.record, counts
+    return policy, counts
 
 
-def profile_chunk(model, tok, paged: bool):
-    """One chunk (dense or paged; a replay of ``CloudPolicy``'s CUDA graph)
-    under torch.profiler: wall ms, the device's busy share, the decode
-    attention kernels' device time and the kernels that take the device's
-    time (the ten largest)."""
+def profile_chunk(policy):
+    """One chunk of ``policy`` (dense or paged; a replay of its CUDA graph,
+    captured before) under torch.profiler: wall ms, the device's busy share
+    (returned; None where the profiler saw no kernel), the decode attention
+    kernels' device time and the kernels that take the device's time (the
+    ten largest)."""
 
     from torch.profiler import ProfilerActivity, profile
 
-    mode = "paged" if paged else "dense"
-    policy = CloudPolicy(model, tok, paged=paged)
+    model = policy.model
+    mode = "paged" if policy.paged else "dense"
     rng = np.random.default_rng(2)
     qd, tau = rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))
     policy.chunk_tokens(qd, tau)
@@ -733,7 +927,7 @@ def profile_chunk(model, tok, paged: bool):
     if not kernels:
         log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
             "measured (the profiler recorded no CUDA kernels)")
-        return
+        return None
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -746,6 +940,7 @@ def profile_chunk(model, tok, paged: bool):
         f"{sum(n for n, _ in dec)} launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"    {t:9.2f} ms {n:6d}x  {name[:110]}")
+    return busy_ms / wall_ms
 
 
 def check_greedy_margin(model, tok, dense_rec, paged_rec):
@@ -765,50 +960,78 @@ def check_greedy_margin(model, tok, dense_rec, paged_rec):
     log(f"  greedy-margin rule: {len(dense_rec)} chunks, {diverged} diverged within the margin")
 
 
-def graph_vs_eager(model, tok, n_obs=3):
-    """``CloudPolicy``'s CUDA graph against the same chunk run eagerly
-    (``Model.prefill`` + ``Model.decode_chunk``), dense and paged: tokens
-    equal, token for token; the largest difference of the chunk's final
-    logits; cloud_ms of each, in turns (eager, graph, graph, eager)."""
+def graph_vs_eager(model, tok, policies, n_obs=3, n_timed=3):
+    """``CloudPolicy``'s CUDA graph (``policies``: the dense and the paged
+    policy of the served runs, their graphs captured) against the same
+    chunk run eagerly (``Model.prefill`` + ``Model.decode_chunk``) on
+    ``n_obs`` observations: tokens equal, token for token; the largest
+    difference of the chunk's final logits; cloud_ms of each on the first
+    ``n_timed``, in turns (eager, graph, graph, eager), or with
+    ``n_timed=0`` on the checked chunks themselves (each observation eager,
+    then graph) -> {mode: (graph mean ms, eager mean ms, hand-kernel
+    launches a replay)}."""
 
     rng = np.random.default_rng(3)
     obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(n_obs)]
-    for paged in (False, True):
-        mode = "paged" if paged else "dense"
-        policy = CloudPolicy(model, tok, paged=paged)
-        policy.chunk_tokens(*obs[0])  # the first call of a shape: eager, then the capture
+    figures = {}
+    for policy in policies:
+        mode = "paged" if policy.paged else "dense"
         tokens = [torch.as_tensor(np.concatenate([tok.encode_state(qd), tok.encode_state(tau)],
                                                  axis=1), device="cuda") for qd, tau in obs]
         worst = 0.0
+        # cloud_ms as CloudPolicy.chunk_tokens takes it: tokens on the host
+        ms = {"eager": [], "graph": []}
+
+        def timed(which, t):
+            t0 = time.perf_counter()
+            out = (policy.eager_chunk if which == "eager" else policy.chunk)(t)
+            out[0].cpu()
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+            return out
+
         for t in tokens:
-            te, le = policy.eager_chunk(t)
-            tg, lg = policy.chunk(t)
+            te, le = timed("eager", t)
+            tg, lg = timed("graph", t)
             if not torch.equal(te, tg):
                 raise AssertionError(f"{mode} CloudPolicy graph tokens differ from eager")
             worst = max(worst, float((le.float() - lg.float()).abs().max()))
-        # cloud_ms as CloudPolicy.chunk_tokens takes it: tokens on the host
-        ms = {"eager": [], "graph": []}
-        for which in ("eager", "graph", "graph", "eager"):
-            run = policy.eager_chunk if which == "eager" else policy.chunk
-            for t in tokens:
-                t0 = time.perf_counter()
-                run(t)[0].cpu()
-                ms[which].append((time.perf_counter() - t0) * 1e3)
+        if n_timed:
+            ms = {"eager": [], "graph": []}
+            for which in ("eager", "graph", "graph", "eager"):
+                for t in tokens[:n_timed]:
+                    timed(which, t)
         call = policy._graphs[(1, 14)][1]
         log(f"  {mode} CloudPolicy graph vs eager ({model.cfg.name}): {n_obs} chunks' tokens "
             f"equal, final logits max abs diff {worst:.3g}; cloud_ms eager mean "
             f"{np.mean(ms['eager']):.2f} (min {min(ms['eager']):.2f}) graph mean "
             f"{np.mean(ms['graph']):.2f} (min {min(ms['graph']):.2f}) over {len(ms['graph'])} "
-            f"chunks each; capture {call.capture_s:.2f} s, {sum(call.launches.values())} "
+            f"chunks each ({'in turns' if n_timed else 'the checked ones'}); "
+            f"capture {call.capture_s:.2f} s, {sum(call.launches.values())} "
             f"hand-kernel launches a replay {call.launches}")
+        figures[mode] = (np.mean(ms["graph"]), np.mean(ms["eager"]), dict(call.launches))
+    return figures
 
 
-def serve_stack(cfg, launches, scheduler_phase):
+def weight_floor_ms(cfg, tokens: int = 56) -> float:
+    """The least time ``tokens`` decode steps take on the card: each reads
+    every bf16 weight once (the head, tied or not; of an untied embedding
+    table only a row) at the card's memory rate."""
+
+    vpad = -(-cfg.vocab_size // 256) * 256
+    params = cfg.param_count() - (0 if cfg.tie_embeddings else vpad * cfg.d_model)
+    return tokens * 2 * params / HBM_BPS * 1e3
+
+
+def serve_stack(cfg, launches, scheduler_phase, brief: bool = False):
     """Build ``cfg`` at full width on the card (weights from a seeded card
-    generator), serve it dense and paged, hold the two to the greedy-margin
-    rule, hold ``CloudPolicy``'s graphs against eager chunks, profile a graph
-    chunk, then run ``scheduler_phase(model, tok, launches)``; adds the
-    runs' launch counts to ``launches``."""
+    generator), serve it dense and paged, hold the two to the
+    greedy-margin rule, hold ``CloudPolicy``'s graphs against eager chunks
+    (cloud_ms of both in turns), profile a graph chunk of each mode, print
+    the stack's figures beside its weight-read floor, then run
+    ``scheduler_phase(model, tok, launches, paged policy)``; adds the
+    runs' launch counts to ``launches``.  ``brief`` (the stacks of
+    ``NEW_ARCHS``, within the time limit): ``NEW_STEPS`` ticks, cloud_ms
+    timed on the checked chunks (``graph_vs_eager(n_timed=0)``)."""
 
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
@@ -817,16 +1040,26 @@ def serve_stack(cfg, launches, scheduler_phase):
         f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, built in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     tok = EpisodeTokenizer(cfg.vocab_size)
-    dense_rec, c_dense = serve_main_path(model, tok, paged=False)
-    paged_rec, c_paged = serve_main_path(model, tok, paged=True)
-    check_greedy_margin(model, tok, dense_rec, paged_rec)
+    steps = NEW_STEPS if brief else STEPS
+    dense, c_dense = serve_main_path(model, tok, paged=False, steps=steps)
+    paged, c_paged = serve_main_path(model, tok, paged=True, steps=steps)
+    check_greedy_margin(model, tok, dense.record, paged.record)
     for n in launches:
         launches[n] += c_dense[n] + c_paged[n]
-    graph_vs_eager(model, tok)
-    profile_chunk(model, tok, paged=False)
-    profile_chunk(model, tok, paged=True)
-    log(f"== 5. scheduler ({cfg.name})")
-    scheduler_phase(model, tok, launches)
+    t1 = time.perf_counter()
+    figures = graph_vs_eager(model, tok, (dense, paged), n_timed=0 if brief else 3)
+    t2 = time.perf_counter()
+    busy = {"dense": profile_chunk(dense), "paged": profile_chunk(paged)}
+    log(f"  [{cfg.name}: built and served in {t1 - t0:.1f} s, graph vs eager {t2 - t1:.1f} s, "
+        f"profiles {time.perf_counter() - t2:.1f} s]")
+    floor = weight_floor_ms(cfg)
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f}"  # noqa: E731
+    for mode, (graph_ms, eager_ms, per_replay) in figures.items():
+        log(f"  figures {cfg.name} {mode}: cloud_ms graph {graph_ms:.2f} eager {eager_ms:.2f} "
+            f"against a weight-read floor of {floor:.1f} ms (graph {graph_ms / floor:.2f}x); "
+            f"busy share {fmt(busy[mode])}; hand-kernel launches a chunk {per_replay}")
+    phase(f"5. scheduler ({cfg.name})")
+    scheduler_phase(model, tok, launches, paged)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -905,14 +1138,14 @@ def check_chunks(model, tok, results, reference, obs_of):
     return diverged
 
 
-def sched_parity(model, tok, launches, rounds_list=(1, 4), n=8):
+def sched_parity(model, tok, launches, policy, rounds_list=(1, 4), n=8):
     """8 robots, ``max_slots=4`` with room for 8 (rows double to 8), 3
     submitted at once then one every 2 rounds; each chunk against
-    ``CloudPolicy(paged=True)`` by the greedy-margin rule; exact counts."""
+    ``policy`` (a ``CloudPolicy(paged=True)``) by the greedy-margin rule;
+    exact counts."""
 
     reqs = requests(np.random.default_rng(7), n)
     obs_of = {r: (qd, tau) for r, qd, tau in reqs}
-    policy = CloudPolicy(model, tok, paged=True)
     reference = {r: policy.chunk_tokens(qd, tau)[0] for r, qd, tau in reqs}
     for rounds in rounds_list:
         sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=rounds,
@@ -966,7 +1199,7 @@ def sched_load_run(model, tok, sched, reqs, per_round, launches):
     return results, time.perf_counter() - t0, cancelled, counts, sched.admit_ms[admits0:]
 
 
-def sched_load(model, tok, launches, n=64, per_round=4):
+def sched_load(model, tok, launches, policy, n=64, per_round=4):
     """64 robots, one chunk each, 4 arrivals a round; ``max_slots=8`` (rows
     double on demand), a pool of 32 requests' pages, ``scan_rounds=4``,
     ``decode_block=7``; 6 cancels.  Run cold (the graphs are captured on
@@ -1007,7 +1240,6 @@ def sched_load(model, tok, launches, n=64, per_round=4):
             f"admissions {len(admit_ms)}, host ms a boundary mean {np.mean(admit_ms):.2f} max "
             f"{max(admit_ms):.2f}; launches {counts} (exact)")
     # spot check: four robots' chunks against CloudPolicy(paged=True)
-    policy = CloudPolicy(model, tok, paged=True)
     pick = results[:: max(1, len(results) // 4)][:4]
     obs_of = {r: (qd, tau) for r, qd, tau in reqs}
     reference = {r.robot_id: policy.chunk_tokens(*obs_of[r.robot_id])[0] for r in pick}
@@ -1054,15 +1286,169 @@ def profile_window(model, tok, sched, reqs):
         log(f"    {t:9.2f} ms {k:6d}x  {name[:110]}")
 
 
-def openvla_scheduler(model, tok, launches):
-    sched_parity(model, tok, launches)
-    sched_load(model, tok, launches)
-    log(f"== 6. fleet ({model.cfg.name})")
+def openvla_scheduler(model, tok, launches, policy):
+    sched_parity(model, tok, launches, policy)
+    sched_load(model, tok, launches, policy)
+    phase(f"6. fleet ({model.cfg.name})")
     fleet_phase(model, tok, launches)
 
 
-def jamba_scheduler(model, tok, launches):
-    sched_parity(model, tok, launches, rounds_list=(4,))
+def jamba_scheduler(model, tok, launches, policy):
+    sched_parity(model, tok, launches, policy, rounds_list=(4,))
+
+
+def dense_arch_scheduler(model, tok, launches, policy):
+    """The new dense stacks: scheduler (a) at R = 4, then the long prompt of
+    the stack whose local and global layers alternate (gemma2-9b) and the
+    frontend prompt of the stack with modality tokens (phi-3-vision)."""
+
+    sched_parity(model, tok, launches, policy, rounds_list=(4,))
+    if model.cfg.local_global_alternating:
+        long_prompt(model, tok, launches)
+    if model.cfg.num_modality_tokens:
+        frontend_prompt(model, tok, launches)
+
+
+class Capture:
+    """Records the arguments of ``ops.<name>`` calls while it is entered:
+    the latest call of each layer in ``layers`` (layer = call index modulo
+    the stack's attention layers), the tensors as they were passed (the
+    caches are not written again after a chunk's last step)."""
+
+    def __init__(self, name, n_layers, layers=(0, 1)):
+        self.name, self.n_layers, self.layers = name, n_layers, layers
+        self.calls, self.seen = {}, 0
+
+    def __enter__(self):
+        self.fn = getattr(ops, self.name)
+
+        def record(*a, **kw):
+            layer = self.seen % self.n_layers
+            self.seen += 1
+            if layer in self.layers:
+                self.calls[layer] = (a, kw)
+            return self.fn(*a, **kw)
+
+        setattr(ops, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(ops, self.name, self.fn)
+
+
+KERNEL_FNS = {"flash_attention": (kfa.flash_attention, ref.flash_attention_ref),
+              "decode_attention": (kdec.decode_attention, ref.decode_attention_ref),
+              "paged_attention": (kpa.paged_decode_attention, ref.paged_decode_attention_ref)}
+
+
+def hold_captured(what, name, call):
+    """The kernel against its plain version on captured arguments, to TOL
+    and ROW_TOL.  Prints how far the plain version moves without the cap
+    and without the window: at random weights the model's scores are small
+    and these may move nothing (phase 3's capped cases show each live)."""
+
+    a, kw = call
+    kernel, plain = KERNEL_FNS[name]
+    out, want = kernel(*a, **kw), plain(*a, **kw)
+    torch.cuda.synchronize()
+    err, ok = compare((out,), (want,), [TOL[out.dtype] + (0.0,)])
+    ok = ok and compare((out,), (want,), [ROW_TOL])[1]
+    moved = "".join(
+        f"; the plain version without the {key.replace('logit_', '')} moves "
+        f"{float((plain(*a, **dict(kw, **{key: 0})).float() - want.float()).abs().max()):.3g}"
+        for key in ("logit_cap", "window") if kw.get(key))
+    shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
+    log(f"    {what}: {name} {shapes} window {kw.get('window')} cap {kw.get('logit_cap')} "
+        f"vs plain max abs err {err:.3g} (atol {TOL[out.dtype][0]:g}, and the row limit; "
+        f"|want| max {float(want.abs().max()):.3g}){moved}")
+    if not ok:
+        raise AssertionError(f"{what}: {name} disagrees with its plain version by {err:.3g}")
+
+
+LONG_PROMPT = 4608  # past gemma2-9b's 4096-token window
+
+
+def long_prompt(model, tok, launches):
+    """gemma2-9b: a 4608-token prompt prefilled, then 56 decode tokens,
+    dense and paged (eager chunks); the two held to each other by the
+    greedy-margin rule; exact launch counts; then each attention kernel
+    against its plain version on the arguments captured from one local
+    (window 4096) and one global layer of that run."""
+
+    rng = np.random.default_rng(13)
+    prompt = torch.as_tensor(rng.integers(tok.state_base, tok.action_base, (1, LONG_PROMPT)),
+                             device="cuda")
+    n = model.n_attn
+    toks, caps = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for paged in (False, True):
+        policy = CloudPolicy(model, tok, paged=paged)
+        with Capture("flash_attention", n) as fa, \
+                Capture("paged_decode_attention" if paged else "decode_attention", n) as dec:
+            toks[paged] = policy.eager_chunk(prompt)[0].cpu().numpy()[0]
+        caps[paged] = (fa, dec)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    want = {"flash_attention": 2 * n, "decode_attention": 56 * n, "paged_attention": 56 * n,
+            "mamba_scan": 0, "rolling_stats": 0}
+    if counts != want:
+        raise AssertionError(f"long prompt launch counts {counts}, expected {want}")
+    for k in launches:
+        launches[k] += counts[k]
+    if (toks[False] < tok.action_base).any() or toks[False].shape != (56,):
+        raise AssertionError(f"long prompt: bad chunk {toks[False]}")
+    diff = np.flatnonzero(toks[False] != toks[True])
+    if diff.size:
+        gap = top2_gap_tokens(model, tok, prompt[0].cpu().numpy(), toks[False], int(diff[0]))
+        if gap > MARGIN_TOL:
+            raise AssertionError(f"long prompt: paged token differs at step {diff[0]} where "
+                                 f"the dense top-two gap is {gap:.3g} > {MARGIN_TOL}")
+    log(f"  {model.cfg.name} long prompt: {LONG_PROMPT} tokens + 56 decoded, dense and paged (eager) "
+        f"in {wall:.2f} s; tokens {'equal' if not diff.size else f'differ from step {diff[0]}, within the margin'}; "
+        f"launches {counts} (exact); captured, layer 0 local (window {model.cfg.sliding_window}) "
+        "and layer 1 global:")
+    for paged in (False, True):
+        fa, dec = caps[paged]
+        for layer in (0, 1):
+            kind = "local" if layer == 0 else "global"
+            if not paged:
+                hold_captured(f"prefill layer {layer} ({kind})", "flash_attention", fa.calls[layer])
+            hold_captured(f"last decode step, layer {layer} ({kind})",
+                          "paged_attention" if paged else "decode_attention", dec.calls[layer])
+
+
+def frontend_prompt(model, tok, launches):
+    """phi-3-vision: ``Model.prefill`` of ``num_modality_tokens`` stub patch
+    embeddings and a 14-token prompt; finite logits, exact launch counts,
+    and its first layer's flash call at S = 590 against the plain version
+    on the captured arguments."""
+
+    cfg = model.cfg
+    rng = np.random.default_rng(17)
+    fe = torch.as_tensor(rng.normal(0, 0.02, (1, cfg.num_modality_tokens, cfg.d_model)),
+                         dtype=model.dtype, device="cuda")
+    prompt = torch.as_tensor(rng.integers(tok.state_base, tok.action_base, (1, 14)), device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with Capture("flash_attention", model.n_attn, layers=(0,)) as fa:
+        logits, cache = model.prefill({"tokens": prompt, "frontend": fe})
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = {"flash_attention": model.n_attn, "decode_attention": 0, "paged_attention": 0,
+            "mamba_scan": 0, "rolling_stats": 0}
+    if counts != want:
+        raise AssertionError(f"frontend prefill launch counts {counts}, expected {want}")
+    for k in launches:
+        launches[k] += counts[k]
+    s = cfg.num_modality_tokens + 14
+    if cache["len"] != s or logits.shape != (1, 1, model.embed.table.shape[0]) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"frontend prefill: len {cache['len']}, logits {tuple(logits.shape)}")
+    log(f"  {cfg.name} frontend prompt: {cfg.num_modality_tokens} patches + 14 tokens, S = {s}, "
+        f"logits finite; launches {counts} (exact)")
+    hold_captured(f"prefill layer 0 (S = {s})", "flash_attention", fa.calls[0])
 
 
 # ---------------------------------------------------------------------------
@@ -1406,7 +1792,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
 
-    log("== 1. environment")
+    phase("1. environment")
     card = card_line()
     log(f"  card: {card}")
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
@@ -1416,7 +1802,7 @@ def main(argv) -> int:
     log(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    log("== 2. build")
+    phase("2. build")
     secs = _lib.build_all(force=True)
     log(f"  built {list(_lib.KERNELS)} in {secs:.1f} s")
     for name, text in _lib.BUILD_LOG.items():
@@ -1427,24 +1813,26 @@ def main(argv) -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
 
-    log("== 3. kernels against their plain versions")
+    phase("3. kernels against their plain versions")
     fleet = fleet_streams()
-    main_rows = check_kernels(fleet)
+    main_rows = check_kernels(kernel_cases(np.random.default_rng(0), fleet))
     if kernels_only:
+        phase()
         log("== --kernels-only: phases 4-7 skipped, no result line")
         return 0
 
     launches = {n: 0 for n in _lib.KERNELS}
-    for arch, cfg, phase in (
-            ("openvla-7b", get_config("openvla-7b"), openvla_scheduler),
-            (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), jamba_scheduler)):
-        log(f"== 4. model ({arch})")
+    stacks = [("openvla-7b", get_config("openvla-7b"), openvla_scheduler, False),
+              (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), jamba_scheduler, False)]
+    stacks += [(arch, get_config(arch), dense_arch_scheduler, True) for arch in NEW_ARCHS]
+    for arch, cfg, sched_phase, brief in stacks:
+        phase(f"4. model ({arch})")
         check_small_model_against_cpu(arch)
-        serve_stack(cfg, launches, phase)
-    log("== 4. monitor")
+        serve_stack(cfg, launches, sched_phase, brief)
+    phase("4. monitor")
     monitor_path(fleet, launches)
 
-    log("== 7. result")
+    phase("7. result")
     rows = []
     for name in _lib.KERNELS:
         rows.append(dict(

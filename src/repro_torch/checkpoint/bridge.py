@@ -8,8 +8,11 @@ flattened with ``/``-joined paths, bf16 widened to float32 — the layout of
 parameters are stacked over the repeats of the reference's repeating unit
 of ``period`` layers (``models.model.unit_period``), so port layer ``i``
 reads ``unit/{i % period}/...[i // period]``: a stack of identical layers
-has period 1, jamba-smoke (mamba, attn) period 2.  Float32 parameters
-(router, ``dt_bias``, ``a_log``, ``d_skip``) stay float32.  Nothing here
+has period 1, jamba-smoke (mamba, attn) and gemma2 (local, global) period
+2.  Float32 parameters (router, ``dt_bias``, ``a_log``, ``d_skip``) stay
+float32.  The bridge walks the port's own parameters, so a key the port
+lacks is never asked for: a tied stack (gemma) has no ``lm_head/w`` and a
+plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
 """
 

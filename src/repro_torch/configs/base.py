@@ -34,11 +34,14 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """A pre-norm decoder: each layer's mixer is RoPE attention (windowed
-    when ``sliding_window`` is set) or a Mamba block, as ``block_pattern``
-    tiles them, and its FFN is a SwiGLU MLP or, on the layers ``moe``
-    selects, a top-k mixture of SwiGLU experts.  Vision and audio stacks
-    carry a stub frontend projector in front, as openvla-7b is built in the
-    reference."""
+    when ``sliding_window`` is set, on the even layers only when
+    ``local_global_alternating``) or a Mamba block, as ``block_pattern``
+    tiles them, and its FFN is an MLP (gated or plain, ``mlp_activation``)
+    or, on the layers ``moe`` selects, a top-k mixture of SwiGLU experts.
+    The head is its own matrix or the embedding table (``tie_embeddings``);
+    embeddings may be scaled by sqrt(d_model) and the logits softcapped.
+    Vision and audio stacks carry a stub frontend projector in front, as
+    openvla-7b is built in the reference."""
 
     name: str
     num_layers: int
@@ -50,13 +53,21 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // num_heads
     rope_theta: float = 10_000.0
     sliding_window: int = 0  # 0 = global attention
+    # alternating local/global (gemma2): the window applies on even layers only
+    local_global_alternating: bool = False
     attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    mlp_activation: str = "silu"  # silu (swiglu) | gelu (geglu) | gelu_plain
+    gated_mlp: bool = True
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    scale_embeddings: bool = False  # gemma style sqrt(d_model) scaling
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # per-layer mixers ("attn" | "mamba"), tiled over the layers; None -> all "attn"
     block_pattern: Optional[Tuple[str, ...]] = None
     modality: str = "text"  # text | vision | audio
+    num_modality_tokens: int = 0  # stub frontend tokens a prompt carries
     dtype: str = "bfloat16"  # activations and parameters
     # global attention layers take ``long_context_window`` beyond that length
     subquadratic_decode: bool = False
@@ -80,13 +91,15 @@ class ModelConfig:
         return (i % self.moe.every) == (self.moe.every - 1)
 
     def param_count(self) -> int:
-        """Total parameters the port's ``Model`` holds: untied embedding and
-        head (vocab padded to 256), the stub projector of vision/audio
-        stacks, and per layer its mixer, two norms and its MLP or experts."""
+        """Total parameters the port's ``Model`` holds: the embedding and,
+        unless tied to it, the head (vocab padded to 256), the stub
+        projector of vision/audio stacks, and per layer its mixer, two norms
+        and its MLP (3 d d_ff gated, 2 d d_ff plain) or experts."""
 
         d, hd = self.d_model, self.resolved_head_dim
         vpad = -(-self.vocab_size // 256) * 256
-        total = 2 * vpad * d + d + (d * d if self.modality in ("vision", "audio") else 0)
+        heads = 1 if self.tie_embeddings else 2
+        total = heads * vpad * d + d + (d * d if self.modality in ("vision", "audio") else 0)
         for i, blk in enumerate(self.blocks):
             if blk == "attn":
                 total += d * hd * (2 * self.num_heads + 2 * self.num_kv_heads)
@@ -96,7 +109,7 @@ class ModelConfig:
                 nh = max(d_in // 64, 1)  # SSD heads of models.ssm.HEAD_P channels
                 total += (3 * d * d_in + s.conv_width * d_in + d_in * nh
                           + d_in * 2 * s.state_dim + 3 * nh)
-            ffn = 3 * d * self.d_ff
+            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
             if self.is_moe_layer(i):
                 ffn = self.moe.num_experts * ffn + d * self.moe.num_experts
             total += 2 * d + ffn
@@ -106,7 +119,26 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-_MODULE_FOR = {"openvla-7b": "openvla", "jamba-1.5-large-398b": "jamba_15_large"}
+# the archs the port serves, in the reference's ARCH_IDS order
+ARCH_IDS = (
+    "gemma2-9b",
+    "gemma-7b",
+    "jamba-1.5-large-398b",
+    "phi-3-vision-4.2b",
+    "h2o-danube-3-4b",
+    "starcoder2-3b",
+    "openvla-7b",
+)
+
+_MODULE_FOR = {
+    "gemma2-9b": "gemma2_9b",
+    "gemma-7b": "gemma_7b",
+    "jamba-1.5-large-398b": "jamba_15_large",
+    "phi-3-vision-4.2b": "phi3_vision",
+    "h2o-danube-3-4b": "h2o_danube3",
+    "starcoder2-3b": "starcoder2_3b",
+    "openvla-7b": "openvla",
+}
 
 
 def _module(arch_id: str):

@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     head_dim=128,
     rope_theta=10_000.0,
     modality="vision",
+    num_modality_tokens=256,
 )
 
 
@@ -32,4 +33,5 @@ def smoke_config() -> ModelConfig:
         head_dim=64,
         d_ff=512,
         vocab_size=1024,
+        num_modality_tokens=16,
     )

@@ -30,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.dispatcher import DispatcherConfig, dispatcher_init, dispatcher_step
 from repro_torch.core.kinematics import KinematicFrame
 from repro_torch.core.trigger import TriggerConfig
@@ -46,7 +46,7 @@ from repro_torch.runtime.channel import (
     sample_latency_ms,
     sample_latency_ms_batch,
 )
-from repro_torch.runtime.graphs import GraphedCall
+from repro_torch.runtime.graphs import GraphedCall, owner_call
 from repro_torch.runtime.kv_cache import PagedSpec
 from repro_torch.runtime.policy import DecisionCore, FleetTelemetry, fleet_policy_config
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
@@ -131,7 +131,7 @@ class CloudPolicy:
         if entry is None:
             plan = self._page_plan(b, prompt) if self.paged else None
             static = tokens.clone()
-            entry = (static, GraphedCall(lambda: self._chunk(static, plan)))
+            entry = (static, GraphedCall(owner_call(self, "_chunk", static, plan)))
             self._graphs[(b, prompt)] = entry
         static, call = entry
         static.copy_(tokens)
@@ -481,9 +481,10 @@ def serve_fleet(
     }
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--arch", default="openvla-7b")
+    p.add_argument("--arch", default="openvla-7b", choices=ARCH_IDS,
+                   help="the arch whose smoke-size stack serves")
     p.add_argument("--task", default="pick_place")
     p.add_argument("--steps", type=int, default=300)
     p.add_argument("--paged", action="store_true",
@@ -507,7 +508,11 @@ def main(argv=None):
                    help="dump the run's metrics registry as flat JSON")
     p.add_argument("--metrics-prom", default=None, metavar="PATH",
                    help="dump the metrics in Prometheus text exposition")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     cfg = get_smoke_config(args.arch)
     model = Model(cfg, device=args.device)

@@ -78,7 +78,8 @@ def attention_forward(x, p: Attention, cfg: ModelConfig, positions, window: int)
 
 
 def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
-                          cache_len: Union[int, torch.Tensor], window: int):
+                          cache_len: Union[int, torch.Tensor], window: int,
+                          ring: bool = False):
     """One-token decode over dense slabs.  x [B,1,D]; cache_k/v [B,S,KV,Dh].
 
     ``cache_len`` is an int (the whole batch at one depth: the single-robot
@@ -86,6 +87,11 @@ def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
     row's token lands at ``min(len, S-1)``).  The new K/V are written into
     the caches in place; the row attends positions ``<= len`` (the
     reference's ``k_pos <= pos`` mask, as a length of ``len + 1``).
+
+    ``ring``: the cache is a ring of S slots (the layer's window); the token
+    lands at ``len % S`` and the row attends its ``min(len + 1, S)``
+    resident slots with no window mask (repro/models/attention.py:404-470).
+    Keys are stored RoPE'd, so the slots' order does not matter.
     Returns out [B, 1, D].
     """
 
@@ -95,19 +101,20 @@ def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
         pos_b = cache_len.to(torch.int32)
         q, k, v = _qkv(x, p, cfg, pos_b[:, None])
         rows = torch.arange(b, device=x.device)
-        slot = torch.clamp(pos_b, max=s_cache - 1).long()
+        slot = (pos_b % s_cache if ring else torch.clamp(pos_b, max=s_cache - 1)).long()
         cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
-        lens = pos_b + 1
+        lens = torch.clamp(pos_b + 1, max=s_cache) if ring else pos_b + 1
     else:
         pos = int(cache_len)
         q, k, v = _qkv(x, p, cfg, torch.full((b, 1), pos, device=x.device))
-        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-        lens = pos + 1
+        slot = pos % s_cache if ring else pos
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        lens = min(pos + 1, s_cache) if ring else pos + 1
     out = ops.decode_attention(
         q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype), cache_len=lens,
-        window=window, logit_cap=cfg.attn_logit_softcap,
+        window=0 if ring else window, logit_cap=cfg.attn_logit_softcap,
     )
     return dense(out.reshape(b, 1, -1), p.wo)
 

@@ -57,16 +57,18 @@ class Embedding(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+    """Gated, ``down(act(gate(x)) * up(x))`` (SwiGLU, GeGLU), or plain,
+    ``down(act(up(x)))``, which has no ``gate`` (as ``init_mlp``)."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype, device):
+    def __init__(self, d_model: int, d_ff: int, dtype, device, gated: bool = True):
         super().__init__()
         self.up = Dense(d_model, d_ff, dtype, device)
-        self.gate = Dense(d_model, d_ff, dtype, device)
+        if gated:
+            self.gate = Dense(d_model, d_ff, dtype, device)
         self.down = Dense(d_ff, d_model, dtype, device)
 
     def init(self, generator: torch.Generator) -> None:
-        for m in (self.up, self.gate, self.down):
+        for m in self.children():
             m.init(generator)
 
 
@@ -89,11 +91,41 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def mlp(x: torch.Tensor, m: MLP) -> torch.Tensor:
-    return dense(F.silu(dense(x, m.gate.w)) * dense(x, m.up.w), m.down.w)
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap else x
 
 
-def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    # parity: the reference casts the table to bf16 even in f32 stacks
-    # (repro/models/layers.py:133); casting the gathered rows is the same
-    return table[tokens].to(torch.bfloat16)
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # parity: jax.nn.gelu(approximate=True), the tanh form, for both "gelu"
+    # and "gelu_plain" (repro/models/layers.py:104-108)
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": _gelu, "gelu_plain": _gelu}
+
+
+def mlp(x: torch.Tensor, m: MLP, activation: str = "silu") -> torch.Tensor:
+    act = ACTIVATIONS[activation]
+    h = dense(x, m.up.w)
+    h = act(dense(x, m.gate.w)) * h if hasattr(m, "gate") else act(h)
+    return dense(h, m.down.w)
+
+
+def embed_scale(d_model: int) -> float:
+    """sqrt(d_model) rounded to bf16, the factor the reference applies:
+    ``jnp.asarray(d_model**0.5, bf16)`` (59.866 -> 59.75 at 3584, 55.426 ->
+    55.5 at 3072)."""
+
+    return float(torch.tensor(d_model**0.5, dtype=torch.bfloat16))
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0) -> torch.Tensor:
+    """Rows of ``table`` in bf16, times ``scale`` in bf16 when it is set.
+
+    Parity: the reference casts the table to bf16 even in f32 stacks and
+    scales in bf16 (repro/models/layers.py:132-136); casting the gathered
+    rows is the same, and a bf16 product of two bf16 values is the exact
+    product rounded once, as a float32 product rounded to bf16 is."""
+
+    x = table[tokens].to(torch.bfloat16)
+    return x * scale if scale else x

@@ -1,6 +1,8 @@
 """The port's model (counterpart of ``repro/models/model.py``) for stacks
-whose layers mix with attention or Mamba and whose FFN is a SwiGLU MLP or a
-mixture of experts: openvla-7b (all attention + MLP) and the Jamba hybrid.
+whose layers mix with attention or Mamba and whose FFN is an MLP (gated or
+plain) or a mixture of experts: the dense attention stacks (openvla-7b,
+gemma, gemma2 with local and global layers alternating, h2o-danube3,
+starcoder2, phi-3-vision) and the Jamba hybrid.
 
 Where the reference stacks parameters over repeats of a repeating unit and
 scans, the port keeps an ``nn.ModuleList`` of per-layer blocks and loops;
@@ -13,6 +15,8 @@ updated in place:
 
   dense  {"k", "v": [La, B, S, KV, Dh], "len": int or [B] int32,
           "h": [Lm, B, H, P, N] f32, "conv": [Lm, B, K-1, d_in]}
+         (``windowed_cache``: "k", "v" are lists of per-layer [B, S_l, KV,
+         Dh] rings, S_l = min(S, the layer's window))
   paged  {"kp", "vp": [La, P+1, page, KV, Dh] (last page is trash),
           "len": [B] int32, "pt": [B, MAXP] int32, "cap": [B] int32,
           "h", "conv" as in the dense cache}
@@ -41,16 +45,20 @@ from repro_torch.models.layers import (
     Norm,
     dense,
     embed_lookup,
+    embed_scale,
     mlp,
     rms_norm,
+    softcap,
 )
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
 
 def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
-    """Per-layer (block type, is_moe, is_local_window)."""
+    """Per-layer (block type, is_moe, is_local_window): with
+    ``local_global_alternating`` the even layers are local (gemma2)."""
 
-    return [(blk, cfg.is_moe_layer(i), bool(cfg.sliding_window))
+    return [(blk, cfg.is_moe_layer(i),
+             bool(cfg.sliding_window) and (i % 2 == 0 or not cfg.local_global_alternating))
             for i, blk in enumerate(cfg.blocks)]
 
 
@@ -80,7 +88,7 @@ class Block(nn.Module):
         if is_moe:
             self.moe = moe_lib.MoE(cfg, dtype, device)
         else:
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.gated_mlp)
 
     def init(self, generator: torch.Generator) -> None:
         for m in self.children():
@@ -89,14 +97,20 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, windowed_cache: bool = False):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
-        (default: a generator on ``device`` seeded with 0)."""
+        (default: a generator on ``device`` seeded with 0).
+
+        ``windowed_cache``: dense decode caches are rings sized to each
+        attention layer's window (the reference's ``Model(windowed_cache=
+        True)``); a ring's writes wrap and its decode masks no window.  The
+        paged caches are unchanged."""
 
         super().__init__()
         if cfg.d_ff <= 0:
             raise ValueError("the port's Model serves stacks with an MLP or MoE FFN")
         self.cfg = cfg
+        self.windowed_cache = windowed_cache
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.specs = layer_specs(cfg)
@@ -112,15 +126,17 @@ class Model(nn.Module):
             self.mod_proj = Dense(cfg.d_model, cfg.d_model, dt, dev)
         self.layers = nn.ModuleList(Block(cfg, spec, dt, dev) for spec in self.specs)
         self.final_norm = Norm(cfg.d_model, dt, dev)
-        vpad = self.embed.table.shape[0]
-        self.lm_head = Dense(cfg.d_model, vpad, dt, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.d_model, self.embed.table.shape[0], dt, dev)
+        self.embed_scale = embed_scale(cfg.d_model) if cfg.scale_embeddings else 0.0
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
 
     def init(self, generator: torch.Generator) -> None:
         front = [self.mod_proj] if hasattr(self, "mod_proj") else []
-        for m in (self.embed, *front, *self.layers, self.final_norm, self.lm_head):
+        head = [self.lm_head] if hasattr(self, "lm_head") else []
+        for m in (self.embed, *front, *self.layers, self.final_norm, *head):
             m.init(generator)
 
     def _window_for(self, spec, seq_len: int) -> int:
@@ -138,10 +154,10 @@ class Model(nn.Module):
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
         if blk.spec[1]:
             return x + moe_lib.moe_forward(h, blk.moe, self.cfg)[0]
-        return x + mlp(h, blk.mlp)
+        return x + mlp(h, blk.mlp, self.cfg.mlp_activation)
 
     def _embed_inputs(self, batch):
-        x = embed_lookup(batch["tokens"], self.embed.table).to(self.dtype)
+        x = embed_lookup(batch["tokens"], self.embed.table, self.embed_scale).to(self.dtype)
         if "frontend" in batch:
             fe = dense(batch["frontend"].to(self.dtype), self.mod_proj.w)
             x = torch.cat([fe, x], dim=1)
@@ -149,10 +165,15 @@ class Model(nn.Module):
 
     def _logits(self, x):
         cfg = self.cfg
-        logits = dense(x, self.lm_head.w)
+        if cfg.tie_embeddings:  # x . table^T (layers.py:139-150)
+            logits = x @ self.embed.table.to(x.dtype).T
+        else:
+            logits = dense(x, self.lm_head.w)
+        # parity: the softcap, then ids >= vocab in the padded head get -1e9
+        # (model.py:500-511)
+        logits = softcap(logits, cfg.final_logit_softcap)
         vpad = logits.shape[-1]
         if vpad != cfg.vocab_size:
-            # parity: ids >= vocab in the padded head get -1e9 (model.py:500-511)
             pad = torch.arange(vpad, device=logits.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e9)
         return logits
@@ -172,6 +193,8 @@ class Model(nn.Module):
         x = self._embed_inputs(batch)
         b, s = x.shape[:2]
         cache = self.init_cache(b, s + extra)
+        if self.windowed_cache and any(s > ring.shape[1] for ring in cache["k"]):
+            raise ValueError(f"a {s}-token prompt is longer than a ring cache")
         positions = torch.arange(s, device=x.device)[None, :]
         for blk, j in zip(self.layers, self.slot):
             h = rms_norm(x, blk.norm1.scale, self.cfg.norm_eps)
@@ -179,8 +202,8 @@ class Model(nn.Module):
                 out, k, v = attn.attention_forward(
                     h, blk.attn, self.cfg, positions, self._window_for(blk.spec, s)
                 )
-                cache["k"][j, :, :s] = k
-                cache["v"][j, :, :s] = v
+                cache["k"][j][:, :s] = k
+                cache["v"][j][:, :s] = v
             else:
                 out, state = ssm_lib.mamba_forward(h, blk.mamba, self.cfg)
                 cache["h"][j] = state["h"]
@@ -200,7 +223,7 @@ class Model(nn.Module):
         """
 
         cfg = self.cfg
-        x = embed_lookup(token, self.embed.table).to(self.dtype)
+        x = embed_lookup(token, self.embed.table, self.embed_scale).to(self.dtype)
         paged = "pt" in cache
         for blk, j in zip(self.layers, self.slot):
             h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
@@ -216,9 +239,10 @@ class Model(nn.Module):
                     cache["len"], cache["cap"], self._window_for(blk.spec, capacity),
                 )
             else:
+                ck, cv = cache["k"][j], cache["v"][j]
                 out = attn.attention_decode_step(
-                    h, blk.attn, cfg, cache["k"][j], cache["v"][j], cache["len"],
-                    self._window_for(blk.spec, cache["k"].shape[2]),
+                    h, blk.attn, cfg, ck, cv, cache["len"],
+                    self._window_for(blk.spec, ck.shape[1]), ring=self.windowed_cache,
                 )
             x = self._ffn(blk, x + out)
         x = rms_norm(x, self.final_norm.scale, cfg.norm_eps)
@@ -263,12 +287,20 @@ class Model(nn.Module):
         return {k: v.expand((self.n_mamba,) + v.shape).clone() for k, v in one.items()}
 
     def init_cache(self, batch: int, seq: int):
-        """Dense decode cache of ``seq`` slots per row."""
+        """Dense decode cache of ``seq`` slots per row (``windowed_cache``:
+        ``min(seq, window)`` slots for each attention layer with a window,
+        as model.py:844-845)."""
 
-        shape = (self.n_attn, batch, seq) + self._kv_shape()
         z = dict(dtype=self.dtype, device=self.device)
-        return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z), "len": 0,
-                **self._mamba_state(batch)}
+        if self.windowed_cache:
+            sizes = [min(seq, self._window_for(spec, seq) or seq)
+                     for spec in self.specs if spec[0] == "attn"]
+            k, v = ([torch.zeros((batch, n) + self._kv_shape(), **z) for n in sizes]
+                    for _ in range(2))
+        else:
+            shape = (self.n_attn, batch, seq) + self._kv_shape()
+            k, v = torch.zeros(shape, **z), torch.zeros(shape, **z)
+        return {"k": k, "v": v, "len": 0, **self._mamba_state(batch)}
 
     def init_paged_cache(self, batch: int, spec: PagedSpec):
         """Page pools of ``spec.num_pages + 1`` pages per layer (the extra page

@@ -8,6 +8,8 @@ Python.  ``GraphedCall`` wraps a function of the caller's static buffers.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch.kernels import _lib
@@ -60,3 +62,16 @@ class GraphedCall:
         self.launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
         _lib.LAUNCHES.update(before)
         self.graph = graph
+
+
+def owner_call(owner, name: str, *args):
+    """``getattr(owner, name)(*args)`` through a weak reference to ``owner``:
+    the function an owner (a policy, a scheduler) gives the
+    ``GraphedCall``s it keeps.  A closure over the owner itself would make a
+    cycle (owner -> graphs -> function -> owner), and a dropped owner would
+    then free its graphs only when the cyclic collector ran, perhaps in the
+    middle of another capture, which a graph freed there invalidates.
+    Without the cycle the graphs go with the owner's last reference."""
+
+    ref = weakref.ref(owner)
+    return lambda: getattr(ref(), name)(*args)

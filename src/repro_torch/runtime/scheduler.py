@@ -57,7 +57,7 @@ import torch
 from repro_torch.data.pipeline import EpisodeTokenizer
 from repro_torch.models.model import Model
 from repro_torch.obs.clock import clock
-from repro_torch.runtime.graphs import GraphedCall
+from repro_torch.runtime.graphs import GraphedCall, owner_call
 from repro_torch.runtime.kv_cache import PageAllocator, PagedSpec
 
 DEFAULT_PAGE_SIZE = 16
@@ -206,7 +206,7 @@ class ContinuousBatchingScheduler:
         # live batch state: logits rows + the paged cache (shared pools,
         # per-row page table / length / capacity; zeros mean inactive)
         self.rows = max_slots
-        vdim = model.lm_head.w.shape[-1]
+        vdim = model.embed.table.shape[0]  # the padded vocab, head tied or not
         self._logits = torch.zeros((self.rows, vdim), dtype=model.dtype, device=model.device)
         self._pcache = model.init_paged_cache(self.rows, self.paged_spec)
 
@@ -458,7 +458,7 @@ class ContinuousBatchingScheduler:
             return self._round(block)
         call = self._graphs.get((block, self.rows))
         if call is None:
-            call = self._graphs[(block, self.rows)] = GraphedCall(lambda: self._round(block))
+            call = self._graphs[(block, self.rows)] = GraphedCall(owner_call(self, "_round", block))
         first = call.graph is None
         toks = call()
         if first:

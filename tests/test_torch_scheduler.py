@@ -22,6 +22,8 @@ admission and decode functions across instances (they close over the same
 model and token floor), which keeps the file within its time budget.
 """
 
+import gc
+import weakref
 from types import SimpleNamespace
 
 import numpy as np
@@ -558,3 +560,38 @@ def test_graphed_call_counts_launches_at_replay(monkeypatch):
         assert call() == "out"
     assert _lib.LAUNCHES["paged_attention"] == 8 and _lib.LAUNCHES["flash_attention"] == 4
     assert len(calls) == 5 and call.replays == 3 and call.capture_s >= 0.0
+
+
+@pytest.mark.parametrize("owner", ["policy", "scheduler"])
+def test_dropped_owner_frees_its_graphs_by_refcount(st, monkeypatch, owner):
+    """A policy or scheduler that has captured a graph and is then dropped
+    frees it at once, by reference count, with the cyclic collector off: a
+    graph freed by the collector in the middle of a later capture would
+    invalidate that capture on the card.  The model is seen through a
+    stand-in whose device reads "cuda", so the graph path runs on the
+    CPU with the fake graph."""
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    model = SimpleNamespace(device=torch.device("cuda"), prefill=st.tmodel.prefill,
+                            decode_chunk=st.tmodel.decode_chunk)
+    if owner == "policy":
+        obj = CloudPolicy(st.tmodel, st.tok, paged=False)
+        obj.model = model
+        obs = torch.as_tensor(_obs_tokens(st.tok, *_obs(np.random.default_rng(0)))[None])
+        obj.chunk(obs)
+    else:
+        obj = ContinuousBatchingScheduler(st.tmodel, st.tok, max_slots=2, num_pages=2 * PAGES)
+        obj.model = model
+        obj._decode_round(4)
+    calls = [c[1] if owner == "policy" else c for c in obj._graphs.values()]
+    assert len(calls) == 1 and calls[0].graph is not None
+    graph, alive = weakref.ref(calls[0]), weakref.ref(obj)
+    del obj, calls
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        assert alive() is None and graph() is None
+    finally:
+        if enabled:
+            gc.enable()
