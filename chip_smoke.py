@@ -68,7 +68,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
    after a drain; (d) the offline engine's six strategies, the decision
    core on the card against the CPU.  Fleet runs last 300 ticks: the
    episodes' first contact phases start at tick 220-260;
-7. the result: a ``{"kernels": [...]}`` line and, last, the device line.
+7. partition, the edge-cloud split (``repro_torch.partition``), run after
+   openvla-7b's phase 6 on the same model and after Jamba's phase 5: (a)
+   f32 smoke twins, card vs CPU on the same weights: ``PartitionedPolicy``
+   at every cut of openvla-smoke and jamba-smoke's cut 2 with the experts
+   of layer 1 cloud-side against its plain cut-2 lane (chunks equal to
+   ``CloudPolicy``'s or inside the f32 margin), and ``serve_fleet(trigger=
+   "rapid")`` with 8 robots at cuts {0, 1, 2}, R = 4 (decisions, counters,
+   rounds, ``mixed_rounds``, ``hetero_rounds`` equal); (b) openvla-7b at
+   full width: ``PartitionedPolicy`` at cuts 0, 16 and 32 (graph equal to
+   eager, greedy-margin rule against ``CloudPolicy``, cloud_ms beside
+   ``CloudPolicy``'s and the modeled channel ms), a heterogeneous fleet of
+   16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 8, 16), R = 4,
+   ``max_slots=8``, pipelined, cold and warm, with ``Observability``
+   (tokens/s, latency, fused windows, per-leg channel bytes, graph
+   captures, pages back after a drain), and 4 robots through serial and
+   pipelined lanes (tokens equal or inside the margin); (c) Jamba: an
+   expert-offload lane and a plain cut-2 lane with cloud-only robots in
+   one scheduler, chunks held to ``CloudPolicy(paged=True)``.  Every run's
+   launch counts are derived from what it dispatched (``SplitLedger``) and
+   checked exactly;
+8. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
 issued back to back, so at least the host's cost of a call), ``device_ms``
@@ -88,6 +108,7 @@ import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -112,6 +133,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
+from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
 from repro_torch.runtime.engine import (  # noqa: E402
     STRATEGIES,
@@ -903,6 +925,17 @@ def serve_main_path(model, tok, paged: bool, steps: int = STEPS):
     return policy, counts
 
 
+def device_events(prof):
+    """(name, ms) of each device activity (kernels, copies) ``prof``
+    recorded, read from the profiler's raw kineto events: building its
+    Python event list (``prof.events()``) takes ~15 s for a graph chunk's
+    100k-210k kernels."""
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def profile_chunk(policy):
     """One chunk of ``policy`` (dense or paged; a replay of its CUDA graph,
     captured before) under torch.profiler: wall ms, the device's busy share
@@ -923,16 +956,16 @@ def profile_chunk(policy):
         policy.chunk_tokens(qd, tau)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
             "measured (the profiler recorded no CUDA kernels)")
         return None
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy_ms = sum(t for _, t in kernels)
     by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    for name, ms in kernels:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + ms)
     log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device "
         f"kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
     dec = [(n, t) for name, (n, t) in by_name.items() if "decode" in name]
@@ -1249,16 +1282,18 @@ def sched_load(model, tok, launches, policy, n=64, per_round=4):
     profile_window(model, tok, sched, reqs[:32])
 
 
-def profile_window(model, tok, sched, reqs):
-    """One scan window under torch.profiler: 32 requests admitted at once
-    (the eager admission prefill), then the window's 4 graph replays and its
-    harvest: wall ms, device busy share, time by kernel."""
+def profile_window(model, tok, sched, reqs, route=None):
+    """One scan window under torch.profiler: the requests admitted at once
+    (the eager admission prefill; ``route``: {robot: lane key} of the split
+    ones), then the window's graph replays and its harvest: wall ms, device
+    busy share, time by kernel."""
 
     from torch.profiler import ProfilerActivity, profile
 
+    route = route or {}
     sched.reset()
     for r, qd, tau in reqs:
-        sched.submit(r, qd, tau)
+        sched.submit(r, qd, tau, partitioned=r in route, cut=route.get(r))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1268,16 +1303,16 @@ def profile_window(model, tok, sched, reqs):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sched.drain()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         log(f"  profiled window: wall {wall_ms:.1f} ms; device time not measured (the profiler "
             "recorded no CUDA kernels)")
         return
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy_ms = sum(t for _, t in kernels)
     by_name = {}
-    for e in kernels:
-        k, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (k + 1, t + e.time_range.elapsed_us() / 1e3)
+    for name, ms in kernels:
+        k, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (k + 1, t + ms)
     log(f"  profiled window ({len(reqs)} admitted, R = {sched.scan_rounds}, rows {sched.rows}): "
         f"wall {wall_ms:.1f} ms (profiler on; admission {sched.admit_ms[-1]:.1f} ms of host), "
         f"device kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share "
@@ -1291,10 +1326,14 @@ def openvla_scheduler(model, tok, launches, policy):
     sched_load(model, tok, launches, policy)
     phase(f"6. fleet ({model.cfg.name})")
     fleet_phase(model, tok, launches)
+    phase(f"7. partition ({model.cfg.name})")
+    partition_phase(model, tok, launches)
 
 
 def jamba_scheduler(model, tok, launches, policy):
     sched_parity(model, tok, launches, policy, rounds_list=(4,))
+    phase(f"7. partition ({model.cfg.name})")
+    split_jamba(model, tok, launches, policy)
 
 
 def dense_arch_scheduler(model, tok, launches, policy):
@@ -1458,14 +1497,17 @@ def frontend_prompt(model, tok, launches):
 
 class RecordingScheduler(ContinuousBatchingScheduler):
     """A scheduler that keeps each harvested chunk's robot, prompt tokens and
-    action tokens, in harvest order."""
+    action tokens, in harvest order (split lanes' chunks included)."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.record = []
 
     def _close_window(self):
-        prompt = {q.robot_id: q.request.obs for q in self._window.seqs if not q.dead}
+        w = self._window
+        prompt = {q.robot_id: q.request.obs
+                  for q in w.seqs + [q for seqs in w.lane_seqs.values() for q in seqs]
+                  if not q.dead}
         done = super()._close_window()
         self.record += [(r.robot_id, prompt[r.robot_id], r.tokens) for r in done]
         return done
@@ -1752,6 +1794,429 @@ def fleet_phase(model, tok, launches):
     engine_card_vs_cpu()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: partitioned lanes (the edge-cloud split)
+# ---------------------------------------------------------------------------
+
+SPLIT_CUTS = (0, 16, 32)             # PartitionedPolicy cuts of openvla-7b (32: empty suffix)
+HETERO = {0: 4, 8: 8, 16: 12}        # lane cut -> its first robot (4 each; 0-3 cloud-only)
+SERIAL_ROBOTS = 4
+
+
+def n_kind(model, layers, kind="attn"):
+    return sum(model.specs[i][0] == kind for i in layers)
+
+
+class SplitLedger:
+    """The hand-kernel launches a split serving run must make, counted
+    from what the scheduler and its lanes' executors dispatch (their
+    methods wrapped; a weak reference back, so no cycle keeps the
+    scheduler's graphs alive):
+
+      * a robot's edge prefill: one flash (Mamba scan) per edge attention
+        (Mamba) layer; a lane's suffix prefill: the same over its suffix;
+      * a serial token: one dense decode per edge attention layer per
+        robot, one paged decode per suffix attention layer for the lane;
+      * a fused window of ``n`` tokens over lanes with cuts ``c_i``: ``n``
+        dense decodes per edge attention layer of each lane, ``n`` paged
+        decodes per attention layer from ``min(c_i)`` on (the tail runs
+        once over the joined rows);
+      * a cloud window and a cloud admission: as ``sched_launches``."""
+
+    def __init__(self, sched):
+        self.want = {n: 0 for n in _lib.KERNELS}
+        self.sched_ref = weakref.ref(sched)
+        self.wrapped = {}  # id -> weak reference of each executor wrapped
+        model, cls = sched.model, type(sched)
+        ledger = weakref.ref(self)
+
+        def counted_window(block, rounds):
+            ledger().add("paged_attention", model.n_attn * block * rounds)
+            return cls._decode_window(ledger().sched_ref(), block, rounds)
+
+        def counted_fused(lanes, n_steps):
+            first = min(l.cut for l in lanes)
+            ledger().add("decode_attention",
+                         n_steps * sum(n_kind(model, range(l.cut)) for l in lanes))
+            ledger().add("paged_attention",
+                         n_steps * n_kind(model, range(first, model.cfg.num_layers)))
+            return cls._split_fused_step(ledger().sched_ref(), lanes, n_steps)
+
+        def counted_admit():
+            s = ledger().sched_ref()
+            n0 = len(s.admit_ms)
+            cls._try_admit(s)
+            ledger().add("flash_attention", model.n_attn * (len(s.admit_ms) - n0))
+            ledger().add("mamba_scan", model.n_mamba * (len(s.admit_ms) - n0))
+
+        sched._decode_window, sched._split_fused_step = counted_window, counted_fused
+        sched._try_admit = counted_admit
+        self.wrap_lanes()
+
+    def add(self, name, n):
+        self.want[name] += n
+
+    def wrap_lanes(self):
+        """Count the lanes' executor calls (attach every lane first)."""
+
+        ledger = weakref.ref(self)
+        for lane in self.sched_ref()._lanes.values():
+            ex = lane.ex
+            if id(ex) in self.wrapped:
+                continue
+            self.wrapped[id(ex)] = weakref.ref(ex)
+            exr, cls = weakref.ref(ex), type(ex)  # bound per lane by the defaults
+            edge = n_kind(ex.model, ex.edge_layers), n_kind(ex.model, ex.edge_layers, "mamba")
+            cloud = n_kind(ex.model, ex.cloud_layers), n_kind(ex.model, ex.cloud_layers, "mamba")
+
+            def prefill(*a, _n=edge, _x=exr):
+                ledger().add("flash_attention", _n[0])
+                ledger().add("mamba_scan", _n[1])
+                return cls.edge_prefill(_x(), *a)
+
+            def suffix_prefill(*a, _n=cloud, _x=exr):
+                ledger().add("flash_attention", _n[0])
+                ledger().add("mamba_scan", _n[1])
+                return cls.suffix_prefill(_x(), *a)
+
+            def edge_step(*a, _n=edge, _x=exr):
+                ledger().add("decode_attention", _n[0])
+                return cls.edge_step(_x(), *a)
+
+            def suffix_step(*a, _n=cloud, _x=exr):
+                ledger().add("paged_attention", _n[0])
+                return cls.suffix_step(_x(), *a)
+
+            ex.edge_prefill, ex.suffix_prefill = prefill, suffix_prefill
+            ex.edge_step, ex.suffix_step = edge_step, suffix_step
+
+    def release(self):
+        """Take the counting wrappers off the scheduler and its executors."""
+
+        for obj in [self.sched_ref()] + [r() for r in self.wrapped.values()]:
+            if obj is not None:
+                for name in ("_decode_window", "_split_fused_step", "_try_admit", "edge_prefill",
+                             "suffix_prefill", "edge_step", "suffix_step"):
+                    obj.__dict__.pop(name, None)
+
+    def check(self, what, launches):
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        if counts != self.want:
+            raise AssertionError(f"{what}: launch counts {counts}, expected {self.want}")
+        for n in launches:
+            launches[n] += counts[n]
+        return counts
+
+
+def split_policy_card_vs_cpu():
+    """(a) f32 smoke twins, the same weights on the card (kernels, the
+    policy's CUDA graph) and on the CPU: ``PartitionedPolicy`` at every cut
+    of openvla-smoke, and jamba-smoke's cut 2 with the experts of layer 1
+    cloud-side against its plain cut-2 lane; each chunk equal to the CPU's
+    and to ``CloudPolicy``'s, or different only inside the f32 margin."""
+
+    rng = np.random.default_rng(21)
+    obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(3)]
+    for arch, lanes in (("openvla-7b", None), (JAMBA, [(2, ()), (2, (1,))])):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        cpu = Model(cfg, device="cpu")
+        gpu = Model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        tok = EpisodeTokenizer(cfg.vocab_size)
+        lanes = lanes or [(c, ()) for c in range(cfg.num_layers + 1)]
+        near = 0
+        for qd, tau in obs:
+            obs_t = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)[0]
+            want = CloudPolicy(cpu, tok).chunk_tokens(qd, tau)[0]
+            for cut, off in lanes:
+                for name, m in (("card", gpu), ("cpu", cpu)):
+                    got = PartitionedPolicy(PartitionExecutor(m, cut, expert_offload=off),
+                                            tok).chunk_tokens(qd, tau)[0]
+                    diff = np.flatnonzero(got != want)
+                    if diff.size:
+                        gap = top2_gap_tokens(cpu, tok, obs_t, want, int(diff[0]))
+                        if gap > F32_MARGIN:
+                            raise AssertionError(f"(a) {arch} cut {cut} {off} {name}: chunk "
+                                                 f"differs at step {diff[0]}, gap {gap:.3g}")
+                        near += 1
+        log(f"  (a) {cfg.name} f32: PartitionedPolicy at {lanes} on the card (graphs) and the "
+            f"CPU, {len(obs)} observations: chunks equal to CloudPolicy's "
+            f"({near} inside the {F32_MARGIN:g} margin)")
+
+
+def split_fleet_card_vs_cpu():
+    """(a) f32 openvla-smoke ``serve_fleet(trigger="rapid")``, 8 robots at
+    ``robot_cuts`` {0, 1, 2} (two cloud-only), pipelined, R = 4, card vs
+    CPU: decision streams, counters, rounds, ``mixed_rounds``,
+    ``hetero_rounds`` equal, chunks equal or inside the f32 margin."""
+
+    cfg = get_smoke_config("openvla-7b").replace(dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    cuts = {1: 0, 2: 1, 3: 2, 5: 0, 6: 1, 7: 2}
+    serve_mod.ContinuousBatchingScheduler = RecordingScheduler
+    try:
+        out = {name: serve_fleet(m, tok, n_robots=8, max_steps=FLEET_TICKS, scan_rounds=4,
+                                 trigger="rapid", record_streams=True, verbose=False,
+                                 partition_executor=PartitionExecutor(m, 0), robot_cuts=cuts)
+               for name, m in (("card", gpu), ("cpu", cpu))}
+    finally:
+        serve_mod.ContinuousBatchingScheduler = ContinuousBatchingScheduler
+    card, ref_ = out["card"], out["cpu"]
+    flip = first_decision_flip(card, ref_, fleet_policy_config("rapid", 8, 7),
+                               fleet_frames(8, 0, FLEET_TICKS))
+    if flip is not None:
+        log(f"  (a) split fleet: decisions part ways at tick {flip[0]} robot {flip[1]}, "
+            f"{flip[2]:.3g} from its threshold; the rest is not compared")
+        return
+    for k in ("service_rounds", "decode_rounds", "scan_windows", "cancelled", "mixed_rounds",
+              "hetero_rounds", "offload_ms"):
+        if card[k] != ref_[k]:
+            raise AssertionError(f"(a) split fleet: {k} differs card vs CPU")
+    if card["hetero_rounds"] == 0 or card["mixed_rounds"] == 0:
+        raise AssertionError("(a) split fleet: no mixed or heterogeneous rounds")
+    tc, tp = card["telemetry"].summary(), ref_["telemetry"].summary()
+    if {**tc, "host_gap_ms": 0} != {**tp, "host_gap_ms": 0}:
+        raise AssertionError("(a) split fleet: telemetry differs card vs CPU")
+    rc, rp = card["sched"].record, ref_["sched"].record
+    if [(r, o.tolist()) for r, o, _ in rc] != [(r, o.tolist()) for r, o, _ in rp]:
+        raise AssertionError("(a) split fleet: chunks harvested in another order")
+    near = set()
+    for (r, obs_t, tg), (_, _, tp_) in zip(rc, rp):
+        diff = np.flatnonzero(tg != tp_)
+        if diff.size:
+            gap = top2_gap_tokens(cpu, tok, obs_t, tp_, int(diff[0]))
+            if gap > F32_MARGIN:
+                raise AssertionError(f"(a) split fleet: robot {r}'s chunk differs at step "
+                                     f"{diff[0]} where the top-two gap is {gap:.3g}")
+            near.add(r)
+    same = [r for r in range(8) if r not in near]
+    if not np.array_equal(card["actions"][:, same], ref_["actions"][:, same]):
+        raise AssertionError("(a) split fleet: actions differ card vs CPU")
+    log(f"  (a) f32 smoke split fleet, card vs CPU over {FLEET_TICKS} ticks, cuts {cuts}: "
+        f"decision streams, telemetry, {len(rc)} chunks ({len(near)} robots' chunks inside "
+        f"the {F32_MARGIN:g} margin), {card['decode_rounds']} rounds in "
+        f"{card['scan_windows']} windows, mixed_rounds {card['mixed_rounds']}, hetero_rounds "
+        f"{card['hetero_rounds']}, {card['cancelled']} cancels and actions equal")
+
+
+def split_policy_full_width(model, tok, launches):
+    """(b) ``PartitionedPolicy`` on openvla-7b at ``SPLIT_CUTS``: graph
+    chunks against eager (tokens equal) and against ``CloudPolicy`` by the
+    greedy-margin rule; cloud_ms of the split graph beside CloudPolicy's
+    graph and the modeled channel ms."""
+
+    rng = np.random.default_rng(23)
+    obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(3)]
+    cloud = CloudPolicy(model, tok)
+    want = [cloud.chunk_tokens(qd, tau) for qd, tau in obs]
+    cloud_ms = []
+    for qd, tau in obs:
+        t0 = time.perf_counter()
+        cloud.chunk_tokens(qd, tau)
+        cloud_ms.append((time.perf_counter() - t0) * 1e3)
+    n = model.n_attn
+    for cut in SPLIT_CUTS:
+        policy = PartitionedPolicy(PartitionExecutor(model, cut), tok)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms, eager_ms, diverged = [], [], 0
+        for (qd, tau), w in zip(obs, want):
+            tokens = torch.as_tensor(np.concatenate([tok.encode_state(qd), tok.encode_state(tau)],
+                                                    axis=1), device="cuda")
+            t0 = time.perf_counter()
+            te = policy.eager_chunk(tokens)[0].cpu().numpy()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            tg = policy.chunk_tokens(qd, tau)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(te, tg):
+                raise AssertionError(f"(b) PartitionedPolicy cut {cut}: graph tokens differ "
+                                     "from eager")
+            diff = np.flatnonzero(tg[0] != w[0])
+            if diff.size:
+                diverged += 1
+                gap = top2_gap_at(model, tok, qd, tau, w, int(diff[0]))
+                if gap > MARGIN_TOL:
+                    raise AssertionError(f"(b) cut {cut}: split token differs at step "
+                                         f"{diff[0]} where the top-two gap is {gap:.3g}")
+        # each chunk twice (eager, graph; the first graph call runs eagerly
+        # and captures): a prefill flash and 56 dense decodes per layer
+        want_counts = {k: 0 for k in _lib.KERNELS}
+        want_counts["flash_attention"] = 2 * len(obs) * n
+        want_counts["decode_attention"] = 2 * len(obs) * n * policy.n_steps
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        if counts != want_counts:
+            raise AssertionError(f"(b) cut {cut}: launches {counts}, expected {want_counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"  (b) PartitionedPolicy cut {cut}/{model.cfg.num_layers}: graph == eager tokens; "
+            f"vs CloudPolicy {diverged} of {len(obs)} chunks diverged within the margin; "
+            f"cloud_ms graph {ms[1:]} (first, with capture, {ms[0]:.1f}) eager "
+            f"{np.mean(eager_ms):.1f} vs CloudPolicy graph {np.mean(cloud_ms):.2f}; modeled "
+            f"net_ms {policy.net_ms_log[-1]:.2f} (the channel model, wan); launches {counts}")
+
+
+class SplitRecorder(ContinuousBatchingScheduler):
+    """A scheduler that counts its harvested chunks by lane (cloud or cut)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.by_lane = {}
+
+    def _close_window(self):
+        done = super()._close_window()
+        for r in done:
+            key = "cloud" if r.cut is None else r.cut
+            self.by_lane[key] = self.by_lane.get(key, 0) + 1
+        return done
+
+
+def hetero_robot_cuts():
+    return {r: cut for cut, start in HETERO.items() for r in range(start, start + 4)}
+
+
+def split_fleet_full_width(model, tok, launches):
+    """(b) a heterogeneous fleet at full width: 16 robots x ``FLEET_TICKS``,
+    R = 4, ``max_slots=8``, robots 0-3 cloud-only and four each at cuts 0,
+    8 and 16, pipelined, with ``Observability``, cold then warm; pages all
+    back after a drain; exact launch counts.  Then a short serial run (the
+    host ping-pong) of ``SERIAL_ROBOTS`` robots against the pipelined lanes
+    on the same observations."""
+
+    cuts = hetero_robot_cuts()
+    sched = SplitRecorder(model, tok, max_slots=8, scan_rounds=4)
+    base = PartitionExecutor(model, 0)
+    for cut in sorted(HETERO):
+        sched.attach_partition(base.with_cut(cut))
+    ledger = SplitLedger(sched)
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ledger.want = {n: 0 for n in _lib.KERNELS}
+        captures0 = sched.graph_captures
+        sched.by_lane = {}
+        obs = Observability(trace=False)
+        out = serve_fleet(model, tok, n_robots=16, max_steps=FLEET_TICKS, scan_rounds=4,
+                          trigger="rapid", record_streams=True, verbose=False, obs=obs,
+                          partition_executor=base, robot_cuts=cuts, sched=sched)
+        sched.drain()
+        if sched.pool_stats().pages_in_use != 0:
+            raise AssertionError(f"(b) split fleet {run}: pages left after drain")
+        counts = ledger.check(f"(b) split fleet {run}", launches)
+        m = obs.metrics
+        chunks = int(out["telemetry"].completions.sum())
+        lat = m.get("serve.chunk_latency_ms")
+        fused = {k: v for k, v in m.to_json().items() if k.startswith("sched.fused_dispatch_ms")}
+        bytes_ = {k: v for k, v in m.to_json().items() if k.startswith("channel.bytes")}
+        if out["hetero_rounds"] == 0 or out["mixed_rounds"] == 0:
+            raise AssertionError(f"(b) split fleet {run}: no heterogeneous or mixed rounds")
+        log(f"  (b) split fleet {run}: offloads {int(out['offloads'].sum())} cancels "
+            f"{out['cancelled']}; {chunks} chunks in {out['wall_s']:.3f} s: decode action "
+            f"tokens/s {56 * chunks / out['wall_s']:.1f}; chunk latency p50 "
+            f"{lat.quantile(0.5):.2f} p99 {lat.quantile(0.99):.2f} ms; mixed_rounds "
+            f"{out['mixed_rounds']} hetero_rounds {out['hetero_rounds']} of "
+            f"{out['decode_rounds']} rounds; fused graphs captured "
+            f"{sched.graph_captures - captures0} (all graphs {len(sched._fleet_graphs)} fused, "
+            f"{len(sched._graphs)} cloud); fused_dispatch_ms {fused}; channel bytes {bytes_}; "
+            f"chunks by lane {sched.by_lane} (drain included); pages back after drain; "
+            f"launches {counts} (exact, drain included)")
+    ledger.release()
+    # one window of all 16 at once under the profiler (run once before, so
+    # that its fused graph is captured outside the profiler)
+    reqs = requests(np.random.default_rng(37), 16)
+    for r, qd, tau in reqs:
+        sched.submit(r, qd, tau, partitioned=r in cuts, cut=cuts.get(r))
+    sched.drain()
+    profile_window(model, tok, sched, reqs, route=cuts)
+    # the serial lanes (per-token host ping-pong) on the first robots'
+    # observations, against the same robots through the pipelined lanes
+    rng = np.random.default_rng(29)
+    reqs = [(r, rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7)))
+            for r in range(SERIAL_ROBOTS)]
+    lane_cuts = sorted(HETERO)
+    lane_of = {r: lane_cuts[min(r, len(lane_cuts) - 1)] for r in range(SERIAL_ROBOTS)}
+    toks = {}
+    for pipelined in (True, False):
+        s = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4)
+        for cut in sorted(set(lane_of.values())):
+            s.attach_partition(base.with_cut(cut), pipelined=pipelined)
+        ledger = SplitLedger(s)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r, qd, tau in reqs:
+            s.submit(r, qd, tau, partitioned=True, cut=lane_of[r])
+        res = s.drain()
+        wall = time.perf_counter() - t0
+        counts = ledger.check(f"(b) {'pipelined' if pipelined else 'serial'} lanes", launches)
+        toks[pipelined] = {x.robot_id: x.tokens for x in res}
+        log(f"  (b) {'pipelined' if pipelined else 'serial'} lanes, {SERIAL_ROBOTS} robots at "
+            f"cuts {lane_of}: {len(res)} chunks in {wall:.2f} s; launches {counts} (exact)")
+        ledger.release()
+    equal = 0
+    for r, qd, tau in reqs:
+        a, b = toks[True][r], toks[False][r]
+        if np.array_equal(a, b):
+            equal += 1
+            continue
+        diff = int(np.flatnonzero(a != b)[0])
+        gap = top2_gap_at(model, tok, qd, tau, b[None], diff)
+        if gap > MARGIN_TOL:
+            raise AssertionError(f"(b) serial vs pipelined robot {r}: token {diff} differs, "
+                                 f"gap {gap:.3g}")
+    log(f"  (b) serial vs pipelined: {equal} of {SERIAL_ROBOTS} chunks equal, the rest within "
+        "the greedy margin")
+
+
+def split_jamba(model, tok, launches, policy):
+    """(c) Jamba (4 layers, bf16): an expert-offload lane (cut 2, the
+    experts of layer 1 cloud-side) and a plain cut-2 lane served together
+    with cloud-only robots by the scheduler (R = 4); each chunk held to
+    ``policy`` (``CloudPolicy(paged=True)``) by the greedy-margin rule;
+    exact launch counts; pages back."""
+
+    reqs = requests(np.random.default_rng(31), 6)
+    obs_of = {r: (qd, tau) for r, qd, tau in reqs}
+    reference = {r: policy.chunk_tokens(qd, tau)[0] for r, qd, tau in reqs}
+    route = {0: (2, (1,)), 1: 2, 3: (2, (1,)), 4: 2}
+    sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4,
+                                        num_pages=6 * -(-(14 + 56) // 16))
+    base = PartitionExecutor(model, 2)
+    sched.attach_partition(base)
+    sched.attach_partition(base.with_cut(2, expert_offload=(1,)))
+    ledger = SplitLedger(sched)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r, qd, tau in reqs:
+        sched.submit(r, qd, tau, partitioned=r in route, cut=route.get(r))
+    results = sched.drain()
+    wall = time.perf_counter() - t0
+    counts = ledger.check("(c) jamba split lanes", launches)
+    if sorted(r.robot_id for r in results) != list(range(6)) or \
+            sched.pool_stats().pages_in_use != 0:
+        raise AssertionError("(c) jamba split lanes: wrong results or pages left")
+    if sched.mixed_rounds == 0:
+        raise AssertionError("(c) jamba split lanes: no mixed rounds")
+    diverged = check_chunks(model, tok, results, reference, obs_of)
+    log(f"  (c) {model.cfg.name}: lanes {sched.active_lanes or [2, (2, (1,))]} and cloud-only, "
+        f"{len(results)} chunks in {wall:.2f} s ({sched.decode_rounds} rounds, mixed "
+        f"{sched.mixed_rounds}); vs CloudPolicy(paged=True) {diverged} of 6 diverged within the "
+        f"margin; fused graphs {len(sched._fleet_graphs)}; launches {counts} (exact)")
+
+
+def partition_phase(model, tok, launches):
+    split_policy_card_vs_cpu()
+    split_fleet_card_vs_cpu()
+    split_policy_full_width(model, tok, launches)
+    split_fleet_full_width(model, tok, launches)
+
+
 def monitor_path(fleet, launches):
     """The batched monitor entry point over a fleet's bank of episode
     streams; its scores on the first streams must match the port's own
@@ -1818,7 +2283,7 @@ def main(argv) -> int:
     main_rows = check_kernels(kernel_cases(np.random.default_rng(0), fleet))
     if kernels_only:
         phase()
-        log("== --kernels-only: phases 4-7 skipped, no result line")
+        log("== --kernels-only: phases 4-8 skipped, no result line")
         return 0
 
     launches = {n: 0 for n in _lib.KERNELS}
@@ -1832,7 +2297,7 @@ def main(argv) -> int:
     phase("4. monitor")
     monitor_path(fleet, launches)
 
-    phase("7. result")
+    phase("8. result")
     rows = []
     for name in _lib.KERNELS:
         rows.append(dict(

@@ -29,6 +29,7 @@ class SSMConfig:
     state_dim: int = 16
     conv_width: int = 4
     expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16); read only by the parameter counts
 
 
 @dataclass(frozen=True)
@@ -72,6 +73,10 @@ class ModelConfig:
     # global attention layers take ``long_context_window`` beyond that length
     subquadratic_decode: bool = False
     long_context_window: int = 32_768
+    # the reference's encoder-decoder stacks (seamless-m4t); the port
+    # serves none yet, and the partition graph reads the flag
+    encoder_decoder: bool = False
+    num_encoder_layers: int = 0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -114,6 +119,66 @@ class ModelConfig:
                 ffn = self.moe.num_experts * ffn + d * self.moe.num_experts
             total += 2 * d + ffn
         return total
+
+    # --- the reference's parameter accounting (configs/base.py:147-231),
+    # the unit the partition graph and its cost model cut between.  It
+    # counts the reference's own layouts (a Mamba x_proj / dt_proj of rank
+    # ``dt_rank``, no norms), so it differs from ``param_count``, which
+    # counts the port's ``Model``.
+    def block_param_counts(self, i: int) -> dict:
+        """Layer ``i``'s {total, active} parameters: its mixer, its MLP or
+        MoE (active: the top-k experts and the router) and, on enc-dec
+        stacks, the decoder cross-attention."""
+
+        d, hd = self.d_model, self.resolved_head_dim
+        nh, nkv = self.num_heads, self.num_kv_heads
+        blk = self.blocks[i]
+        if blk == "attn":
+            p = d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+        elif blk == "mamba":
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            dtr = s.dt_rank or -(-d // 16)
+            p = (d * 2 * d_in + d_in * s.conv_width + d_in * (dtr + 2 * s.state_dim)
+                 + dtr * d_in + d_in * s.state_dim + d_in + d_in * d)
+        else:
+            raise ValueError(blk)
+        if self.encoder_decoder:
+            p += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+        mlp_active = mlp_total = 0
+        if self.d_ff > 0:
+            per = (3 if self.gated_mlp else 2) * d * self.d_ff
+            if self.is_moe_layer(i):
+                m = self.moe
+                mlp_total = m.num_experts * per + d * m.num_experts
+                mlp_active = m.num_experts_per_tok * per + d * m.num_experts
+            else:
+                mlp_total = mlp_active = per
+        return {"total": p + mlp_total, "active": p + mlp_active}
+
+    def encoder_param_counts(self) -> int:
+        """Encoder-stack parameters (enc-dec only; 0 otherwise)."""
+
+        if not self.encoder_decoder:
+            return 0
+        d, hd = self.d_model, self.resolved_head_dim
+        return self.num_encoder_layers * (
+            d * (self.num_heads * hd) * 2 + 2 * d * (self.num_kv_heads * hd)
+            + (3 if self.gated_mlp else 2) * d * self.d_ff)
+
+    def param_counts(self) -> dict:
+        """{total, active} parameters: the embedding (not active: a lookup),
+        the head (active even when tied: the logits read it) and the layers."""
+
+        emb = self.vocab_size * self.d_model
+        total = emb + (0 if self.tie_embeddings else emb)
+        active = emb
+        for i in range(len(self.blocks)):
+            c = self.block_param_counts(i)
+            total += c["total"]
+            active += c["active"]
+        enc = self.encoder_param_counts()
+        return {"total": total + enc, "active": active + enc}
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,9 +1,10 @@
 """Serving entry point of the port:
 ``python -m repro_torch.launch.serve [--arch openvla-7b] [--paged] [--device cuda]``,
-or a fleet: ``... --fleet 16 --trigger rapid --scan-rounds 4``.
+a fleet: ``... --fleet 16 --trigger rapid --scan-rounds 4``, or either split
+between edge and cloud: ``... --partition auto|N [--network lan]``.
 
-Counterpart of ``repro/launch/serve.py`` without its partitioned lanes,
-mesh and prefill disaggregation.  Two serving modes:
+Counterpart of ``repro/launch/serve.py`` without its mesh and prefill
+disaggregation (ROADMAP queue F).  Two serving modes:
 
   * ``serve_episode`` — one robot: the RAPID dispatcher monitors simulated
     robot kinematics tick by tick, and on each dispatch the cloud VLA
@@ -11,7 +12,9 @@ mesh and prefill disaggregation.  Two serving modes:
     produces a fresh chunk.  ``CloudPolicy`` decodes through dense per-row
     slabs (``fused``: no host sync per token; or the per-token loop) or
     through the paged KV substrate (``paged=True``); on a CUDA model both
-    replay a CUDA graph per shape.
+    replay a CUDA graph per shape.  ``build_policy`` may instead return a
+    ``PartitionedPolicy``, the same chunk run split after a planned or a
+    given edge layer count.
   * ``serve_fleet`` — many robots sharing one cloud engine through the
     continuous-batching scheduler (``runtime/scheduler.py``, decode rounds
     replayed as CUDA graphs): each tick the fleet's decision core
@@ -19,18 +22,27 @@ mesh and prefill disaggregation.  Two serving modes:
     requests that join in-flight decode batches, and chunks come back a few
     rounds later.  ``--trigger rapid`` replays cached chunks on redundant
     depletions and cancels in-flight work on contact-phase preemption.
+    With a ``PartitionExecutor``, robots listed in ``split_robots`` or
+    ``robot_cuts`` serve through the edge-cloud split: their cloud
+    suffixes share the rounds and the page pool with the cloud-only robots
+    (``plan_fleet_partition``, ``plan_expert_lane``, ``assign_fleet_cuts``,
+    ``replan_from_telemetry`` choose the cuts from the partition planner).
+
+The planner's milliseconds (``plan.summary()``, ``net_ms``) come from the
+calibrated latency model of ``runtime/latency.py`` and the channel model,
+not from the card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.dispatcher import DispatcherConfig, dispatcher_init, dispatcher_step
 from repro_torch.core.kinematics import KinematicFrame
 from repro_torch.core.trigger import TriggerConfig
@@ -49,7 +61,7 @@ from repro_torch.runtime.channel import (
 from repro_torch.runtime.graphs import GraphedCall, owner_call
 from repro_torch.runtime.kv_cache import PagedSpec
 from repro_torch.runtime.policy import DecisionCore, FleetTelemetry, fleet_policy_config
-from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
+from repro_torch.runtime.scheduler import ContinuousBatchingScheduler, _lane_order
 
 
 class CloudPolicy:
@@ -211,6 +223,9 @@ def serve_fleet(
     max_steps: int = 300,
     max_slots: int = 8,
     channel: Optional[ChannelConfig] = None,
+    partition_executor=None,
+    split_robots: Optional[List[int]] = None,
+    robot_cuts: Optional[Dict[int, object]] = None,
     defer_hot_admission: Optional[float] = None,
     num_pages: Optional[int] = None,
     scan_rounds: int = 1,
@@ -236,6 +251,15 @@ def serve_fleet(
     the scheduler, only kinematic trigger fires offload, and a fire while a
     previous request is still decoding cancels it (``cancel_batch`` frees
     its pages) and resubmits against the fresh observation.
+
+    With ``partition_executor`` set, the robots in ``split_robots`` serve
+    through the edge-cloud split at its cut: each robot's edge prefix runs
+    on its own, and its cloud suffix joins the cloud-only robots' decode
+    rounds and page pool.  ``robot_cuts`` generalises it to a heterogeneous
+    fleet: ``{robot: lane key}`` (a cut, e.g. from ``assign_fleet_cuts``, or
+    ``(cut, expert_offload)`` for an expert-offload lane), one scheduler
+    lane per distinct key, each a ``with_cut`` sibling of
+    ``partition_executor``; robots absent from the map stay cloud-only.
 
     ``scan_rounds=R``: the scheduler dispatches R decode rounds a window
     (CUDA-graph replays on a CUDA model); admission, harvest and
@@ -266,7 +290,8 @@ def serve_fleet(
 
     ``sched``: serve through this scheduler of ``model`` instead of a new
     one — it is ``reset()`` first and keeps its CUDA graphs, so a second run
-    is warm; its own ``max_slots``, ``num_pages`` and ``scan_rounds`` stand.
+    is warm; its own ``max_slots``, ``num_pages`` and ``scan_rounds`` stand,
+    and lanes it already has for the fleet's keys are kept.
     """
 
     if tick not in ("vectorized", "legacy"):
@@ -287,6 +312,25 @@ def serve_fleet(
     else:
         sched.reset()
         sched.obs = obs
+    if robot_cuts is None:
+        robot_cuts = ({r: partition_executor.cut_layer for r in (split_robots or [])}
+                      if partition_executor is not None else {})
+    else:
+        robot_cuts = dict(robot_cuts)
+    if partition_executor is not None and robot_cuts:
+        for c in sorted(set(robot_cuts.values()), key=_lane_order):
+            if c in sched._lanes:
+                sched._lanes[c].ex.obs = obs
+                continue
+            if isinstance(c, tuple):
+                lane = partition_executor.with_cut(int(c[0]), expert_offload=tuple(c[1]))
+            else:
+                lane = partition_executor.with_cut(c)
+            lane.obs = obs
+            sched.attach_partition(lane)
+    else:
+        robot_cuts = {}
+    split_set = set(robot_cuts)
 
     cached = np.zeros((n_robots, chunk_len, n_joints), np.float32)
     actions = np.zeros((t_len, n_robots, n_joints), np.float32)
@@ -352,7 +396,9 @@ def serve_fleet(
                     and telemetry.preempts[r] / max(int(telemetry.fires[r]), 1)
                     >= defer_hot_admission
                 )
-                sched.submit(r, eps[r].qd[t][None], eps[r].tau[t][None], defer_rounds=defer)
+                sched.submit(r, eps[r].qd[t][None], eps[r].tau[t][None],
+                             partitioned=r in split_set, cut=robot_cuts.get(r),
+                             defer_rounds=defer)
                 in_flight.add(r)
                 n_off[r] += 1
             for res in engine_step(t):
@@ -374,6 +420,11 @@ def serve_fleet(
         qd_all = np.stack([ep.qd[:t_len] for ep in eps], axis=1)
         tau_all = np.stack([ep.tau[:t_len] for ep in eps], axis=1)
         in_flight_mask = np.zeros(n_robots, bool)
+        split_mask = np.zeros(n_robots, bool)
+        cut_arr = np.full(n_robots, None, object)  # lane keys: ints or (cut, offload)
+        for r, c in robot_cuts.items():
+            split_mask[r] = True
+            cut_arr[r] = c
         n_done = np.zeros(n_robots, np.int64)  # per-robot offload ordinal
         for t in range(t_len):
             c0 = clock()
@@ -397,7 +448,9 @@ def serve_fleet(
                 if defer_hot_admission is not None:
                     defer = (pre[ids] & (telemetry.preempts[ids] / np.maximum(
                         telemetry.fires[ids], 1) >= defer_hot_admission)).astype(np.int64)
-                sched.submit_batch(ids, qd_all[t][ids], tau_all[t][ids], defer_rounds=defer)
+                sched.submit_batch(ids, qd_all[t][ids], tau_all[t][ids],
+                                   partitioned=split_mask[ids], cuts=cut_arr[ids],
+                                   defer_rounds=defer)
                 in_flight_mask[ids] = True
                 n_off[ids] += 1
             results = engine_step(t)
@@ -439,6 +492,10 @@ def serve_fleet(
             f"peak_batch={sched.peak_active} "
             f"kv_pages={pool.pages_in_use}/{pool.pages_in_use + pool.pages_free} "
             f"(high-water {pool.high_water}) "
+            + (f"mixed_rounds={sched.mixed_rounds} " if split_set else "")
+            + (f"cuts={sorted(set(robot_cuts.values()), key=_lane_order)} "
+               f"hetero_rounds={sched.hetero_rounds} "
+               if len(set(robot_cuts.values())) > 1 else "")
             + (f"deferred={sched.deferred} " if sched.deferred else "")
             + f"net_ms={np.mean(offload_ms) if offload_ms else 0:.1f}"
             f"±{np.std(offload_ms) if offload_ms else 0:.1f}"
@@ -471,14 +528,218 @@ def serve_fleet(
         "host_gap_ms": telemetry.host_gap_ms(),
         "cancelled": sched.cancelled,
         "deferred": sched.deferred,
-        "split_robots": [],
-        "robot_cuts": {},
-        "active_cuts": [],
+        "split_robots": sorted(split_set),
+        "robot_cuts": dict(sorted(robot_cuts.items())),
+        "active_cuts": sorted(set(robot_cuts.values()), key=_lane_order),
         "trigger": trigger,
         "telemetry": telemetry,
         "offload_fraction": telemetry.fleet_offload_fraction(),
         "sched": sched,
     }
+
+
+def _map_expert_offload(model: Model, cut: int, n_full_offload: int):
+    """The trailing ``min(n, #edge MoE layers)`` MoE layers below ``cut``:
+    the planner's trailing offloaded blocks mapped onto ``model``'s edge
+    prefix (``()`` when it has no MoE layer)."""
+
+    moe_edge = [l for l in range(cut) if model.specs[l][1]]
+    j = min(n_full_offload, len(moe_edge))
+    return tuple(moe_edge[-j:]) if j else ()
+
+
+def plan_fleet_partition(model: Model, arch: str, network: str = "wan",
+                         verbose: bool = True, plan_2d: bool = False):
+    """Plan the full ``arch``'s cut and build a split executor over
+    ``model`` -> ``(executor or None, plan)``.
+
+    Only a split plan runs through the executor (cloud-only and edge-only
+    are single-device plans; enc-dec stacks do not split): those return
+    None.  The plan's layer fraction maps onto ``model`` (possibly a smoke
+    stack; node cut 1, a stem-only edge, is layer cut 0).  ``plan_2d``
+    plans over (cut layer x placement) and serves the best executable
+    plan (plain cuts and expert-offload lanes) when the optimum is a
+    priced-only placement; an ``expert_split`` maps its offloaded experts
+    onto ``model``'s trailing edge MoE layers."""
+
+    from repro_torch.partition.executor import PartitionExecutor
+    from repro_torch.partition.planner import NETWORK_PROFILES, plan_partition
+
+    cfg = model.cfg
+    channel = NETWORK_PROFILES[network]
+    full_cfg = get_config(arch)
+    plan = plan_partition(full_cfg, channel=channel, plan_2d=plan_2d)
+    if verbose:
+        print(f"partition plan [{network}]:", plan.summary())
+    exec_plan = plan
+    if plan_2d and plan.placement not in ("", "experts_cloud"):
+        exec_plan = plan_partition(full_cfg, channel=channel, plan_2d=True,
+                                   executable_only=True)
+        if verbose:
+            print("  executable 2-D plan:", exec_plan.summary())
+    if exec_plan.mode not in ("split", "expert_split") or cfg.encoder_decoder:
+        if verbose:
+            why = ("encoder-decoder split execution not supported"
+                   if exec_plan.mode in ("split", "expert_split")
+                   else f"planner chose {exec_plan.mode}")
+            print(f"{why}: serving unpartitioned")
+        return None, plan
+    frac = exec_plan.cut_layer / max(full_cfg.num_layers, 1)
+    cut = int(round(frac * cfg.num_layers))
+    offload = (_map_expert_offload(model, cut, len(exec_plan.expert_offload))
+               if exec_plan.expert_offload else ())
+    if verbose:
+        off = f", experts of layers {list(offload)} cloud-side" if offload else ""
+        print(f"split execution: {cut}/{cfg.num_layers} layers on the edge{off}")
+    return PartitionExecutor(model, cut, channel=channel, expert_offload=offload), plan
+
+
+def plan_expert_lane(model: Model, arch: str, network: str = "wan", base=None,
+                     verbose: bool = True):
+    """The 2-D plan space's best feasible expert-offload lane of the full
+    ``arch``, mapped onto ``model`` -> a ``PartitionExecutor`` keyed
+    ``(cut, offload)``, or None when the arch (or the model's edge prefix)
+    has no MoE block to offload.  ``base`` shares its weights
+    (``with_cut``)."""
+
+    from repro_torch.partition.executor import PartitionExecutor
+    from repro_torch.partition.graph import build_graph
+    from repro_torch.partition.planner import NETWORK_PROFILES, enumerate_cuts_2d
+    from repro_torch.runtime.latency import arch_hardware_model
+
+    cfg = model.cfg
+    if cfg.encoder_decoder or cfg.moe is None:
+        return None
+    channel = NETWORK_PROFILES[network]
+    full_cfg = get_config(arch)
+    graph = build_graph(full_cfg)
+    hw = arch_hardware_model(int(graph.total_param_bytes))
+    cand = [e for e in enumerate_cuts_2d(graph, hw, channel)
+            if e.feasible and e.placement == "experts_cloud"]
+    if not cand:
+        return None
+    best = min(cand, key=lambda e: e.total_ms)
+    full_layers = max(full_cfg.num_layers, 1)
+    cut = min(max(int(round(graph.cut_layers(best.cut) / full_layers * cfg.num_layers)), 1),
+              cfg.num_layers)
+    offload = _map_expert_offload(model, cut, len(best.expert_offload))
+    if not offload:
+        return None
+    if verbose:
+        print(f"expert-offload lane [{network}]: cut {cut}, experts of layers "
+              f"{list(offload)} cloud-side (full-arch: {len(best.expert_offload)} MoE "
+              f"block(s) at cut {best.cut}, {best.total_ms:.1f}ms, "
+              f"+{best.net_expert_ms:.1f}ms legs)")
+    if base is not None:
+        return base.with_cut(cut, expert_offload=offload)
+    return PartitionExecutor(model, cut, channel=channel, expert_offload=offload)
+
+
+def assign_fleet_cuts(model: Model, arch: str, telemetry, network: str = "wan",
+                      k_max: int = 3, verbose: bool = True):
+    """Per-robot cuts from realized telemetry, mapped onto ``model`` ->
+    ``(base executor or None, {robot: cut}, the full arch's CutAssignment)``.
+
+    ``assign_cuts`` plans the full ``arch``'s frontier at each robot's
+    realized offload fraction (monotone: a more redundant robot never gets
+    a shallower prefix), capped at the deepest cut the executor runs (the
+    head stays cloud-side); the assigned edge layer counts map onto
+    ``model`` by layer fraction, distinct full cuts kept distinct where the
+    stack has room.  Cloud-only robots are absent from the map."""
+
+    from repro_torch.partition.executor import PartitionExecutor
+    from repro_torch.partition.graph import build_graph
+    from repro_torch.partition.planner import NETWORK_PROFILES, assign_cuts
+
+    channel = NETWORK_PROFILES[network]
+    full_cfg = get_config(arch)
+    graph = build_graph(full_cfg)
+    assignment = assign_cuts(telemetry, k_max=k_max, cfg=full_cfg, graph=graph,
+                             channel=channel, max_cut=len(graph.nodes) - 1)
+    if verbose:
+        print(f"cut assignment [{network}]:", assignment.summary())
+    if model.cfg.encoder_decoder:
+        if verbose:
+            print("encoder-decoder split execution not supported: serving unpartitioned")
+        return None, {}, assignment
+    n_layers = model.cfg.num_layers
+    full_layers = max(full_cfg.num_layers, 1)
+    smoke_of: Dict[int, int] = {}
+    prev = -1
+    for cl in sorted({c for c in assignment.cut_layers if c >= 0}):
+        smoke_of[cl] = prev = min(max(int(round(cl / full_layers * n_layers)), prev + 1),
+                                  n_layers)
+    robot_cuts = {r: smoke_of[cl] for r, cl in enumerate(assignment.cut_layers) if cl >= 0}
+    if not robot_cuts:
+        if verbose:
+            print("assignment is all-cloud: serving unpartitioned")
+        return None, {}, assignment
+    executor = PartitionExecutor(model, min(robot_cuts.values()), channel=channel)
+    if verbose:
+        lanes = {c: sum(1 for v in robot_cuts.values() if v == c)
+                 for c in sorted(set(robot_cuts.values()))}
+        print(f"heterogeneous fleet: {' '.join(f'{n}x{c}-layer-edge' for c, n in lanes.items())} "
+              f"(of {n_layers} layers; {len(assignment.cuts) - len(robot_cuts)} cloud-only)")
+    return executor, robot_cuts, assignment
+
+
+def replan_from_telemetry(arch: str, telemetry, network: str = "wan", pipelined: bool = False,
+                          verbose: bool = True):
+    """Re-plan at the fleet's realized offload fraction (a
+    ``FleetTelemetry`` or a float, floored at 0.02) -> ``(plan,
+    global_plan, repriced_global)``: the re-planned cut is never worse, at
+    that fraction, than the global-fraction cut re-priced."""
+
+    from repro_torch.partition.planner import NETWORK_PROFILES, evaluate_cut, plan_partition
+
+    frac = telemetry if isinstance(telemetry, float) else telemetry.fleet_offload_fraction()
+    frac = min(max(frac, 0.02), 1.0)
+    cfg = get_config(arch)
+    channel = NETWORK_PROFILES[network]
+    plan = plan_partition(cfg, channel=channel, offload_fraction=frac, pipelined=pipelined)
+    global_plan = plan_partition(cfg, channel=channel, pipelined=pipelined)
+    repriced = evaluate_cut(cfg, global_plan.cut, channel=channel, offload_fraction=frac,
+                            pipelined=pipelined)
+    if verbose:
+        print(f"replan @ realized f_off={frac:.3f}:", plan.summary())
+        print(f"  global-fraction cut {global_plan.cut} re-priced at realized fraction: "
+              f"{repriced.total_ms:.1f}ms (re-planned: {plan.total_ms:.1f}ms)")
+    return plan, global_plan, repriced
+
+
+def build_policy(model: Model, tok: EpisodeTokenizer, arch: str, partition: str = "none",
+                 network: str = "wan", paged: bool = False, plan_2d: bool = False,
+                 verbose: bool = True):
+    """The serving policy, split per the partition planner or not ->
+    ``(policy, plan or None)``.
+
+    ``partition``: ``"none"`` (``CloudPolicy``), ``"auto"`` (the full
+    ``arch``'s planned cut mapped onto ``model``; ``plan_2d`` as in
+    ``plan_fleet_partition``) or an edge layer count.  ``network`` picks
+    the channel the planner prices (``lan`` / ``wan`` / ``congested``);
+    ``paged`` routes an unpartitioned policy through the page pool."""
+
+    if partition == "none":
+        return CloudPolicy(model, tok, paged=paged), None
+
+    from repro_torch.partition.executor import PartitionExecutor, PartitionedPolicy
+    from repro_torch.partition.planner import NETWORK_PROFILES, plan_partition
+
+    if partition == "auto":
+        executor, plan = plan_fleet_partition(model, arch, network, verbose=verbose,
+                                              plan_2d=plan_2d)
+        if executor is None:
+            return CloudPolicy(model, tok, paged=paged), plan
+        return PartitionedPolicy(executor, tok), plan
+    channel = NETWORK_PROFILES[network]
+    plan = plan_partition(get_config(arch), channel=channel)
+    if verbose:
+        print(f"partition plan [{network}]:", plan.summary())
+    cut = int(partition)
+    executor = PartitionExecutor(model, cut, channel=channel)
+    if verbose:
+        print(f"split execution: {cut}/{model.cfg.num_layers} layers on the edge")
+    return PartitionedPolicy(executor, tok), plan
 
 
 def parser() -> argparse.ArgumentParser:
@@ -498,6 +759,18 @@ def parser() -> argparse.ArgumentParser:
                         "redundancy-aware RAPID trigger")
     p.add_argument("--scan-rounds", type=int, default=1,
                    help="decode rounds per scan window (1 = per-round stepping)")
+    p.add_argument("--partition", default="none",
+                   help="'none', 'auto' (partition planner), or an edge layer count")
+    p.add_argument("--network", default="wan", choices=["lan", "wan", "congested"],
+                   help="channel regime the partition planner prices")
+    p.add_argument("--plan-2d", action="store_true",
+                   help="plan over (cut layer x placement); MoE fleets also serve an "
+                        "expert-offload lane beside the planned cut")
+    p.add_argument("--assign-cuts", action="store_true",
+                   help="two episodes: the first gathers realized per-robot offload "
+                        "fractions, the second serves each robot at its assigned cut")
+    p.add_argument("--max-cuts", "--k-max", dest="max_cuts", type=int, default=3,
+                   help="most distinct cuts active at once (--assign-cuts)")
     p.add_argument("--defer-hot", type=float, default=None,
                    help="cancellation-aware admission: preempt-rate threshold above "
                         "which a preempting robot's admission is held one round")
@@ -519,10 +792,49 @@ def main(argv=None):
     tok = EpisodeTokenizer(cfg.vocab_size)
     if args.fleet:
         want_obs = bool(args.trace_out or args.metrics_json or args.metrics_prom)
-        obs = Observability(trace=args.trace_out is not None) if want_obs else None
+
+        def mk_obs():
+            return Observability(trace=args.trace_out is not None) if want_obs else None
+
+        executor, split, robot_cuts = None, [], None
+        if args.partition != "none":
+            # a mixed fleet: every second robot serves through the split
+            if args.partition == "auto":
+                executor, _ = plan_fleet_partition(model, args.arch, args.network,
+                                                   plan_2d=args.plan_2d)
+            else:
+                from repro_torch.partition.executor import PartitionExecutor
+                from repro_torch.partition.planner import NETWORK_PROFILES
+
+                executor = PartitionExecutor(model, int(args.partition),
+                                             channel=NETWORK_PROFILES[args.network])
+            if executor is not None:
+                split = list(range(1, args.fleet, 2))
+            if args.plan_2d and executor is not None and split:
+                # alternate the split robots between the planned cut and the
+                # 2-D space's best expert-offload lane
+                lane = plan_expert_lane(model, args.arch, args.network, base=executor)
+                if lane is not None and lane.lane_key != executor.lane_key:
+                    robot_cuts = {r: (executor.lane_key if i % 2 == 0 else lane.lane_key)
+                                  for i, r in enumerate(split)}
         out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
-                          trigger=args.trigger, defer_hot_admission=args.defer_hot,
-                          scan_rounds=args.scan_rounds, obs=obs)
+                          partition_executor=executor, split_robots=split,
+                          robot_cuts=robot_cuts, trigger=args.trigger,
+                          defer_hot_admission=args.defer_hot,
+                          scan_rounds=args.scan_rounds, obs=mk_obs())
+        if args.assign_cuts:
+            # re-assign each robot's cut from the first episode's realized
+            # fractions and serve the next episode heterogeneously
+            executor2, robot_cuts, _ = assign_fleet_cuts(
+                model, args.arch, out["telemetry"], args.network, k_max=args.max_cuts)
+            if robot_cuts:
+                out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
+                                  partition_executor=executor2, robot_cuts=robot_cuts,
+                                  trigger=args.trigger, defer_hot_admission=args.defer_hot,
+                                  scan_rounds=args.scan_rounds, obs=mk_obs())
+        elif args.trigger == "rapid" and args.partition != "none":
+            replan_from_telemetry(args.arch, out["telemetry"], args.network)
+        obs = out["obs"]
         if obs is not None:
             if args.trace_out:
                 obs.trace.write(args.trace_out)
@@ -536,7 +848,8 @@ def main(argv=None):
                     f.write(obs.metrics.to_prometheus())
                 print(f"metrics: -> {args.metrics_prom}")
         return out
-    policy = CloudPolicy(model, tok, paged=args.paged)
+    policy, _ = build_policy(model, tok, args.arch, args.partition, args.network,
+                             paged=args.paged, plan_2d=args.plan_2d)
     return serve_episode(policy, task=args.task, max_steps=args.steps, device=args.device)
 
 

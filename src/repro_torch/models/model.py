@@ -21,9 +21,13 @@ updated in place:
           "len": [B] int32, "pt": [B, MAXP] int32, "cap": [B] int32,
           "h", "conv" as in the dense cache}
 
-Entry points: ``prefill``, ``decode_step``, ``decode_chunk``,
+Entry points: ``prefill``, ``decode_step``, ``decode_chunk``, ``forward``,
 ``init_cache``, ``init_paged_cache``, ``cache_to_paged``,
-``merge_prefill_into_paged``.
+``merge_prefill_into_paged``.  Each runs the per-layer block functions
+(``_block_seq`` / ``_block_step``, each a mixer half and an FFN half, as
+the reference's), over per-layer views of these caches
+(``layer_cache``); the partition executor runs the same functions over its
+own per-layer caches.
 """
 
 from __future__ import annotations
@@ -150,11 +154,123 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
 
-    def _ffn(self, blk: Block, x):
+    # ------------------------------------------------------------------
+    # per-layer blocks: the fused entry points below and the partition
+    # executor (``partition/executor.py``) run the same functions
+    # ------------------------------------------------------------------
+
+    def layer_cache(self, cache, i: int):
+        """Layer ``i``'s entries of a whole-model ``cache`` as a per-layer
+        cache (views, so the block functions update ``cache`` in place):
+        ``{"k", "v"}`` dense slabs, ``{"kp", "vp"}`` pools, or ``{"h",
+        "conv"}`` Mamba state.  The model's caches stack each kind over the
+        layers of that kind (``self.slot``); the split executor keys its own
+        per-layer caches by model layer; this is the one map between them."""
+
+        j = self.slot[i]
+        if self.specs[i][0] == "mamba":
+            return {"h": cache["h"][j], "conv": cache["conv"][j]}
+        if "kp" in cache:
+            return {"kp": cache["kp"][j], "vp": cache["vp"][j]}
+        return {"k": cache["k"][j], "v": cache["v"][j]}
+
+    def _block_mix_seq(self, i: int, x, positions, cache=None):
+        """Layer ``i``'s mixer half over a sequence (norm1, attention or
+        Mamba, residual), writing the prompt's K/V or the Mamba state into
+        the per-layer ``cache`` (if given) -> x."""
+
+        blk = self.layers[i]
+        h = rms_norm(x, blk.norm1.scale, self.cfg.norm_eps)
+        if blk.spec[0] == "attn":
+            s = x.shape[1]
+            out, k, v = attn.attention_forward(
+                h, blk.attn, self.cfg, positions, self._window_for(blk.spec, s)
+            )
+            if cache is not None:
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
+        else:
+            out, state = ssm_lib.mamba_forward(h, blk.mamba, self.cfg)
+            if cache is not None:
+                cache["h"].copy_(state["h"])
+                cache["conv"].copy_(state["conv"])
+        return x + out
+
+    def _block_ffn(self, i: int, x):
+        """Layer ``i``'s FFN half: norm2, MLP or MoE, residual -> x."""
+
+        blk = self.layers[i]
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
         if blk.spec[1]:
             return x + moe_lib.moe_forward(h, blk.moe, self.cfg)[0]
         return x + mlp(h, blk.mlp, self.cfg.mlp_activation)
+
+    def _moe_pre_dispatch(self, i: int, x):
+        """The edge half of a gather/scatter MoE split of layer ``i``: norm2
+        and the router -> (h2, combine), what ships to the experts;
+        ``moe_lib.moe_apply_experts(h2, combine, ...)`` finishes the mixture.
+        The two halves are ``_block_ffn``'s MoE op for op."""
+
+        blk = self.layers[i]
+        h2 = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
+        combine, _ = moe_lib.router_probs(h2, blk.moe.router, self.cfg.moe.num_experts_per_tok)
+        return h2, combine
+
+    def _block_seq(self, i: int, x, positions, cache=None):
+        return self._block_ffn(i, self._block_mix_seq(i, x, positions, cache))
+
+    def _block_mix_step(self, i: int, x, cache, length, paged=None):
+        """Layer ``i``'s mixer half for one token, x [B,1,D], against its
+        per-layer ``cache`` (updated in place) at ``length`` (an int or a
+        [B] tensor).  ``paged``: the ``(page_table, cap)`` pair of a paged
+        cache (``{"kp", "vp"}`` pools) -> x."""
+
+        blk = self.layers[i]
+        cfg = self.cfg
+        h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
+        if blk.spec[0] == "mamba":
+            out, state = ssm_lib.mamba_decode_step(h, blk.mamba, cfg, cache)
+            cache["h"].copy_(state["h"])
+            cache["conv"].copy_(state["conv"])
+        elif paged is not None:
+            pt, cap = paged
+            capacity = pt.shape[1] * cache["kp"].shape[1]
+            out = attn.attention_decode_step_paged(
+                h, blk.attn, cfg, cache["kp"], cache["vp"], pt, length, cap,
+                self._window_for(blk.spec, capacity),
+            )
+        else:
+            ck, cv = cache["k"], cache["v"]
+            out = attn.attention_decode_step(
+                h, blk.attn, cfg, ck, cv, length,
+                self._window_for(blk.spec, ck.shape[1]), ring=self.windowed_cache,
+            )
+        return x + out
+
+    def _block_step(self, i: int, x, cache, length, paged=None):
+        return self._block_ffn(i, self._block_mix_step(i, x, cache, length, paged))
+
+    def _init_block_cache(self, i: int, batch: int, seq: int):
+        """A zero per-layer dense cache of layer ``i``: ``{"k", "v"}``
+        [B, seq, KV, Dh] (a ring of ``min(seq, window)`` slots with
+        ``windowed_cache``) or Mamba ``{"h", "conv"}``."""
+
+        spec = self.specs[i]
+        if spec[0] == "mamba":
+            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
+        n = seq
+        if self.windowed_cache:
+            n = min(seq, self._window_for(spec, seq) or seq)
+        z = dict(dtype=self.dtype, device=self.device)
+        return {"k": torch.zeros((batch, n) + self._kv_shape(), **z),
+                "v": torch.zeros((batch, n) + self._kv_shape(), **z)}
+
+    @staticmethod
+    def _total_seq(batch) -> int:
+        s = batch["tokens"].shape[1]
+        if "frontend" in batch:
+            s += batch["frontend"].shape[1]
+        return s
 
     def _embed_inputs(self, batch):
         x = embed_lookup(batch["tokens"], self.embed.table, self.embed_scale).to(self.dtype)
@@ -196,22 +312,23 @@ class Model(nn.Module):
         if self.windowed_cache and any(s > ring.shape[1] for ring in cache["k"]):
             raise ValueError(f"a {s}-token prompt is longer than a ring cache")
         positions = torch.arange(s, device=x.device)[None, :]
-        for blk, j in zip(self.layers, self.slot):
-            h = rms_norm(x, blk.norm1.scale, self.cfg.norm_eps)
-            if blk.spec[0] == "attn":
-                out, k, v = attn.attention_forward(
-                    h, blk.attn, self.cfg, positions, self._window_for(blk.spec, s)
-                )
-                cache["k"][j][:, :s] = k
-                cache["v"][j][:, :s] = v
-            else:
-                out, state = ssm_lib.mamba_forward(h, blk.mamba, self.cfg)
-                cache["h"][j] = state["h"]
-                cache["conv"][j] = state["conv"]
-            x = self._ffn(blk, x + out)
+        for i in range(len(self.layers)):
+            x = self._block_seq(i, x, positions, self.layer_cache(cache, i))
         cache["len"] = s
         x = rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
         return self._logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def forward(self, batch):
+        """Full-sequence forward without a cache -> the final-normed hidden
+        [B, S, D] (``_logits`` of it gives the logits): the parity surface of
+        the split executor."""
+
+        x = self._embed_inputs(batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for i in range(len(self.layers)):
+            x = self._block_seq(i, x, positions)
+        return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
 
     @torch.no_grad()
     def decode_step(self, token, cache):
@@ -222,30 +339,11 @@ class Model(nn.Module):
         Caches update in place.
         """
 
-        cfg = self.cfg
         x = embed_lookup(token, self.embed.table, self.embed_scale).to(self.dtype)
-        paged = "pt" in cache
-        for blk, j in zip(self.layers, self.slot):
-            h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
-            if blk.spec[0] == "mamba":
-                state = {"h": cache["h"][j], "conv": cache["conv"][j]}
-                out, state = ssm_lib.mamba_decode_step(h, blk.mamba, cfg, state)
-                cache["h"][j] = state["h"]
-                cache["conv"][j] = state["conv"]
-            elif paged:
-                capacity = cache["pt"].shape[1] * cache["kp"].shape[2]
-                out = attn.attention_decode_step_paged(
-                    h, blk.attn, cfg, cache["kp"][j], cache["vp"][j], cache["pt"],
-                    cache["len"], cache["cap"], self._window_for(blk.spec, capacity),
-                )
-            else:
-                ck, cv = cache["k"][j], cache["v"][j]
-                out = attn.attention_decode_step(
-                    h, blk.attn, cfg, ck, cv, cache["len"],
-                    self._window_for(blk.spec, ck.shape[1]), ring=self.windowed_cache,
-                )
-            x = self._ffn(blk, x + out)
-        x = rms_norm(x, self.final_norm.scale, cfg.norm_eps)
+        paged = (cache["pt"], cache["cap"]) if "pt" in cache else None
+        for i in range(len(self.layers)):
+            x = self._block_step(i, x, self.layer_cache(cache, i), cache["len"], paged)
+        x = rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
         new_cache = dict(cache)
         new_cache["len"] = cache["len"] + 1
         return self._logits(x), new_cache

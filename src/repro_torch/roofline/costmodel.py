@@ -1,0 +1,157 @@
+"""Analytic executed-FLOPs and decode-bytes terms of one layer, the part
+of the reference's ``repro/roofline/costmodel.py`` that the partition graph
+prices (``block_flops``, ``block_decode_bytes``, ``head_flops``,
+``encoder_flops``).  Counts follow the reference's baseline implementation:
+attention over the full masked rectangle unless ``sparse_attn``, the dense
+MoE dispatch evaluating every expert unless ``dense_dispatch=False``.
+
+The port's blocks are attention and Mamba; the reference's xLSTM terms come
+with its xLSTM blocks (ROADMAP queue E).  The rest of the reference's
+roofline (``forward_flops``, ``estimate``, the HLO analysis) is ROADMAP
+queue H, which builds on this module.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+VOCAB_PAD = 256
+
+
+def _causal_kv_sum(s: int, window: int, sparse: bool) -> float:
+    """Sum over queries of the keys attention computes: the full [S, S]
+    rectangle (masked) unless ``sparse``, else the causal (windowed) part."""
+
+    if not sparse:
+        return float(s) * s
+    if window and window < s:
+        w = window
+        return w * (w + 1) / 2 + (s - w) * w
+    return s * (s + 1) / 2
+
+
+def _attn_flops_per_seq(cfg: ModelConfig, s: int, window: int, sparse: bool) -> float:
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    d = cfg.d_model
+    proj = 2.0 * s * d * (nh * hd) * 2 + 2.0 * s * d * (nkv * hd) * 2  # q, o, k, v
+    return proj + 2.0 * 2.0 * nh * hd * _causal_kv_sum(s, window, sparse)  # QK^T + PV
+
+
+def _mlp_flops_per_tok(cfg: ModelConfig) -> float:
+    return 2.0 * (3 if cfg.gated_mlp else 2) * cfg.d_model * cfg.d_ff
+
+
+def _moe_flops_per_tok(cfg: ModelConfig, dense_dispatch: bool = True) -> float:
+    m = cfg.moe
+    experts = m.num_experts if dense_dispatch else m.num_experts_per_tok
+    return 2.0 * cfg.d_model * m.num_experts + experts * _mlp_flops_per_tok(cfg)
+
+
+def _mamba_flops_per_seq(cfg: ModelConfig, s: int, chunk: int = 256) -> float:
+    from repro_torch.models.ssm import HEAD_P
+
+    ssm = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    d_in = ssm.expand * d
+    p = HEAD_P if d_in >= HEAD_P else d_in
+    nh = max(d_in // HEAD_P, 1)
+    n = ssm.state_dim
+    l = min(chunk, s)  # noqa: E741
+    nc = max(s // l, 1)
+    per_tok = (2.0 * d * 2 * d_in              # in_proj
+               + 2.0 * ssm.conv_width * d_in   # conv
+               + 2.0 * d_in * (nh + 2 * n)     # dt / bc projections
+               + 2.0 * d_in * d)               # out_proj
+    per_chunk = (2.0 * l * l * n               # G = C B^T
+                 + 3.0 * l * l * nh            # decay kernel (exp, mask, mul)
+                 + 2.0 * l * l * nh * p        # intra-chunk y
+                 + 4.0 * l * nh * p * n)       # carry in / out, state update
+    return s * per_tok + nc * per_chunk
+
+
+def _vpad(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+
+def block_flops(cfg: ModelConfig, spec, batch: int, s: int, *, decode: bool = False,
+                kv_len: int = 0, sparse_attn: bool = False,
+                dense_dispatch: bool = True, cached_cross_kv: bool = False) -> float:
+    """Executed FLOPs of one layer (its mixer, MLP or MoE and, on enc-dec
+    stacks, its cross-attention).  ``spec`` is a ``layer_specs`` entry
+    ``(block type, is_moe, is_local)``."""
+
+    blk, is_moe, local = spec
+    total = 0.0
+    window = 0
+    if local and cfg.sliding_window:
+        window = cfg.sliding_window
+    elif (kv_len or s) > cfg.long_context_window and cfg.subquadratic_decode:
+        window = cfg.long_context_window
+    if blk == "attn":
+        if decode:
+            hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+            d = cfg.d_model
+            eff = (min(kv_len, window) if window else kv_len) if sparse_attn else kv_len
+            total += batch * (2.0 * d * (nh * hd) * 2 + 2.0 * d * (nkv * hd) * 2
+                              + 2.0 * 2.0 * nh * hd * eff)
+        else:
+            total += batch * _attn_flops_per_seq(cfg, s, window, sparse=sparse_attn)
+    elif blk == "mamba":
+        total += batch * _mamba_flops_per_seq(cfg, 1 if decode else s)
+    else:
+        raise ValueError(f"the port has no {blk!r} block")
+    toks = batch * (1 if decode else s)
+    if cfg.d_ff > 0:
+        total += toks * (_moe_flops_per_tok(cfg, dense_dispatch=dense_dispatch)
+                         if is_moe else _mlp_flops_per_tok(cfg))
+    if blk == "attn" and cfg.encoder_decoder:
+        hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        d = cfg.d_model
+        enc_len = kv_len if decode else s
+        total += toks * (2.0 * d * (nh * hd) * 2 + 2.0 * 2.0 * nh * hd * enc_len)
+        if not (decode and cached_cross_kv):
+            total += batch * 2.0 * enc_len * d * (nkv * hd) * 2
+    return total
+
+
+def head_flops(cfg: ModelConfig, batch: int, s: int, *, decode: bool = False) -> float:
+    """The logits matmul's FLOPs over the padded vocab."""
+
+    return batch * (1 if decode else s) * 2.0 * cfg.d_model * _vpad(cfg)
+
+
+def encoder_flops(cfg: ModelConfig, batch: int, s: int) -> float:
+    """Encoder-stack FLOPs (enc-dec only; 0 otherwise)."""
+
+    if not cfg.encoder_decoder:
+        return 0.0
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    d = cfg.d_model
+    enc_attn = (2.0 * s * d * (nh * hd) * 2 + 2.0 * s * d * (nkv * hd) * 2
+                + 2.0 * 2.0 * nh * hd * s * s)
+    return cfg.num_encoder_layers * batch * (enc_attn + s * _mlp_flops_per_tok(cfg))
+
+
+def block_decode_bytes(cfg: ModelConfig, spec, b: int, s: int, windowed: bool = False) -> float:
+    """KV-cache or recurrent-state bytes one layer reads and writes a
+    decode step."""
+
+    from repro_torch.models.ssm import HEAD_P, ssm_dims
+
+    blk, _, local = spec
+    total = 0.0
+    if blk == "attn":
+        window = cfg.sliding_window if (local and cfg.sliding_window) else (
+            cfg.long_context_window
+            if s > cfg.long_context_window and cfg.subquadratic_decode else 0)
+        eff = (min(s, window) if window else s) if windowed else s
+        total += 2.0 * b * eff * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+        if cfg.encoder_decoder:
+            total += 2.0 * b * s * cfg.d_model
+    elif blk == "mamba":
+        d_in, nh, n = ssm_dims(cfg)
+        p = HEAD_P if d_in >= HEAD_P else d_in
+        total += 4.0 * b * nh * p * n * 2
+    else:
+        raise ValueError(f"the port has no {blk!r} block")
+    return total

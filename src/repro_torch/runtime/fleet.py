@@ -1,6 +1,6 @@
 """Trace-driven fleet serving: thousands of robot actors, one real engine;
-torch twin of ``repro/runtime/fleet.py`` (without its partitioned lanes):
-``python -m repro_torch.runtime.fleet --fleet 256 --device cuda``.
+torch twin of ``repro/runtime/fleet.py``:
+``python -m repro_torch.runtime.fleet --fleet 256 --device cuda [--partition 1]``.
 
 Robots are lightweight stepped actors — an index into a small pool of
 pre-generated episodes plus a phase offset — while the one heavy inference
@@ -16,6 +16,10 @@ fleet's kinematic frame from the pre-stacked episode pool, one call steps
 the batched decision core on the model's device (join resets fused into
 the same step as ``torch.where`` over the state's fields), and at most one
 ``cancel_batch`` + one ``submit_batch`` reaches the scheduler.
+
+With a ``PartitionExecutor`` and ``robot_cuts``, the listed robots serve
+through the scheduler's split lanes (one per distinct cut), sharing its
+rounds and page pool with the cloud-only robots.
 
 Pass an ``Observability`` and the run returns a full ``SLOReport`` (p50/p99
 chunk latency, queue wait, goodput, cancel rate, pool high-water).
@@ -156,6 +160,8 @@ def serve_trace(
     trigger: str = "rapid",
     trigger_cfg=None,
     channel=None,
+    partition_executor=None,
+    robot_cuts: Optional[Dict[int, int]] = None,
     tasks: Optional[List[str]] = None,
     seed: int = 0,
     obs=None,
@@ -169,7 +175,9 @@ def serve_trace(
     per-robot episodes).  Robots joining at tick t have their decision-core
     rows reset inside the tick's step; robots leaving mid-serve get their
     queued / in-flight work reclaimed with ``cancel_batch`` — reset-free
-    page reclamation, the pool never restarts.
+    page reclamation, the pool never restarts.  ``robot_cuts`` ({robot:
+    cut}, with ``partition_executor``) routes robots through split lanes,
+    one ``with_cut`` sibling per distinct cut.
 
     Returns a dict with the SLO report (when ``obs`` is given), churn and
     decision counters, pool stats, the host ticks/s of the run, and the
@@ -196,6 +204,17 @@ def serve_trace(
         model, tokenizer, max_slots=max_slots, chunk_len=chunk_len, n_joints=n_joints,
         num_pages=num_pages, scan_rounds=scan_rounds, obs=obs,
     )
+    robot_cuts = dict(robot_cuts or {})
+    if partition_executor is not None and robot_cuts:
+        for c in sorted(set(robot_cuts.values())):
+            sched.attach_partition(partition_executor.with_cut(c))
+    else:
+        robot_cuts = {}
+    split_mask = np.zeros(n_robots, bool)
+    cut_arr = np.full(n_robots, -1, np.int64)
+    for r, c in robot_cuts.items():
+        split_mask[r] = True
+        cut_arr[r] = c
 
     channel = channel or ChannelConfig()
     net_key = PRNGKey(seed + 7919)
@@ -255,7 +274,8 @@ def serve_trace(
             ids = np.flatnonzero(off & ~in_flight)
         if ids.size:
             sched.submit_batch(ids, qd_pool[time_idx[ids], trace.episode[ids]],
-                               tau_pool[time_idx[ids], trace.episode[ids]])
+                               tau_pool[time_idx[ids], trace.episode[ids]],
+                               partitioned=split_mask[ids], cuts=cut_arr[ids])
             in_flight[ids] = True
         results = sched.step()
         if results:
@@ -342,6 +362,8 @@ def main(argv=None):
     p.add_argument("--max-slots", type=int, default=16)
     p.add_argument("--scan-rounds", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--partition", type=int, default=None, metavar="CUT",
+                   help="serve every second robot split after CUT edge layers")
     p.add_argument("--device", default="cuda",
                    help="where the model and the decision core run (cuda or cpu)")
     p.add_argument("--metrics-json", metavar="PATH", default=None,
@@ -354,9 +376,16 @@ def main(argv=None):
     trace = make_trace(args.fleet, args.horizon, arrivals=args.arrivals,
                        mean_dwell=args.mean_dwell, seed=args.seed)
     obs = Observability(trace=False)
+    executor, robot_cuts = None, None
+    if args.partition is not None:
+        from repro_torch.partition.executor import PartitionExecutor
+
+        executor = PartitionExecutor(model, args.partition)
+        robot_cuts = {r: args.partition for r in range(1, args.fleet, 2)}
     out = serve_trace(model, tok, trace, horizon=args.horizon, max_slots=args.max_slots,
                       scan_rounds=args.scan_rounds, trigger=args.trigger, seed=args.seed,
-                      obs=obs, verbose=True)
+                      partition_executor=executor, robot_cuts=robot_cuts, obs=obs,
+                      verbose=True)
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(obs.metrics.to_json(), f, indent=2)

@@ -34,6 +34,27 @@ drops the graphs.  Admission runs eagerly, once per boundary
 (``admit_ms`` keeps its host time).  On a CPU model the same round runs
 eagerly.
 
+**Split lanes.**  ``attach_partition(executor)`` serves partitioned robots'
+cloud suffixes in the same rounds, one lane per lane key (a cut, or ``(cut,
+expert_offload)``), their suffix K/V drawn from the same allocator, so
+admission is FIFO across the cloud queue and every lane.  A **serial** lane
+(``pipelined=False``) ping-pongs each token through the host (each robot's
+batch-1 edge step, then one batched suffix step), eagerly: the reference
+for the fused path.  A **pipelined** lane keeps its robots' edge caches as
+rows on the device, and a window of (argmax -> edge prefix -> shared tail)
+runs as one function over every active pipelined lane
+(``PartitionExecutor.build_fleet_decode``): lanes join a progressively
+concatenated row batch at their cut, so each tail layer runs once over the
+combined rows, its attention through one scheduler-owned pool per model
+layer.  On a CUDA model that window is one CUDA graph per ``(lanes, tokens,
+rows per lane)``.  A lane's row buffers and the shared suffix pools are
+allocated at its first admission and then kept, zeroed capacities marking
+idle rows, since the graphs are captured over them (the reference frees a
+lane's rows when it empties, and the pools with the last lane); a lane
+whose rows double drops every fused graph.  ``mixed_rounds`` counts rounds
+where cloud-only and split work decoded together, ``hetero_rounds`` rounds
+where two or more distinct cuts did.
+
 **Observability.**  ``obs=Observability()`` stamps submission, admission,
 window close, completion and cancels with ``obs.clock``, only at those
 host-owned boundaries (no device syncs added), into the metrics registry
@@ -41,8 +62,7 @@ host-owned boundaries (no device syncs added), into the metrics registry
 ``pool.*`` gauges) and, when tracing, spans on one track per robot (chunk >
 queue > decode) and one for the lane (windows).
 
-Partitioned lanes, the mesh and prefill disaggregation are not ported: the
-counters only they move (``mixed_rounds``, ``hetero_rounds``) stay 0.
+The mesh and prefill disaggregation are not ported (ROADMAP queue F).
 """
 
 from __future__ import annotations
@@ -61,6 +81,13 @@ from repro_torch.runtime.graphs import GraphedCall, owner_call
 from repro_torch.runtime.kv_cache import PageAllocator, PagedSpec
 
 DEFAULT_PAGE_SIZE = 16
+
+
+def _lane_order(key) -> Tuple[int, tuple]:
+    """Total order over lane keys: plain int cuts sort with ``(cut,
+    offload)`` expert-offload keys at the same boundary (plain first)."""
+
+    return (key, ()) if isinstance(key, int) else (key[0], tuple(key[1]))
 
 
 def _bucket(n: int) -> int:
@@ -101,10 +128,10 @@ class ChunkResult:
     submitted_round: int
     admitted_round: int
     completed_round: int
-    kind: str = "cloud"
+    kind: str = "cloud"      # "cloud" (full stack) | "split" (cloud suffix)
     pool: Optional[PoolStats] = None
-    cut: Optional[int] = None
-    expert_offload: Tuple[int, ...] = ()
+    cut: Optional[int] = None  # split kind: the lane's edge layer count
+    expert_offload: Tuple[int, ...] = ()  # the lane's cloud-resident experts
     # obs.clock stamps (0 when obs is off); results of one window share
     # ``completed_ts``, the boundary's one clock read
     submitted_ts: float = 0.0
@@ -135,8 +162,10 @@ class _ScanWindow:
 
     steps_left: int
     n_steps: int                            # tokens decoded per row
-    toks: Optional[torch.Tensor] = None     # [rows, n_steps]
+    toks: Optional[torch.Tensor] = None     # cloud tokens [rows, n_steps]
     seqs: List[_Sequence] = field(default_factory=list)
+    lane_toks: Dict[object, torch.Tensor] = field(default_factory=dict)  # by lane key
+    lane_seqs: Dict[object, list] = field(default_factory=dict)
     t_open: float = 0.0
 
 
@@ -174,8 +203,8 @@ class ContinuousBatchingScheduler:
         self.scan_rounds = max(int(scan_rounds), 1)
         self.round = 0
         self.peak_active = 0
-        self.mixed_rounds = 0        # split lanes only: stays 0
-        self.hetero_rounds = 0       # split lanes only: stays 0
+        self.mixed_rounds = 0        # rounds where cloud-only and split work decoded
+        self.hetero_rounds = 0       # rounds where >= 2 distinct cuts decoded
         self.decode_rounds = 0       # rounds where any sequence decoded
         self.cancelled = 0           # sequences cancelled
         self.deferred = 0            # submissions admitted late on purpose
@@ -202,22 +231,65 @@ class ContinuousBatchingScheduler:
         self._window: Optional[_ScanWindow] = None
         self._token_floor = tokenizer.action_base
         self._graphs: Dict[Tuple[int, int], GraphedCall] = {}  # (block, rows)
+        # split lanes by lane key; the shared suffix pools by model layer;
+        # the fused windows' functions and graphs by (lane keys, tokens) and
+        # (lane keys, tokens, rows per lane)
+        self._lanes: Dict[object, "_SplitLane"] = {}
+        self._suffix_pools: Dict[int, dict] = {}
+        self._fleet_fns: Dict[tuple, object] = {}
+        self._fleet_graphs: Dict[tuple, GraphedCall] = {}
 
         # live batch state: logits rows + the paged cache (shared pools,
         # per-row page table / length / capacity; zeros mean inactive)
         self.rows = max_slots
-        vdim = model.embed.table.shape[0]  # the padded vocab, head tied or not
-        self._logits = torch.zeros((self.rows, vdim), dtype=model.dtype, device=model.device)
+        self._vdim = model.embed.table.shape[0]  # the padded vocab, head tied or not
+        self._logits = torch.zeros((self.rows, self._vdim), dtype=model.dtype,
+                                   device=model.device)
         self._pcache = model.init_paged_cache(self.rows, self.paged_spec)
 
     # ------------------------------------------------------------------
     # request interface
     # ------------------------------------------------------------------
 
+    def attach_partition(self, executor, rows: int = 2, pipelined: bool = True) -> None:
+        """Serve partitioned robots' cloud suffixes in the same rounds.
+
+        ``executor`` is a ``PartitionExecutor`` over this scheduler's model;
+        its suffix K/V draws pages from this scheduler's allocator.  Call
+        once per distinct lane key (``executor.lane_key``: the cut, or
+        ``(cut, expert_offload)``) for a heterogeneous fleet; derive the
+        siblings with ``executor.with_cut``.  ``pipelined`` (default)
+        decodes the lane in the fused window; ``pipelined=False`` keeps the
+        per-token host ping-pong."""
+
+        key = executor.lane_key
+        if key in self._lanes:
+            raise ValueError(f"lane {key} already attached")
+        if executor.model is not self.model:
+            raise ValueError("the executor must split this scheduler's model")
+        if self.obs is not None and executor.obs is None:
+            executor.obs = self.obs  # lane spans share the run's registry
+        self._lanes[key] = _SplitLane(self, executor, rows, pipelined)
+
+    def _lane_for(self, cut) -> "_SplitLane":
+        if not self._lanes:
+            raise ValueError("no PartitionExecutor attached; call attach_partition")
+        if cut is None:
+            if len(self._lanes) > 1:
+                raise ValueError(f"multiple lanes attached "
+                                 f"{sorted(self._lanes, key=_lane_order)}; pass cut=")
+            return next(iter(self._lanes.values()))
+        if cut not in self._lanes:
+            raise ValueError(f"no lane for {cut}; attached: "
+                             f"{sorted(self._lanes, key=_lane_order)}")
+        return self._lanes[cut]
+
     def submit(self, robot_id: int, qd: np.ndarray, tau: np.ndarray,
-               defer_rounds: int = 0) -> None:
+               partitioned: bool = False, cut=None, defer_rounds: int = 0) -> None:
         """Queue one chunk request for ``robot_id`` (qd/tau [1, N]).
-        ``defer_rounds`` delays admission, not submission order."""
+        ``partitioned`` routes it to a split lane (``cut``: its lane key,
+        optional while one lane is attached).  ``defer_rounds`` delays
+        admission, not submission order."""
 
         obs = np.concatenate([self.tok.encode_state(qd), self.tok.encode_state(tau)], axis=1)[0]
         self._order += 1
@@ -233,7 +305,10 @@ class ContinuousBatchingScheduler:
             m.counter("sched.submissions").inc()
             if defer_rounds > 0:
                 m.counter("sched.deferred").inc()
-        self._queue.append(req)
+        if partitioned:
+            self._lane_for(cut).queue.append(req)
+        else:
+            self._queue.append(req)
 
     def cancel(self, robot_id: int) -> bool:
         """Cancel ``robot_id``'s queued or in-flight request.
@@ -245,12 +320,13 @@ class ContinuousBatchingScheduler:
         was in flight (the chunk already completed): nothing is freed twice.
         """
 
-        for req in self._queue:
-            if req.robot_id == robot_id:
-                self._queue.remove(req)
-                self.cancelled += 1
-                self._obs_cancel(req.robot_id, req.submit_ts, queued=True)
-                return True
+        for queue in (self._queue, *(lane.queue for lane in self._lanes.values())):
+            for req in queue:
+                if req.robot_id == robot_id:
+                    queue.remove(req)
+                    self.cancelled += 1
+                    self._obs_cancel(req.robot_id, req.submit_ts, queued=True)
+                    return True
         w = self._window
         for seq in self._seqs.values():
             if seq.robot_id == robot_id and not seq.dead:
@@ -262,13 +338,28 @@ class ContinuousBatchingScheduler:
                 self.cancelled += 1
                 self._obs_cancel(seq.robot_id, seq.request.submit_ts, dead=dead)
                 return True
+        for lane in self._lanes.values():
+            for seq in lane.seqs.values():
+                if seq.robot_id == robot_id and not seq.dead:
+                    dead = w is not None and any(s is seq for s in w.lane_seqs.get(lane.key, ()))
+                    if dead:
+                        seq.dead = True
+                    else:
+                        lane.release(seq)
+                    self.cancelled += 1
+                    self._obs_cancel(seq.robot_id, seq.request.submit_ts, dead=dead,
+                                     cut=lane.cut)
+                    return True
         return False
 
     def submit_batch(self, robot_ids, qd: np.ndarray, tau: np.ndarray,
-                     defer_rounds=None) -> None:
+                     partitioned=None, cuts=None, defer_rounds=None) -> None:
         """Queue requests for many robots (qd/tau [n, N]); the queue after
         this call is that of ``n`` serial ``submit`` calls in row order.
-        Obs stamps the batch with one clock read."""
+        ``partitioned``: an optional [n] bool mask; ``cuts``: optional [n]
+        lane keys (int cuts, ``None`` or < 0 for "the only lane", or
+        ``(cut, expert_offload)`` tuples).  Obs stamps the batch with one
+        clock read."""
 
         robot_ids = np.asarray(robot_ids, np.int64)
         n = int(robot_ids.shape[0])
@@ -276,8 +367,10 @@ class ContinuousBatchingScheduler:
             return
         obs_toks = np.concatenate([self.tok.encode_state(np.asarray(qd)),
                                    self.tok.encode_state(np.asarray(tau))], axis=1)
+        part = np.zeros(n, bool) if partitioned is None else np.asarray(partitioned, bool)
         defer = (np.zeros(n, np.int64) if defer_rounds is None
                  else np.asarray(defer_rounds, np.int64))
+        cut_seq = None if cuts is None else list(cuts)
         ts = 0.0
         if self.obs is not None:
             ts = clock()
@@ -289,12 +382,23 @@ class ContinuousBatchingScheduler:
         for i in range(n):
             self._order += 1
             d = int(defer[i])
-            self._queue.append(ChunkRequest(
+            req = ChunkRequest(
                 int(robot_ids[i]), obs_toks[i], self.round, order=self._order,
                 earliest_round=self.round + d + 1 if d > 0 else 0, submit_ts=ts,
-            ))
+            )
             if d > 0:
                 self.deferred += 1
+            if part[i]:
+                cut = None
+                if cut_seq is not None:
+                    c = cut_seq[i]
+                    if isinstance(c, tuple):
+                        cut = (int(c[0]), tuple(int(x) for x in c[1]))
+                    elif c is not None and int(c) >= 0:
+                        cut = int(c)
+                self._lane_for(cut).queue.append(req)
+            else:
+                self._queue.append(req)
 
     def cancel_batch(self, robot_ids) -> np.ndarray:
         """Element ``i`` is ``cancel(robot_ids[i])``, in order."""
@@ -304,11 +408,24 @@ class ContinuousBatchingScheduler:
 
     @property
     def n_pending(self) -> int:
-        return len(self._queue)
+        return len(self._queue) + sum(len(lane.queue) for lane in self._lanes.values())
 
     @property
     def n_active(self) -> int:
-        return len(self._seqs)
+        return len(self._seqs) + sum(len(lane.seqs) for lane in self._lanes.values())
+
+    @property
+    def active_cuts(self) -> List[int]:
+        """Distinct cuts with in-flight suffixes (ascending); a plain and an
+        expert-offload lane at one cut count once."""
+
+        return sorted({lane.cut for lane in self._lanes.values() if lane.seqs})
+
+    @property
+    def active_lanes(self) -> List[object]:
+        """Lane keys with in-flight suffixes (ascending)."""
+
+        return sorted((k for k, lane in self._lanes.items() if lane.seqs), key=_lane_order)
 
     def pool_stats(self) -> PoolStats:
         a = self.allocator
@@ -328,6 +445,8 @@ class ContinuousBatchingScheduler:
         self._logits.zero_()
         self._pcache["len"].zero_()
         self._pcache["cap"].zero_()
+        for lane in self._lanes.values():
+            lane.reset()
         self.round = 0
         self.peak_active = 0
         self.mixed_rounds = 0
@@ -390,26 +509,45 @@ class ContinuousBatchingScheduler:
         return seq
 
     def _try_admit(self) -> None:
-        """Admit pending requests FIFO while a request's pages are free; a
-        head whose ``earliest_round`` lies ahead holds the queue this round.
-        The admitted prompts prefill as one batch of ``_bucket(n)`` rows
-        (padding rows dropped by the merge), eagerly."""
+        """Admit pending requests FIFO across the cloud queue and every
+        lane (split suffixes and cloud-only robots compete for the same
+        pages in submission order) while a request's pages are free; a head
+        whose ``earliest_round`` lies ahead holds its queue this round.  A
+        lane's admissions prefill as one suffix batch (``flush``); the
+        cloud's prompts as one batch of ``_bucket(n)`` rows (padding rows
+        dropped by the merge), eagerly."""
 
         new: List[_Sequence] = []
-        while (self.allocator.num_free >= self.pages_per_req and self._queue
-               and self._queue[0].earliest_round <= self.round):
-            new.append(self._reserve(self._queue.popleft()))
-        if not new:
-            return
-        if self.obs is not None:
+        new_split: Dict[object, list] = {}
+        while self.allocator.num_free >= self.pages_per_req:
+            heads = []
+            if self._queue and self._queue[0].earliest_round <= self.round:
+                heads.append((self._queue[0].order, None))
+            for key, lane in self._lanes.items():
+                if lane.queue and lane.queue[0].earliest_round <= self.round:
+                    heads.append((lane.queue[0].order, key))
+            if not heads:
+                break
+            _, key = min(heads, key=lambda h: h[0])  # orders are unique
+            if key is None:
+                new.append(self._reserve(self._queue.popleft()))
+            else:
+                lane = self._lanes[key]
+                new_split.setdefault(key, []).append(lane.reserve(lane.queue.popleft()))
+        if self.obs is not None and (new or new_split):
             # one clock read per admission boundary
             t_adm = clock()
             m = self.obs.metrics
-            m.counter("sched.admissions").inc(len(new))
+            admitted = new + [s for seqs in new_split.values() for s in seqs]
+            m.counter("sched.admissions").inc(len(admitted))
             qw = m.histogram("serve.queue_wait_ms")
-            for seq in new:
+            for seq in admitted:
                 seq.admit_ts = t_adm
                 qw.observe((t_adm - seq.request.submit_ts) * 1e3)
+        for key, seqs in new_split.items():
+            self._lanes[key].flush(seqs)
+        if not new:
+            return
         t0 = clock()
         n = _bucket(len(new))
         obs = np.zeros((n, self.prompt_len), np.int64)
@@ -476,12 +614,66 @@ class ContinuousBatchingScheduler:
             toks[:, r * block:(r + 1) * block].copy_(self._decode_round(block))
         return toks
 
+    def _ensure_suffix_pools(self, ex) -> None:
+        """The shared suffix K/V pools, one per model layer at or past
+        ``ex``'s cut: every lane whose cut precedes a layer writes that
+        layer's pool (page ids are global, one allocator)."""
+
+        for layer in ex.cloud_layers:
+            if self.model.specs[layer][0] == "attn" and layer not in self._suffix_pools:
+                self._suffix_pools[layer] = ex.init_layer_pool(self.paged_spec)
+
+    def _fused_window(self, keys: tuple, n_steps: int):
+        """The fused split window of the lanes ``keys`` (ascending) over
+        their live buffers and the shared pools, in place -> per-lane
+        tokens [R_i, n_steps]."""
+
+        lanes = [self._lanes[k] for k in keys]
+        pools = {layer: p for layer, p in self._suffix_pools.items() if layer >= lanes[0].cut}
+        lane_in = [{"logits": l._logits, "edge": l._edge, "state": l._state, "lens": l._len}
+                   for l in lanes]
+        return self._fleet_fns[(keys, n_steps)](
+            pools, lane_in, [l._pt for l in lanes], [l._cap for l in lanes])
+
+    def _split_fused_step(self, lanes: List["_SplitLane"], n_steps: int) -> Dict[object, torch.Tensor]:
+        """Dispatch one fused window over every active pipelined lane: on a
+        CUDA model a replay of its graph for ``(lane keys, n_steps, rows per
+        lane)``, captured on first use -> tokens [R_i, n_steps] by lane key,
+        on the device until the lanes' ``harvest``."""
+
+        lanes = sorted(lanes, key=lambda l: _lane_order(l.key))
+        keys = tuple(l.key for l in lanes)
+        if (keys, n_steps) not in self._fleet_fns:
+            self._fleet_fns[(keys, n_steps)] = lanes[0].ex.build_fleet_decode(
+                tuple(l.cut for l in lanes), n_steps, self._token_floor,
+                offloads=tuple(l.expert_offload for l in lanes))
+        t0 = clock() if self.obs is not None else 0.0
+        if self.model.device.type != "cuda":
+            toks = self._fused_window(keys, n_steps)
+        else:
+            gkey = (keys, n_steps, tuple(l.rows for l in lanes))
+            call = self._fleet_graphs.get(gkey)
+            if call is None:
+                call = self._fleet_graphs[gkey] = GraphedCall(
+                    owner_call(self, "_fused_window", keys, n_steps))
+            first = call.graph is None
+            toks = call()
+            if first:
+                self.graph_captures += 1
+                self.capture_s += call.capture_s
+        if self.obs is not None:
+            # the host cost of issuing the window (no sync added)
+            self.obs.metrics.histogram(
+                "sched.fused_dispatch_ms", cuts="+".join(str(l.cut) for l in lanes)
+            ).observe((clock() - t0) * 1e3)
+        return dict(zip(keys, toks))
+
     # ------------------------------------------------------------------
     # observability producers (no-ops when ``obs`` is None)
     # ------------------------------------------------------------------
 
     def _obs_cancel(self, robot_id: int, submit_ts: float, queued: bool = False,
-                    dead: bool = False) -> None:
+                    dead: bool = False, cut: Optional[int] = None) -> None:
         if self.obs is None:
             return
         t = clock()
@@ -494,6 +686,8 @@ class ContinuousBatchingScheduler:
         tr = self.obs.trace
         if tr is not None:
             args = {"robot": robot_id, "queued": queued, "dead": dead}
+            if cut is not None:
+                args["cut"] = cut
             track = f"robot {robot_id}"
             if submit_ts > 0.0:
                 tr.complete(track, "cancelled", submit_ts, t, args)
@@ -516,6 +710,8 @@ class ContinuousBatchingScheduler:
                 track = f"robot {r.robot_id}"
                 args = {"robot": r.robot_id, "kind": r.kind,
                         "rounds": r.completed_round - r.submitted_round}
+                if r.cut is not None:
+                    args["cut"] = r.cut
                 # nesting: chunk (lifetime) > queue wait > decode
                 tr.complete(track, "chunk", r.submitted_ts, t_end, args)
                 tr.complete(track, "queue", r.submitted_ts, r.admitted_ts)
@@ -526,9 +722,14 @@ class ContinuousBatchingScheduler:
         m = self.obs.metrics
         m.histogram("sched.window_ms").observe((t_end - w.t_open) * 1e3)
         tr = self.obs.trace
-        if tr is not None and w.toks is not None:
-            tr.complete("lane cloud", f"window {self.windows}", w.t_open, t_end,
-                        {"rows": len(w.seqs), "rounds": self.scan_rounds})
+        if tr is not None:
+            name = f"window {self.windows}"
+            if w.toks is not None:
+                tr.complete("lane cloud", name, w.t_open, t_end,
+                            {"rows": len(w.seqs), "rounds": self.scan_rounds})
+            for key, seqs in w.lane_seqs.items():
+                tr.complete(f"lane {self._lanes[key].label}", name, w.t_open, t_end,
+                            {"rows": len(seqs), "rounds": self.scan_rounds})
         self._obs_complete(done, t_end)
         alloc = self.allocator
         m.gauge("pool.pages_in_use").set(alloc.num_in_use)
@@ -559,29 +760,47 @@ class ContinuousBatchingScheduler:
         self.round += 1
         self._try_admit()
         n_cloud = len(self._seqs)
-        if n_cloud == 0:
+        n_split = sum(len(lane.seqs) for lane in self._lanes.values())
+        if n_cloud + n_split == 0:
             return []
         rounds = self.scan_rounds
+        self.mixed_rounds += rounds * (n_cloud > 0 and n_split > 0)
+        self.hetero_rounds += rounds * (len(self.active_cuts) >= 2)
         self.decode_rounds += rounds
         self.windows += 1
-        self.peak_active = max(self.peak_active, n_cloud)
+        self.peak_active = max(self.peak_active, n_cloud + n_split)
         block = self._block_for_depth(self.n_pending)
         if self.obs is not None:
             m = self.obs.metrics
             m.counter("sched.decode_rounds").inc(rounds)
             m.counter("sched.windows").inc()
             m.gauge("sched.queue_depth").set(self.n_pending)
-            m.gauge("sched.active_rows").set(n_cloud)
+            m.gauge("sched.active_rows").set(n_cloud + n_split)
+        done: List[ChunkResult] = []
+        # serial lanes ping-pong through the host: their window runs to its
+        # end here and its results ride this call's return
+        for lane in [l for l in self._lanes.values() if l.seqs and not l.pipelined]:
+            for _ in range(rounds):
+                if lane.seqs:
+                    done.extend(lane.step(block))
+        if done and self.obs is not None:
+            self._obs_complete(done, clock())
         w = _ScanWindow(steps_left=rounds, n_steps=rounds * block)
         if self.obs is not None:
             w.t_open = clock()
-        w.toks = self._decode_window(block, rounds)
-        w.seqs = list(self._seqs.values())
+        if n_cloud:
+            w.toks = self._decode_window(block, rounds)
+            w.seqs = list(self._seqs.values())
+        planes = [l for l in self._lanes.values() if l.seqs and l.pipelined]
+        if planes:
+            w.lane_toks = self._split_fused_step(planes, rounds * block)
+            for lane in planes:
+                w.lane_seqs[lane.key] = list(lane.seqs.values())
         self._window = w
         w.steps_left -= 1
         if w.steps_left <= 0:
-            return self._close_window()
-        return []
+            done.extend(self._close_window())
+        return done
 
     def _close_window(self) -> List[ChunkResult]:
         """Window boundary: the one host sync, then harvest and releases.
@@ -595,29 +814,32 @@ class ContinuousBatchingScheduler:
         w, self._window = self._window, None
         self.window_closes += 1
         done: List[ChunkResult] = []
-        toks = w.toks.cpu().numpy()
-        for seq in w.seqs:
-            if seq.dead:
-                continue
-            take = min(seq.remaining, toks.shape[1])
-            seq.tokens.extend(int(t) for t in toks[seq.row, :take])
-            seq.remaining -= take
-            if seq.remaining == 0:
-                self._release(seq)
-                done.append(ChunkResult(
-                    robot_id=seq.robot_id,
-                    tokens=np.asarray(seq.tokens, np.int64),
-                    submitted_round=seq.request.submitted_round,
-                    admitted_round=seq.admitted_round,
-                    completed_round=self.round,
-                    kind="cloud",
-                    pool=self.pool_stats(),
-                    submitted_ts=seq.request.submit_ts,
-                    admitted_ts=seq.admit_ts,
-                ))
-        for seq in w.seqs:
-            if seq.dead and self._seqs.get(seq.row) is seq:
-                self._release(seq)
+        if w.toks is not None:
+            toks = w.toks.cpu().numpy()
+            for seq in w.seqs:
+                if seq.dead:
+                    continue
+                take = min(seq.remaining, toks.shape[1])
+                seq.tokens.extend(int(t) for t in toks[seq.row, :take])
+                seq.remaining -= take
+                if seq.remaining == 0:
+                    self._release(seq)
+                    done.append(ChunkResult(
+                        robot_id=seq.robot_id,
+                        tokens=np.asarray(seq.tokens, np.int64),
+                        submitted_round=seq.request.submitted_round,
+                        admitted_round=seq.admitted_round,
+                        completed_round=self.round,
+                        kind="cloud",
+                        pool=self.pool_stats(),
+                        submitted_ts=seq.request.submit_ts,
+                        admitted_ts=seq.admit_ts,
+                    ))
+            for seq in w.seqs:
+                if seq.dead and self._seqs.get(seq.row) is seq:
+                    self._release(seq)
+        for key, seqs in w.lane_seqs.items():
+            done.extend(self._lanes[key].harvest(seqs, w.lane_toks[key], self.round))
         if self.obs is not None:
             self._obs_window_close(w, done)
         return done
@@ -631,3 +853,245 @@ class ContinuousBatchingScheduler:
             out.extend(self.step())
             rounds += 1
         return out
+
+
+# ---------------------------------------------------------------------------
+# split lanes: partitioned robots' cloud suffixes in the shared rounds
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _SplitSeq:
+    robot_id: int
+    row: int
+    remaining: int
+    length: int              # resident suffix tokens (host-tracked)
+    pages: List[int]
+    request: ChunkRequest
+    admitted_round: int
+    edge_cache: object       # the robot's batch-1 edge caches (serial mode)
+    tokens: List[int] = field(default_factory=list)
+    dead: bool = False       # cancelled while its window was in flight
+    admit_ts: float = 0.0
+    x_cut: Optional[torch.Tensor] = None  # the prefill's cut activations, until flushed
+
+
+class _SplitLane:
+    """Batched cloud-suffix decode of one lane of partitioned robots.
+
+    Admission, rows and pages are shared by both modes: ``reserve`` takes a
+    row and pages and runs the robot's own batch-1 edge prefill, ``flush``
+    prefills the reserved robots' suffixes as one batch into the shared
+    pools.  A serial lane's ``step`` then ping-pongs every token through the
+    host; a pipelined lane installs the robots' edge caches as rows of its
+    device caches and decodes in the scheduler's fused window, ``harvest``
+    taking the tokens at the boundary.
+
+    The lane's live buffers, on the model's device: per-row Mamba state of
+    its suffix (``_state``), the row-batched edge caches (``_edge``,
+    pipelined), page table, lengths, capacities and float32 logits.  They
+    are allocated at the first admission and kept (see the module
+    docstring); a released row's capacity goes to 0.
+    """
+
+    def __init__(self, sched: ContinuousBatchingScheduler, executor, rows: int,
+                 pipelined: bool = True):
+        self.sched = sched
+        self.ex = executor
+        self.cut = executor.cut_layer
+        self.expert_offload = executor.expert_offload
+        self.key = executor.lane_key
+        self.rows = rows
+        self.pipelined = pipelined
+        self.queue: Deque[ChunkRequest] = deque()
+        self.seqs: Dict[int, _SplitSeq] = {}
+        self._free_rows: List[int] = list(range(rows))
+        self._state = self._edge = None
+        self._pt = self._len = self._cap = self._logits = None
+
+    @property
+    def label(self) -> str:
+        off = "+exp" + ",".join(map(str, self.expert_offload)) if self.expert_offload else ""
+        return f"cut={self.cut}{off}"
+
+    def _ensure_buffers(self) -> None:
+        if self._pt is not None:
+            return
+        sched, dev = self.sched, self.sched.model.device
+        sched._ensure_suffix_pools(self.ex)
+        self._state = self.ex.init_lane_state(sched.paged_spec, self.rows)
+        if self.pipelined:
+            self._edge = self.ex.init_edge_rows(self.rows, sched.prompt_len + sched.total_tokens)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._pt = torch.zeros((self.rows, sched.pages_per_req), **i32)
+        self._len = torch.zeros((self.rows,), **i32)
+        self._cap = torch.zeros((self.rows,), **i32)
+        self._logits = torch.zeros((self.rows, sched._vdim), dtype=torch.float32, device=dev)
+
+    def reset(self) -> None:
+        self.queue.clear()
+        self.seqs.clear()
+        self._free_rows = list(range(self.rows))
+        if self._pt is not None:
+            for t in (self._len, self._cap, self._logits):
+                t.zero_()
+
+    def _grow_rows(self) -> None:
+        """Double the lane's rows; every fused graph goes (the buffers it
+        was captured over are replaced)."""
+
+        old, new = self.rows, self.rows * 2
+        pad = new - old
+        if self._pt is not None:
+            self._state = self.ex.pad_lane_state(self._state, pad)
+            if self._edge is not None:
+                self._edge = self.ex.pad_edge_rows(self._edge, pad)
+            self._pt, self._len, self._cap, self._logits = (
+                torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+                for t in (self._pt, self._len, self._cap, self._logits))
+            self.sched._fleet_graphs.clear()
+        self._free_rows.extend(range(old, new))
+        self.rows = new
+
+    def _take_row(self) -> int:
+        if not self._free_rows:
+            self._grow_rows()
+        return self._free_rows.pop(0)
+
+    def release(self, seq: _SplitSeq) -> None:
+        """Return the pages and the row; zero the row's capacity so the
+        still-batched row never writes pages a later admission reuses."""
+
+        self.sched.allocator.free(seq.pages)
+        del self.seqs[seq.row]
+        self._free_rows.append(seq.row)
+        self._cap[seq.row] = 0
+
+    def reserve(self, req: ChunkRequest) -> _SplitSeq:
+        sched = self.sched
+        pages = sched.allocator.alloc(sched.pages_per_req)
+        row = self._take_row()
+        self.ex.record_chunk_bytes(sched.prompt_len, sched.total_tokens)
+        # the edge prefix runs on the robot's own device: a batch-1 prefill
+        x_cut, edge_cache = self.ex.edge_prefill(req.obs[None], sched.total_tokens)
+        seq = _SplitSeq(robot_id=req.robot_id, row=row, remaining=sched.total_tokens,
+                        length=sched.prompt_len, pages=pages, request=req,
+                        admitted_round=sched.round, edge_cache=edge_cache, x_cut=x_cut)
+        self.seqs[row] = seq
+        return seq
+
+    def _layers_view(self) -> list:
+        """The suffix's per-layer caches: the shared pool of an attention
+        layer, this lane's row state of a Mamba layer."""
+
+        pools = self.sched._suffix_pools
+        return [pools[i] if self.sched.model.specs[i][0] == "attn" else self._state[i]
+                for i in self.ex.cloud_layers]
+
+    def flush(self, new: List[_SplitSeq]) -> None:
+        """One batched cloud-suffix prefill over the reserved admissions."""
+
+        sched = self.sched
+        self._ensure_buffers()
+        dev = sched.model.device
+        n = _bucket(len(new))
+        s = sched.prompt_len
+        x = torch.zeros((n, s, self.ex.cfg.d_model), dtype=sched.model.dtype, device=dev)
+        pt_new = np.zeros((n, sched.pages_per_req), np.int32)
+        row_idx = np.full((n,), self.rows, np.int64)  # padding rows: dropped
+        lens = np.zeros((n,), np.int32)
+        caps = np.zeros((n,), np.int32)
+        for i, seq in enumerate(new):
+            x[i] = seq.x_cut[0]
+            seq.x_cut = None
+            pt_new[i] = seq.pages
+            row_idx[i] = seq.row
+            lens[i] = s
+            caps[i] = sched.cap_tokens
+        i32 = dict(dtype=torch.int32, device=dev)
+        pt_t, lens_t, caps_t = (torch.as_tensor(a, **i32) for a in (pt_new, lens, caps))
+        _, logits = self.ex.suffix_prefill(x, self._layers_view(), pt_t, row_idx, lens_t, caps_t)
+        k = len(new)
+        rows = torch.as_tensor(row_idx[:k], dtype=torch.long, device=dev)
+        self._pt.index_copy_(0, rows, pt_t[:k])
+        self._len.index_copy_(0, rows, lens_t[:k])
+        self._cap.index_copy_(0, rows, caps_t[:k])
+        self._logits.index_copy_(0, rows, logits[:k].float())
+        if self.pipelined:
+            # the robots' batch-1 edge caches become rows of the lane's
+            # device caches (a full-row overwrite)
+            self.ex.merge_edge_rows(self._edge, [seq.edge_cache for seq in new],
+                                    [seq.row for seq in new])
+            for seq in new:
+                seq.edge_cache = None
+
+    def _result(self, seq: _SplitSeq, completed_round: int) -> ChunkResult:
+        return ChunkResult(
+            robot_id=seq.robot_id, tokens=np.asarray(seq.tokens, np.int64),
+            submitted_round=seq.request.submitted_round, admitted_round=seq.admitted_round,
+            completed_round=completed_round, kind="split", pool=self.sched.pool_stats(),
+            cut=self.cut, expert_offload=self.expert_offload,
+            submitted_ts=seq.request.submit_ts, admitted_ts=seq.admit_ts,
+        )
+
+    def step(self, block: int) -> List[ChunkResult]:
+        """Serial mode: one round of per-token host ping-pong decode."""
+
+        sched = self.sched
+        dev = sched.model.device
+        done: List[ChunkResult] = []
+        floor = sched._token_floor
+        for _ in range(block):
+            active = [s for s in self.seqs.values() if s.remaining > 0]
+            if not active:
+                break
+            logits = self._logits.cpu().numpy()
+            xs = torch.zeros((self.rows, 1, self.ex.cfg.d_model), dtype=sched.model.dtype,
+                             device=dev)
+            for seq in active:
+                ls = logits[seq.row].copy()
+                ls[:floor] = -1e9
+                tok = int(np.argmax(ls))
+                seq.tokens.append(tok)
+                seq.remaining -= 1
+                # ping-pong: the token ships edge-ward, the edge prefix runs
+                # it, the cut activation ships back
+                x_cut, seq.edge_cache = self.ex.edge_step(tok, seq.edge_cache, seq.length)
+                xs[seq.row] = x_cut[0]
+                seq.length += 1
+            out, _ = self.ex.suffix_step(xs, self._layers_view(), self._pt, self._len,
+                                         self._cap)
+            rows = torch.as_tensor([s.row for s in active], dtype=torch.long, device=dev)
+            self._logits.index_copy_(0, rows, out.index_select(0, rows).float())
+            self._len.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+            for seq in active:
+                if seq.remaining == 0:
+                    self.release(seq)
+                    done.append(self._result(seq, sched.round))
+        return done
+
+    def harvest(self, seqs: List[_SplitSeq], toks, completed_round: int) -> List[ChunkResult]:
+        """Pipelined mode, window boundary: take each live sequence's tokens
+        (the over-decoded tail dropped), advance its length, release the
+        completed and the dead (cancelled mid-window) ones."""
+
+        done: List[ChunkResult] = []
+        toks = toks.cpu().numpy()
+        n_steps = toks.shape[1]
+        live = [s for s in seqs if not s.dead]
+        if live:
+            rows = torch.as_tensor([s.row for s in live], dtype=torch.long,
+                                   device=self._len.device)
+            self._len.index_add_(0, rows, torch.full_like(rows, n_steps, dtype=torch.int32))
+        for seq in live:
+            take = min(seq.remaining, n_steps)
+            seq.tokens.extend(int(t) for t in toks[seq.row, :take])
+            seq.remaining -= take
+            seq.length += take
+            if seq.remaining == 0:
+                self.release(seq)
+                done.append(self._result(seq, completed_round))
+        for seq in seqs:
+            if seq.dead and self.seqs.get(seq.row) is seq:
+                self.release(seq)
+        return done

@@ -63,3 +63,10 @@ def test_port_sources_never_import_jax_or_the_reference():
         if root in ("jax", "jaxlib", "repro")
     }
     assert bad == {}
+
+
+def test_the_scan_covers_the_partition_and_roofline_modules():
+    mods = set(_modules())
+    assert {"repro_torch.partition", "repro_torch.partition.graph",
+            "repro_torch.partition.planner", "repro_torch.partition.executor",
+            "repro_torch.roofline", "repro_torch.roofline.costmodel"} <= mods
