@@ -13,7 +13,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
    PyTorch library call of the same function where one exists (a yardstick
    the port never calls) and the least time the card could take (the
    bound); the three attention kernels also at each stack of ``NEW_ARCHS``'
-   shapes (its heads, KV heads, head dim, window and softcap): prompt 14,
+   and ``MOE_ARCHS``' shapes (its heads, KV heads, head dim, window and
+   softcap; qwen3-moe's G = 16, phi3.5-moe's G = 4): prompt 14,
    decode length 70, the scheduler's 32 ragged rows, phi-3-vision's 590
    and gemma2-9b's 4608-token prompt and 4664-token decode;
 4. model: for each served stack, its smoke size in float32 on the card
@@ -27,8 +28,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
    both); one profiled graph chunk a mode: openvla-7b (32 layers), then
    jamba-1.5-large-398b cut to its first 4 layers (mamba+MLP, mamba+MoE,
    mamba+MLP, attn+MoE; ~46 GB); then the five dense attention stacks of
-   ``NEW_ARCHS`` at full width and depth (gemma-7b, gemma2-9b,
-   h2o-danube-3-4b, starcoder2-3b, phi-3-vision-4.2b), each with its
+   ``NEW_ARCHS`` at full width, depth cut to ``NEW_ARCH_LAYERS`` (gemma-7b,
+   gemma2-9b, h2o-danube-3-4b, starcoder2-3b, phi-3-vision-4.2b), each with its
    figures (cloud_ms graph and eager, busy share, launches a chunk) beside
    its weight-read floor, its scheduler run (a) at R = 4, and, for
    gemma2-9b, a 4608-token prompt decoded dense and paged (greedy-margin
@@ -37,7 +38,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
    patch embeddings (its flash call at S = 590 held the same way); then
    the monitor path:
    ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
-   against the port's ``run_trigger`` scores;
+   against the port's ``run_trigger`` scores; then the MoE stacks of
+   ``MOE_ARCHS`` at published widths, depth cut to fit the card
+   (qwen3-moe-235b-a22b 14 layers, phi3.5-moe-42b-a6.6b 28): the f32 smoke
+   twins card vs CPU under ``Model(moe_impl=...)`` "dense" and "capacity",
+   then one set of bf16 weights served under both dispatches (``moe_twin``),
+   dense and paged, graph and eager, each held as the dense stacks are, one
+   profiled graph chunk each; the capacity dispatch uncapped (``cf = E /
+   k``) against the dense one by the greedy-margin rule, the default
+   factor's prefill drops counted; cloud_ms beside two weight-read floors
+   (every expert read, the active experts only);
 5. scheduler, on the same full-width model before it is freed: the
    continuous-batching scheduler through ``submit`` / ``submit_batch``,
    ``step``, ``cancel_batch`` and ``drain``, its decode rounds replayed as
@@ -49,7 +59,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    queue-wait percentiles, pool, window, graph and admission numbers, then
    all 64 at once (admission bounded by pages at 32 resident), and one
    profiled window.  Jamba: (a) at ``scan_rounds=4``.  Every run's
-   launch counts are checked exactly, graph replays included;
+   launch counts are checked exactly, graph replays included.  The MoE
+   stacks: (a) on the capacity dispatch at R = 4, 8 robots, cold and warm,
+   tokens/s and chunk latency percentiles (their tokens are held card
+   against CPU by the f32 smoke twin of phase 4);
 6. fleet, on the same full-width openvla-7b model (run between its phase 5
    and Jamba's phase 4): (a) f32 openvla-smoke, the same weights on the
    card and on the CPU, ``serve_fleet(trigger="rapid")`` with 8 robots, R =
@@ -103,6 +116,8 @@ phase 3 and prints no result line (a short call for kernel work).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import gc
 import json
 import subprocess
@@ -131,7 +146,8 @@ from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
@@ -222,9 +238,25 @@ REPLACES = {
     "rolling_stats": "src/repro/kernels/rolling_stats.py:104",
 }
 JAMBA = "jamba-1.5-large-398b"
-# the dense attention stacks served at full width and depth after openvla-7b
+# the dense attention stacks served at full width after openvla-7b
 NEW_ARCHS = ("gemma-7b", "gemma2-9b", "h2o-danube-3-4b", "starcoder2-3b", "phi-3-vision-4.2b")
+# their depth since the MoE stacks joined the run (its time limit): the
+# first 4 layers at published widths (gemma2-9b: 2 local, 2 global); their
+# full-depth figures are in PERF.md, section 5
+NEW_ARCH_LAYERS = 4
 JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weights
+# the MoE stacks at published widths, depth cut so that one 80 GB card keeps
+# ~11 GiB for the caches, the scheduler's pool and the CUDA graphs' pools
+QWEN3_LAYERS = 14  # 67.2 GiB of bf16 weights (437.9 GiB at the published 94 layers)
+PHI35_LAYERS = 28  # 68.3 GiB (78.0 GiB at the published 32 would leave under 2 GiB)
+MOE_ARCHS = {"qwen3-moe-235b-a22b": QWEN3_LAYERS, "phi3.5-moe-42b-a6.6b": PHI35_LAYERS}
+MIN_FREE_GIB = 6.0  # free device memory a MoE stack must leave after loading
+# the MoE stacks' brief mode (the time limit): the paged runs take the
+# first 2 chunks' ticks (held to the dense runs' first 2), and one
+# observation goes through graph and eager chunks a mode and through the
+# uncapped capacity twin
+MOE_PAGED_STEPS = 16
+MOE_EAGER_OBS = 1
 FLEET = 1024      # robots in the monitor's episode bank
 TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
@@ -256,14 +288,17 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters=50, warmup=5) -> float:
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    # slow plain versions: about half a second of calls, at least 3
-    iters = max(3, min(iters, int(0.5 / max(time.perf_counter() - t0, 1e-6))))
+    # slow plain versions (the monitor's, ~0.4-1.6 s a call): about half a
+    # second of warm-up and of timed calls, at least 3 timed
+    calls = int(0.5 / max(time.perf_counter() - t0, 1e-6))
+    for _ in range(min(warmup, calls)):
+        fn()
+    iters = max(3, min(iters, calls))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -546,9 +581,10 @@ def arch_shape(arch: str):
 
 
 def arch_kernel_cases(rng):
-    """The three attention kernels at the new stacks' shapes (bf16, the
-    served dtype): the closed loop's prompt (flash S = 14) and decode length
-    70 (dense and paged), the scheduler round's 32 ragged rows, phi-3-vision's
+    """The three attention kernels at the shapes of the new stacks and the
+    MoE stacks (bf16, the served dtype; qwen3-moe's G = 16 fills the decode
+    kernels' largest template): the closed loop's prompt (flash S = 14) and
+    decode length 70 (dense and paged), the scheduler round's 32 ragged rows, phi-3-vision's
     prompt with its 576 patch tokens (S = 590), and gemma2-9b's long prompt
     (S = 4608) and its decode at length 4664 (window 4096, softcap 50).
     Each is held to ROW_TOL as well; capped ones draw q at CAP_Q_SCALE and
@@ -557,7 +593,7 @@ def arch_kernel_cases(rng):
 
     bf = torch.bfloat16
     cases = []
-    for arch in NEW_ARCHS:
+    for arch in NEW_ARCHS + tuple(MOE_ARCHS):
         label, h, kv, d, win, cap = arch_shape(arch)
         wc = dict(window=win, cap=cap, q_scale=CAP_Q_SCALE if cap else 1.0, checked=True,
                   controls=("cap",) if cap else ())
@@ -790,13 +826,14 @@ class RecordingPolicy(CloudPolicy):
         return toks
 
 
-def check_small_model_against_cpu(arch: str):
-    """Smoke-size f32 stack: kernels on the card vs plain versions on the
-    CPU, same weights; chunk tokens equal, prefill logits within 1e-4."""
+def check_small_model_against_cpu(arch: str, moe_impl: str = "dense"):
+    """Smoke-size f32 stack (its MoE layers dispatching with ``moe_impl``):
+    kernels on the card vs plain versions on the CPU, same weights; chunk
+    tokens equal, prefill logits within 1e-4."""
 
     cfg = get_smoke_config(arch).replace(dtype="float32")
-    cpu = Model(cfg, device="cpu")
-    gpu = Model(cfg, device="cuda")
+    cpu = Model(cfg, device="cpu", moe_impl=moe_impl)
+    gpu = Model(cfg, device="cuda", moe_impl=moe_impl)
     gpu.load_state_dict(cpu.state_dict())
     tok = EpisodeTokenizer(cfg.vocab_size)
     rng = np.random.default_rng(1)
@@ -823,7 +860,8 @@ def check_small_model_against_cpu(arch: str):
                      for r in res]
     if out["card"] != out["cpu"]:
         raise AssertionError(f"{cfg.name} f32 scheduler results differ card (graphs) vs CPU")
-    log(f"  {cfg.name} f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
+    impl = f" (moe_impl {moe_impl})" if cfg.moe is not None else ""
+    log(f"  {cfg.name}{impl} f32 stack, card kernels vs CPU plain: logits max err {err:.3g}, "
         "dense and paged chunk tokens equal (CloudPolicy graphs on the card); scheduler "
         f"(R = 4, rows 2 -> 4, decode rounds as graphs): {len(res)} chunks and rounds equal")
     if cfg.sliding_window:
@@ -976,21 +1014,104 @@ def profile_chunk(policy):
     return busy_ms / wall_ms
 
 
-def check_greedy_margin(model, tok, dense_rec, paged_rec):
+class RouteLog:
+    """While entered, records each MoE router call (``moe_lib.router_probs``
+    wrapped): the routed sets [T, E] and each token's top-k boundary gap of
+    the router logits (its k-th largest minus its (k+1)-th)."""
+
+    def __enter__(self):
+        self.fn, self.calls = moe_lib.router_probs, []
+
+        def record(x, router_w, k):
+            out = self.fn(x, router_w, k)
+            top = (x.float() @ router_w.float()).topk(k + 1, dim=-1).values
+            self.calls.append(((out[0] > 0).reshape(-1, router_w.shape[-1]),
+                               (top[..., k - 1] - top[..., k]).reshape(-1)))
+            return out
+
+        moe_lib.router_probs = record
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.router_probs = self.fn
+
+
+def routes_along(model, tok, qd, tau, toks, step, paged):
+    """``model``'s router calls, teacher-forced along the prompt and
+    ``toks[:, :step]``, through a dense cache or a paged one (laid out as
+    ``CloudPolicy(paged=True)`` lays it out)."""
+
+    obs = obs_prompt(tok, qd, tau)
+    with RouteLog() as routes:
+        if paged:
+            spec, pt, caps = CloudPolicy(model, tok, paged=True)._page_plan(1, obs.shape[1])
+            _, dcache = model.prefill({"tokens": obs})
+            cache = model.cache_to_paged(dcache, model.init_paged_cache(1, spec), pt, caps)
+        else:
+            _, cache = model.prefill({"tokens": obs}, extra=step + 1)
+        for j in range(step):
+            _, cache = model.decode_step(torch.as_tensor(toks[:, j:j + 1], device="cuda"), cache)
+    return routes.calls
+
+
+def route_flip_gap(tok, qd, tau, toks, step, a, b):
+    """Two paths ``a``, ``b`` (each ``(model, paged)``) teacher-forced along
+    the same tokens up to decode step ``step``: at the first router call
+    whose routed sets differ between them, the largest of path ``a``'s
+    router boundary gaps over the tokens that differ; None where every
+    call routes alike.  Top-k routing is discontinuous: a flip at a
+    near-tie moves a token's output by a whole expert, which the
+    greedy-margin rule on the output logits alone cannot allow for."""
+
+    for (sa, ga), (sb, _) in zip(routes_along(a[0], tok, qd, tau, toks, step, a[1]),
+                                 routes_along(b[0], tok, qd, tau, toks, step, b[1])):
+        rows = (sa != sb).any(-1)
+        if rows.any():
+            return float(ga[rows].max())
+    return None
+
+
+def explain_divergence(what, model, tok, qd, tau, toks, step, other=None):
+    """A token of two paths differs at decode step ``step`` (``toks``: the
+    first path's chunk, dense cache on ``model``): allowed where that path's
+    top-two logit gap is within MARGIN_TOL, or, given ``other`` (the second
+    path, ``(model, paged)``), where the two first part at a routing
+    decision whose boundary gap is within MARGIN_TOL -> the router gap
+    where that explained it, else None."""
+
+    gap = top2_gap_at(model, tok, qd, tau, toks, step)
+    if gap <= MARGIN_TOL:
+        return None
+    flip = None if other is None else route_flip_gap(tok, qd, tau, toks, step, (model, False),
+                                                     other)
+    if flip is None or flip > MARGIN_TOL:
+        routes = ("" if other is None else " and the routes agree" if flip is None
+                  else f" and the routes first part at a router gap of {flip:.3g}")
+        raise AssertionError(f"{what} token differs at step {step} where the top-two gap is "
+                             f"{gap:.3g} > {MARGIN_TOL}{routes}")
+    return flip
+
+
+def check_greedy_margin(model, tok, dense_rec, paged_rec, routes=False):
+    """The dense and the paged run's chunks, observation by observation:
+    a token may differ only within the greedy margin; with ``routes`` (the
+    MoE stacks) also past a routing near-tie (``explain_divergence``)."""
+
     if len(dense_rec) != len(paged_rec):
         raise AssertionError("dense and paged runs offloaded a different number of times")
-    diverged = 0
+    diverged, flips = 0, []
     for (qd, tau, td), (qd2, tau2, tp) in zip(dense_rec, paged_rec):
         if not (np.array_equal(qd, qd2) and np.array_equal(tau, tau2)):
             raise AssertionError("dense and paged runs saw different observations")
         diff = np.flatnonzero(td[0] != tp[0])
         if diff.size:
             diverged += 1
-            gap = top2_gap_at(model, tok, qd, tau, td, int(diff[0]))
-            if gap > MARGIN_TOL:
-                raise AssertionError(f"paged token differs at step {diff[0]} where the dense "
-                                     f"top-two gap is {gap:.3g} > {MARGIN_TOL}")
-    log(f"  greedy-margin rule: {len(dense_rec)} chunks, {diverged} diverged within the margin")
+            flip = explain_divergence("paged", model, tok, qd, tau, td, int(diff[0]),
+                                      (model, True) if routes else None)
+            if flip is not None:
+                flips.append(round(flip, 4))
+    log(f"  greedy-margin rule: {len(dense_rec)} chunks, {diverged} diverged within the margin"
+        + (f" ({len(flips)} past a routing near-tie, router gaps {flips})" if routes else ""))
 
 
 def graph_vs_eager(model, tok, policies, n_obs=3, n_timed=3):
@@ -1488,6 +1609,205 @@ def frontend_prompt(model, tok, launches):
     log(f"  {cfg.name} frontend prompt: {cfg.num_modality_tokens} patches + 14 tokens, S = {s}, "
         f"logits finite; launches {counts} (exact)")
     hold_captured(f"prefill layer 0 (S = {s})", "flash_attention", fa.calls[0])
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the MoE stacks
+# ---------------------------------------------------------------------------
+
+
+def moe_twin(model, moe_impl: str, capacity_factor=None):
+    """A sibling of ``model`` over the same weights (nothing copied: a
+    shallow copy shares the modules) whose MoE layers dispatch with
+    ``moe_impl``, at ``capacity_factor`` if given.  A stack at the card's
+    size cannot be built twice."""
+
+    twin = copy.copy(model)
+    twin.moe_impl = moe_impl
+    if capacity_factor is not None:
+        twin.cfg = model.cfg.replace(
+            moe=dataclasses.replace(model.cfg.moe, capacity_factor=capacity_factor))
+    return twin
+
+
+class CountDrops:
+    """While entered, sums the token slots the capacity dispatch routes and
+    keeps (``moe_lib.capacity_slots`` wrapped; eager calls only)."""
+
+    def __enter__(self):
+        self.fn, self.routed, self.kept = moe_lib.capacity_slots, [], []
+
+        def count(selected, cap):
+            keep, slot = self.fn(selected, cap)
+            self.routed.append(selected.sum())
+            self.kept.append(keep.sum())
+            return keep, slot
+
+        moe_lib.capacity_slots = count
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.capacity_slots = self.fn
+
+    def totals(self):
+        return int(sum(self.routed)), int(sum(self.kept))
+
+
+def moe_floors_ms(cfg, tokens: int = 56):
+    """(every expert, active experts only): ``weight_floor_ms`` with all of
+    each MoE layer's experts read, and with only its top-k read."""
+
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    idle = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)) * \
+        (cfg.moe.num_experts - cfg.moe.num_experts_per_tok) * per_expert
+    every = weight_floor_ms(cfg, tokens)
+    return every, every - tokens * 2 * idle / HBM_BPS * 1e3
+
+
+def obs_prompt(tok, qd, tau):
+    return torch.as_tensor(np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1),
+                           device="cuda")
+
+
+def uncapped_vs_dense(model, tok, record):
+    """The capacity dispatch with ``capacity_factor = E / k`` (``cap`` >= the
+    tokens: nothing drops) on the dense dispatch's recorded observations:
+    its ``CloudPolicy`` graph chunks against the dense chunks by the
+    greedy-margin rule; then the default factor's prefill on the same
+    prompts, eager, counting the token slots it drops."""
+
+    m = model.cfg.moe
+    twin = moe_twin(model, "capacity", capacity_factor=m.num_experts / m.num_experts_per_tok)
+    policy = CloudPolicy(twin, tok)
+    diverged, flips = 0, []
+    for qd, tau, want in record:
+        got = policy.chunk_tokens(qd, tau)
+        diff = np.flatnonzero(got[0] != want[0])
+        if diff.size:
+            diverged += 1
+            flip = explain_divergence("uncapped capacity", model, tok, qd, tau, want,
+                                      int(diff[0]), (twin, False))
+            if flip is not None:
+                flips.append(round(flip, 4))
+    del policy
+    capped = moe_twin(model, "capacity")
+    with CountDrops() as drops:
+        for qd, tau, _ in record:
+            capped.prefill({"tokens": obs_prompt(tok, qd, tau)})
+    routed, kept = drops.totals()
+    cap = max(int(14 * m.num_experts_per_tok * m.capacity_factor / m.num_experts), 1)
+    log(f"  uncapped capacity (cf {m.num_experts / m.num_experts_per_tok:g}) vs dense dispatch: "
+        f"{len(record)} chunks, {diverged} diverged within the margin ({len(flips)} past a "
+        f"routing near-tie, router gaps {flips}); default cf "
+        f"{m.capacity_factor:g} (cap {cap} at a 14-token prefill): {routed - kept} of {routed} "
+        f"prefill token slots dropped over {len(record)} prompts x {model.cfg.num_layers} layers")
+
+
+def serve_moe_stack(cfg, launches):
+    """A MoE stack at published widths (``cfg`` at its cut depth): built on
+    the card, then under ``moe_impl`` "dense" and "capacity" (one set of
+    weights; ``moe_twin``) served dense for ``NEW_STEPS`` ticks and paged
+    for ``MOE_PAGED_STEPS``, the two held to the greedy-margin rule (and
+    its routing near-ties), ``CloudPolicy``'s graphs against eager chunks
+    on ``MOE_EAGER_OBS`` observations (cloud_ms of both), one
+    profiled graph chunk (dense cache), and its exact hand-kernel launches
+    a replay; the uncapped capacity twin against the dense dispatch; the
+    figures beside both weight-read floors; then the capacity scheduler."""
+
+    gc.collect()  # the blocks the earlier stacks' policies cached go back to the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    log(f"  {cfg.name} ({cfg.num_layers} layers, every one MoE, {cfg.moe.num_experts} experts "
+        f"top-{cfg.moe.num_experts_per_tok}): {cfg.param_count() / 1e9:.3f} B params, "
+        f"{cfg.dtype}, built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, {free:.2f} GiB free")
+    if free < MIN_FREE_GIB:
+        raise AssertionError(f"{cfg.name}: {free:.2f} GiB free after loading, under "
+                             f"{MIN_FREE_GIB} GiB: cut the depth")
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    n = model.n_attn
+    figures, busy = {}, {}
+    for impl in MOE_IMPLS:
+        served = model if impl == "dense" else moe_twin(model, impl)
+        t1 = time.perf_counter()
+        dense, c_dense = serve_main_path(served, tok, paged=False, steps=NEW_STEPS)
+        paged, c_paged = serve_main_path(served, tok, paged=True, steps=MOE_PAGED_STEPS)
+        check_greedy_margin(served, tok, dense.record[:len(paged.record)], paged.record,
+                            routes=True)
+        for k in launches:
+            launches[k] += c_dense[k] + c_paged[k]
+        figures[impl] = graph_vs_eager(served, tok, (dense, paged), n_obs=MOE_EAGER_OBS,
+                                       n_timed=0)
+        for mode, name in (("dense", "decode_attention"), ("paged", "paged_attention")):
+            per_replay = figures[impl][mode][2]
+            if per_replay != {"flash_attention": n, name: dense.n_steps * n}:
+                raise AssertionError(f"{impl} {mode} hand-kernel launches a replay {per_replay}")
+        busy[impl] = profile_chunk(dense)
+        log(f"  [{cfg.name} moe_impl {impl}: {time.perf_counter() - t1:.1f} s]")
+        if impl == "dense":
+            record = dense.record[:MOE_EAGER_OBS]
+        del dense, paged
+    uncapped_vs_dense(model, tok, record)
+    every, active = moe_floors_ms(cfg)
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f}"  # noqa: E731
+    for impl in MOE_IMPLS:
+        for mode, (graph_ms, eager_ms, per_replay) in figures[impl].items():
+            log(f"  figures {cfg.name} moe_impl {impl} {mode}: cloud_ms graph {graph_ms:.2f} "
+                f"eager {eager_ms:.2f}; busy share (dense cache) {fmt(busy[impl])}; "
+                f"hand-kernel launches a chunk {per_replay}")
+    log(f"  floors {cfg.name}: every expert read {every:.1f} ms (graph dense dispatch "
+        f"{figures['dense']['dense'][0] / every:.2f}x, capacity "
+        f"{figures['capacity']['dense'][0] / every:.2f}x); active experts only {active:.1f} ms "
+        f"(dense dispatch {figures['dense']['dense'][0] / active:.2f}x)")
+    phase(f"5. scheduler ({cfg.name})")
+    moe_scheduler(moe_twin(model, "capacity"), tok, launches)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_scheduler(model, tok, launches, n=8):
+    """(a) on the capacity dispatch at R = 4: 8 robots, three at once then
+    one every 2 rounds, ``max_slots=4`` (rows double to 8), cold (graphs
+    captured on the way) and warm (after ``reset``), with
+    ``Observability``: action tokens/s, chunk latency p50 / p99, exact
+    launch counts, pages back.  Each chunk is 56 action tokens; the rows
+    (idle ones too) share each expert's capacity, so no single-robot path
+    reproduces them: the f32 smoke twin (phase 4) holds the scheduler's
+    tokens card against CPU."""
+
+    reqs = requests(np.random.default_rng(7), n)
+    sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4,
+                                        num_pages=n * -(-(14 + 56) // 16))
+    for run in ("cold", "warm"):
+        if run == "warm":
+            sched.reset()
+        sched.obs = Observability(trace=False)
+        admits0, rounds0 = len(sched.admit_ms), sched.decode_rounds
+        captures0, capture_s0 = sched.graph_captures, sched.capture_s
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = staggered(sched, reqs)
+        wall = time.perf_counter() - t0
+        counts = check_sched_counts(model, sched, admits0, rounds0, launches)
+        if sorted(r.robot_id for r in results) != list(range(n)) or \
+                sched.pool_stats().pages_in_use != 0:
+            raise AssertionError(f"capacity scheduler served {[r.robot_id for r in results]}")
+        for r in results:
+            toks = np.asarray(r.tokens)
+            if toks.shape != (56,) or (toks < tok.action_base).any() or \
+                    (toks >= tok.vocab_size).any():
+                raise AssertionError(f"robot {r.robot_id}: bad chunk {toks}")
+        lat = sched.obs.metrics.get("serve.chunk_latency_ms")
+        log(f"  capacity scheduler {run} (R = 4): {n} robots, rows {sched.rows}, peak_active "
+            f"{sched.peak_active}, {sched.decode_rounds - rounds0} rounds in {wall:.3f} s: action "
+            f"tokens/s {n * 56 / wall:.1f}; chunk latency p50 {lat.quantile(0.5):.2f} p99 "
+            f"{lat.quantile(0.99):.2f} ms; graphs {sched.graph_captures - captures0} captured in "
+            f"{sched.capture_s - capture_s0:.2f} s; launches {counts} (exact)")
 
 
 # ---------------------------------------------------------------------------
@@ -2289,13 +2609,19 @@ def main(argv) -> int:
     launches = {n: 0 for n in _lib.KERNELS}
     stacks = [("openvla-7b", get_config("openvla-7b"), openvla_scheduler, False),
               (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), jamba_scheduler, False)]
-    stacks += [(arch, get_config(arch), dense_arch_scheduler, True) for arch in NEW_ARCHS]
+    stacks += [(arch, get_config(arch).replace(num_layers=NEW_ARCH_LAYERS), dense_arch_scheduler,
+                True) for arch in NEW_ARCHS]
     for arch, cfg, sched_phase, brief in stacks:
         phase(f"4. model ({arch})")
         check_small_model_against_cpu(arch)
         serve_stack(cfg, launches, sched_phase, brief)
     phase("4. monitor")
     monitor_path(fleet, launches)
+    for arch, layers in MOE_ARCHS.items():
+        phase(f"4. model ({arch})")
+        for impl in MOE_IMPLS:
+            check_small_model_against_cpu(arch, impl)
+        serve_moe_stack(get_config(arch).replace(num_layers=layers), launches)
 
     phase("8. result")
     rows = []

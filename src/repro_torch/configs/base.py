@@ -1,7 +1,7 @@
 """Model config for the port: the fields its served stacks read.
 
 An own copy of the subset of ``repro.configs.base.ModelConfig`` that the
-dense-attention and the hybrid Mamba/MoE paths need (the port imports
+dense-attention, the MoE and the hybrid Mamba/MoE paths need (the port imports
 nothing of ``repro``).  Field names and defaults match the reference, so a
 config built here describes the same model as its reference twin.
 """
@@ -20,6 +20,9 @@ class MoEConfig:
     num_experts_per_tok: int = 0
     # MoE layers replace the dense MLP every ``every`` layers (1 = all)
     every: int = 1
+    # slots an expert holds under the capacity dispatch, as a multiple of
+    # its even share of the tokens (``models.moe.moe_forward_capacity``)
+    capacity_factor: float = 1.25
 
 
 @dataclass(frozen=True)
@@ -186,7 +189,9 @@ class ModelConfig:
 
 # the archs the port serves, in the reference's ARCH_IDS order
 ARCH_IDS = (
+    "phi3.5-moe-42b-a6.6b",
     "gemma2-9b",
+    "qwen3-moe-235b-a22b",
     "gemma-7b",
     "jamba-1.5-large-398b",
     "phi-3-vision-4.2b",
@@ -196,7 +201,9 @@ ARCH_IDS = (
 )
 
 _MODULE_FOR = {
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "gemma2-9b": "gemma2_9b",
+    "qwen3-moe-235b-a22b": "qwen3_moe",
     "gemma-7b": "gemma_7b",
     "jamba-1.5-large-398b": "jamba_15_large",
     "phi-3-vision-4.2b": "phi3_vision",

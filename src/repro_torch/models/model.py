@@ -2,7 +2,8 @@
 whose layers mix with attention or Mamba and whose FFN is an MLP (gated or
 plain) or a mixture of experts: the dense attention stacks (openvla-7b,
 gemma, gemma2 with local and global layers alternating, h2o-danube3,
-starcoder2, phi-3-vision) and the Jamba hybrid.
+starcoder2, phi-3-vision), the MoE stacks (qwen3-moe, phi3.5-moe; the
+dispatch is ``Model(moe_impl=...)``) and the Jamba hybrid.
 
 Where the reference stacks parameters over repeats of a repeating unit and
 scans, the port keeps an ``nn.ModuleList`` of per-layer blocks and loops;
@@ -57,6 +58,10 @@ from repro_torch.models.layers import (
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
 
+# Model(moe_impl=...): the MoE layers' dispatch
+MOE_IMPLS = {"dense": moe_lib.moe_forward, "capacity": moe_lib.moe_forward_capacity}
+
+
 def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
     """Per-layer (block type, is_moe, is_local_window): with
     ``local_global_alternating`` the even layers are local (gemma2)."""
@@ -101,20 +106,29 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
-                 generator: Optional[torch.Generator] = None, windowed_cache: bool = False):
+                 generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
+                 moe_impl: str = "dense"):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
         (default: a generator on ``device`` seeded with 0).
 
         ``windowed_cache``: dense decode caches are rings sized to each
         attention layer's window (the reference's ``Model(windowed_cache=
         True)``); a ring's writes wrap and its decode masks no window.  The
-        paged caches are unchanged."""
+        paged caches are unchanged.
+
+        ``moe_impl``: the MoE layers' dispatch, ``"dense"`` (every expert on
+        every token, ``moe_lib.moe_forward``) or ``"capacity"`` (top-k
+        tokens gathered to each expert's ``cap`` slots, overflow dropped,
+        ``moe_lib.moe_forward_capacity``), as the reference's switch."""
 
         super().__init__()
         if cfg.d_ff <= 0:
             raise ValueError("the port's Model serves stacks with an MLP or MoE FFN")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {moe_impl!r}: one of {sorted(MOE_IMPLS)}")
         self.cfg = cfg
         self.windowed_cache = windowed_cache
+        self.moe_impl = moe_impl
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.specs = layer_specs(cfg)
@@ -202,14 +216,15 @@ class Model(nn.Module):
         blk = self.layers[i]
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
         if blk.spec[1]:
-            return x + moe_lib.moe_forward(h, blk.moe, self.cfg)[0]
+            return x + MOE_IMPLS[self.moe_impl](h, blk.moe, self.cfg)[0]
         return x + mlp(h, blk.mlp, self.cfg.mlp_activation)
 
     def _moe_pre_dispatch(self, i: int, x):
         """The edge half of a gather/scatter MoE split of layer ``i``: norm2
         and the router -> (h2, combine), what ships to the experts;
         ``moe_lib.moe_apply_experts(h2, combine, ...)`` finishes the mixture.
-        The two halves are ``_block_ffn``'s MoE op for op."""
+        The two halves are ``_block_ffn``'s dense MoE op for op (the
+        executor splits no capacity dispatch)."""
 
         blk = self.layers[i]
         h2 = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)

@@ -92,6 +92,9 @@ class PartitionExecutor:
                 raise ValueError(f"expert_offload layer {l} not edge-side of cut {cut_layer}")
             if not (model.specs[l][1] and cfg.d_ff > 0 and cfg.moe is not None):
                 raise ValueError(f"expert_offload layer {l} is not an MoE layer")
+        if self.expert_offload and model.moe_impl != "dense":
+            raise ValueError("gather/scatter expert offload splits the dense MoE path; "
+                             "capacity dispatch keeps experts fused")
         self.shipped_bytes = 0.0
         # an Observability handle (``attach_partition`` sets it): the serial
         # legs then record their host times, ``record_chunk_bytes`` its bytes

@@ -70,3 +70,9 @@ def test_the_scan_covers_the_partition_and_roofline_modules():
     assert {"repro_torch.partition", "repro_torch.partition.graph",
             "repro_torch.partition.planner", "repro_torch.partition.executor",
             "repro_torch.roofline", "repro_torch.roofline.costmodel"} <= mods
+
+
+def test_the_scan_covers_the_moe_configs():
+    mods = set(_modules())
+    assert {"repro_torch.configs.qwen3_moe", "repro_torch.configs.phi35_moe",
+            "repro_torch.models.moe"} <= mods
