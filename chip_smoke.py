@@ -16,7 +16,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    and ``MOE_ARCHS``' shapes (its heads, KV heads, head dim, window and
    softcap; qwen3-moe's G = 16, phi3.5-moe's G = 4): prompt 14,
    decode length 70, the scheduler's 32 ragged rows, phi-3-vision's 590
-   and gemma2-9b's 4608-token prompt and 4664-token decode;
+   and gemma2-9b's 4608-token prompt and 4664-token decode; and at
+   seamless-m4t-medium's (H = KV = 16, D = 64): its decoder's prompt, its
+   encoder over 300 frames (non-causal), decode at length 70 (dense and
+   paged) and its cross-attention decode over the 300 frames;
 4. model: for each served stack, its smoke size in float32 on the card
    against the same weights on the CPU (plain versions; ``CloudPolicy``
    chunks and a scheduler run whose decode rounds are CUDA graphs), then
@@ -40,14 +43,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
    against the port's ``run_trigger`` scores; then the MoE stacks of
    ``MOE_ARCHS`` at published widths, depth cut to fit the card
-   (qwen3-moe-235b-a22b 14 layers, phi3.5-moe-42b-a6.6b 28): the f32 smoke
+   (qwen3-moe-235b-a22b 7 layers, phi3.5-moe-42b-a6.6b 14): the f32 smoke
    twins card vs CPU under ``Model(moe_impl=...)`` "dense" and "capacity",
    then one set of bf16 weights served under both dispatches (``moe_twin``),
    dense and paged, graph and eager, each held as the dense stacks are, one
    profiled graph chunk each; the capacity dispatch uncapped (``cf = E /
    k``) against the dense one by the greedy-margin rule, the default
    factor's prefill drops counted; cloud_ms beside two weight-read floors
-   (every expert read, the active experts only);
+   (every expert read, the active experts only); then xlstm-125m at full
+   depth (12 mLSTM / sLSTM blocks, no attention layer, so no hand-kernel
+   launch: its f32 smoke twin card vs CPU, the closed loop dense and paged
+   with equal chunks, graph vs eager, one profile, scheduler (a) at R = 4,
+   ``PartitionedPolicy`` at cut 6), and seamless-m4t-medium at full depth
+   (12 encoder + 12 decoder layers): its f32 smoke twin card vs CPU, then
+   a prompt of 14 tokens and 300 stub frames through ``Model.prefill`` and
+   ``decode_chunk`` in four modes (dense or paged cache x cross K/V
+   projected each token or cached at prefill), exact launches, the four
+   held to one another by the greedy-margin rule, each chunk as a CUDA
+   graph against eager beside its weight-read floor;
 5. scheduler, on the same full-width model before it is freed: the
    continuous-batching scheduler through ``submit`` / ``submit_batch``,
    ``step``, ``cancel_batch`` and ``drain``, its decode rounds replayed as
@@ -95,10 +108,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
    16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 8, 16), R = 4,
    ``max_slots=8``, pipelined, cold and warm, with ``Observability``
    (tokens/s, latency, fused windows, per-leg channel bytes, graph
-   captures, pages back after a drain), and 4 robots through serial and
+   captures, pages back after a drain; each lane's buffers freed each time
+   it empties, the most it held, no buffer or pool left after a drain),
+   and 4 robots through serial and
    pipelined lanes (tokens equal or inside the margin); (c) Jamba: an
    expert-offload lane and a plain cut-2 lane with cloud-only robots in
-   one scheduler, chunks held to ``CloudPolicy(paged=True)``.  Every run's
+   one scheduler, chunks held to ``CloudPolicy(paged=True)``; (xLSTM)
+   ``PartitionedPolicy`` on xlstm-125m at cut 6 of 12.  Every run's
    launch counts are derived from what it dispatched (``SplitLedger``) and
    checked exactly;
 8. the result: a ``{"kernels": [...]}`` line and, last, the device line.
@@ -165,6 +181,8 @@ from repro_torch.runtime.policy import (  # noqa: E402
     fleet_policy_config,
     rollout,
 )
+from repro_torch.runtime.graphs import GraphedCall  # noqa: E402
+from repro_torch.runtime.kv_cache import PagedSpec  # noqa: E402
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and flop/s by input type
@@ -245,10 +263,13 @@ NEW_ARCHS = ("gemma-7b", "gemma2-9b", "h2o-danube-3-4b", "starcoder2-3b", "phi-3
 # full-depth figures are in PERF.md, section 5
 NEW_ARCH_LAYERS = 4
 JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weights
-# the MoE stacks at published widths, depth cut so that one 80 GB card keeps
-# ~11 GiB for the caches, the scheduler's pool and the CUDA graphs' pools
-QWEN3_LAYERS = 14  # 67.2 GiB of bf16 weights (437.9 GiB at the published 94 layers)
-PHI35_LAYERS = 28  # 68.3 GiB (78.0 GiB at the published 32 would leave under 2 GiB)
+# the MoE stacks at published widths, depth cut: PR 20 ran 14 and 28
+# layers (67.2 and 68.3 GiB, the most one 80 GB card held beside the
+# caches and graph pools; their figures are in PERF.md, sections 5-6);
+# since PR 21 half that, the room the xLSTM and enc-dec stacks take in the
+# time limit
+QWEN3_LAYERS = 7   # 34.8 GiB of bf16 weights (437.9 GiB at the published 94 layers)
+PHI35_LAYERS = 14  # 34.4 GiB (78.0 GiB at the published 32)
 MOE_ARCHS = {"qwen3-moe-235b-a22b": QWEN3_LAYERS, "phi3.5-moe-42b-a6.6b": PHI35_LAYERS}
 MIN_FREE_GIB = 6.0  # free device memory a MoE stack must leave after loading
 # the MoE stacks' brief mode (the time limit): the paged runs take the
@@ -257,6 +278,13 @@ MIN_FREE_GIB = 6.0  # free device memory a MoE stack must leave after loading
 # uncapped capacity twin
 MOE_PAGED_STEPS = 16
 MOE_EAGER_OBS = 1
+# the last two archs (PR 21), after the MoE stacks: xlstm-125m at full
+# depth (12 blocks, mLSTM and sLSTM; no attention layer) and
+# seamless-m4t-medium at full depth (12 encoder + 12 decoder layers)
+XLSTM = "xlstm-125m"
+XLSTM_CUTS = (6,)  # its PartitionedPolicy cut: 6 of 12 blocks on the edge
+ENCDEC = "seamless-m4t-medium"
+ENC_FRAMES = 300   # stub frame embeddings of a seamless prompt (a few seconds of speech)
 FLEET = 1024      # robots in the monitor's episode bank
 TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
@@ -308,7 +336,7 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls=20, seconds=0.2) -> float:
+def device_ms(fn, calls=20, seconds=0.1) -> float:
     """The device's time for one call, without the host's: ``calls`` calls
     captured in one CUDA graph, the graph replayed back to back between two
     CUDA events.  Launchers count their launches at capture only."""
@@ -625,6 +653,33 @@ def arch_kernel_cases(rng):
     return [(name, label, dtype, case, False) for name, label, dtype, case in cases]
 
 
+def encdec_kernel_cases(rng):
+    """The three attention kernels at seamless-m4t-medium's shapes (bf16,
+    H = KV = 16, D = 64), each also held to ROW_TOL: the decoder's prompt
+    (flash S = 14, causal), the encoder over ``ENC_FRAMES`` frames (flash,
+    non-causal), the decoder's self-attention decode at length 70 (dense;
+    paged at B = 1 and at the scheduler's 32 ragged rows) and a token's
+    cross-attention over the frames (decode, ``cache_len`` = S_enc, every
+    key valid)."""
+
+    bf = torch.bfloat16
+    label, h, kv, d, _, _ = arch_shape(ENCDEC)
+    c = dict(d=d, checked=True)
+    cases = [
+        ("flash_attention", f"{label} S=14 decoder prompt", flash_case(rng, bf, 14, h, kv, **c)),
+        ("flash_attention", f"{label} S={ENC_FRAMES} encoder, non-causal",
+         flash_case(rng, bf, ENC_FRAMES, h, kv, causal=False, **c)),
+        ("decode_attention", f"{label} S=70 len=70", decode_case(rng, bf, 70, h, kv, 70, **c)),
+        ("decode_attention", f"{label} cross S_enc={ENC_FRAMES} len={ENC_FRAMES}",
+         decode_case(rng, bf, ENC_FRAMES, h, kv, ENC_FRAMES, **c)),
+        ("paged_attention", f"{label} B=1 len=70 page 16 identity",
+         paged_case(rng, bf, [70], 16, h, kv, identity=True, **c)),
+        ("paged_attention", f"{label} scheduler rows=32 lens 0..70 (8 idle)",
+         paged_case(rng, bf, scheduler_lens(rng), 16, h, kv, masked_library=True, **c)),
+    ]
+    return [(name, label, bf, case, False) for name, label, case in cases]
+
+
 def kernel_cases(rng, fleet):
     bf, f32 = torch.bfloat16, torch.float32
     ragged = [1, 1000, 0, 17, 250, 16, 999, 64]
@@ -731,7 +786,7 @@ def kernel_cases(rng, fleet):
         # 5 s streams at 500 Hz: longer than one super-tile of 32 x 32 ticks
         ("rolling_stats", "N=256 T=2500 random", f32,
          stats_case(*random_streams(rng, 256, 2500)), False),
-    ] + arch_kernel_cases(rng)
+    ] + arch_kernel_cases(rng) + encdec_kernel_cases(rng)
 
 
 def compare(outs, wants, tols):
@@ -976,35 +1031,41 @@ def device_events(prof):
 
 def profile_chunk(policy):
     """One chunk of ``policy`` (dense or paged; a replay of its CUDA graph,
-    captured before) under torch.profiler: wall ms, the device's busy share
-    (returned; None where the profiler saw no kernel), the decode attention
-    kernels' device time and the kernels that take the device's time (the
-    ten largest)."""
+    captured before) under torch.profiler (``profile_fn``)."""
+
+    rng = np.random.default_rng(2)
+    qd, tau = rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))
+    mode = "paged" if policy.paged else "dense"
+    return profile_fn(f"{mode} graph chunk ({policy.model.cfg.name})",
+                      lambda: policy.chunk_tokens(qd, tau))
+
+
+def profile_fn(what, fn):
+    """``fn`` once, then once more under torch.profiler: wall ms, the
+    device's busy share (returned; None where the profiler saw no kernel),
+    the decode attention kernels' device time and the kernels that take
+    the device's time (the ten largest)."""
 
     from torch.profiler import ProfilerActivity, profile
 
-    model = policy.model
-    mode = "paged" if policy.paged else "dense"
-    rng = np.random.default_rng(2)
-    qd, tau = rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))
-    policy.chunk_tokens(qd, tau)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        policy.chunk_tokens(qd, tau)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_events(prof)
     if not kernels:
-        log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms; device time not "
-            "measured (the profiler recorded no CUDA kernels)")
+        log(f"  profiled {what}: wall {wall_ms:.1f} ms; device time not measured (the "
+            "profiler recorded no CUDA kernels)")
         return None
     busy_ms = sum(t for _, t in kernels)
     by_name = {}
     for name, ms in kernels:
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + ms)
-    log(f"  profiled {mode} graph chunk ({model.cfg.name}): wall {wall_ms:.1f} ms (profiler on), device "
+    log(f"  profiled {what}: wall {wall_ms:.1f} ms (profiler on), device "
         f"kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share {busy_ms / wall_ms:.3f}")
     dec = [(n, t) for name, (n, t) in by_name.items() if "decode" in name]
     log(f"    decode attention kernels: {sum(t for _, t in dec):.3f} ms in "
@@ -1197,13 +1258,24 @@ def serve_stack(cfg, launches, scheduler_phase, brief: bool = False):
     steps = NEW_STEPS if brief else STEPS
     dense, c_dense = serve_main_path(model, tok, paged=False, steps=steps)
     paged, c_paged = serve_main_path(model, tok, paged=True, steps=steps)
-    check_greedy_margin(model, tok, dense.record, paged.record)
+    if model.n_attn:
+        check_greedy_margin(model, tok, dense.record, paged.record)
+    else:
+        # no attention layer: both caches hold the same recurrent state
+        if [r[2].tolist() for r in dense.record] != [r[2].tolist() for r in paged.record]:
+            raise AssertionError(f"{cfg.name}: dense and paged chunks differ with no attention "
+                                 "layer")
+        log(f"  dense and paged runs: {len(dense.record)} chunks equal token for token (no "
+            "attention layer)")
     for n in launches:
         launches[n] += c_dense[n] + c_paged[n]
     t1 = time.perf_counter()
-    figures = graph_vs_eager(model, tok, (dense, paged), n_timed=0 if brief else 3)
+    # in turns on one observation since PR 21 (three before): the time limit
+    figures = graph_vs_eager(model, tok, (dense, paged), n_timed=0 if brief else 1)
     t2 = time.perf_counter()
-    busy = {"dense": profile_chunk(dense), "paged": profile_chunk(paged)}
+    # a stack without attention runs the same kernels in both modes: one profile
+    busy = {"dense": profile_chunk(dense)}
+    busy["paged"] = profile_chunk(paged) if model.n_attn else busy["dense"]
     log(f"  [{cfg.name}: built and served in {t1 - t0:.1f} s, graph vs eager {t2 - t1:.1f} s, "
         f"profiles {time.perf_counter() - t2:.1f} s]")
     floor = weight_floor_ms(cfg)
@@ -1403,11 +1475,13 @@ def sched_load(model, tok, launches, policy, n=64, per_round=4):
     profile_window(model, tok, sched, reqs[:32])
 
 
-def profile_window(model, tok, sched, reqs, route=None):
+def profile_window(model, tok, sched, reqs, route=None, skip_first=False):
     """One scan window under torch.profiler: the requests admitted at once
     (the eager admission prefill; ``route``: {robot: lane key} of the split
     ones), then the window's graph replays and its harvest: wall ms, device
-    busy share, time by kernel."""
+    busy share, time by kernel.  ``skip_first``: the first window (the
+    admission, and the captures of split lanes' graphs) runs before the
+    profiler, which sees the second (replays and harvest only)."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1415,6 +1489,10 @@ def profile_window(model, tok, sched, reqs, route=None):
     sched.reset()
     for r, qd, tau in reqs:
         sched.submit(r, qd, tau, partitioned=r in route, cut=route.get(r))
+    if skip_first:
+        sched.step()
+        while sched._window is not None:
+            sched.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1434,8 +1512,10 @@ def profile_window(model, tok, sched, reqs, route=None):
     for name, ms in kernels:
         k, t = by_name.get(name, (0, 0.0))
         by_name[name] = (k + 1, t + ms)
+    what = ("its second window, no admission" if skip_first
+            else f"admission {sched.admit_ms[-1]:.1f} ms of host")
     log(f"  profiled window ({len(reqs)} admitted, R = {sched.scan_rounds}, rows {sched.rows}): "
-        f"wall {wall_ms:.1f} ms (profiler on; admission {sched.admit_ms[-1]:.1f} ms of host), "
+        f"wall {wall_ms:.1f} ms (profiler on; {what}), "
         f"device kernels {busy_ms:.1f} ms in {len(kernels)} launches, busy share "
         f"{busy_ms / wall_ms:.3f}")
     for name, (k, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -1811,6 +1891,247 @@ def moe_scheduler(model, tok, launches, n=8):
 
 
 # ---------------------------------------------------------------------------
+# phases 4-7: the xLSTM stack and the encoder-decoder stack
+# ---------------------------------------------------------------------------
+
+
+def xlstm_scheduler(model, tok, launches, policy):
+    """xlstm-125m: scheduler (a) at R = 4 (its rows hold only the mLSTM and
+    sLSTM state; its rounds launch no hand kernel), then
+    ``PartitionedPolicy`` at ``XLSTM_CUTS`` against ``CloudPolicy``."""
+
+    sched_parity(model, tok, launches, policy, rounds_list=(4,))
+    phase(f"7. partition ({model.cfg.name})")
+    split_policy_full_width(model, tok, launches, cuts=XLSTM_CUTS)
+
+
+def enc_twin(model, cache_cross_kv: bool):
+    """A sibling of ``model`` over the same weights (a shallow copy shares
+    the modules) with ``cache_cross_kv`` set."""
+
+    twin = copy.copy(model)
+    twin.cache_cross_kv = cache_cross_kv
+    return twin
+
+
+def encdec_batch(cfg, tok, rng, b, frames, device):
+    """``b`` prompts of 14 state tokens and ``frames`` stub frame embeddings
+    (standard normal) for the encoder."""
+
+    return {"tokens": torch.as_tensor(rng.integers(tok.state_base, tok.action_base, (b, 14)),
+                                      device=device),
+            "frontend": torch.as_tensor(rng.standard_normal((b, frames, cfg.d_model)),
+                                        dtype=torch.float32, device=device)}
+
+
+def encdec_chunk(model, batch, paged, floor, n_steps=56):
+    """``Model.prefill(extra=n_steps)`` (paged: ``extra=0``, then the dense
+    cache scattered into pages as ``CloudPolicy(paged=True)`` lays them
+    out) and ``decode_chunk(n_steps, token_floor=floor)`` -> (tokens
+    [B, n_steps], the next logits)."""
+
+    b = batch["tokens"].shape[0]
+    if paged:
+        logits, dcache = model.prefill(batch, extra=0)
+        page = 16
+        maxp = -(-(14 + n_steps) // page)
+        spec = PagedSpec(num_pages=b * maxp, page_size=page, max_pages_per_seq=maxp)
+        i32 = dict(dtype=torch.int32, device=model.device)
+        pt = torch.arange(b * maxp, **i32).reshape(b, maxp)
+        cache = model.cache_to_paged(dcache, model.init_paged_cache(b, spec), pt,
+                                     torch.full((b,), maxp * page, **i32))
+    else:
+        logits, cache = model.prefill(batch, extra=n_steps)
+    toks, logits, _ = model.decode_chunk(logits, cache, n_steps, floor)
+    return toks, logits
+
+
+ENC_MODES = [(cached, paged) for cached in (False, True) for paged in (False, True)]
+
+
+def enc_mode(cached, paged):
+    return f"{'paged' if paged else 'dense'}, {'cached' if cached else 'uncached'} cross K/V"
+
+
+def encdec_card_vs_cpu():
+    """f32 seamless-smoke, the same weights on the card (kernels) and on the
+    CPU (plain versions): 2 prompts of 14 tokens and 24 frames, prefill
+    logits within 1e-4, the 56-token chunk's tokens equal and its final
+    logits within 1e-4, dense and paged, cross K/V cached and not."""
+
+    cfg = get_smoke_config(ENCDEC).replace(dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    batch = encdec_batch(cfg, tok, np.random.default_rng(41), 2, 24, "cpu")
+    worst = 0.0
+    for cached, paged in ENC_MODES:
+        out = {}
+        for name, model in (("card", gpu), ("cpu", cpu)):
+            m = enc_twin(model, cached)
+            b = {k: v.to(model.device) for k, v in batch.items()}
+            lg, _ = m.prefill(b)
+            toks, last = encdec_chunk(m, b, paged, tok.action_base)
+            out[name] = (lg.float().cpu(), toks.cpu(), last.float().cpu())
+        if not torch.equal(out["card"][1], out["cpu"][1]):
+            raise AssertionError(f"{cfg.name} f32 ({enc_mode(cached, paged)}): chunk tokens "
+                                 "differ card vs CPU")
+        err = max(float((out["card"][i] - out["cpu"][i]).abs().max()) for i in (0, 2))
+        if err > 1e-4:
+            raise AssertionError(f"{cfg.name} f32 ({enc_mode(cached, paged)}): logits differ "
+                                 f"card vs CPU by {err:.3g}")
+        worst = max(worst, err)
+    log(f"  {cfg.name} f32 stack, card kernels vs CPU plain: 2 prompts of 14 tokens + 24 frames, "
+        f"prefill and final logits max err {worst:.3g} (limit 1e-4), 56-token chunk tokens equal "
+        "in all four modes (dense / paged x cross K/V uncached / cached)")
+
+
+def encdec_top2_gap(model, batch, floor, toks, step):
+    """Dense cache, uncached cross K/V, teacher-forced with ``toks``: the
+    top-two logit gap over the action bins at decode step ``step``."""
+
+    logits, cache = model.prefill(batch, extra=step + 1)
+    for j in range(step):
+        logits, cache = model.decode_step(toks[:, j:j + 1], cache)
+    top = logits[0, -1, floor:].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def encdec_launches(model, paged, n_steps=56):
+    """One chunk's hand-kernel launches: a flash prefill per encoder layer
+    (non-causal) and per decoder layer (causal); per token and decoder
+    layer one self-attention decode (dense or paged) and one cross-attention
+    decode over the frames."""
+
+    n_dec, n_enc = model.n_attn, model.cfg.num_encoder_layers
+    want = {k: 0 for k in _lib.KERNELS}
+    want["flash_attention"] = n_enc + n_dec
+    want["decode_attention"] = n_dec * n_steps * (1 if paged else 2)
+    want["paged_attention"] = n_dec * n_steps if paged else 0
+    return want
+
+
+def encdec_floor_ms(cfg, cached, tokens=56, frames=ENC_FRAMES):
+    """The decode's weight-read floor: each token reads the decoder (the
+    cross-attention's K/V projections only when they are not cached) and
+    the head at the card's memory rate; uncached, the K/V projections over
+    ``frames`` add their operations (bf16 peak) each token."""
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    vpad = -(-cfg.vocab_size // 256) * 256
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    kv = 2 * d * hd * cfg.num_kv_heads
+    per_layer = 2 * attn + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff - (kv if cached else 0)
+    params = cfg.num_layers * per_layer + vpad * d
+    ms = tokens * 2 * params / HBM_BPS * 1e3
+    if not cached:
+        ms += tokens * cfg.num_layers * 2.0 * frames * kv / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return ms
+
+
+def serve_encdec(cfg, launches):
+    """seamless-m4t-medium at full width and depth (bf16, random weights):
+    one prompt of 14 state tokens and ``ENC_FRAMES`` stub frames through
+    ``Model.prefill(extra=56)`` and ``decode_chunk(56)`` in the four modes
+    (dense / paged cache x cross K/V projected each token / cached at
+    prefill; one set of weights, ``enc_twin``), exact launch counts, the
+    four held to one another by the greedy-margin rule; then each mode's
+    chunk replayed as a ``GraphedCall`` graph against eager (tokens equal),
+    cloud_ms of both beside the mode's weight-read floor, and the hand
+    kernels' launches a replay."""
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} ({cfg.num_encoder_layers} encoder + {cfg.num_layers} decoder layers): "
+        f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}, built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    floor = tok.action_base
+    batch = encdec_batch(cfg, tok, np.random.default_rng(43), 1, ENC_FRAMES, "cuda")
+    toks, eager_ms = {}, {}
+    for cached, paged in ENC_MODES:
+        m = enc_twin(model, cached)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        out, last = encdec_chunk(m, batch, paged, floor)
+        out = out.cpu()
+        ms = eager_ms[(cached, paged)] = (time.perf_counter() - t1) * 1e3
+        counts = dict(ops.LAUNCHES)
+        want = encdec_launches(model, paged)
+        if counts != want:
+            raise AssertionError(f"{cfg.name} ({enc_mode(cached, paged)}): launches {counts}, "
+                                 f"expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        t = out.numpy()
+        if t.shape != (1, 56) or (t < floor).any() or (t >= cfg.vocab_size).any() or \
+                not torch.isfinite(last).all():
+            raise AssertionError(f"{cfg.name} ({enc_mode(cached, paged)}): bad chunk {t}")
+        toks[(cached, paged)] = out
+        log(f"  {enc_mode(cached, paged)}: prefill of 14 tokens + {ENC_FRAMES} frames and a "
+            f"56-token chunk, eager {ms:.1f} ms (first of its mode); launches {counts} (exact)")
+    ref_toks = toks[(False, False)]
+    diverged = 0
+    for mode, t in toks.items():
+        diff = np.flatnonzero(t[0].numpy() != ref_toks[0].numpy())
+        if diff.size:
+            diverged += 1
+            gap = encdec_top2_gap(model, batch, floor, ref_toks.to("cuda"), int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"{cfg.name} {enc_mode(*mode)}: token {diff[0]} differs from "
+                                     f"the dense uncached chunk where the top-two gap is {gap:.3g}")
+    log(f"  greedy-margin rule: the four modes' chunks against dense uncached, {diverged} of 3 "
+        "diverged within the margin")
+    for cached, paged in ENC_MODES:
+        m = enc_twin(model, cached)
+        static = {k: v.clone() for k, v in batch.items()}
+        call = GraphedCall(lambda m=m, static=static, paged=paged:
+                           encdec_chunk(m, static, paged, floor))
+        ms = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        runs = 3  # the first runs eagerly, then captures
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = call()[0].cpu()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if not torch.equal(got, toks[(cached, paged)]):
+                raise AssertionError(f"{cfg.name} {enc_mode(cached, paged)}: graph tokens "
+                                     "differ from the eager chunk")
+        graph_ms = ms[1:]
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        want = encdec_launches(model, paged)
+        if call.launches != {k: n for k, n in want.items() if n} or \
+                counts != {k: n * runs for k, n in want.items()}:
+            raise AssertionError(f"{cfg.name} {enc_mode(cached, paged)}: launches a replay "
+                                 f"{call.launches}, in all {counts}; expected {want} a chunk")
+        for k in launches:
+            launches[k] += counts[k]
+        busy = None
+        if cached and not paged:  # one profiled graph chunk (its launches go uncounted)
+            busy = profile_fn(f"{enc_mode(cached, paged)} graph chunk ({cfg.name})",
+                              lambda: call()[0].cpu())
+        fl = encdec_floor_ms(cfg, cached)
+        log(f"  figures {cfg.name} {enc_mode(cached, paged)}: graph == eager tokens; cloud_ms "
+            f"graph {np.mean(graph_ms):.2f} (min {min(graph_ms):.2f}; first, eager + capture, "
+            f"{ms[0]:.1f}) eager {eager_ms[(cached, paged)]:.2f} against a weight-read floor "
+            f"of {fl:.2f} ms (graph {np.mean(graph_ms) / fl:.2f}x); capture {call.capture_s:.2f} s;"
+            f"{'' if busy is None else f' busy share {busy:.3f};'} hand-kernel launches a replay "
+            f"{call.launches}")
+        del call
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the fleet
 # ---------------------------------------------------------------------------
 
@@ -2154,13 +2475,14 @@ class SplitLedger:
             ledger().add("paged_attention", model.n_attn * block * rounds)
             return cls._decode_window(ledger().sched_ref(), block, rounds)
 
-        def counted_fused(lanes, n_steps):
+        def counted_fused(lanes, block, rounds):
+            n_steps = block * rounds
             first = min(l.cut for l in lanes)
             ledger().add("decode_attention",
                          n_steps * sum(n_kind(model, range(l.cut)) for l in lanes))
             ledger().add("paged_attention",
                          n_steps * n_kind(model, range(first, model.cfg.num_layers)))
-            return cls._split_fused_step(ledger().sched_ref(), lanes, n_steps)
+            return cls._split_fused_step(ledger().sched_ref(), lanes, block, rounds)
 
         def counted_admit():
             s = ledger().sched_ref()
@@ -2323,14 +2645,14 @@ def split_fleet_card_vs_cpu():
         f"{card['hetero_rounds']}, {card['cancelled']} cancels and actions equal")
 
 
-def split_policy_full_width(model, tok, launches):
-    """(b) ``PartitionedPolicy`` on openvla-7b at ``SPLIT_CUTS``: graph
+def split_policy_full_width(model, tok, launches, cuts=SPLIT_CUTS):
+    """(b) ``PartitionedPolicy`` on openvla-7b at ``cuts``: graph
     chunks against eager (tokens equal) and against ``CloudPolicy`` by the
     greedy-margin rule; cloud_ms of the split graph beside CloudPolicy's
     graph and the modeled channel ms."""
 
     rng = np.random.default_rng(23)
-    obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(3)]
+    obs = [(rng.normal(0, 0.5, (1, 7)), rng.normal(0, 0.5, (1, 7))) for _ in range(2)]
     cloud = CloudPolicy(model, tok)
     want = [cloud.chunk_tokens(qd, tau) for qd, tau in obs]
     cloud_ms = []
@@ -2339,7 +2661,7 @@ def split_policy_full_width(model, tok, launches):
         cloud.chunk_tokens(qd, tau)
         cloud_ms.append((time.perf_counter() - t0) * 1e3)
     n = model.n_attn
-    for cut in SPLIT_CUTS:
+    for cut in cuts:
         policy = PartitionedPolicy(PartitionExecutor(model, cut), tok)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2396,6 +2718,16 @@ class SplitRecorder(ContinuousBatchingScheduler):
         return done
 
 
+def suffix_pool_bytes(sched, first_cut):
+    """Bytes of the scheduler's shared suffix K/V pools for lanes whose
+    shallowest cut is ``first_cut``: two pools per attention layer past it."""
+
+    spec, model = sched.paged_spec, sched.model
+    per_layer = (2 * (spec.num_pages + 1) * spec.page_size * model.cfg.num_kv_heads
+                 * model.cfg.resolved_head_dim * model.embed.table.element_size())
+    return per_layer * n_kind(model, range(first_cut, model.cfg.num_layers))
+
+
 def hetero_robot_cuts():
     return {r: cut for cut, start in HETERO.items() for r in range(start, start + 4)}
 
@@ -2418,7 +2750,8 @@ def split_fleet_full_width(model, tok, launches):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         ledger.want = {n: 0 for n in _lib.KERNELS}
-        captures0 = sched.graph_captures
+        captures0, capture_s0 = sched.graph_captures, sched.capture_s
+        drops0 = {c: lane.drops for c, lane in sched._lanes.items()}
         sched.by_lane = {}
         obs = Observability(trace=False)
         out = serve_fleet(model, tok, n_robots=16, max_steps=FLEET_TICKS, scan_rounds=4,
@@ -2435,6 +2768,14 @@ def split_fleet_full_width(model, tok, launches):
         bytes_ = {k: v for k, v in m.to_json().items() if k.startswith("channel.bytes")}
         if out["hetero_rounds"] == 0 or out["mixed_rounds"] == 0:
             raise AssertionError(f"(b) split fleet {run}: no heterogeneous or mixed rounds")
+        if any(lane.has_buffers for lane in sched._lanes.values()) or sched._suffix_pools:
+            raise AssertionError(f"(b) split fleet {run}: lane buffers or pools kept after drain")
+        log(f"  (b) split fleet {run}, lane buffers: freed {{cut: times}} "
+            f"{ {c: lane.drops - drops0[c] for c, lane in sched._lanes.items()} }; the most a "
+            f"lane held (bytes) { {c: lane.peak_bytes for c, lane in sched._lanes.items()} }; "
+            f"shared suffix pools while a lane lives "
+            f"{suffix_pool_bytes(sched, min(HETERO)) / 2**20:.1f} MiB; fused graphs captured "
+            f"{sched.graph_captures - captures0} in {sched.capture_s - capture_s0:.2f} s")
         log(f"  (b) split fleet {run}: offloads {int(out['offloads'].sum())} cancels "
             f"{out['cancelled']}; {chunks} chunks in {out['wall_s']:.3f} s: decode action "
             f"tokens/s {56 * chunks / out['wall_s']:.1f}; chunk latency p50 "
@@ -2446,13 +2787,11 @@ def split_fleet_full_width(model, tok, launches):
             f"chunks by lane {sched.by_lane} (drain included); pages back after drain; "
             f"launches {counts} (exact, drain included)")
     ledger.release()
-    # one window of all 16 at once under the profiler (run once before, so
-    # that its fused graph is captured outside the profiler)
+    # all 16 at once, the second window under the profiler: an emptied
+    # lane's graphs go with its buffers, so the first window after an
+    # admission captures them, and the second replays them
     reqs = requests(np.random.default_rng(37), 16)
-    for r, qd, tau in reqs:
-        sched.submit(r, qd, tau, partitioned=r in cuts, cut=cuts.get(r))
-    sched.drain()
-    profile_window(model, tok, sched, reqs, route=cuts)
+    profile_window(model, tok, sched, reqs, route=cuts, skip_first=True)
     # the serial lanes (per-token host ping-pong) on the first robots'
     # observations, against the same robots through the pipelined lanes
     rng = np.random.default_rng(29)
@@ -2622,6 +2961,12 @@ def main(argv) -> int:
         for impl in MOE_IMPLS:
             check_small_model_against_cpu(arch, impl)
         serve_moe_stack(get_config(arch).replace(num_layers=layers), launches)
+    phase(f"4. model ({XLSTM})")
+    check_small_model_against_cpu(XLSTM)
+    serve_stack(get_config(XLSTM), launches, xlstm_scheduler, brief=True)
+    phase(f"4. model ({ENCDEC})")
+    encdec_card_vs_cpu()
+    serve_encdec(get_config(ENCDEC), launches)
 
     phase("8. result")
     rows = []

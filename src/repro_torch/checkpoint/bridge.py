@@ -4,13 +4,17 @@ The input is a ``{key: np.ndarray}`` dict of the reference's parameter tree
 flattened with ``/``-joined paths, bf16 widened to float32 — the layout of
 ``repro/checkpoint/npz.py`` ``_flatten`` (``embed/table``, ``mod_proj/w``,
 ``unit/<j>/attn/wq``, ``unit/<j>/mamba/in_proj``, ``unit/<j>/moe/up``,
-``unit/<j>/mlp/up/w``, ``final_norm/scale``, ``lm_head/w``).  Block
-parameters are stacked over the repeats of the reference's repeating unit
-of ``period`` layers (``models.model.unit_period``), so port layer ``i``
-reads ``unit/{i % period}/...[i // period]``: a stack of identical layers
-has period 1, jamba-smoke (mamba, attn) and gemma2 (local, global) period
-2.  Float32 parameters (router, ``dt_bias``, ``a_log``, ``d_skip``) stay
-float32.  The bridge walks the port's own parameters, so a key the port
+``unit/<j>/mlp/up/w``, ``unit/<j>/mlstm/up_proj``, ``unit/<j>/xattn/wq``,
+``enc_unit/0/attn/wq``, ``final_norm/scale``, ``enc_norm/scale``,
+``lm_head/w``).  Block parameters are stacked over the repeats of the
+reference's repeating unit of ``period`` layers
+(``models.model.unit_period``), so port layer ``i`` reads
+``unit/{i % period}/...[i // period]``: a stack of identical layers has
+period 1, jamba-smoke (mamba, attn), gemma2 (local, global) and xLSTM
+(mlstm, slstm) period 2.  An encoder's layers are a unit of one layer:
+port encoder layer ``i`` reads ``enc_unit/0/...[i]``.  Float32 parameters
+(router, ``dt_bias``, ``a_log``, ``d_skip``, ``if_bias``, the sLSTM
+``bias``) stay float32.  The bridge walks the port's own parameters, so a key the port
 lacks is never asked for: a tied stack (gemma) has no ``lm_head/w`` and a
 plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
@@ -30,11 +34,14 @@ def reference_key(name: str, period: int = 1) -> Tuple[str, int]:
     """Port parameter name -> (reference key, index into the repeat axis).
 
     ``layers.5.attn.wq`` -> (``unit/0/attn/wq``, 5) with period 1, and
-    (``unit/1/attn/wq``, 2) with period 2; top-level names map to their key
-    with index -1 (no repeat axis).
+    (``unit/1/attn/wq``, 2) with period 2; ``enc_layers.3.attn.wq`` ->
+    (``enc_unit/0/attn/wq``, 3); top-level names map to their key with
+    index -1 (no repeat axis).
     """
 
     parts = name.split(".")
+    if parts[0] == "enc_layers":
+        return "/".join(["enc_unit", "0"] + parts[2:]), int(parts[1])
     if parts[0] != "layers":
         return "/".join(parts), -1
     i = int(parts[1])

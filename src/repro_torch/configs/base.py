@@ -1,9 +1,10 @@
 """Model config for the port: the fields its served stacks read.
 
 An own copy of the subset of ``repro.configs.base.ModelConfig`` that the
-dense-attention, the MoE and the hybrid Mamba/MoE paths need (the port imports
-nothing of ``repro``).  Field names and defaults match the reference, so a
-config built here describes the same model as its reference twin.
+dense-attention, the MoE, the hybrid Mamba/MoE, the xLSTM and the
+encoder-decoder paths need (the port imports nothing of ``repro``).  Field
+names and defaults match the reference, so a config built here describes
+the same model as its reference twin.
 """
 
 from __future__ import annotations
@@ -36,16 +37,31 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block dims (sLSTM + mLSTM mix, arXiv:2405.04517)."""
+
+    # every ``slstm_every``-th block is an sLSTM in the published mix; the
+    # layers themselves follow ``block_pattern``
+    slstm_every: int = 2
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.3334
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """A pre-norm decoder: each layer's mixer is RoPE attention (windowed
     when ``sliding_window`` is set, on the even layers only when
-    ``local_global_alternating``) or a Mamba block, as ``block_pattern``
-    tiles them, and its FFN is an MLP (gated or plain, ``mlp_activation``)
-    or, on the layers ``moe`` selects, a top-k mixture of SwiGLU experts.
-    The head is its own matrix or the embedding table (``tie_embeddings``);
-    embeddings may be scaled by sqrt(d_model) and the logits softcapped.
-    Vision and audio stacks carry a stub frontend projector in front, as
-    openvla-7b is built in the reference."""
+    ``local_global_alternating``), a Mamba block, or an mLSTM or sLSTM
+    block (``xlstm``), as ``block_pattern`` tiles them, and its FFN is an
+    MLP (gated or plain, ``mlp_activation``) or, on the layers ``moe``
+    selects, a top-k mixture of SwiGLU experts; ``d_ff == 0`` (xLSTM) means
+    no FFN.  The head is its own matrix or the embedding table
+    (``tie_embeddings``); embeddings may be scaled by sqrt(d_model) and the
+    logits softcapped.  Vision and audio decoders carry a stub frontend
+    projector in front, as openvla-7b is built in the reference; an
+    encoder-decoder stack (``encoder_decoder``) instead runs the frames
+    through ``num_encoder_layers`` non-causal encoder layers, which every
+    decoder layer cross-attends."""
 
     name: str
     num_layers: int
@@ -68,7 +84,9 @@ class ModelConfig:
     scale_embeddings: bool = False  # gemma style sqrt(d_model) scaling
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    # per-layer mixers ("attn" | "mamba"), tiled over the layers; None -> all "attn"
+    xlstm: Optional[XLSTMConfig] = None
+    # per-layer mixers ("attn" | "mamba" | "mlstm" | "slstm"), tiled over the
+    # layers; None -> all "attn"
     block_pattern: Optional[Tuple[str, ...]] = None
     modality: str = "text"  # text | vision | audio
     num_modality_tokens: int = 0  # stub frontend tokens a prompt carries
@@ -76,8 +94,8 @@ class ModelConfig:
     # global attention layers take ``long_context_window`` beyond that length
     subquadratic_decode: bool = False
     long_context_window: int = 32_768
-    # the reference's encoder-decoder stacks (seamless-m4t); the port
-    # serves none yet, and the partition graph reads the flag
+    # encoder-decoder stacks (seamless-m4t): frames feed the encoder, text
+    # tokens the decoder
     encoder_decoder: bool = False
     num_encoder_layers: int = 0
 
@@ -101,27 +119,49 @@ class ModelConfig:
     def param_count(self) -> int:
         """Total parameters the port's ``Model`` holds: the embedding and,
         unless tied to it, the head (vocab padded to 256), the stub
-        projector of vision/audio stacks, and per layer its mixer, two norms
-        and its MLP (3 d d_ff gated, 2 d d_ff plain) or experts."""
+        projector of a vision/audio decoder, per layer its mixer, norms and
+        its MLP (3 d d_ff gated, 2 d d_ff plain) or experts (none when
+        ``d_ff == 0``) and, on an enc-dec stack, its cross-attention, and
+        the encoder's layers and final norm."""
 
-        d, hd = self.d_model, self.resolved_head_dim
+        d = self.d_model
         vpad = -(-self.vocab_size // 256) * 256
         heads = 1 if self.tie_embeddings else 2
-        total = heads * vpad * d + d + (d * d if self.modality in ("vision", "audio") else 0)
+        front = self.modality in ("vision", "audio") and not self.encoder_decoder
+        total = heads * vpad * d + d + (d * d if front else 0)
+        attn = self._attn_params()
         for i, blk in enumerate(self.blocks):
+            total += d  # norm1
             if blk == "attn":
-                total += d * hd * (2 * self.num_heads + 2 * self.num_kv_heads)
-            else:
+                total += attn
+                if self.encoder_decoder:
+                    total += d + attn  # xnorm, xattn
+            elif blk == "mamba":
                 s = self.ssm or SSMConfig()
                 d_in = s.expand * d
                 nh = max(d_in // 64, 1)  # SSD heads of models.ssm.HEAD_P channels
                 total += (3 * d * d_in + s.conv_width * d_in + d_in * nh
                           + d_in * 2 * s.state_dim + 3 * nh)
-            ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
-            if self.is_moe_layer(i):
-                ffn = self.moe.num_experts * ffn + d * self.moe.num_experts
-            total += 2 * d + ffn
+            elif blk == "mlstm":
+                x, nh = self.xlstm or XLSTMConfig(), self.num_heads
+                d_in = int(x.proj_factor_mlstm * d)
+                total += d * 2 * d_in + 3 * d_in * d_in + d_in * 2 * nh + 2 * nh + d_in * d
+            else:
+                d_up = int((self.xlstm or XLSTMConfig()).proj_factor_slstm * d)
+                total += 8 * d * d + 4 * d + 2 * d * d_up + d_up * d
+            if self.d_ff > 0:
+                ffn = (3 if self.gated_mlp else 2) * d * self.d_ff
+                if self.is_moe_layer(i):
+                    ffn = self.moe.num_experts * ffn + d * self.moe.num_experts
+                total += d + ffn  # norm2
+        if self.encoder_decoder:
+            mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+            total += self.num_encoder_layers * (2 * d + attn + mlp) + d
         return total
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        return d * hd * (2 * self.num_heads + 2 * self.num_kv_heads)
 
     # --- the reference's parameter accounting (configs/base.py:147-231),
     # the unit the partition graph and its cost model cut between.  It
@@ -144,10 +184,22 @@ class ModelConfig:
             dtr = s.dt_rank or -(-d // 16)
             p = (d * 2 * d_in + d_in * s.conv_width + d_in * (dtr + 2 * s.state_dim)
                  + dtr * d_in + d_in * s.state_dim + d_in + d_in * d)
+        elif blk in ("slstm", "mlstm"):
+            x = self.xlstm or XLSTMConfig()
+            if blk == "mlstm":
+                # up projection (x and z branches), q/k/v over the inner
+                # width, the out projection
+                d_in = int(x.proj_factor_mlstm * d)
+                p = d * 2 * d_in + 3 * d_in * d_in + d_in * d
+            else:
+                # four gates' input and recurrent weights, the GLU up / down
+                d_up = int(x.proj_factor_slstm * d)
+                p = 8 * d * d + 2 * d * d_up
         else:
             raise ValueError(blk)
         if self.encoder_decoder:
             p += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+        # an MLP or MoE rides a layer iff d_ff > 0 (xLSTM: none)
         mlp_active = mlp_total = 0
         if self.d_ff > 0:
             per = (3 if self.gated_mlp else 2) * d * self.d_ff
@@ -196,7 +248,9 @@ ARCH_IDS = (
     "jamba-1.5-large-398b",
     "phi-3-vision-4.2b",
     "h2o-danube-3-4b",
+    "seamless-m4t-medium",
     "starcoder2-3b",
+    "xlstm-125m",
     "openvla-7b",
 )
 
@@ -208,7 +262,9 @@ _MODULE_FOR = {
     "jamba-1.5-large-398b": "jamba_15_large",
     "phi-3-vision-4.2b": "phi3_vision",
     "h2o-danube-3-4b": "h2o_danube3",
+    "seamless-m4t-medium": "seamless_m4t",
     "starcoder2-3b": "starcoder2_3b",
+    "xlstm-125m": "xlstm_125m",
     "openvla-7b": "openvla",
 }
 

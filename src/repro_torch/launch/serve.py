@@ -82,12 +82,21 @@ class CloudPolicy:
     are host ints (prompt_len .. prompt_len + n_steps - 1), the same at
     every call of a shape, so the graph holds the whole chunk and the
     decode kernel keeps its host-int length path.  On a CPU model the same
-    function runs eagerly (``eager_chunk``).
+    function runs eagerly (``eager_chunk``).  A recurrent stack (Mamba,
+    xLSTM) keeps its state in the same cache, updated in place by the graph.
+
+    An encoder-decoder stack is refused: a chunk's prompt is observation
+    tokens only, and its encoder needs frames (the reference's
+    ``CloudPolicy`` fails there with ``KeyError: 'frontend'``).
     """
 
     def __init__(self, model: Model, tokenizer: EpisodeTokenizer, chunk_len: int = 8,
                  n_joints: int = 7, fused: bool = True, paged: bool = False,
                  page_size: int = 16):
+        if model.cfg.encoder_decoder:
+            raise NotImplementedError(
+                f"CloudPolicy serves decoder-only stacks: {model.cfg.name} needs encoder "
+                "frames (\"frontend\") that an observation prompt does not carry")
         self.model = model
         self.tok = tokenizer
         self.chunk_len = chunk_len

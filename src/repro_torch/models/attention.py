@@ -1,12 +1,24 @@
 """Attention of the port (counterpart of ``repro/models/attention.py``).
 
-Every attention call goes through ``kernels.ops``: prefill through the flash
+Self-attention goes through ``kernels.ops``: prefill through the flash
 kernel, dense decode through the decode kernel, paged decode through the
 paged kernel — on a CUDA tensor the hand-written Hopper kernel, on a CPU
 tensor its plain version.  (The reference's jnp ``_sdpa`` and
 ``_sdpa_chunked`` have no separate twin here: ``kernels/ref.py`` is the
 plain path.)  Caches are updated in place, where the reference returns new
 arrays.
+
+An encoder-decoder stack adds two kinds, both without RoPE and non-causal
+(the reference's ``kv_override`` path, attention.py:357-362): the
+encoder's self-attention (``encoder_attention``, the flash kernel with
+``causal=False``) and the decoder's cross-attention over the encoder's
+output.  A cross-attention prefill has q and k of different lengths, which
+the flash kernel does not take; the reference computes it in XLA, outside
+any kernel, and so does the port, as a plain float32 softmax
+(``cross_attention_forward``).  A decode step's cross-attention is the
+decode kernel at ``cache_len = S_enc``, every key valid: over K/V cached at
+prefill (``cross_attention_cached``) or projected from the encoder's output
+each token (``cross_attention_decode``, the reference's baseline).
 """
 
 from __future__ import annotations
@@ -152,3 +164,72 @@ def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_poo
         page_table, lens_eff, window=window, logit_cap=cfg.attn_logit_softcap,
     )
     return dense(out.reshape(b, 1, -1), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder: the encoder's self-attention, the decoder's cross-attention
+# ---------------------------------------------------------------------------
+
+
+def _project(x, w, heads: int, hd: int):
+    b, s, _ = x.shape
+    return dense(x, w).reshape(b, s, heads, hd)
+
+
+def encoder_attention(x, p: Attention, cfg: ModelConfig):
+    """The encoder's self-attention over x [B,S,D]: no RoPE, non-causal,
+    no window, through the flash kernel -> out [B,S,D]."""
+
+    b, s, _ = x.shape
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q, k, v = (_project(x, w, n, hd) for w, n in ((p.wq, nh), (p.wk, nkv), (p.wv, nkv)))
+    out = ops.flash_attention(q, k, v, causal=False, window=0, logit_cap=cfg.attn_logit_softcap)
+    return dense(out.reshape(b, s, -1), p.wo)
+
+
+def cross_kv(enc_out, p: Attention, cfg: ModelConfig):
+    """A cross-attention layer's K, V [B, S_enc, KV, Dh] over the encoder's
+    output (no RoPE)."""
+
+    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    return _project(enc_out, p.wk, nkv, hd), _project(enc_out, p.wv, nkv, hd)
+
+
+def cross_attention_forward(x, p: Attention, cfg: ModelConfig, enc_out):
+    """The decoder's cross-attention over a prompt x [B,S,D] against
+    ``enc_out`` [B,S_enc,D], every key valid, as a plain softmax (scores,
+    probabilities and the value sum in float32) -> (out [B,S,D], k, v),
+    the K/V for a cached decode."""
+
+    b, s, _ = x.shape
+    hd, nh = cfg.resolved_head_dim, cfg.num_heads
+    q = _project(x, p.wq, nh, hd)
+    k, v = cross_kv(enc_out, p, cfg)
+    g = nh // k.shape[2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float().repeat_interleave(g, dim=2)) * hd**-0.5
+    cap = cfg.attn_logit_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float().repeat_interleave(g, dim=2))
+    return dense(out.to(q.dtype).reshape(b, s, -1), p.wo), k, v
+
+
+def cross_attention_cached(x, p: Attention, cfg: ModelConfig, xk, xv):
+    """One decode token's cross-attention, x [B,1,D], over K/V cached at
+    prefill (xk/xv [B,S_enc,KV,Dh]): the decode kernel with every key valid
+    -> out [B,1,D]."""
+
+    b = x.shape[0]
+    q = dense(x, p.wq).reshape(b, cfg.num_heads, cfg.resolved_head_dim)
+    out = ops.decode_attention(q, xk.to(q.dtype), xv.to(q.dtype), cache_len=xk.shape[1],
+                               logit_cap=cfg.attn_logit_softcap)
+    return dense(out.reshape(b, 1, -1), p.wo)
+
+
+def cross_attention_decode(x, p: Attention, cfg: ModelConfig, enc_out):
+    """The uncached baseline: the token's cross-attention with K/V projected
+    from ``enc_out`` afresh -> out [B,1,D]."""
+
+    return cross_attention_cached(x, p, cfg, *cross_kv(enc_out, p, cfg))

@@ -129,3 +129,18 @@ def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0) 
 
     x = table[tokens].to(torch.bfloat16)
     return x * scale if scale else x
+
+
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Sinusoidal position encoding [seq, d] (sines, then cosines), in
+    float32 and then cast, as the reference's (layers.py:152-159): its
+    ``log(10000) / (d / 2)`` is a float32 log divided in float32."""
+
+    f32 = dict(dtype=torch.float32, device=device)
+    half = d // 2
+    pos = torch.arange(seq, **f32)[:, None]
+    # the log of a filled tensor: no host-to-device copy (a CUDA graph may
+    # be capturing)
+    freq = torch.exp(-torch.arange(half, **f32) * (torch.log(torch.full((), 10000.0, **f32)) / half))
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -1,26 +1,37 @@
-"""The port's model (counterpart of ``repro/models/model.py``) for stacks
-whose layers mix with attention or Mamba and whose FFN is an MLP (gated or
-plain) or a mixture of experts: the dense attention stacks (openvla-7b,
-gemma, gemma2 with local and global layers alternating, h2o-danube3,
-starcoder2, phi-3-vision), the MoE stacks (qwen3-moe, phi3.5-moe; the
-dispatch is ``Model(moe_impl=...)``) and the Jamba hybrid.
+"""The port's model (counterpart of ``repro/models/model.py``) for every
+stack of the reference: the dense attention stacks (openvla-7b, gemma,
+gemma2 with local and global layers alternating, h2o-danube3, starcoder2,
+phi-3-vision), the MoE stacks (qwen3-moe, phi3.5-moe; the dispatch is
+``Model(moe_impl=...)``), the Jamba hybrid of Mamba and attention, the
+xLSTM stack of mLSTM and sLSTM blocks (xlstm-125m; ``d_ff == 0``, so its
+blocks have no FFN half), and the encoder-decoder stack (seamless-m4t): a
+non-causal encoder over stub frame embeddings, whose output every decoder
+layer cross-attends (K/V projected each token, or cached at prefill with
+``Model(cache_cross_kv=True)``).
 
 Where the reference stacks parameters over repeats of a repeating unit and
 scans, the port keeps an ``nn.ModuleList`` of per-layer blocks and loops;
 ``checkpoint/bridge.py`` maps layer ``i`` to ``unit/{i % period}/...[i //
-period]``, the unit being ``unit_period(layer_specs(cfg))`` layers long.
-Caches hold each kind of layer state in one tensor with a leading axis over
-the layers of that kind (K/V over the attention layers, ``h``/``conv`` over
-the Mamba layers, which stacks without Mamba layers leave out) and are
-updated in place:
+period]``, the unit being ``unit_period(layer_specs(cfg))`` layers long
+(the encoder's layer ``i`` to ``enc_unit/0/...[i]``).  Caches hold each
+kind of layer state in one tensor with a leading axis over the layers of
+that kind, and are updated in place.  The recurrent state keys
+(``Model.state_names``, row axis 1; absent for kinds the stack lacks) are
+Mamba ``h`` / ``conv``, mLSTM ``mC`` / ``mn`` / ``mm`` and sLSTM ``sc`` /
+``sn`` / ``sh`` / ``sm``, all O(1) a row and dense in both cache kinds:
 
   dense  {"k", "v": [La, B, S, KV, Dh], "len": int or [B] int32,
-          "h": [Lm, B, H, P, N] f32, "conv": [Lm, B, K-1, d_in]}
+          "h": [Lm, B, H, P, N] f32, "conv": [Lm, B, K-1, d_in],
+          "mC": [Lx, B, H, Dh, Dh] f32, "mn": [Lx, B, H, Dh] f32,
+          "mm": [Lx, B, H] f32, "sc", "sn", "sh", "sm": [Ls, B, D] f32}
          (``windowed_cache``: "k", "v" are lists of per-layer [B, S_l, KV,
-         Dh] rings, S_l = min(S, the layer's window))
-  paged  {"kp", "vp": [La, P+1, page, KV, Dh] (last page is trash),
-          "len": [B] int32, "pt": [B, MAXP] int32, "cap": [B] int32,
-          "h", "conv" as in the dense cache}
+         Dh] rings, S_l = min(S, the layer's window); a stack without
+         attention layers has no "k" / "v")
+  paged  {"kp", "vp": [La, P+1, page, KV, Dh] (last page is trash; none
+          without attention layers), "len": [B] int32, "pt": [B, MAXP]
+          int32, "cap": [B] int32, the recurrent state as in the dense cache}
+  enc-dec, both kinds: + "enc_out": [B, S_enc, D] (the encoder's output)
+          and, with ``cache_cross_kv``, "xk", "xv": [La, B, S_enc, KV, Dh]
 
 Entry points: ``prefill``, ``decode_step``, ``decode_chunk``, ``forward``,
 ``init_cache``, ``init_paged_cache``, ``cache_to_paged``,
@@ -43,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     MLP,
     Dense,
@@ -53,6 +65,7 @@ from repro_torch.models.layers import (
     embed_scale,
     mlp,
     rms_norm,
+    sinusoidal_positions,
     softcap,
 )
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
@@ -60,6 +73,9 @@ from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
 # Model(moe_impl=...): the MoE layers' dispatch
 MOE_IMPLS = {"dense": moe_lib.moe_forward, "capacity": moe_lib.moe_forward_capacity}
+# the recurrent state a layer of each kind keeps, by its cache names
+STATE_NAMES = {"mamba": ("h", "conv"), "mlstm": ("mC", "mn", "mm"),
+               "slstm": ("sc", "sn", "sh", "sm")}
 
 
 def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
@@ -82,22 +98,36 @@ def unit_period(specs: List[Tuple[str, bool, bool]]) -> int:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, spec: Tuple[str, bool, bool], dtype, device):
+    """One layer: ``norm1`` and its mixer (``attn``, ``mamba``, ``mlstm`` or
+    ``slstm``; a ``cross`` attention layer also ``xnorm`` and ``xattn``),
+    then, when ``d_ff > 0``, ``norm2`` and its ``mlp`` or ``moe`` (the
+    reference's ``_init_block``)."""
+
+    def __init__(self, cfg: ModelConfig, spec: Tuple[str, bool, bool], dtype, device,
+                 cross: bool = False):
         super().__init__()
         self.spec = spec
         blk, is_moe, _ = spec
         self.norm1 = Norm(cfg.d_model, dtype, device)
         if blk == "attn":
             self.attn = attn.Attention(cfg, dtype, device)
+            if cross:
+                self.xnorm = Norm(cfg.d_model, dtype, device)
+                self.xattn = attn.Attention(cfg, dtype, device)
         elif blk == "mamba":
             self.mamba = ssm_lib.Mamba(cfg, dtype, device)
+        elif blk == "mlstm":
+            self.mlstm = xlstm_lib.MLSTM(cfg, dtype, device)
+        elif blk == "slstm":
+            self.slstm = xlstm_lib.SLSTM(cfg, dtype, device)
         else:
-            raise ValueError(f"the port has no {blk!r} block")
-        self.norm2 = Norm(cfg.d_model, dtype, device)
-        if is_moe:
-            self.moe = moe_lib.MoE(cfg, dtype, device)
-        else:
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.gated_mlp)
+            raise ValueError(f"no {blk!r} block: the kinds are attn, mamba, mlstm and slstm")
+        if cfg.d_ff > 0:
+            self.norm2 = Norm(cfg.d_model, dtype, device)
+            if is_moe:
+                self.moe = moe_lib.MoE(cfg, dtype, device)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.gated_mlp)
 
     def init(self, generator: torch.Generator) -> None:
         for m in self.children():
@@ -107,7 +137,7 @@ class Block(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
-                 moe_impl: str = "dense"):
+                 moe_impl: str = "dense", cache_cross_kv: bool = False):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
         (default: a generator on ``device`` seeded with 0).
 
@@ -119,33 +149,46 @@ class Model(nn.Module):
         ``moe_impl``: the MoE layers' dispatch, ``"dense"`` (every expert on
         every token, ``moe_lib.moe_forward``) or ``"capacity"`` (top-k
         tokens gathered to each expert's ``cap`` slots, overflow dropped,
-        ``moe_lib.moe_forward_capacity``), as the reference's switch."""
+        ``moe_lib.moe_forward_capacity``), as the reference's switch.
+
+        ``cache_cross_kv`` (enc-dec stacks): prefill caches each decoder
+        layer's cross-attention K/V (``xk`` / ``xv``), which decode then
+        reads; without it decode projects them from ``enc_out`` every token
+        (the reference's baseline)."""
 
         super().__init__()
-        if cfg.d_ff <= 0:
-            raise ValueError("the port's Model serves stacks with an MLP or MoE FFN")
         if moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl {moe_impl!r}: one of {sorted(MOE_IMPLS)}")
         self.cfg = cfg
         self.windowed_cache = windowed_cache
         self.moe_impl = moe_impl
+        self.cache_cross_kv = cache_cross_kv
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.specs = layer_specs(cfg)
         self.period = unit_period(self.specs)
         # layer i's index among the layers of its kind (its row in the caches)
         kinds = [spec[0] for spec in self.specs]
-        self.n_attn, self.n_mamba = kinds.count("attn"), kinds.count("mamba")
+        self.n_kind = {kind: kinds.count(kind) for kind in ("attn", *STATE_NAMES)}
+        self.n_attn, self.n_mamba = self.n_kind["attn"], self.n_kind["mamba"]
         self.slot = [kinds[:i].count(kind) for i, kind in enumerate(kinds)]
+        # the recurrent state's cache keys (row axis 1), kind by kind
+        self.state_names = tuple(name for kind, names in STATE_NAMES.items()
+                                 if self.n_kind[kind] for name in names)
         dt, dev = self.dtype, self.device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
-        if cfg.modality in ("vision", "audio"):
+        if cfg.modality in ("vision", "audio") and not cfg.encoder_decoder:
             # stub frontend projector (precomputed patch embeddings -> d_model)
             self.mod_proj = Dense(cfg.d_model, cfg.d_model, dt, dev)
-        self.layers = nn.ModuleList(Block(cfg, spec, dt, dev) for spec in self.specs)
+        self.layers = nn.ModuleList(Block(cfg, spec, dt, dev, cross=cfg.encoder_decoder)
+                                    for spec in self.specs)
         self.final_norm = Norm(cfg.d_model, dt, dev)
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, self.embed.table.shape[0], dt, dev)
+        if cfg.encoder_decoder:
+            self.enc_layers = nn.ModuleList(Block(cfg, ("attn", False, False), dt, dev)
+                                            for _ in range(cfg.num_encoder_layers))
+            self.enc_norm = Norm(cfg.d_model, dt, dev)
         self.embed_scale = embed_scale(cfg.d_model) if cfg.scale_embeddings else 0.0
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -154,7 +197,8 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> None:
         front = [self.mod_proj] if hasattr(self, "mod_proj") else []
         head = [self.lm_head] if hasattr(self, "lm_head") else []
-        for m in (self.embed, *front, *self.layers, self.final_norm, *head):
+        enc = [*self.enc_layers, self.enc_norm] if self.cfg.encoder_decoder else []
+        for m in (self.embed, *front, *self.layers, self.final_norm, *head, *enc):
             m.init(generator)
 
     def _window_for(self, spec, seq_len: int) -> int:
@@ -176,44 +220,81 @@ class Model(nn.Module):
     def layer_cache(self, cache, i: int):
         """Layer ``i``'s entries of a whole-model ``cache`` as a per-layer
         cache (views, so the block functions update ``cache`` in place):
-        ``{"k", "v"}`` dense slabs, ``{"kp", "vp"}`` pools, or ``{"h",
-        "conv"}`` Mamba state.  The model's caches stack each kind over the
-        layers of that kind (``self.slot``); the split executor keys its own
+        ``{"k", "v"}`` dense slabs or ``{"kp", "vp"}`` pools (an enc-dec
+        decoder layer adds ``enc_out`` and, cached, its ``xk`` / ``xv``), or
+        the recurrent state of a Mamba, mLSTM or sLSTM layer under its
+        ``STATE_NAMES``.  The model's caches stack each kind over the layers
+        of that kind (``self.slot``); the split executor keys its own
         per-layer caches by model layer; this is the one map between them."""
 
         j = self.slot[i]
-        if self.specs[i][0] == "mamba":
-            return {"h": cache["h"][j], "conv": cache["conv"][j]}
+        kind = self.specs[i][0]
+        if kind != "attn":
+            return {name: cache[name][j] for name in STATE_NAMES[kind]}
         if "kp" in cache:
-            return {"kp": cache["kp"][j], "vp": cache["vp"][j]}
-        return {"k": cache["k"][j], "v": cache["v"][j]}
+            out = {"kp": cache["kp"][j], "vp": cache["vp"][j]}
+        else:
+            out = {"k": cache["k"][j], "v": cache["v"][j]}
+        if self.cfg.encoder_decoder:
+            out["enc_out"] = cache["enc_out"]
+            if "xk" in cache:
+                out["xk"], out["xv"] = cache["xk"][j], cache["xv"][j]
+        return out
 
-    def _block_mix_seq(self, i: int, x, positions, cache=None):
-        """Layer ``i``'s mixer half over a sequence (norm1, attention or
-        Mamba, residual), writing the prompt's K/V or the Mamba state into
+    @staticmethod
+    def _store(cache, state) -> None:
+        """Copy a block's new recurrent ``state`` into its per-layer cache."""
+
+        for name, t in state.items():
+            cache[name].copy_(t)
+
+    def _block_mix_seq(self, i: int, x, positions, cache=None, enc_out=None):
+        """Layer ``i``'s mixer half over a sequence (norm1, attention, Mamba,
+        mLSTM or sLSTM, residual; an enc-dec decoder layer then its
+        cross-attention over ``enc_out``), writing the prompt's K/V (and the
+        cross K/V where the cache holds ``xk``) or the recurrent state into
         the per-layer ``cache`` (if given) -> x."""
 
         blk = self.layers[i]
-        h = rms_norm(x, blk.norm1.scale, self.cfg.norm_eps)
-        if blk.spec[0] == "attn":
+        cfg = self.cfg
+        kind = blk.spec[0]
+        h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
+        state = None
+        if kind == "attn":
             s = x.shape[1]
             out, k, v = attn.attention_forward(
-                h, blk.attn, self.cfg, positions, self._window_for(blk.spec, s)
+                h, blk.attn, cfg, positions, self._window_for(blk.spec, s)
             )
             if cache is not None:
                 cache["k"][:, :s] = k
                 cache["v"][:, :s] = v
+        elif kind == "mamba":
+            out, state = ssm_lib.mamba_forward(h, blk.mamba, cfg)
+        elif kind == "mlstm":
+            out, st = xlstm_lib.mlstm_forward(h, blk.mlstm, cfg)
+            state = dict(zip(STATE_NAMES[kind], st))
         else:
-            out, state = ssm_lib.mamba_forward(h, blk.mamba, self.cfg)
-            if cache is not None:
-                cache["h"].copy_(state["h"])
-                cache["conv"].copy_(state["conv"])
-        return x + out
+            out, st = xlstm_lib.slstm_forward(h, blk.slstm, cfg)
+            state = dict(zip(STATE_NAMES[kind], st))
+        if cache is not None and state is not None:
+            self._store(cache, state)
+        x = x + out
+        if enc_out is not None and kind == "attn":
+            hx = rms_norm(x, blk.xnorm.scale, cfg.norm_eps)
+            out, xk, xv = attn.cross_attention_forward(hx, blk.xattn, cfg, enc_out)
+            if cache is not None and "xk" in cache:
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+            x = x + out
+        return x
 
     def _block_ffn(self, i: int, x):
-        """Layer ``i``'s FFN half: norm2, MLP or MoE, residual -> x."""
+        """Layer ``i``'s FFN half: norm2, MLP or MoE, residual -> x (x
+        itself when ``d_ff == 0``: an xLSTM block has no FFN)."""
 
         blk = self.layers[i]
+        if self.cfg.d_ff <= 0:
+            return x
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
         if blk.spec[1]:
             return x + MOE_IMPLS[self.moe_impl](h, blk.moe, self.cfg)[0]
@@ -231,22 +312,30 @@ class Model(nn.Module):
         combine, _ = moe_lib.router_probs(h2, blk.moe.router, self.cfg.moe.num_experts_per_tok)
         return h2, combine
 
-    def _block_seq(self, i: int, x, positions, cache=None):
-        return self._block_ffn(i, self._block_mix_seq(i, x, positions, cache))
+    def _block_seq(self, i: int, x, positions, cache=None, enc_out=None):
+        return self._block_ffn(i, self._block_mix_seq(i, x, positions, cache, enc_out))
 
     def _block_mix_step(self, i: int, x, cache, length, paged=None):
         """Layer ``i``'s mixer half for one token, x [B,1,D], against its
         per-layer ``cache`` (updated in place) at ``length`` (an int or a
         [B] tensor).  ``paged``: the ``(page_table, cap)`` pair of a paged
-        cache (``{"kp", "vp"}`` pools) -> x."""
+        cache (``{"kp", "vp"}`` pools).  An enc-dec decoder layer then
+        cross-attends: over the cache's ``xk`` / ``xv`` where it holds them,
+        else over K/V projected from its ``enc_out`` -> x."""
 
         blk = self.layers[i]
         cfg = self.cfg
+        kind = blk.spec[0]
         h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
-        if blk.spec[0] == "mamba":
+        if kind == "mamba":
             out, state = ssm_lib.mamba_decode_step(h, blk.mamba, cfg, cache)
-            cache["h"].copy_(state["h"])
-            cache["conv"].copy_(state["conv"])
+            self._store(cache, state)
+        elif kind in ("mlstm", "slstm"):
+            names = STATE_NAMES[kind]
+            fwd = xlstm_lib.mlstm_forward if kind == "mlstm" else xlstm_lib.slstm_forward
+            out, st = fwd(h, getattr(blk, kind), cfg, state=tuple(cache[n] for n in names),
+                          step=True)
+            self._store(cache, dict(zip(names, st)))
         elif paged is not None:
             pt, cap = paged
             capacity = pt.shape[1] * cache["kp"].shape[1]
@@ -260,19 +349,36 @@ class Model(nn.Module):
                 h, blk.attn, cfg, ck, cv, length,
                 self._window_for(blk.spec, ck.shape[1]), ring=self.windowed_cache,
             )
-        return x + out
+        x = x + out
+        if kind == "attn" and cfg.encoder_decoder:
+            hx = rms_norm(x, blk.xnorm.scale, cfg.norm_eps)
+            if "xk" in cache:
+                out = attn.cross_attention_cached(hx, blk.xattn, cfg, cache["xk"], cache["xv"])
+            else:
+                out = attn.cross_attention_decode(hx, blk.xattn, cfg, cache["enc_out"])
+            x = x + out
+        return x
 
     def _block_step(self, i: int, x, cache, length, paged=None):
         return self._block_ffn(i, self._block_mix_step(i, x, cache, length, paged))
 
+    def _init_state(self, kind: str, batch: int):
+        """A zero recurrent state of one layer of ``kind`` (its stabilizers
+        at -1e30), keyed by ``STATE_NAMES[kind]``."""
+
+        if kind == "mamba":
+            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
+        init = xlstm_lib.init_mlstm_state if kind == "mlstm" else xlstm_lib.init_slstm_state
+        return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, self.device)))
+
     def _init_block_cache(self, i: int, batch: int, seq: int):
         """A zero per-layer dense cache of layer ``i``: ``{"k", "v"}``
         [B, seq, KV, Dh] (a ring of ``min(seq, window)`` slots with
-        ``windowed_cache``) or Mamba ``{"h", "conv"}``."""
+        ``windowed_cache``) or the recurrent state of its kind."""
 
         spec = self.specs[i]
-        if spec[0] == "mamba":
-            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
+        if spec[0] != "attn":
+            return self._init_state(spec[0], batch)
         n = seq
         if self.windowed_cache:
             n = min(seq, self._window_for(spec, seq) or seq)
@@ -280,19 +386,47 @@ class Model(nn.Module):
         return {"k": torch.zeros((batch, n) + self._kv_shape(), **z),
                 "v": torch.zeros((batch, n) + self._kv_shape(), **z)}
 
-    @staticmethod
-    def _total_seq(batch) -> int:
+    def _total_seq(self, batch) -> int:
+        """The decoder's sequence length (an enc-dec stack's frames feed its
+        encoder, not the decoder)."""
+
         s = batch["tokens"].shape[1]
-        if "frontend" in batch:
+        if "frontend" in batch and not self.cfg.encoder_decoder:
             s += batch["frontend"].shape[1]
         return s
 
     def _embed_inputs(self, batch):
         x = embed_lookup(batch["tokens"], self.embed.table, self.embed_scale).to(self.dtype)
-        if "frontend" in batch:
+        if "frontend" in batch and not self.cfg.encoder_decoder:
             fe = dense(batch["frontend"].to(self.dtype), self.mod_proj.w)
             x = torch.cat([fe, x], dim=1)
         return x
+
+    def _encode(self, frames):
+        """The encoder (the reference's ``_encode``, model.py:517-544): frames
+        [B,S_enc,D] plus sinusoidal positions, then per layer norm1,
+        non-causal attention without RoPE, residual, norm2, the MLP,
+        residual; ``enc_norm`` at the end -> enc_out [B,S_enc,D]."""
+
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, x.device)[None]
+        for blk in self.enc_layers:
+            h = rms_norm(x, blk.norm1.scale, cfg.norm_eps)
+            x = x + attn.encoder_attention(h, blk.attn, cfg)
+            h = rms_norm(x, blk.norm2.scale, cfg.norm_eps)
+            x = x + mlp(h, blk.mlp, cfg.mlp_activation)
+        return rms_norm(x, self.enc_norm.scale, cfg.norm_eps)
+
+    def _enc_out(self, batch):
+        """The encoder's output for an enc-dec ``batch`` (None otherwise)."""
+
+        if not self.cfg.encoder_decoder:
+            return None
+        if "frontend" not in batch:
+            raise ValueError("an encoder-decoder stack's batch needs \"frontend\" frame "
+                             "embeddings [B, S_enc, D] for its encoder")
+        return self._encode(batch["frontend"])
 
     def _logits(self, x):
         cfg = self.cfg
@@ -318,17 +452,26 @@ class Model(nn.Module):
         """Run the prompt, fill a dense cache -> (last-token logits [B,1,V], cache).
 
         ``batch``: ``{"tokens": [B, S] int}`` (+ ``"frontend"`` [B, P, D]
-        stub embeddings).  ``extra`` reserves cache slots for decode.
+        stub embeddings: the decoder's prefix, or an enc-dec stack's encoder
+        input, whose output the cache keeps as ``enc_out``).  ``extra``
+        reserves cache slots for decode.
         """
 
+        enc_out = self._enc_out(batch)
         x = self._embed_inputs(batch)
         b, s = x.shape[:2]
         cache = self.init_cache(b, s + extra)
-        if self.windowed_cache and any(s > ring.shape[1] for ring in cache["k"]):
+        if self.windowed_cache and any(s > ring.shape[1] for ring in cache.get("k", ())):
             raise ValueError(f"a {s}-token prompt is longer than a ring cache")
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
+            if self.cache_cross_kv:
+                shape = (self.n_attn, b, enc_out.shape[1]) + self._kv_shape()
+                cache["xk"], cache["xv"] = (torch.zeros(shape, dtype=self.dtype, device=x.device)
+                                            for _ in range(2))
         positions = torch.arange(s, device=x.device)[None, :]
         for i in range(len(self.layers)):
-            x = self._block_seq(i, x, positions, self.layer_cache(cache, i))
+            x = self._block_seq(i, x, positions, self.layer_cache(cache, i), enc_out)
         cache["len"] = s
         x = rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
         return self._logits(x[:, -1:]), cache
@@ -339,10 +482,11 @@ class Model(nn.Module):
         [B, S, D] (``_logits`` of it gives the logits): the parity surface of
         the split executor."""
 
+        enc_out = self._enc_out(batch)
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for i in range(len(self.layers)):
-            x = self._block_seq(i, x, positions)
+            x = self._block_seq(i, x, positions, None, enc_out)
         return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -350,8 +494,8 @@ class Model(nn.Module):
         """token [B,1] -> (logits [B,1,V], cache with ``len`` advanced).
 
         A paged cache (``"pt"`` present) reads and writes the shared page
-        pool; a dense cache its per-row slabs.  Mamba state is dense in both.
-        Caches update in place.
+        pool; a dense cache its per-row slabs.  Recurrent state is dense in
+        both.  Caches update in place.
         """
 
         x = embed_lookup(token, self.embed.table, self.embed_scale).to(self.dtype)
@@ -391,19 +535,27 @@ class Model(nn.Module):
     def _kv_shape(self):
         return (self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
 
-    def _mamba_state(self, batch: int):
-        """Zero Mamba state of every Mamba layer ({} for stacks without)."""
+    def _recurrent_state(self, batch: int):
+        """Zero recurrent state of every Mamba, mLSTM and sLSTM layer,
+        stacked over the layers of each kind ({} for a stack without)."""
 
-        if not self.n_mamba:
-            return {}
-        one = ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
-        return {k: v.expand((self.n_mamba,) + v.shape).clone() for k, v in one.items()}
+        out = {}
+        for kind in STATE_NAMES:
+            n = self.n_kind[kind]
+            if n:
+                for name, t in self._init_state(kind, batch).items():
+                    out[name] = t.expand((n,) + t.shape).clone()
+        return out
 
     def init_cache(self, batch: int, seq: int):
         """Dense decode cache of ``seq`` slots per row (``windowed_cache``:
         ``min(seq, window)`` slots for each attention layer with a window,
-        as model.py:844-845)."""
+        as model.py:844-845).  ``prefill`` adds an enc-dec stack's
+        ``enc_out`` (and ``xk`` / ``xv``)."""
 
+        cache = {"len": 0, **self._recurrent_state(batch)}
+        if not self.n_attn:
+            return cache
         z = dict(dtype=self.dtype, device=self.device)
         if self.windowed_cache:
             sizes = [min(seq, self._window_for(spec, seq) or seq)
@@ -413,25 +565,28 @@ class Model(nn.Module):
         else:
             shape = (self.n_attn, batch, seq) + self._kv_shape()
             k, v = torch.zeros(shape, **z), torch.zeros(shape, **z)
-        return {"k": k, "v": v, "len": 0, **self._mamba_state(batch)}
+        cache["k"], cache["v"] = k, v
+        return cache
 
     def init_paged_cache(self, batch: int, spec: PagedSpec):
-        """Page pools of ``spec.num_pages + 1`` pages per layer (the extra page
-        absorbs writes of idle and over-capacity rows); the page table and
+        """Page pools of ``spec.num_pages + 1`` pages per attention layer
+        (the extra page absorbs writes of idle and over-capacity rows; a
+        stack without attention layers has none); the page table and
         per-row capacity are shared by every layer; ``cap == 0`` rows are
-        inactive.  Mamba state is O(1) a row and stays dense."""
+        inactive.  Recurrent state is O(1) a row and stays dense."""
 
-        shape = (self.n_attn, spec.num_pages + 1, spec.page_size) + self._kv_shape()
-        z = dict(dtype=self.dtype, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
-        return {
-            "kp": torch.zeros(shape, **z),
-            "vp": torch.zeros(shape, **z),
+        cache = {
             "len": torch.zeros((batch,), **i32),
             "pt": torch.zeros((batch, spec.max_pages_per_seq), **i32),
             "cap": torch.zeros((batch,), **i32),
-            **self._mamba_state(batch),
+            **self._recurrent_state(batch),
         }
+        if self.n_attn:
+            shape = (self.n_attn, spec.num_pages + 1, spec.page_size) + self._kv_shape()
+            z = dict(dtype=self.dtype, device=self.device)
+            cache["kp"], cache["vp"] = torch.zeros(shape, **z), torch.zeros(shape, **z)
+        return cache
 
     @torch.no_grad()
     def cache_to_paged(self, cache, paged, page_table, caps, lens=None):
@@ -440,7 +595,8 @@ class Model(nn.Module):
 
         ``page_table`` [B, MAXP] / ``caps`` [B] come from the page
         allocator; ``lens`` defaults to the prefill length for every row.
-        The Mamba state of ``cache`` carries over as it is.
+        The recurrent state of ``cache`` and an enc-dec stack's ``enc_out``
+        (and cached ``xk`` / ``xv``) carry over dense, as they are.
         """
 
         pt = torch.as_tensor(page_table, dtype=torch.int32, device=self.device)
@@ -452,14 +608,15 @@ class Model(nn.Module):
             scatter_prompt_into_pool(paged["kp"][i], cache["k"][i], pt, lens)
             scatter_prompt_into_pool(paged["vp"][i], cache["v"][i], pt, lens)
         out = {
-            "kp": paged["kp"],
-            "vp": paged["vp"],
             "len": lens,
             "pt": pt,
             "cap": torch.as_tensor(caps, dtype=torch.int32, device=self.device),
         }
-        if self.n_mamba:
-            out["h"], out["conv"] = cache["h"], cache["conv"]
+        if self.n_attn:
+            out["kp"], out["vp"] = paged["kp"], paged["vp"]
+        for name in self.state_names + ("enc_out", "xk", "xv"):
+            if name in cache:
+                out[name] = cache[name]
         return out
 
     @torch.no_grad()
@@ -474,7 +631,7 @@ class Model(nn.Module):
         admission padding: they are dropped (the reference's
         ``mode="drop"``), and their length 0 routes their prompt K/V to the
         trash page.  The claimed rows' ``len``, ``pt`` and ``cap`` and their
-        Mamba ``h`` / ``conv`` state are overwritten.
+        recurrent state (``state_names``) are overwritten.
         """
 
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -489,8 +646,7 @@ class Model(nn.Module):
         dst = torch.as_tensor(row_idx[keep], dtype=torch.long, device=self.device)
         for name, new in (("len", lens_t), ("pt", pt_new), ("cap", torch.as_tensor(caps, **i32))):
             paged[name].index_copy_(0, dst, new.index_select(0, src))
-        if self.n_mamba:
-            for name in ("h", "conv"):  # [Lm, B, ...]: axis 1 is the row
-                live = paged[name]
-                live.index_copy_(1, dst, cache[name].index_select(1, src).to(live.dtype))
+        for name in self.state_names:  # [L, B, ...]: axis 1 is the row
+            live = paged[name]
+            live.index_copy_(1, dst, cache[name].index_select(1, src).to(live.dtype))
         return paged

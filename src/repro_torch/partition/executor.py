@@ -22,7 +22,8 @@ The port's per-layer weights are separate ``Block`` modules, so a side is a
 list of references into ``model.layers``: ``with_cut`` derives a sibling at
 another boundary over the same storage, never a copy.  Caches here are
 per-layer dicts (``{"k", "v"}`` dense slabs, ``{"kp", "vp"}`` pools, or
-Mamba ``{"h", "conv"}``), keyed by model layer where the reference keys its
+the recurrent state of a Mamba, mLSTM or sLSTM layer under its
+``models.model.STATE_NAMES``), keyed by model layer where the reference keys its
 split state, and updated in place (the reference returns new arrays).
 
 ``expert_offload`` lists edge-side MoE layers whose expert FFNs live
@@ -242,7 +243,7 @@ class PartitionExecutor:
     # device), while the cloud suffix serves all of them as one ragged batch
     # over the scheduler's page pools.  ``layers`` arguments are per cloud
     # layer, in order: the shared pool ``{"kp", "vp"}`` of an attention
-    # layer, the lane's per-row Mamba state of a Mamba layer.
+    # layer, the lane's per-row recurrent state of a Mamba or xLSTM layer.
 
     def init_layer_pool(self, spec):
         """One attention layer's suffix K/V pools (+1 trash page each), two
@@ -256,7 +257,7 @@ class PartitionExecutor:
         return {"kp": torch.zeros(shape, **z), "vp": torch.zeros(shape, **z)}
 
     def init_lane_state(self, spec, rows: int):
-        """Per-row recurrent state of the cloud suffix's Mamba layers, keyed
+        """Per-row recurrent state of the cloud suffix's Mamba and xLSTM layers, keyed
         by model layer (per lane: each cut decodes its own rows)."""
 
         return {i: self.model._init_block_cache(i, rows, spec.tokens_per_seq)
@@ -329,7 +330,7 @@ class PartitionExecutor:
     def suffix_prefill(self, x, layers, pt_new, row_idx, lens, caps):
         """Cloud-side prefill over a batch of shipped cut activations ``x``
         [n,S,D]: each new sequence's suffix K/V scattered into its pages
-        (``pt_new`` [n, MAXP], ``lens`` [n]), its Mamba state into the rows
+        (``pt_new`` [n, MAXP], ``lens`` [n]), its recurrent state into the rows
         ``row_idx`` (host ints; rows at or beyond the state's rows are
         padding, dropped) -> (layers, last-token logits [n, V])."""
 
@@ -347,7 +348,7 @@ class PartitionExecutor:
                 scatter_prompt_into_pool(live["kp"], new["k"], pt_new, lens)
                 scatter_prompt_into_pool(live["vp"], new["v"], pt_new, lens)
             else:
-                keep = np.flatnonzero(row_idx < live["h"].shape[0])
+                keep = np.flatnonzero(row_idx < next(iter(live.values())).shape[0])
                 src = torch.as_tensor(keep, dtype=torch.long, device=m.device)
                 dst = torch.as_tensor(row_idx[keep], dtype=torch.long, device=m.device)
                 for name, t in live.items():
@@ -392,11 +393,12 @@ class PartitionExecutor:
         lanes join a progressively concatenated row batch at their cut, so
         each tail layer runs once over the combined rows (attention through
         the shared per-layer pools, concatenated page tables indexing one
-        physical pool; Mamba layers over the joined lanes' concatenated
+        physical pool; recurrent layers over the joined lanes' concatenated
         state, written back to each lane).  The reference's ``lax.scan``
         with donated pools and lanes becomes a loop that updates them in
-        place, which the scheduler replays as one CUDA graph per
-        ``(cuts, offloads, n_steps, rows per lane)``.
+        place; the scheduler builds it for one round (``n_steps`` = its
+        block), runs a window as rounds back to back, and replays each as
+        one CUDA graph per ``(cuts, offloads, n_steps, rows per lane)``.
 
         Signature of the returned function::
 
@@ -405,7 +407,7 @@ class PartitionExecutor:
         ``pools``: {model layer: {"kp", "vp"}} for the attention layers at
         or past the shallowest cut.  ``lanes``: per-lane dicts of float32
         ``logits`` [R_i, V] (read, then overwritten with the window's last),
-        ``edge`` caches {layer: ...} [R_i, ...], ``state`` {layer: Mamba
+        ``edge`` caches {layer: ...} [R_i, ...], ``state`` {layer: recurrent
         state} and int32 ``lens`` [R_i] (read only: the caller tracks the
         lengths).  ``pts`` / ``caps``: per-lane page tables / capacities.
         ``toks``: a per-lane tuple of [R_i, n_steps] tokens.

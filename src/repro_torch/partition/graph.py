@@ -21,9 +21,8 @@ Lowering: a ``ModelConfig`` becomes ``[stem] + [layer_0 .. layer_{L-1}] +
     the planner as a raw-observation upload via the channel's ``obs_bytes``).
 
 Block families covered: attention (MHA/GQA, windowed), MoE MLPs, Mamba/SSM,
-the vision/audio stem projector, the encoder stack (enc-dec models, folded
-into the stem), and the LM head; the reference's xLSTM terms come with the
-port's xLSTM blocks.
+xLSTM (sLSTM/mLSTM), the vision/audio stem projector, the encoder stack
+(enc-dec models, folded into the stem), and the LM head.
 """
 
 from __future__ import annotations

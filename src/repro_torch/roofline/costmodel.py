@@ -5,15 +5,15 @@ prices (``block_flops``, ``block_decode_bytes``, ``head_flops``,
 attention over the full masked rectangle unless ``sparse_attn``, the dense
 MoE dispatch evaluating every expert unless ``dense_dispatch=False``.
 
-The port's blocks are attention and Mamba; the reference's xLSTM terms come
-with its xLSTM blocks (ROADMAP queue E).  The rest of the reference's
-roofline (``forward_flops``, ``estimate``, the HLO analysis) is ROADMAP
+Every block kind of the reference is priced: attention (with the
+cross-attention of an enc-dec decoder layer), Mamba, mLSTM and sLSTM, and
+the encoder stack.  The rest of the reference's roofline (``forward_flops``, ``estimate``, the HLO analysis) is ROADMAP
 queue H, which builds on this module.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig, XLSTMConfig
 
 VOCAB_PAD = 256
 
@@ -69,6 +69,26 @@ def _mamba_flops_per_seq(cfg: ModelConfig, s: int, chunk: int = 256) -> float:
     return s * per_tok + nc * per_chunk
 
 
+def _mlstm_flops_per_seq(cfg: ModelConfig, s: int, chunk: int = 256) -> float:
+    x = cfg.xlstm or XLSTMConfig()
+    d = cfg.d_model
+    d_in = int(x.proj_factor_mlstm * d)
+    l = min(chunk, s)  # noqa: E741
+    nc = max(s // l, 1)
+    per_tok = 2.0 * d * 2 * d_in + 3 * 2.0 * d_in * d_in + 2.0 * d_in * d
+    dh = d_in // cfg.num_heads
+    per_chunk = 2.0 * 2.0 * l * l * d_in + 4.0 * l * cfg.num_heads * dh * dh
+    return s * per_tok + nc * per_chunk
+
+
+def _slstm_flops_per_seq(cfg: ModelConfig, s: int) -> float:
+    x = cfg.xlstm or XLSTMConfig()
+    d = cfg.d_model
+    d_up = int(x.proj_factor_slstm * d)
+    per_tok = 2.0 * d * 4 * d * 2 + 2.0 * d * 2 * d_up + 2.0 * d_up * d
+    return s * per_tok
+
+
 def _vpad(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
@@ -98,8 +118,10 @@ def block_flops(cfg: ModelConfig, spec, batch: int, s: int, *, decode: bool = Fa
             total += batch * _attn_flops_per_seq(cfg, s, window, sparse=sparse_attn)
     elif blk == "mamba":
         total += batch * _mamba_flops_per_seq(cfg, 1 if decode else s)
-    else:
-        raise ValueError(f"the port has no {blk!r} block")
+    elif blk == "mlstm":
+        total += batch * _mlstm_flops_per_seq(cfg, 1 if decode else s)
+    elif blk == "slstm":
+        total += batch * _slstm_flops_per_seq(cfg, 1 if decode else s)
     toks = batch * (1 if decode else s)
     if cfg.d_ff > 0:
         total += toks * (_moe_flops_per_tok(cfg, dense_dispatch=dense_dispatch)
@@ -152,6 +174,11 @@ def block_decode_bytes(cfg: ModelConfig, spec, b: int, s: int, windowed: bool = 
         d_in, nh, n = ssm_dims(cfg)
         p = HEAD_P if d_in >= HEAD_P else d_in
         total += 4.0 * b * nh * p * n * 2
-    else:
-        raise ValueError(f"the port has no {blk!r} block")
+    elif blk == "mlstm":
+        x = cfg.xlstm or XLSTMConfig()
+        d_in = int(x.proj_factor_mlstm * cfg.d_model)
+        dh = d_in // cfg.num_heads
+        total += 4.0 * b * cfg.num_heads * dh * dh * 2
+    elif blk == "slstm":
+        total += 8.0 * b * cfg.d_model * 4
     return total

@@ -9,8 +9,9 @@ model's paged decode mode), and
     prompt KV is scattered into the pool pages they were given
     (``Model.merge_prefill_into_paged``);
   * **batch rows** carry only O(1) per-sequence state (last logits, page
-    table row, length, capacity, Mamba state); when more sequences are
-    resident than rows, the row buffers double;
+    table row, length, capacity, the recurrent state of Mamba and xLSTM
+    layers, ``Model.state_names``); when more sequences are resident than
+    rows, the row buffers double;
   * **decode rounds** advance every row by ``decode_block`` greedy action
     tokens through ``Model.decode_chunk`` (attention through
     ``ops.paged_decode_attention``).
@@ -28,7 +29,7 @@ CUDA graph over the live buffers, built per ``(block, rows)`` (the
 reference jits its window per ``(block, rounds, rows)``); a window is R
 replays issued back to back, each round's tokens copied into the window's
 ``[rows, R * block]`` buffer.  Every live tensor (logits rows, pools,
-``len``, ``pt``, ``cap``, Mamba ``h`` / ``conv``) is a static buffer that the
+``len``, ``pt``, ``cap``, the recurrent state) is a static buffer that the
 graph reads and writes in place; growing the rows re-allocates them and
 drops the graphs.  Admission runs eagerly, once per boundary
 (``admit_ms`` keeps its host time).  On a CPU model the same round runs
@@ -46,14 +47,16 @@ runs as one function over every active pipelined lane
 (``PartitionExecutor.build_fleet_decode``): lanes join a progressively
 concatenated row batch at their cut, so each tail layer runs once over the
 combined rows, its attention through one scheduler-owned pool per model
-layer.  On a CUDA model that window is one CUDA graph per ``(lanes, tokens,
-rows per lane)``.  A lane's row buffers and the shared suffix pools are
-allocated at its first admission and then kept, zeroed capacities marking
-idle rows, since the graphs are captured over them (the reference frees a
-lane's rows when it empties, and the pools with the last lane); a lane
-whose rows double drops every fused graph.  ``mixed_rounds`` counts rounds
-where cloud-only and split work decoded together, ``hetero_rounds`` rounds
-where two or more distinct cuts did.
+layer.  A window is ``R`` fused rounds of ``block`` tokens, each on a CUDA
+model a replay of one CUDA graph per ``(lanes, block, rows per lane)``.  A
+lane's row buffers are allocated at an admission into the empty lane (the
+shared suffix pools with the first lane's) and freed when its last
+sequence leaves, by completion or cancel, together with the fused graphs
+captured over them; the shared pools go with the last lane's buffers, as
+the reference frees them.  Idle rows of a live lane keep a zero capacity;
+a lane whose rows double drops every fused graph.  ``mixed_rounds`` counts
+rounds where cloud-only and split work decoded together, ``hetero_rounds``
+rounds where two or more distinct cuts did.
 
 **Observability.**  ``obs=Observability()`` stamps submission, admission,
 window close, completion and cancels with ``obs.clock``, only at those
@@ -61,6 +64,9 @@ host-owned boundaries (no device syncs added), into the metrics registry
 (``serve.chunk_latency_ms``, ``serve.queue_wait_ms``, ``sched.*`` counters,
 ``pool.*`` gauges) and, when tracing, spans on one track per robot (chunk >
 queue > decode) and one for the lane (windows).
+
+An encoder-decoder stack is refused, as the reference refuses it: a
+request carries observation tokens only, no encoder frames.
 
 The mesh and prefill disaggregation are not ported (ROADMAP queue F).
 """
@@ -187,6 +193,8 @@ class ContinuousBatchingScheduler:
         scan_rounds: int = 1,
         obs=None,
     ):
+        if model.cfg.encoder_decoder:
+            raise NotImplementedError("continuous batching targets decoder-only VLAs")
         self.model = model
         self.tok = tokenizer
         self.obs = obs
@@ -232,12 +240,14 @@ class ContinuousBatchingScheduler:
         self._token_floor = tokenizer.action_base
         self._graphs: Dict[Tuple[int, int], GraphedCall] = {}  # (block, rows)
         # split lanes by lane key; the shared suffix pools by model layer;
-        # the fused windows' functions and graphs by (lane keys, tokens) and
-        # (lane keys, tokens, rows per lane)
+        # the fused rounds' functions and graphs by (lane keys, block) and
+        # (lane keys, block, rows per lane)
         self._lanes: Dict[object, "_SplitLane"] = {}
         self._suffix_pools: Dict[int, dict] = {}
         self._fleet_fns: Dict[tuple, object] = {}
         self._fleet_graphs: Dict[tuple, GraphedCall] = {}
+        # tokens a fused round runs past the lanes' harvested lengths
+        self._fused_offset = torch.zeros((), dtype=torch.int32, device=model.device)
 
         # live batch state: logits rows + the paged cache (shared pools,
         # per-row page table / length / capacity; zeros mean inactive)
@@ -433,9 +443,10 @@ class ContinuousBatchingScheduler:
                          high_water=a.high_water)
 
     def reset(self) -> None:
-        """Drop all queued and in-flight work; keep the buffers and graphs
-        (zeroed in place).  Lifetime page counters survive; the high-water
-        mark restarts."""
+        """Drop all queued and in-flight work; keep the cloud rows' buffers
+        and graphs (zeroed in place), while the split lanes free theirs (as
+        an emptied lane does).  Lifetime page counters survive; the
+        high-water mark restarts."""
 
         self._queue.clear()
         self._seqs.clear()
@@ -488,9 +499,8 @@ class ContinuousBatchingScheduler:
         self._logits = grow(self._logits)
         for name in ("len", "pt", "cap"):
             self._pcache[name] = grow(self._pcache[name])
-        for name in ("h", "conv"):
-            if name in self._pcache:
-                self._pcache[name] = grow(self._pcache[name], 1)
+        for name in self.model.state_names:
+            self._pcache[name] = grow(self._pcache[name], 1)
         self._graphs.clear()
         self._free_rows.extend(range(old, new))
         self.rows = new
@@ -623,44 +633,57 @@ class ContinuousBatchingScheduler:
             if self.model.specs[layer][0] == "attn" and layer not in self._suffix_pools:
                 self._suffix_pools[layer] = ex.init_layer_pool(self.paged_spec)
 
-    def _fused_window(self, keys: tuple, n_steps: int):
-        """The fused split window of the lanes ``keys`` (ascending) over
-        their live buffers and the shared pools, in place -> per-lane
-        tokens [R_i, n_steps]."""
+    def _fused_window(self, keys: tuple, block: int):
+        """One fused round of ``block`` tokens over the lanes ``keys``
+        (ascending), their live buffers and the shared pools, in place; the
+        lanes' lengths read ``_fused_offset`` tokens past their harvested
+        ones -> per-lane tokens [R_i, block]."""
 
         lanes = [self._lanes[k] for k in keys]
         pools = {layer: p for layer, p in self._suffix_pools.items() if layer >= lanes[0].cut}
-        lane_in = [{"logits": l._logits, "edge": l._edge, "state": l._state, "lens": l._len}
-                   for l in lanes]
-        return self._fleet_fns[(keys, n_steps)](
+        lane_in = [{"logits": l._logits, "edge": l._edge, "state": l._state,
+                    "lens": l._len + self._fused_offset} for l in lanes]
+        return self._fleet_fns[(keys, block)](
             pools, lane_in, [l._pt for l in lanes], [l._cap for l in lanes])
 
-    def _split_fused_step(self, lanes: List["_SplitLane"], n_steps: int) -> Dict[object, torch.Tensor]:
-        """Dispatch one fused window over every active pipelined lane: on a
-        CUDA model a replay of its graph for ``(lane keys, n_steps, rows per
-        lane)``, captured on first use -> tokens [R_i, n_steps] by lane key,
-        on the device until the lanes' ``harvest``."""
+    def _split_fused_step(self, lanes: List["_SplitLane"], block: int,
+                          rounds: int) -> Dict[object, torch.Tensor]:
+        """Dispatch one fused window of ``rounds`` rounds of ``block`` tokens
+        over every active pipelined lane: ``rounds`` fused rounds issued
+        back to back, on a CUDA model replays of the round's graph for
+        ``(lane keys, block, rows per lane)``, captured on first use (a
+        round, not the window, so that the captures a freed lane forces
+        stay small) -> tokens [R_i, rounds * block] by lane key, on the
+        device until the lanes' ``harvest``."""
 
         lanes = sorted(lanes, key=lambda l: _lane_order(l.key))
         keys = tuple(l.key for l in lanes)
-        if (keys, n_steps) not in self._fleet_fns:
-            self._fleet_fns[(keys, n_steps)] = lanes[0].ex.build_fleet_decode(
-                tuple(l.cut for l in lanes), n_steps, self._token_floor,
+        if (keys, block) not in self._fleet_fns:
+            self._fleet_fns[(keys, block)] = lanes[0].ex.build_fleet_decode(
+                tuple(l.cut for l in lanes), block, self._token_floor,
                 offloads=tuple(l.expert_offload for l in lanes))
         t0 = clock() if self.obs is not None else 0.0
-        if self.model.device.type != "cuda":
-            toks = self._fused_window(keys, n_steps)
-        else:
-            gkey = (keys, n_steps, tuple(l.rows for l in lanes))
+        call = None
+        if self.model.device.type == "cuda":
+            gkey = (keys, block, tuple(l.rows for l in lanes))
             call = self._fleet_graphs.get(gkey)
             if call is None:
                 call = self._fleet_graphs[gkey] = GraphedCall(
-                    owner_call(self, "_fused_window", keys, n_steps))
-            first = call.graph is None
-            toks = call()
-            if first:
-                self.graph_captures += 1
-                self.capture_s += call.capture_s
+                    owner_call(self, "_fused_window", keys, block))
+        dev = self.model.device
+        toks = [torch.empty((l.rows, rounds * block), dtype=torch.long, device=dev) for l in lanes]
+        for r in range(rounds):
+            self._fused_offset.fill_(r * block)
+            if call is None:
+                out = self._fused_window(keys, block)
+            else:
+                first = call.graph is None
+                out = call()
+                if first:
+                    self.graph_captures += 1
+                    self.capture_s += call.capture_s
+            for t, o in zip(toks, out):
+                t[:, r * block:(r + 1) * block].copy_(o)
         if self.obs is not None:
             # the host cost of issuing the window (no sync added)
             self.obs.metrics.histogram(
@@ -793,7 +816,7 @@ class ContinuousBatchingScheduler:
             w.seqs = list(self._seqs.values())
         planes = [l for l in self._lanes.values() if l.seqs and l.pipelined]
         if planes:
-            w.lane_toks = self._split_fused_step(planes, rounds * block)
+            w.lane_toks = self._split_fused_step(planes, block, rounds)
             for lane in planes:
                 w.lane_seqs[lane.key] = list(lane.seqs.values())
         self._window = w
@@ -838,8 +861,11 @@ class ContinuousBatchingScheduler:
             for seq in w.seqs:
                 if seq.dead and self._seqs.get(seq.row) is seq:
                     self._release(seq)
+        # every lane's tokens to the host first: a lane that empties drops
+        # the fused graphs that produced them
+        lane_toks = {key: t.cpu().numpy() for key, t in w.lane_toks.items()}
         for key, seqs in w.lane_seqs.items():
-            done.extend(self._lanes[key].harvest(seqs, w.lane_toks[key], self.round))
+            done.extend(self._lanes[key].harvest(seqs, lane_toks[key], self.round))
         if self.obs is not None:
             self._obs_window_close(w, done)
         return done
@@ -887,11 +913,14 @@ class _SplitLane:
     device caches and decodes in the scheduler's fused window, ``harvest``
     taking the tokens at the boundary.
 
-    The lane's live buffers, on the model's device: per-row Mamba state of
-    its suffix (``_state``), the row-batched edge caches (``_edge``,
-    pipelined), page table, lengths, capacities and float32 logits.  They
-    are allocated at the first admission and kept (see the module
-    docstring); a released row's capacity goes to 0.
+    The lane's live buffers, on the model's device: per-row recurrent
+    state of its suffix (``_state``), the row-batched edge caches
+    (``_edge``, pipelined), page table, lengths, capacities and float32
+    logits.  They are allocated at an admission into an empty lane and
+    freed when its last sequence leaves (``has_buffers``), with the fused
+    graphs captured over them; a released row of a lane that keeps members
+    gets capacity 0.  ``peak_bytes`` is the most its buffers held,
+    ``drops`` how often they were freed.
     """
 
     def __init__(self, sched: ContinuousBatchingScheduler, executor, rows: int,
@@ -908,6 +937,24 @@ class _SplitLane:
         self._free_rows: List[int] = list(range(rows))
         self._state = self._edge = None
         self._pt = self._len = self._cap = self._logits = None
+        self.peak_bytes = 0
+        self.drops = 0
+
+    @property
+    def has_buffers(self) -> bool:
+        return self._pt is not None
+
+    @property
+    def buffer_bytes(self) -> int:
+        """Device bytes the lane's row buffers hold now (the shared suffix
+        pools are the scheduler's)."""
+
+        if self._pt is None:
+            return 0
+        ts = [self._pt, self._len, self._cap, self._logits]
+        for caches in (self._state, self._edge or {}):
+            ts += [t for c in caches.values() for t in c.values()]
+        return sum(t.numel() * t.element_size() for t in ts)
 
     @property
     def label(self) -> str:
@@ -927,14 +974,31 @@ class _SplitLane:
         self._len = torch.zeros((self.rows,), **i32)
         self._cap = torch.zeros((self.rows,), **i32)
         self._logits = torch.zeros((self.rows, sched._vdim), dtype=torch.float32, device=dev)
+        self.peak_bytes = max(self.peak_bytes, self.buffer_bytes)
+
+    def _drop_buffers(self) -> None:
+        """Free the lane's row buffers and state, and the fused graphs
+        captured over them (nothing in flight reads them: the lane is
+        empty, its last window harvested); the scheduler's shared suffix
+        pools go too once no lane holds buffers.  ``_ensure_buffers``
+        allocates zeros again at the next admission."""
+
+        if self._pt is None:
+            return
+        self._state = self._edge = None
+        self._pt = self._len = self._cap = self._logits = None
+        self.drops += 1
+        sched = self.sched
+        for gkey in [g for g in sched._fleet_graphs if self.key in g[0]]:
+            del sched._fleet_graphs[gkey]
+        if not any(lane.has_buffers for lane in sched._lanes.values()):
+            sched._suffix_pools.clear()
 
     def reset(self) -> None:
         self.queue.clear()
         self.seqs.clear()
         self._free_rows = list(range(self.rows))
-        if self._pt is not None:
-            for t in (self._len, self._cap, self._logits):
-                t.zero_()
+        self._drop_buffers()
 
     def _grow_rows(self) -> None:
         """Double the lane's rows; every fused graph goes (the buffers it
@@ -950,6 +1014,7 @@ class _SplitLane:
                 torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
                 for t in (self._pt, self._len, self._cap, self._logits))
             self.sched._fleet_graphs.clear()
+            self.peak_bytes = max(self.peak_bytes, self.buffer_bytes)
         self._free_rows.extend(range(old, new))
         self.rows = new
 
@@ -960,12 +1025,17 @@ class _SplitLane:
 
     def release(self, seq: _SplitSeq) -> None:
         """Return the pages and the row; zero the row's capacity so the
-        still-batched row never writes pages a later admission reuses."""
+        still-batched row never writes pages a later admission reuses.  The
+        lane's last member (completed or cancelled) takes the lane's
+        buffers with it (``_drop_buffers``)."""
 
         self.sched.allocator.free(seq.pages)
         del self.seqs[seq.row]
         self._free_rows.append(seq.row)
-        self._cap[seq.row] = 0
+        if self.seqs:
+            self._cap[seq.row] = 0
+        else:
+            self._drop_buffers()
 
     def reserve(self, req: ChunkRequest) -> _SplitSeq:
         sched = self.sched
@@ -982,7 +1052,7 @@ class _SplitLane:
 
     def _layers_view(self) -> list:
         """The suffix's per-layer caches: the shared pool of an attention
-        layer, this lane's row state of a Mamba layer."""
+        layer, this lane's row state of a recurrent layer."""
 
         pools = self.sched._suffix_pools
         return [pools[i] if self.sched.model.specs[i][0] == "attn" else self._state[i]
@@ -1076,7 +1146,7 @@ class _SplitLane:
         completed and the dead (cancelled mid-window) ones."""
 
         done: List[ChunkResult] = []
-        toks = toks.cpu().numpy()
+        toks = np.asarray(toks)  # on the host (``_close_window``)
         n_steps = toks.shape[1]
         live = [s for s in seqs if not s.dead]
         if live:

@@ -75,4 +75,4 @@ def test_serve_cli_takes_every_port_arch():
     for arch in ARCH_IDS:
         assert tserve.parser().parse_args(["--arch", arch]).arch == arch
     with pytest.raises(SystemExit):
-        tserve.parser().parse_args(["--arch", "xlstm-125m"])
+        tserve.parser().parse_args(["--arch", "no-such-arch"])

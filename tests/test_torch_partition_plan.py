@@ -1,7 +1,7 @@
 """The port's partition graph and planner (``repro_torch/partition/graph.py``,
 ``planner.py``, ``roofline/costmodel.py``, the parameter accounting of
 ``configs/base.py``) against the JAX package's, on the full configs of the
-port's 7 archs.
+port's 11 archs (``ARCH_IDS``).
 
 Both sides are pure Python and numpy over the same formulas, summed in the
 same order, so every float is held equal (``==``), with no tolerance: the
@@ -40,7 +40,8 @@ def _fields(obj):
 def test_param_counts_match_reference(arch):
     cfg, jcfg = get_config(arch), jax_config(arch)
     assert cfg.param_counts() == jcfg.param_counts()
-    assert cfg.encoder_param_counts() == jcfg.encoder_param_counts() == 0
+    assert cfg.encoder_param_counts() == jcfg.encoder_param_counts()
+    assert (cfg.encoder_param_counts() > 0) == cfg.encoder_decoder
     for i in range(cfg.num_layers):
         assert cfg.block_param_counts(i) == jcfg.block_param_counts(i), i
 

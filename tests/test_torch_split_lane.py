@@ -191,7 +191,12 @@ def test_heterogeneous_cuts(rounds):
                              scan_rounds=rounds)
     assert ts.hetero_rounds > 0 and ts.mixed_rounds > 0
     assert {r.cut for r in res if r.kind == "split"} == {0, 1, 2}
-    # the edge-only lane (cut 2 of 2 layers: an empty suffix) reads no pool
+    # the pools went with the last lane; the edge-only lane (cut 2 of 2
+    # layers: an empty suffix) reads no pool, the cut-0 lane one a layer
+    assert not ts._suffix_pools and not any(l.has_buffers for l in ts._lanes.values())
+    ts._lanes[2]._ensure_buffers()
+    assert not ts._suffix_pools
+    ts._lanes[0]._ensure_buffers()
     assert set(ts._suffix_pools) == {0, 1}
 
 
@@ -265,8 +270,61 @@ def test_row_release_and_growth():
     ts, res = run_split_twin(st, row_release, [1], seed=9, rows=1, max_slots=2,
                              num_pages=4 * PAGES, scan_rounds=4)
     assert ts._lanes[1].rows == 4 and len(res) == 7
-    assert ts._lanes[1]._pt is not None and not ts._lanes[1].seqs
-    assert (ts._lanes[1]._cap == 0).all() and ts.allocator.num_in_use == 0
+    # each wave's last completion freed the lane's buffers (and the pools)
+    assert not ts._lanes[1].has_buffers and not ts._lanes[1].seqs
+    assert ts._lanes[1].drops == 2 and ts._lanes[1].peak_bytes > 0
+    assert not ts._suffix_pools and ts.allocator.num_in_use == 0
+
+
+def test_hetero_lanes_no_leak_and_release_row_arrays():
+    """The twin of ``tests/test_serving.py:367``: cancelling a lane's only
+    member frees the lane's buffers, not just its row, and the fused graphs
+    captured over them (on the CPU, stand-in entries of the graph table);
+    across two concurrent lanes the shared pool drains to no page in use;
+    completion frees the last lane's buffers and the shared suffix pools."""
+
+    st = stacks()
+    logs, res = {}, {}
+    for side in ("reference", "port"):
+        if side == "reference":
+            s = jsched_mod.ContinuousBatchingScheduler(st.jmodel, st.jparams, st.jtok, max_slots=6)
+            lanes = (jax_lane(st, 1), jax_lane(st, 2))
+        else:
+            s = ContinuousBatchingScheduler(st.tmodel, st.tok, max_slots=6)
+            lanes = (port_lane(st, 1), port_lane(st, 2))
+        for ex in lanes:
+            s.attach_partition(ex)
+        rng = np.random.default_rng(42)
+        obs = [_obs(rng) for _ in range(3)]
+        s.submit(0, *obs[0])
+        s.submit(1, *obs[1], partitioned=True, cut=1)
+        s.submit(2, *obs[2], partitioned=True, cut=2)
+        s.step()  # all admitted, both lanes mid-decode
+        log = [list(s.active_cuts), [s._lanes[k].has_buffers for k in (1, 2)]]
+        if side == "port":
+            both, one = ((1, 2), 7, (2, 2)), ((1,), 7, (2,))
+            s._fleet_graphs.update({both: object(), one: object()})
+        log.append(bool(s.cancel(2)))
+        log += [s._lanes[2].has_buffers, s._lanes[1].has_buffers,
+                s.allocator.num_in_use == 2 * s.pages_per_req]
+        if side == "port":
+            assert set(s._fleet_graphs) == {one}, "the emptied lane's fused graphs stayed"
+            assert s._suffix_pools, "a lane with members keeps the shared pools"
+            s._fleet_graphs.clear()
+        done = s.drain()
+        log += [sorted(r.robot_id for r in done), s.pool_stats().pages_in_use,
+                s.allocator.num_free == s.allocator.num_pages,
+                [s._lanes[k].has_buffers for k in (1, 2)]]
+        logs[side], res[side] = log, {r.robot_id: r for r in done}
+        if side == "port":
+            assert not s._suffix_pools, "the shared suffix pools outlived the last lane"
+            assert [s._lanes[k].drops for k in (1, 2)] == [1, 1]
+            assert all(s._lanes[k].buffer_bytes == 0 < s._lanes[k].peak_bytes for k in (1, 2))
+    assert logs["port"] == logs["reference"] == [
+        [1, 2], [True, True], True, False, True, True, [0, 1], 0, True, [False, False]]
+    for r in (0, 1):
+        assert_tokens_match(st, _obs_tokens(st.tok, *obs[r]), res["reference"][r].tokens,
+                            res["port"][r].tokens, f"robot {r}")
 
 
 @pytest.mark.parametrize("pipelined", (True, False))
