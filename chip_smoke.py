@@ -43,7 +43,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
    against the port's ``run_trigger`` scores; then the MoE stacks of
    ``MOE_ARCHS`` at published widths, depth cut to fit the card
-   (qwen3-moe-235b-a22b 7 layers, phi3.5-moe-42b-a6.6b 14): the f32 smoke
+   (qwen3-moe-235b-a22b 4 layers, phi3.5-moe-42b-a6.6b 7): the f32 smoke
    twins card vs CPU under ``Model(moe_impl=...)`` "dense" and "capacity",
    then one set of bf16 weights served under both dispatches (``moe_twin``),
    dense and paged, graph and eager, each held as the dense stacks are, one
@@ -76,8 +76,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    stacks: (a) on the capacity dispatch at R = 4, 8 robots, cold and warm,
    tokens/s and chunk latency percentiles (their tokens are held card
    against CPU by the f32 smoke twin of phase 4);
-6. fleet, on the same full-width openvla-7b model (run between its phase 5
-   and Jamba's phase 4): (a) f32 openvla-smoke, the same weights on the
+6. fleet, on openvla-7b at full width, depth cut to its first
+   ``FLEET_LAYERS`` = 8 layers (run between its phase 5 and Jamba's phase
+   4): (a) f32 openvla-smoke, the same weights on the
    card and on the CPU, ``serve_fleet(trigger="rapid")`` with 8 robots, R =
    4, both ticks: decision streams, telemetry, rounds, cancels and latency
    draws equal, chunks equal or inside the f32 greedy margin, a differing
@@ -95,17 +96,17 @@ Phases, in order; any failure exits nonzero and prints no result line:
    core on the card against the CPU.  Fleet runs last 300 ticks: the
    episodes' first contact phases start at tick 220-260;
 7. partition, the edge-cloud split (``repro_torch.partition``), run after
-   openvla-7b's phase 6 on the same model and after Jamba's phase 5: (a)
+   openvla-7b's phase 6 on the same 8-layer model and after Jamba's phase 5: (a)
    f32 smoke twins, card vs CPU on the same weights: ``PartitionedPolicy``
    at every cut of openvla-smoke and jamba-smoke's cut 2 with the experts
    of layer 1 cloud-side against its plain cut-2 lane (chunks equal to
    ``CloudPolicy``'s or inside the f32 margin), and ``serve_fleet(trigger=
    "rapid")`` with 8 robots at cuts {0, 1, 2}, R = 4 (decisions, counters,
    rounds, ``mixed_rounds``, ``hetero_rounds`` equal); (b) openvla-7b at
-   full width: ``PartitionedPolicy`` at cuts 0, 16 and 32 (graph equal to
-   eager, greedy-margin rule against ``CloudPolicy``, cloud_ms beside
+   full width (8 layers): ``PartitionedPolicy`` at cuts 0, 4 and 8 (graph
+   equal to eager, greedy-margin rule against ``CloudPolicy``, cloud_ms beside
    ``CloudPolicy``'s and the modeled channel ms), a heterogeneous fleet of
-   16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 8, 16), R = 4,
+   16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 2, 4), R = 4,
    ``max_slots=8``, pipelined, cold and warm, with ``Observability``
    (tokens/s, latency, fused windows, per-leg channel bytes, graph
    captures, pages back after a drain; each lane's buffers freed each time
@@ -117,7 +118,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``PartitionedPolicy`` on xlstm-125m at cut 6 of 12.  Every run's
    launch counts are derived from what it dispatched (``SplitLedger``) and
    checked exactly;
-8. the result: a ``{"kernels": [...]}`` line and, last, the device line.
+8. train (``repro_torch.launch.train``): (a) the flash backward kernel
+   (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
+   their plain versions at the training shapes (openvla-7b's B = 4, S =
+   256 in bf16 and float32, qwen3-moe's G = 16, gemma2-9b's heads with
+   softcap 50 and window 256 at S = 1024, a ragged S = 300, seamless's
+   non-causal heads), timed as phase 3 times a kernel, beside the backward
+   of ``F.scaled_dot_product_attention`` through autograd (the yardstick);
+   (b) f32 smoke twins, card against CPU on the same weights: the loss and
+   every gradient of openvla-smoke and xlstm-smoke, then one AdamW update
+   on the same (the card's) gradients;
+   (c) openvla-7b at full width and depth (32 layers, bf16, AdamW with bf16
+   moments), ``TRAIN_STEPS`` steps of ``make_train_step`` on episode
+   batches of B = 4, S = 256: finite, falling losses, step ms, tokens/s,
+   peak memory, the share of the bf16 peak, exact launches; (d) xlstm-125m
+   through ``launch.train.main`` on the card, its loss falling, and its
+   npz checkpoint round-tripped; (e) a Jamba smoke stack's ``loss_fn``
+   under autograd on the card raises (the Mamba scan has no backward
+   kernel);
+9. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
 issued back to back, so at least the host's cost of a call), ``device_ms``
@@ -127,7 +146,8 @@ launcher's cost), and the library yardstick the same ways.
 
 Each phase prints the seconds it took.  Needs one CUDA card; takes no
 arguments.  ``--kernels-only`` stops after
-phase 3 and prints no result line (a short call for kernel work).
+phase 3 and prints no result line (a short call for kernel work);
+``--train-only`` runs phases 1, 2 and 8 and prints no result line.
 """
 
 from __future__ import annotations
@@ -150,21 +170,31 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import latest_checkpoint, restore  # noqa: E402
+from repro_torch.checkpoint.bridge import reference_tensors  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import kinematics as kin  # noqa: E402
 from repro_torch.core.trigger import TriggerConfig, run_trigger  # noqa: E402
-from repro_torch.data.pipeline import EpisodeTokenizer  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    EpisodeTokenizer,
+    TokenBatchIterator,
+    episode_dataset,
+)
 from repro_torch.kernels import _lib, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as kfab  # noqa: E402
 from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
 from repro_torch.runtime.engine import (  # noqa: E402
@@ -254,6 +284,9 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:100",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:85",
     "rolling_stats": "src/repro/kernels/rolling_stats.py:104",
+    # a port-only kernel: the reference's training backward is the jnp
+    # custom VJP strip_bwd, which has no Pallas kernel
+    "flash_attention_bwd": "src/repro/models/attention.py:261",
 }
 JAMBA = "jamba-1.5-large-398b"
 # the dense attention stacks served at full width after openvla-7b
@@ -266,10 +299,10 @@ JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weigh
 # the MoE stacks at published widths, depth cut: PR 20 ran 14 and 28
 # layers (67.2 and 68.3 GiB, the most one 80 GB card held beside the
 # caches and graph pools; their figures are in PERF.md, sections 5-6);
-# since PR 21 half that, the room the xLSTM and enc-dec stacks take in the
-# time limit
-QWEN3_LAYERS = 7   # 34.8 GiB of bf16 weights (437.9 GiB at the published 94 layers)
-PHI35_LAYERS = 14  # 34.4 GiB (78.0 GiB at the published 32)
+# then half that (7 and 14), the room the xLSTM and enc-dec stacks took
+# in the time limit; now half again, the room the train phase takes
+QWEN3_LAYERS = 4   # (437.9 GiB of bf16 weights at the published 94 layers)
+PHI35_LAYERS = 7   # (78.0 GiB at the published 32)
 MOE_ARCHS = {"qwen3-moe-235b-a22b": QWEN3_LAYERS, "phi3.5-moe-42b-a6.6b": PHI35_LAYERS}
 MIN_FREE_GIB = 6.0  # free device memory a MoE stack must leave after loading
 # the MoE stacks' brief mode (the time limit): the paged runs take the
@@ -285,6 +318,11 @@ XLSTM = "xlstm-125m"
 XLSTM_CUTS = (6,)  # its PartitionedPolicy cut: 6 of 12 blocks on the edge
 ENCDEC = "seamless-m4t-medium"
 ENC_FRAMES = 300   # stub frame embeddings of a seamless prompt (a few seconds of speech)
+# phases 6-7 (fleet, partition) run on openvla-7b at full width cut to its
+# first FLEET_LAYERS layers (the time limit): at all 32 these two phases,
+# mostly host-bound, took 466 s of a 1043 s run on an H100 80GB HBM3
+# (700 W), and a run on another such card passed the 1200 s limit
+FLEET_LAYERS = 8
 FLEET = 1024      # robots in the monitor's episode bank
 TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
@@ -1012,6 +1050,7 @@ def serve_main_path(model, tok, paged: bool, steps: int = STEPS):
         "paged_attention": attn_layers * chunk * n_off if paged else 0,
         "mamba_scan": mamba_layers * n_off,
         "rolling_stats": 0,
+        "flash_attention_bwd": 0,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -1327,6 +1366,7 @@ def sched_launches(model, sched, admits: int, rounds: int):
         "paged_attention": model.n_attn * rounds * sched.decode_block,
         "mamba_scan": model.n_mamba * admits,
         "rolling_stats": 0,
+        "flash_attention_bwd": 0,
     }
 
 
@@ -1525,10 +1565,20 @@ def profile_window(model, tok, sched, reqs, route=None, skip_first=False):
 def openvla_scheduler(model, tok, launches, policy):
     sched_parity(model, tok, launches, policy)
     sched_load(model, tok, launches, policy)
-    phase(f"6. fleet ({model.cfg.name})")
-    fleet_phase(model, tok, launches)
-    phase(f"7. partition ({model.cfg.name})")
-    partition_phase(model, tok, launches)
+    cfg = model.cfg.replace(num_layers=FLEET_LAYERS)
+    t0 = time.perf_counter()
+    cut = Model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    phase(f"6. fleet ({cfg.name}, {FLEET_LAYERS} layers)")
+    log(f"  {cfg.name} at full width, depth cut to {FLEET_LAYERS} of {model.cfg.num_layers} "
+        f"layers for phases 6-7: {cfg.param_count() / 1e9:.3f} B params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fleet_phase(cut, tok, launches)
+    phase(f"7. partition ({cfg.name}, {FLEET_LAYERS} layers)")
+    partition_phase(cut, tok, launches)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def jamba_scheduler(model, tok, launches, policy):
@@ -1632,7 +1682,7 @@ def long_prompt(model, tok, launches):
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     want = {"flash_attention": 2 * n, "decode_attention": 56 * n, "paged_attention": 56 * n,
-            "mamba_scan": 0, "rolling_stats": 0}
+            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0}
     if counts != want:
         raise AssertionError(f"long prompt launch counts {counts}, expected {want}")
     for k in launches:
@@ -1677,7 +1727,7 @@ def frontend_prompt(model, tok, launches):
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
     want = {"flash_attention": model.n_attn, "decode_attention": 0, "paged_attention": 0,
-            "mamba_scan": 0, "rolling_stats": 0}
+            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0}
     if counts != want:
         raise AssertionError(f"frontend prefill launch counts {counts}, expected {want}")
     for k in launches:
@@ -2439,8 +2489,10 @@ def fleet_phase(model, tok, launches):
 # phase 7: partitioned lanes (the edge-cloud split)
 # ---------------------------------------------------------------------------
 
-SPLIT_CUTS = (0, 16, 32)             # PartitionedPolicy cuts of openvla-7b (32: empty suffix)
-HETERO = {0: 4, 8: 8, 16: 12}        # lane cut -> its first robot (4 each; 0-3 cloud-only)
+# PartitionedPolicy cuts of the FLEET_LAYERS-deep openvla-7b (the last: empty suffix)
+SPLIT_CUTS = (0, FLEET_LAYERS // 2, FLEET_LAYERS)
+# lane cut -> its first robot (4 each; 0-3 cloud-only)
+HETERO = {0: 4, FLEET_LAYERS // 4: 8, FLEET_LAYERS // 2: 12}
 SERIAL_ROBOTS = 4
 
 
@@ -2646,7 +2698,7 @@ def split_fleet_card_vs_cpu():
 
 
 def split_policy_full_width(model, tok, launches, cuts=SPLIT_CUTS):
-    """(b) ``PartitionedPolicy`` on openvla-7b at ``cuts``: graph
+    """(b) ``PartitionedPolicy`` on openvla-7b (``FLEET_LAYERS`` deep) at ``cuts``: graph
     chunks against eager (tokens equal) and against ``CloudPolicy`` by the
     greedy-margin rule; cloud_ms of the split graph beside CloudPolicy's
     graph and the modeled channel ms."""
@@ -2734,8 +2786,8 @@ def hetero_robot_cuts():
 
 def split_fleet_full_width(model, tok, launches):
     """(b) a heterogeneous fleet at full width: 16 robots x ``FLEET_TICKS``,
-    R = 4, ``max_slots=8``, robots 0-3 cloud-only and four each at cuts 0,
-    8 and 16, pipelined, with ``Observability``, cold then warm; pages all
+    R = 4, ``max_slots=8``, robots 0-3 cloud-only and four each at the cuts
+    of ``HETERO``, pipelined, with ``Observability``, cold then warm; pages all
     back after a drain; exact launch counts.  Then a short serial run (the
     host ping-pong) of ``SERIAL_ROBOTS`` robots against the pipelined lanes
     on the same observations."""
@@ -2906,11 +2958,426 @@ def monitor_path(fleet, launches):
         "(atol = rtol = 1e-3, the JAX package's kernel-vs-trigger tolerance)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+# The backward kernel against its plain version on the same inputs (the
+# kernel forward's out and lse), as (atol as a share of the output's
+# largest |value|, rtol).  Both sum in float32, in another order, over up
+# to S * G terms: an element whose terms cancel (dq of a row that sees one
+# key is 0: ds = dout.v - dout.out = 0) is float32 noise on either side,
+# ~1e-6 of the output's scale (measured on one H100), hence the atol;
+# otherwise float32 agrees to 1e-4, and a bf16 output is rounded once on
+# each side, so the two differ by at most one bf16 step, at most 2^-7 of
+# the value.  Besides, each output of the kernel must be as close to the
+# float64 truth (the plain version in float64 on the same inputs) as the
+# plain version's: within 1.5x of its largest error, plus the atol.  The
+# forward's lse (float32 both ways, the bf16 kernel's from tensor-core
+# scores and ex2.approx) to 1e-4 absolute plus 1e-5 relative.
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2.0**-7)}
+LSE_TOL = (1e-4, 1e-5, 0.0)
+# the backward's flops: 2.5x the forward's 4 H D a visible pair (five
+# products of the FA-2 backward against the forward's two)
+BWD_FLOPS_X = 2.5
+TRAIN_STEPS = 30               # openvla-7b steps; the last 5's mean loss must be below the first
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+XLSTM_TRAIN = ["--steps", "30", "--batch", "8", "--seq", "64", "--data", "episodes",
+               "--log-every", "10", "--ckpt-every", "30"]
+# f32 smoke twins, card against CPU: the loss to 1e-5 relative, each
+# gradient within 1e-4 of its leaf's largest |value| (the embedding's, a
+# bf16 scatter-add summed in another order, 2^-7), parameters after one
+# AdamW update on the same gradients within an ulp of the leaf plus 1e-3
+# of the learning rate
+TWIN_LOSS_RTOL, TWIN_LEAF, TWIN_EMBED = 1e-5, 1e-4, 2.0**-7
+
+
+def bwd_case(rng, dtype, b, s, h, kv, d, causal=True, window=0, cap=0.0, q_scale=1.0):
+    q = _t(rng, (b, s, h, d), dtype).mul_(q_scale)
+    k, v = _t(rng, (b, s, kv, d), dtype), _t(rng, (b, s, kv, d), dtype)
+    dout = _t(rng, (b, s, h, d), dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    out, lse = kfa.flash_attention(q, k, v, with_lse=True, **kw)
+    lim = (lambda i: i + 1) if causal else (lambda i: s)
+    pairs = sum(min(lim(i), window) if window else lim(i) for i in range(s))
+    lib = None
+    if not cap:  # SDPA has no softcap
+        lib = sdpa_backward(q, k, v, dout, causal, window)
+    return dict(
+        q=q, k=k, v=v, out=out, lse=lse, dout=dout, kw=kw, library=lib,
+        kernel=lambda: kfab.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+        plain=lambda **a: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **dict(kw, **a)),
+        # q, out, dout, k, v and lse read once; dq, dk, dv written once
+        bytes=4 * nbytes(q) + 4 * nbytes(k) + nbytes(lse),
+        flops=BWD_FLOPS_X * 4.0 * b * h * d * pairs,
+    )
+
+
+def sdpa_backward(q, k, v, dout, causal, window):
+    """The yardstick: SDPA's backward through autograd on [B, H, S, D]
+    views of the same inputs -> (backward alone, retaining its graph;
+    forward + backward; forward alone).  The backward alone cannot be
+    captured in a CUDA graph (autograd runs it on the stream of its
+    forward, and the leaves' gradient nodes keep the stream they were made
+    on), so its device time is taken as the difference of the other two's,
+    each on leaves made afresh in the call."""
+
+    views = [x.transpose(1, 2).detach() for x in (q, k, v)]
+    g = dout.transpose(1, 2)
+    s = q.shape[1]
+    mask = None
+    if window:  # SDPA takes a window only as a boolean mask
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+
+    def fwd(leaves):
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              is_causal=causal and mask is None,
+                                              enable_gqa=q.shape[2] != k.shape[2])
+
+    def fresh():
+        return [x.requires_grad_() for x in (t.detach() for t in views)]
+
+    def fwd_bwd():
+        leaves = fresh()
+        return torch.autograd.grad(fwd(leaves), leaves, g)
+
+    leaves = fresh()
+    o = fwd(leaves)
+    return (lambda: torch.autograd.grad(o, leaves, g, retain_graph=True), fwd_bwd,
+            lambda: fwd(fresh()))
+
+
+def bwd_cases(rng):
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        # (label, dtype, case, main-path shape?)
+        ("openvla-7b B=4 S=256 H=KV=32 D=128 causal", bf,
+         bwd_case(rng, bf, 4, 256, 32, 32, 128), True),
+        ("openvla-7b B=4 S=256 H=KV=32 D=128 causal", f32,
+         bwd_case(rng, f32, 4, 256, 32, 32, 128), False),
+        ("qwen3-moe heads B=1 S=256 H=64 KV=4 (G=16) D=128", bf,
+         bwd_case(rng, bf, 1, 256, 64, 4, 128), False),
+        ("gemma2-9b heads B=1 S=1024 H=16 KV=8 D=256 win 256 cap 50", bf,
+         bwd_case(rng, bf, 1, 1024, 16, 8, 256, window=256, cap=50.0, q_scale=CAP_Q_SCALE),
+         False),
+        ("ragged B=1 S=300 H=KV=32 D=128 causal", bf,
+         bwd_case(rng, bf, 1, 300, 32, 32, 128), False),
+        ("seamless B=2 S=300 H=KV=16 D=64 non-causal", bf,
+         bwd_case(rng, bf, 2, 300, 16, 16, 64, causal=False), False),
+        ("seamless B=2 S=300 H=KV=16 D=64 non-causal", f32,
+         bwd_case(rng, f32, 2, 300, 16, 16, 64, causal=False), False),
+    ]
+
+
+def check_bwd_kernel(cases):
+    """Each case: the forward's out and lse against the plain forward, the
+    backward's dq, dk, dv against the plain backward on the same out and
+    lse; a case with a cap or a window must disagree with the plain
+    version run without it.  Times as phase 3's."""
+
+    main = None
+    fmt = lambda x, n=4: "-" if x is None else f"{x:.{n}f}"  # noqa: E731
+    for label, dtype, case, _ in cases:
+        kw = case["kw"]
+        controls = [n for n, key in (("cap", "logit_cap"), ("window", "window")) if kw[key]]
+        out_p, lse_p = ref.flash_attention_lse_ref(case["q"], case["k"], case["v"], **kw)
+        got = case["kernel"]()
+        want = case["plain"]()
+        torch.cuda.synchronize()
+        f_err, f_ok = compare((case["out"], case["lse"]), (out_p, lse_p),
+                              [TOL[dtype] + (0.0,), LSE_TOL])
+        share, rtol = BWD_TOL[dtype]
+        tols = [(share * float(w.abs().max()), rtol, 0.0) for w in want]
+        err, ok = compare(got, want, tols)
+        truth = ref.flash_attention_bwd_ref(*(case[n].double() for n in
+                                              ("q", "k", "v", "out", "lse", "dout")), **kw)
+        far = []
+        for name, a, w, t, tol in zip(("dq", "dk", "dv"), got, want, truth, tols):
+            k_t, p_t = float((a.double() - t).abs().max()), float((w.double() - t).abs().max())
+            if k_t > 1.5 * p_t + tol[0]:
+                far.append(f"{name}: {k_t:.3g} from float64 against the plain version's {p_t:.3g}")
+        del truth
+        key = {"cap": "logit_cap", "window": "window"}
+        blind = [n for n in controls if compare(got, case["plain"](**{key[n]: 0}), tols)[1]]
+        lib = case["library"]
+        row = dict(
+            max_abs_err=err,
+            ms=time_ms(case["kernel"]),
+            plain_ms=time_ms(case["plain"]),
+            library_ms=time_ms(lib[0]) if lib else None,
+            device_ms=device_ms(case["kernel"]),
+            host_us=host_us(case["kernel"]),
+            library_device_ms=device_ms(lib[1]) - device_ms(lib[2]) if lib else None,
+            library_host_us=host_us(lib[0]) if lib else None,
+        )
+        row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], dtype)
+        q, k, v = case["q"], case["k"], case["v"]
+        fwd_ms = device_ms(lambda: kfa.flash_attention(q, k, v, with_lse=True, **kw))
+        log(f"  flash_attention_bwd {label:58s} {str(dtype)[6:]:8s} err={err:.3g} "
+            f"fwd out/lse err={f_err:.3g} fwd_lse_device_ms={fwd_ms:.5f} ms={row['ms']:.4f} "
+            f"device_ms={row['device_ms']:.5f} host_us={row['host_us']:.1f} "
+            f"plain_ms={row['plain_ms']:.4f} sdpa_bwd_ms={fmt(row['library_ms'])} "
+            f"sdpa_bwd_device_ms={fmt(row['library_device_ms'], 5)} "
+            f"sdpa_bwd_host_us={fmt(row['library_host_us'], 1)} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
+            + (f"; vs plain without {' / '.join(controls)}: disagrees" if controls and not blind
+               else ""))
+        if main is None:
+            train_forward_row(case, dtype)
+        if blind:
+            raise AssertionError(f"flash_attention_bwd [{label}]: the plain version without "
+                                 f"{', '.join(blind)} agrees too: the case cannot tell them apart")
+        if not f_ok:
+            raise AssertionError(f"flash forward out/lse [{label}, {dtype}] disagree with the "
+                                 f"plain forward: max abs err {f_err:.3g}")
+        if not ok or far:
+            raise AssertionError(f"flash_attention_bwd [{label}, {dtype}] disagrees with its "
+                                 f"plain version: max abs err {err:.3g}; {'; '.join(far)}")
+        if main is None:
+            main = row
+    return main
+
+
+def train_forward_row(case, dtype):
+    """The training forward (the flash kernel writing the lse) at the main
+    training shape, timed as phase 3 times a kernel, beside the plain
+    ``flash_attention_lse_ref`` and SDPA's forward; its bound: q, k, v read
+    once, out and the lse written once, 4 H D flops a visible pair."""
+
+    q, k, v, kw = case["q"], case["k"], case["v"], case["kw"]
+    kernel = lambda: kfa.flash_attention(q, k, v, with_lse=True, **kw)  # noqa: E731
+    plain = lambda: ref.flash_attention_lse_ref(q, k, v, **kw)  # noqa: E731
+    lib = sdpa(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=kw["causal"])
+    ms_, bound_by = bound_ms(2 * nbytes(q) + 2 * nbytes(k) + nbytes(case["lse"]),
+                             case["flops"] / BWD_FLOPS_X, dtype)
+    log(f"  flash_attention with lse (training forward, the same shape) {str(dtype)[6:]:8s} "
+        f"ms={time_ms(kernel):.4f} device_ms={device_ms(kernel):.5f} "
+        f"host_us={host_us(kernel):.1f} plain_ms={time_ms(plain):.4f} "
+        f"sdpa_ms={time_ms(lib):.4f} sdpa_device_ms={device_ms(lib):.5f} "
+        f"sdpa_host_us={host_us(lib):.1f} bound_ms={ms_:.5f} ({bound_by})")
+
+
+def smoke_train_batch(cfg, rng, b=2, s=64):
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    data = episode_dataset(tok, tasks=("pick_place",), seeds=(0, 1))
+    batch = next(iter(TokenBatchIterator(data, b, s, seed=int(rng.integers(1 << 30)),
+                                         action_base=tok.action_base)))
+    if cfg.modality == "vision":
+        batch["frontend"] = (rng.standard_normal((b, cfg.num_modality_tokens, cfg.d_model))
+                             * 0.02).astype(np.float32)
+    return batch
+
+
+def grads_of(model, batch):
+    params = trainable_params(model)
+    for p in params.values():
+        p.grad = None
+    loss, _ = model.loss_fn({k: torch.as_tensor(v, device=model.device) for k, v in batch.items()})
+    loss.backward()
+    return loss.detach(), params, {n: p.grad for n, p in params.items()}
+
+
+def train_card_vs_cpu(arch):
+    """The f32 smoke stack's loss and every gradient, card (kernels) against
+    CPU (plain versions) on the same weights and batch, then one AdamW
+    update (learning-rate factor 1) on each."""
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch = smoke_train_batch(cfg, np.random.default_rng(5))
+    ops.reset_launch_counts()
+    lg, pg, gg = grads_of(gpu, batch)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    lc, pc, gc_ = grads_of(cpu, batch)
+    n_attn = sum(spec[0] == "attn" for spec in gpu.specs)
+    want = {n: 0 for n in _lib.KERNELS}
+    want.update(flash_attention=n_attn, flash_attention_bwd=n_attn)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} f32 loss_fn + backward launches {counts}, expected {want}")
+    if abs(float(lg) - float(lc)) > TWIN_LOSS_RTOL * abs(float(lc)):
+        raise AssertionError(f"{cfg.name} f32 loss card {float(lg)} vs CPU {float(lc)}")
+    worst = 0.0
+    for name, g in gc_.items():
+        tol = (TWIN_EMBED if name == "embed.table" else TWIN_LEAF) * float(g.abs().max())
+        err = float((gg[name].cpu() - g).abs().max())
+        worst = max(worst, err / max(float(g.abs().max()), 1e-30))
+        if err > tol:
+            raise AssertionError(f"{cfg.name} f32 grad {name} card vs CPU err {err:.3g} > {tol:.3g}")
+    # the update on the same gradients (the card's): AdamW's g / (|g| + eps)
+    # turns a gradient's float32 noise into a full step where |g| ~ eps
+    ocfg = AdamWConfig(lr=1e-3)
+    adamw_update(gg, adamw_init(pg, ocfg), pg, ocfg, 1.0)
+    adamw_update({n: g.cpu() for n, g in gg.items()}, adamw_init(pc, ocfg), pc, ocfg, 1.0)
+    p_err = 0.0
+    for name, p in pc.items():
+        err = float((pg[name].detach().cpu() - p.detach()).abs().max())
+        p_err = max(p_err, err)
+        if err > 1e-6 * float(p.detach().abs().max()) + 1e-3 * ocfg.lr:
+            raise AssertionError(f"{cfg.name} f32 AdamW step {name} card vs CPU err {err:.3g}")
+    log(f"  {cfg.name} f32 train twin, card kernels vs CPU plain: loss {float(lg):.6f} vs "
+        f"{float(lc):.6f}, {len(gc_)} gradients within {TWIN_LEAF:g} of their leaf's max "
+        f"(worst {worst:.3g} of it), one AdamW update on the card's gradients: params "
+        f"max err {p_err:.3g}; "
+        f"launches {dict((k, v) for k, v in counts.items() if v)}")
+
+
+def train_full_width(launches):
+    """openvla-7b at full width and depth, bf16, ``TRAIN_STEPS`` AdamW steps
+    (bf16 moments) of ``make_train_step`` on episode batches."""
+
+    cfg = get_config("openvla-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = trainable_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    ocfg = AdamWConfig(moment_dtype="bfloat16")
+    state = adamw_init(params, ocfg)
+    step_fn = make_train_step(model, ocfg, TRAIN_STEPS)
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    it = iter(TokenBatchIterator(episode_dataset(tok), TRAIN_BATCH, TRAIN_SEQ,
+                                 action_base=tok.action_base))
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next(it).items()}
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, step_ms, gnorms = [], [], []
+    ops.reset_launch_counts()
+    for batch in batches:
+        t1 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))  # synchronises, as the trainer's loop does
+        gnorms.append(float(metrics["grad_norm"]))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step split by the host clock, a synchronise between its
+    # parts: loss_fn, backward, the AdamW update (bf16 moments)
+    split, t1 = [], time.perf_counter()
+    for p in params.values():
+        p.grad = None
+    for part in ("forward", "backward", "adamw"):
+        if part == "forward":
+            loss, _ = model.loss_fn(batches[-1])
+        elif part == "backward":
+            loss.backward()
+        else:
+            adamw_update({n: p.grad for n, p in params.items()}, state, params, ocfg, 1.0)
+        torch.cuda.synchronize()
+        split.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+    layers = cfg.num_layers
+    want = {n: 0 for n in _lib.KERNELS}
+    want.update(flash_attention=layers * TRAIN_STEPS, flash_attention_bwd=layers * TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"openvla-7b training launches {counts}, expected {want}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += counts[name]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        raise AssertionError(f"openvla-7b training: non-finite loss or grad norm {losses}")
+    last = float(np.mean(losses[-5:]))
+    if not last < losses[0]:
+        raise AssertionError(f"openvla-7b training: loss did not fall ({losses[0]:.4f} -> "
+                             f"mean of the last 5 {last:.4f})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.mean(step_ms[1:]))
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn_flops = (1 + BWD_FLOPS_X) * 4.0 * TRAIN_BATCH * cfg.num_heads * \
+        cfg.resolved_head_dim * pairs * layers
+    flops = 6.0 * n_params * tokens + attn_flops
+    share = flops / (steady * 1e-3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"  openvla-7b train: {layers} layers, {n_params / 1e9:.3f} G params, bf16, AdamW bf16 "
+        f"moments, B={TRAIN_BATCH} S={TRAIN_SEQ}, {TRAIN_STEPS} steps (set-up {setup_s:.1f} s; "
+        f"{held / 2**30:.2f} GiB held by earlier phases)")
+    log(f"  losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  grad norms first {gnorms[0]:.3f} last {gnorms[-1]:.3f}; loss {losses[0]:.4f} -> mean "
+        f"of the last 5 {last:.4f}")
+    log(f"  step_ms first {step_ms[0]:.1f} steady {steady:.1f} (min {min(step_ms[1:]):.1f} "
+        f"max {max(step_ms[1:]):.1f}); tokens/s {tokens / (steady * 1e-3):.0f}; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB; "
+        f"{flops / 1e12:.2f} TFLOP a step (6 N tokens + attention {attn_flops / 1e12:.3f}) = "
+        f"{share * 100:.1f}% of the bf16 dense peak; launches {counts['flash_attention']} "
+        f"flash forward + {counts['flash_attention_bwd']} flash backward ({layers} a step each; "
+        "a backward launch is one call of three kernels)")
+    log(f"  one more step, split (host clock, synchronised): forward {split[0]:.1f} ms, "
+        f"backward {split[1]:.1f} ms, AdamW update {split[2]:.1f} ms")
+    del model, params, state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_xlstm():
+    """xlstm-125m (the reference trainer's default arch) through the
+    driver on the card; its checkpoint written by ``save`` found and
+    restored equal."""
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    if ckpt.exists():
+        for f in ckpt.iterdir():
+            f.unlink()
+    res = train_main(["--arch", XLSTM, "--device", "cuda", "--ckpt-dir", str(ckpt)]
+                     + XLSTM_TRAIN)
+    if not res["final_loss"] < res["first_loss"] or not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"xlstm-125m training: loss {res['first_loss']:.4f} -> "
+                             f"{res['final_loss']:.4f}")
+    path = latest_checkpoint(str(ckpt))
+    if path is None or not path.endswith("ckpt_00000030.npz"):
+        raise AssertionError(f"xlstm-125m checkpoint not found: {path}")
+    mine = reference_tensors(res["model"])
+    back = restore(path, {"params": mine})["params"]
+    bad = [k for k, t in mine.items()
+           if back[k].dtype != t.dtype or back[k].device != t.device or not torch.equal(back[k], t)]
+    if bad:
+        raise AssertionError(f"xlstm-125m checkpoint round trip differs at {bad[:4]}")
+    log(f"  xlstm-125m train (launch.train.main on the card): loss {res['first_loss']:.4f} -> "
+        f"{res['final_loss']:.4f} (mean of the last 10); checkpoint {Path(path).name}: "
+        f"{len(mine)} tensors restored equal (dtype, device, values)")
+    for f in ckpt.iterdir():
+        f.unlink()
+    ckpt.rmdir()
+
+
+def jamba_refuses_to_train():
+    cfg = get_smoke_config(JAMBA).replace(dtype="float32")
+    model = Model(cfg, device="cuda")
+    trainable_params(model)
+    batch = smoke_train_batch(cfg, np.random.default_rng(6))
+    try:
+        model.loss_fn({k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})[0].backward()
+    except NotImplementedError as e:
+        if "mamba_scan" not in str(e):
+            raise AssertionError(f"Jamba under autograd raised another NotImplementedError: {e}")
+        log(f"  {cfg.name} loss_fn under autograd on the card raises NotImplementedError: {e}")
+        return
+    raise AssertionError("Jamba trained on the card: the Mamba scan has no backward kernel")
+
+
+def train_phase(launches):
+    """Phase 8 -> the backward kernel's main-shape row."""
+
+    row = check_bwd_kernel(bwd_cases(np.random.default_rng(8)))
+    for arch in ("openvla-7b", XLSTM):
+        train_card_vs_cpu(arch)
+    train_full_width(launches)
+    train_xlstm()
+    jamba_refuses_to_train()
+    return row
+
+
 def main(argv) -> int:
     kernels_only = argv == ["--kernels-only"]
-    if argv and not kernels_only:
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or --kernels-only",
-              file=sys.stderr)
+    train_only = argv == ["--train-only"]
+    if argv and not (kernels_only or train_only):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, --kernels-only or "
+              "--train-only", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2936,6 +3403,13 @@ def main(argv) -> int:
                 fn = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {fn}: {line.split(':', 1)[-1].strip()}")
+
+    if train_only:
+        phase("8. train")
+        train_phase({n: 0 for n in _lib.KERNELS})
+        phase()
+        log("== --train-only: phases 3-7 skipped, no result line")
+        return 0
 
     phase("3. kernels against their plain versions")
     fleet = fleet_streams()
@@ -2967,8 +3441,10 @@ def main(argv) -> int:
     phase(f"4. model ({ENCDEC})")
     encdec_card_vs_cpu()
     serve_encdec(get_config(ENCDEC), launches)
+    phase("8. train")
+    main_rows["flash_attention_bwd"] = train_phase(launches)
 
-    phase("8. result")
+    phase("9. result")
     rows = []
     for name in _lib.KERNELS:
         rows.append(dict(

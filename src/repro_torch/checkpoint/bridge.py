@@ -18,11 +18,17 @@ port encoder layer ``i`` reads ``enc_unit/0/...[i]``.  Float32 parameters
 lacks is never asked for: a tied stack (gemma) has no ``lm_head/w`` and a
 plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
+
+``reference_tensors`` is the inverse: the port's parameters, or any
+tensors keyed like them (gradients, AdamW moments), in the reference's flat
+layout, block tensors stacked over the repeats (what the gradient twins
+compare and ``checkpoint/npz.py`` saves).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from collections import defaultdict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,18 +56,53 @@ def reference_key(name: str, period: int = 1) -> Tuple[str, int]:
 
 @torch.no_grad()
 def load_reference_params(model: Model, flat: Dict[str, np.ndarray]) -> Model:
-    """Copy every parameter of ``model`` from ``flat`` (cast to the
-    parameter's dtype and device).  Raises on a missing key or a shape
+    """Copy every parameter of ``model`` from ``flat`` (numpy arrays or
+    tensors; cast to the parameter's dtype and device).  Raises on a missing key or a shape
     mismatch; returns ``model``."""
 
     for name, p in model.named_parameters():
         key, idx = reference_key(name, model.period)
         if key not in flat:
             raise KeyError(f"reference weights lack {key!r} (for {name})")
-        arr = np.asarray(flat[key])
+        arr = flat[key]
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().to("cpu", torch.float32).numpy()
+        arr = np.asarray(arr)
         if idx >= 0:
             arr = arr[idx]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{key}: shape {arr.shape} != port {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def reference_tensors(model: Model, tensors: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """``tensors`` keyed by the port's parameter names (default: the model's
+    own parameters) -> ``{reference key: tensor}``: a block tensor of layer
+    ``i`` goes to row ``i // period`` of ``unit/{i % period}/...``, stacked
+    over the repeats (encoder layers: ``enc_unit/0/...``); top-level tensors
+    keep their shape.  Dtype and device stay the inputs'.  Raises on a name
+    the model does not have or a repeat left out."""
+
+    names = [name for name, _ in model.named_parameters()]
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    unknown = set(tensors) - set(names)
+    if unknown:
+        raise KeyError(f"not parameters of the model: {sorted(unknown)[:4]}")
+    rows: Dict[str, Dict[int, torch.Tensor]] = defaultdict(dict)
+    out: Dict[str, torch.Tensor] = {}
+    for name in names:
+        if name not in tensors:
+            continue
+        key, idx = reference_key(name, model.period)
+        if idx < 0:
+            out[key] = tensors[name].detach()
+        else:
+            rows[key][idx] = tensors[name].detach()
+    for key, by_idx in rows.items():
+        if sorted(by_idx) != list(range(len(by_idx))):
+            raise KeyError(f"{key}: repeats {sorted(by_idx)} are not 0..n-1")
+        out[key] = torch.stack([by_idx[i] for i in range(len(by_idx))])
+    return out

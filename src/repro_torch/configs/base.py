@@ -24,6 +24,8 @@ class MoEConfig:
     # slots an expert holds under the capacity dispatch, as a multiple of
     # its even share of the tokens (``models.moe.moe_forward_capacity``)
     capacity_factor: float = 1.25
+    # weight of the router's load-balance loss in ``Model.loss_fn``
+    router_aux_loss: float = 0.01
 
 
 @dataclass(frozen=True)

@@ -61,6 +61,11 @@
 // miss the 1e-5 tolerance, so f32 keeps the first port's scalar body: one
 // block per (16 positions, query head, batch row), f32 FMAs out of shared
 // memory.
+//
+// Training: given an lse pointer, both bodies also write each row's
+// log-sum-exp of its softcapped, scaled scores, float32 [B, H, S] (what the
+// backward kernel, csrc/flash_attention_bwd.cu, recomputes P from); a null
+// pointer writes nothing (serving).
 
 #include "attention_common.cuh"
 
@@ -145,8 +150,8 @@ __host__ __device__ constexpr int tc_smem_bytes(int rows, int dt) {
 template <int DT, int MT>
 __global__ void __launch_bounds__(TC_MAX_WARPS * 32)
 flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-         bf16* __restrict__ out, int B, int S, int H, int KV, int D, int causal, int window,
-         float scale, float cap, int n_tiles) {
+         bf16* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int KV, int D,
+         int causal, int window, float scale, float cap, int n_tiles) {
   constexpr int BN = tc_key_tile(DT), SR = DT + 8, RB = SR * 2, WR = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nthr = blockDim.x, BM = WR * (nthr / 32);
@@ -451,6 +456,11 @@ flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
       t += __shfl_xor_sync(0xffffffffu, t, 1);
       t += __shfl_xor_sync(0xffffffffu, t, 2);
       inv[i] = 1.f / fmaxf(t, 1e-30f);
+      // m is in log2 units: lse = ln 2 * (m + log2 l)
+      const int R = Rw + 16 * mt + 8 * i + g;
+      if (lse != nullptr && t4 == 0 && R < rows_total)
+        lse[((int64_t)b * H + kvh * G + R % G) * S + R / G] =
+            (m[mt][i] + log2f(fmaxf(t, 1e-30f))) * 0.6931471805599453f;
     }
 #pragma unroll
     for (int n = 0; n < DT / 8; ++n) {
@@ -472,8 +482,8 @@ flash_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __r
 }
 
 template <int DT, int MT>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-              int KV, int D, int causal, int window, float scale, float cap, int warps,
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+              int H, int KV, int D, int causal, int window, float scale, float cap, int warps,
               int key_tile, int grid_x, cudaStream_t stream) {
   static int granted = 48 * 1024;
   const int pairs = B * KV, rows = 16 * MT * warps;
@@ -487,7 +497,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   if (st != cudaSuccess) return (int)st;
   kernel<<<grid_x, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, S, H, KV, D, causal, window, scale, cap, n_tiles);
+      static_cast<bf16*>(out), lse, B, S, H, KV, D, causal, window, scale, cap, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -511,8 +521,8 @@ __device__ __forceinline__ bool visible(int qp, int kp, int S, int causal, int w
 // distinct banks.
 __global__ void __launch_bounds__(FA_THREADS)
 flash_simt(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           float* __restrict__ out, int S, int H, int KV, int D, int causal, int window,
-           float scale, float cap) {
+           float* __restrict__ out, float* __restrict__ lse, int S, int H, int KV, int D,
+           int causal, int window, float scale, float cap) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* q_s = smem;                  // [FA_BQ][DP]
@@ -628,10 +638,12 @@ flash_simt(const float* __restrict__ q, const float* __restrict__ k, const float
       if (q0 + i < S) ob[(q0 + i) * q_row + d] = acc[x] / fmaxf(l_s[i], 1e-30f);
     }
   }
+  if (lse != nullptr && tid < FA_BQ && q0 + tid < S)
+    lse[((int64_t)b * H + h) * S + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-int launch_simt(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                int KV, int D, int causal, int window, float scale, float cap, int rows,
+int launch_simt(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+                int H, int KV, int D, int causal, int window, float scale, float cap, int rows,
                 int warps, int key_tile, int gx, int gy, int gz, cudaStream_t stream) {
   static int granted = 48 * 1024;
   if (rows != FA_BQ || warps != FA_WARPS || key_tile != FA_BK || gx != (S + FA_BQ - 1) / FA_BQ ||
@@ -643,7 +655,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B, i
   if (st != cudaSuccess) return (int)st;
   flash_simt<<<dim3(gx, gy, gz), FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), S, H, KV, D, causal, window, scale, cap);
+      static_cast<float*>(out), lse, S, H, KV, D, causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -651,22 +663,23 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B, i
 
 // The plan (rows, warps, key_tile, grid) is kernels/_lib.py flash_plan's;
 // a plan that does not fit the kernel is refused (cudaErrorInvalidValue).
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                               int S, int H, int KV, int D, int causal, int window, float scale,
-                               float cap, int dtype, int rows, int warps, int key_tile, int gx,
-                               int gy, int gz, void* stream) {
+// lse: float32 [B, H, S], or null (not written).
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
+                               void* lse, int B, int S, int H, int KV, int D, int causal,
+                               int window, float scale, float cap, int dtype, int rows, int warps,
+                               int key_tile, int gx, int gy, int gz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S < 1 || KV < 1 || H % KV || D < 8 || D > rapid::MAX_D || D % 8)
     return (int)cudaErrorInvalidValue;
   if (dtype != 1)
-    return launch_simt(q, k, v, out, B, S, H, KV, D, causal, window, scale, cap, rows, warps,
-                       key_tile, gx, gy, gz, s);
+    return launch_simt(q, k, v, out, static_cast<float*>(lse), B, S, H, KV, D, causal, window,
+                       scale, cap, rows, warps, key_tile, gx, gy, gz, s);
   // bf16: rows = 16 * MT * warps, MT (m-tiles a warp) 1, or 2 when D <= 128
   if (gy != 1 || gz != 1 || warps < 1 || rows % (16 * warps)) return (int)cudaErrorInvalidValue;
   const int mt = rows / (16 * warps);
 #define RAPID_LAUNCH(DT, MT)                                                                    \
-  return launch_tc<DT, MT>(q, k, v, out, B, S, H, KV, D, causal, window, scale, cap, warps,     \
-                           key_tile, gx, s)
+  return launch_tc<DT, MT>(q, k, v, out, static_cast<float*>(lse), B, S, H, KV, D, causal,     \
+                           window, scale, cap, warps, key_tile, gx, s)
   if (mt == 1) {
     if (D <= 64) RAPID_LAUNCH(64, 1);
     if (D <= 128) RAPID_LAUNCH(128, 1);

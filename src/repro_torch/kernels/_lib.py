@@ -35,7 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name (= source csrc/<name>.cu) -> (C entry point, its argument types);
 # every entry point returns cudaGetLastError() as an int
 SIGNATURES = {
-    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 7 + [_F, _F] + [_I] * 5
+                            + [_P]),
     "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_F, _F]
                          + [_I] * 3 + [_P]),
     "paged_attention": ("paged_decode_attention", [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3
@@ -284,6 +286,45 @@ def _flash_plan(b, s, h, kv, d, tensor_cores):
             break
     key_tile = 64 if dk <= 128 else 32
     return FlashPlan(True, 16 * mt * warps, warps, key_tile, (tiles * pairs, 1, 1), tiles, g)
+
+
+# The training backward's plan (csrc/flash_attention_bwd.cu): tiles of
+# ``q_tile`` packed query rows (rows packed over the G heads of a KV head,
+# as the prefill kernel's) and of ``k_tile`` keys.  The dk / dv kernel takes
+# one block per (batch row, KV head, key tile), the dq kernel one per
+# (batch row, KV head, query tile); a third launch before them computes
+# delta = rowsum(dout * out), one warp a (row, head).
+BWD_Q_TILE, BWD_K_TILE = 32, 32
+
+
+class FlashBwdPlan(NamedTuple):
+    q_tile: int     # packed query rows a tile
+    k_tile: int     # keys a tile
+    q_tiles: int    # ceil(S * G / q_tile)
+    k_tiles: int    # ceil(S / k_tile)
+    grid_dq: int    # q_tiles * B * KV blocks
+    grid_dkdv: int  # k_tiles * B * KV blocks
+    group: int      # G = H / KV
+
+
+def flash_bwd_plan(b: int, s: int, h: int, kv: int, d: int) -> FlashBwdPlan:
+    """The launch plan of the flash backward for q [b, s, h, d] and k/v
+    [b, s, kv, d].  Host integers only; cached."""
+
+    for x in (b, s, h, kv, d):
+        if type(x) is not int:
+            raise TypeError(f"flash_bwd_plan takes host ints, got {x!r}")
+    if min(b, s, h, kv, d) < 1 or h % kv:
+        raise ValueError(f"flash_bwd_plan: bad shape b={b} s={s} h={h} kv={kv} d={d}")
+    return _flash_bwd_plan(b, s, h, kv, d)
+
+
+@functools.lru_cache(maxsize=4096)
+def _flash_bwd_plan(b, s, h, kv, d):
+    g = h // kv
+    q_tiles, k_tiles = -(-s * g // BWD_Q_TILE), -(-s // BWD_K_TILE)
+    return FlashBwdPlan(BWD_Q_TILE, BWD_K_TILE, q_tiles, k_tiles, q_tiles * b * kv,
+                        k_tiles * b * kv, g)
 
 
 # The Mamba scan's plan (csrc/mamba_scan.cu).  A chunk of L steps is cut into

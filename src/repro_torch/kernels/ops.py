@@ -3,15 +3,22 @@
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises; a CPU tensor goes to the plain PyTorch version in ``kernels.ref``.
 Nothing here checks whether a GPU exists and nothing falls back: any other
-device raises.  ``LAUNCHES`` counts kernel launches by name (plain-version
+device raises.  ``flash_attention_train`` is the differentiable attention
+of the training path: the flash forward kernel (keeping each row's
+log-sum-exp) and the flash backward kernel on the card, their plain
+versions on the CPU.  The Mamba scan has no backward kernel: called on the
+card under autograd it raises.  ``LAUNCHES`` counts kernel launches by name (plain-version
 calls never count); ``reset_launch_counts`` zeroes it.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import _lib
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
@@ -36,6 +43,38 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0):
     return fn(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
 
 
+class _FlashTrain(torch.autograd.Function):
+    """Attention whose backward recomputes P from the saved log-sum-exp
+    (the reference's custom-VJP strip, repro/models/attention.py:198-289)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(causal=causal, window=window, logit_cap=logit_cap)
+        if _on_cuda(q):
+            out, lse = _fa.flash_attention(q, k, v, with_lse=True, **kw)
+        else:
+            out, lse = _ref.flash_attention_lse_ref(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = _fab.flash_attention_bwd if _on_cuda(q) else _ref.flash_attention_bwd_ref
+        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, window=0, logit_cap=0.0):
+    """``flash_attention`` with a gradient: [B,S,H,D] x [B,S,KV,D]^2 ->
+    [B,S,H,D]; dq, dk, dv come from the flash backward (the kernel on a
+    CUDA tensor, ``ref.flash_attention_bwd_ref`` on a CPU tensor)."""
+
+    return _FlashTrain.apply(q, k, v, bool(causal), int(window), float(logit_cap))
+
+
 def decode_attention(q, cache_k, cache_v, *, cache_len, window=0, logit_cap=0.0):
     """One-token decode q [B,H,D] over dense slabs [B,S,KV,D]; ``cache_len``
     is an int for the batch or a [B] int32 tensor."""
@@ -56,7 +95,15 @@ def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
     """Chunked SSD scan (Mamba-2) -> (y [B,S,H,P], hT [B,H,P,N]); starts
     from ``h0`` [B,H,P,N] when given.  ``min(chunk, S)`` must divide S."""
 
-    fn = _ms.mamba_scan if _on_cuda(x, "mamba_scan") else _ref.mamba_scan_ref
+    if _on_cuda(x, "mamba_scan"):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, dt, a, bm, c, h0)):
+            raise NotImplementedError(
+                "mamba_scan has no backward kernel: a Mamba stack cannot train on "
+                "CUDA yet (on the CPU the plain scan is differentiable)")
+        fn = _ms.mamba_scan
+    else:
+        fn = _ref.mamba_scan_ref
     return fn(x, dt, a, bm, c, h0=h0, chunk=chunk)
 
 

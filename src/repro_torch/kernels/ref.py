@@ -51,6 +51,105 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, logit_cap=0.0):
     return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
 
 
+BLK_Q = 128  # query rows a block of the training plain versions (the reference's blk_q)
+
+
+def _acc_dtype(t):
+    """float32, or float64 for float64 inputs (gradcheck)."""
+
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _train_blocks(q, k, causal, window, blk_q):
+    """Yield (q0, q1, visible [L, S] bool) for the query blocks of a
+    training call."""
+
+    s, sk = q.shape[1], k.shape[1]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    for q0 in range(0, s, blk_q):
+        q1 = min(q0 + blk_q, s)
+        qp = torch.arange(q0, q1, device=q.device)[:, None]
+        vis = torch.ones((q1 - q0, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            vis &= qp >= kp
+        if window:
+            vis &= (qp - kp) < window
+        yield q0, q1, vis
+
+
+def _block_scores(qi, kf, vis, scale, logit_cap):
+    """qi [B,L,KV,G,D]; kf [B,S,KV,D] -> (softcapped scores sc, masked
+    scores) [B,KV,G,L,S]."""
+
+    sc = _softcap(torch.einsum("blkgd,bskd->bkgls", qi, kf) * scale, logit_cap)
+    return sc, torch.where(vis, sc, torch.full_like(sc, NEG_INF))
+
+
+def flash_attention_lse_ref(q, k, v, *, causal=True, window=0, logit_cap=0.0, blk_q=BLK_Q):
+    """The training forward: q [B,S,H,D], k/v [B,S,KV,D] -> (out [B,S,H,D]
+    in q's dtype, lse [B,H,S] float32), the reference's ``_fwd_math``
+    (repro/models/attention.py:225-241) a block of ``blk_q`` query rows at a
+    time, so no [S, S] buffer forms.  lse is the log-sum-exp of each row's
+    softcapped, scaled scores (the backward's softmax statistic)."""
+
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    acc = _acc_dtype(q)
+    kf, vf = k.to(acc), v.to(acc)
+    out = torch.empty((b, s, h, d), dtype=acc, device=q.device)
+    lse = torch.empty((b, kv, g, s), dtype=acc, device=q.device)
+    for q0, q1, vis in _train_blocks(q, k, causal, window, blk_q):
+        qi = q[:, q0:q1].to(acc).reshape(b, q1 - q0, kv, g, d)
+        _, sm = _block_scores(qi, kf, vis, d**-0.5, logit_cap)
+        m = sm.amax(-1, keepdim=True).clamp_min(NEG_INF)
+        p = torch.exp(sm - m)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        o = torch.einsum("bkgls,bskd->blkgd", p, vf) / l.permute(0, 3, 1, 2, 4)
+        out[:, q0:q1] = o.reshape(b, q1 - q0, h, d)
+        lse[..., q0:q1] = (m + torch.log(l))[..., 0]
+    lse_dt = torch.float64 if acc == torch.float64 else torch.float32
+    return out.to(q.dtype), lse.reshape(b, h, s).to(lse_dt)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=0, logit_cap=0.0,
+                            blk_q=BLK_Q):
+    """The training backward -> (dq, dk, dv) in the inputs' dtypes, the
+    reference's ``strip_bwd`` (repro/models/attention.py:261-285) a block
+    of ``blk_q`` query rows at a time: P recomputed from ``lse`` [B,H,S],
+    ``delta = rowsum(dout * out)``, ``ds = p * (dp - delta)`` times the
+    softcap's derivative ``1 - (sc / cap)^2``, dk and dv summed over the G
+    query heads of each KV head and over the blocks."""
+
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = d**-0.5
+    acc = _acc_dtype(q)
+    kf, vf = k.to(acc), v.to(acc)
+    dq = torch.empty((b, s, h, d), dtype=acc, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=acc, device=q.device)
+    lse = lse.to(acc).reshape(b, kv, g, s)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1)  # [B,S,H]
+    delta = delta.permute(0, 2, 1).reshape(b, kv, g, s)
+    for q0, q1, vis in _train_blocks(q, k, causal, window, blk_q):
+        n = q1 - q0
+        qi = q[:, q0:q1].to(acc).reshape(b, n, kv, g, d)
+        doi = dout[:, q0:q1].to(acc).reshape(b, n, kv, g, d)
+        sc, sm = _block_scores(qi, kf, vis, scale, logit_cap)
+        p = torch.exp(sm - lse[..., q0:q1, None])
+        dv += torch.einsum("bkgls,blkgd->bskd", p, doi)
+        dp = torch.einsum("blkgd,bskd->bkgls", doi, vf)
+        ds = p * (dp - delta[..., q0:q1, None])
+        if logit_cap:
+            ds = ds * (1.0 - torch.square(sc / logit_cap))
+        ds = ds * scale
+        dq[:, q0:q1] = torch.einsum("bkgls,bskd->blkgd", ds, kf).reshape(b, n, h, d)
+        dk += torch.einsum("bkgls,blkgd->bskd", ds, qi)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _attend_rows(q, k, v, valid, logit_cap):
     """q [B,H,D]; k/v [B,S,KV,D]; valid [B,S] -> [B,H,D] (rows with no valid
     position give 0)."""

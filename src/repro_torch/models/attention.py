@@ -8,6 +8,14 @@ tensor its plain version.  (The reference's jnp ``_sdpa`` and
 plain path.)  Caches are updated in place, where the reference returns new
 arrays.
 
+Under autograd (q requires a gradient: the training path, whose
+parameters require gradients) the prompt's self-attention and the
+encoder's go through ``ops.flash_attention_train`` instead: the same
+forward kernel, which then also keeps each row's log-sum-exp, and the
+flash backward kernel (the reference's custom-VJP strip,
+attention.py:198-326).  The serving entry points run under
+``torch.no_grad`` and never take it.
+
 An encoder-decoder stack adds two kinds, both without RoPE and non-causal
 (the reference's ``kv_override`` path, attention.py:357-362): the
 encoder's self-attention (``encoder_attention``, the flash kernel with
@@ -75,6 +83,12 @@ def _qkv(x, p: Attention, cfg: ModelConfig, positions):
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
+def _attend(q, k, v, **kw):
+    """The flash kernel: differentiable where q needs a gradient."""
+
+    return (ops.flash_attention_train if q.requires_grad else ops.flash_attention)(q, k, v, **kw)
+
+
 def attention_forward(x, p: Attention, cfg: ModelConfig, positions, window: int):
     """Causal self-attention over a prompt (the prefill path).
 
@@ -84,8 +98,7 @@ def attention_forward(x, p: Attention, cfg: ModelConfig, positions, window: int)
 
     b, s, _ = x.shape
     q, k, v = _qkv(x, p, cfg, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              logit_cap=cfg.attn_logit_softcap)
+    out = _attend(q, k, v, causal=True, window=window, logit_cap=cfg.attn_logit_softcap)
     return dense(out.reshape(b, s, -1), p.wo), k, v
 
 
@@ -183,7 +196,7 @@ def encoder_attention(x, p: Attention, cfg: ModelConfig):
     b, s, _ = x.shape
     hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     q, k, v = (_project(x, w, n, hd) for w, n in ((p.wq, nh), (p.wk, nkv), (p.wv, nkv)))
-    out = ops.flash_attention(q, k, v, causal=False, window=0, logit_cap=cfg.attn_logit_softcap)
+    out = _attend(q, k, v, causal=False, window=0, logit_cap=cfg.attn_logit_softcap)
     return dense(out.reshape(b, s, -1), p.wo)
 
 

@@ -5,7 +5,9 @@ reference's parameter tree (``norm1.scale``, ``attn.wq``, ``mlp.up.w``...),
 so ``checkpoint/bridge.py`` maps keys one for one.  Initialisers draw the
 reference's distributions from an explicit ``torch.Generator``: normal x
 ``d_in ** -0.5`` for dense weights, std 1.0 for the embedding (vocab padded
-to a multiple of 256), zeros for norm scales.
+to a multiple of 256), zeros for norm scales.  Parameters are built with
+``requires_grad=False`` (serving); training turns it on
+(``launch/train.py``).
 """
 
 from __future__ import annotations
@@ -123,11 +125,12 @@ def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0) 
     """Rows of ``table`` in bf16, times ``scale`` in bf16 when it is set.
 
     Parity: the reference casts the table to bf16 even in f32 stacks and
-    scales in bf16 (repro/models/layers.py:132-136); casting the gathered
-    rows is the same, and a bf16 product of two bf16 values is the exact
-    product rounded once, as a float32 product rounded to bf16 is."""
+    scales in bf16 (repro/models/layers.py:132-136), so the gradient of a
+    row that occurs several times is summed in bf16 too; a bf16 product of
+    two bf16 values is the exact product rounded once, as a float32
+    product rounded to bf16 is.  (A bf16 table is not copied.)"""
 
-    x = table[tokens].to(torch.bfloat16)
+    x = table.to(torch.bfloat16)[tokens]
     return x * scale if scale else x
 
 

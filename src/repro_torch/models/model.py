@@ -35,7 +35,8 @@ Mamba ``h`` / ``conv``, mLSTM ``mC`` / ``mn`` / ``mm`` and sLSTM ``sc`` /
 
 Entry points: ``prefill``, ``decode_step``, ``decode_chunk``, ``forward``,
 ``init_cache``, ``init_paged_cache``, ``cache_to_paged``,
-``merge_prefill_into_paged``.  Each runs the per-layer block functions
+``merge_prefill_into_paged`` (serving, all under ``torch.no_grad``), and
+``loss_fn`` (training: autograd runs through it).  Each runs the per-layer block functions
 (``_block_seq`` / ``_block_step``, each a mixer half and an FFN half, as
 the reference's), over per-layer views of these caches
 (``layer_cache``); the partition executor runs the same functions over its
@@ -49,6 +50,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -71,6 +73,9 @@ from repro_torch.models.layers import (
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
 
+# positions of the cross-entropy a chunk: one chunk's logits [B, CE_CHUNK,
+# V] in float32 exist at a time (repro/models/model.py:51)
+CE_CHUNK = 512
 # Model(moe_impl=...): the MoE layers' dispatch
 MOE_IMPLS = {"dense": moe_lib.moe_forward, "capacity": moe_lib.moe_forward_capacity}
 # the recurrent state a layer of each kind keeps, by its cache names
@@ -292,13 +297,20 @@ class Model(nn.Module):
         """Layer ``i``'s FFN half: norm2, MLP or MoE, residual -> x (x
         itself when ``d_ff == 0``: an xLSTM block has no FFN)."""
 
+        return self._block_ffn_aux(i, x)[0]
+
+    def _block_ffn_aux(self, i: int, x):
+        """``_block_ffn`` -> (x, the MoE router's aux loss; None for a layer
+        without experts)."""
+
         blk = self.layers[i]
         if self.cfg.d_ff <= 0:
-            return x
+            return x, None
         h = rms_norm(x, blk.norm2.scale, self.cfg.norm_eps)
         if blk.spec[1]:
-            return x + MOE_IMPLS[self.moe_impl](h, blk.moe, self.cfg)[0]
-        return x + mlp(h, blk.mlp, self.cfg.mlp_activation)
+            out, aux = MOE_IMPLS[self.moe_impl](h, blk.moe, self.cfg)
+            return x + out, aux
+        return x + mlp(h, blk.mlp, self.cfg.mlp_activation), None
 
     def _moe_pre_dispatch(self, i: int, x):
         """The edge half of a gather/scatter MoE split of layer ``i``: norm2
@@ -488,6 +500,65 @@ class Model(nn.Module):
         for i in range(len(self.layers)):
             x = self._block_seq(i, x, positions, None, enc_out)
         return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
+
+    def _ce_chunk(self, xc, yc, mc):
+        """Summed masked next-token cross entropy of one chunk: xc [B,ck,D]
+        hidden, yc [B,ck] labels, mc [B,ck] mask; logsumexp and the gold
+        logit in float32."""
+
+        logits = self._logits(xc).float()
+        lz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        return torch.sum((lz - gold) * mc)
+
+    def loss_fn(self, batch):
+        """Next-token cross entropy over the text positions -> (loss,
+        {"ce", "aux"}); the reference's ``loss_fn`` (model.py:571-611), run
+        under autograd (parameters that require gradients get them from
+        ``loss.backward()``).
+
+        ``batch``: ``tokens`` [B, S_text], ``labels`` [B, S_text] (int64),
+        optional ``loss_mask`` [B, S_text] (default ones) and ``frontend``
+        (a VLM's patch embeddings, prefixed, or an enc-dec stack's frames).
+        Parity traps kept: only the last ``labels.shape[1]`` positions are
+        scored; the text is cut into ``n = max(S // CE_CHUNK, 1)`` chunks of
+        ``min(CE_CHUNK, S)`` and positions past ``n`` chunks are dropped; each
+        chunk's logits are recomputed in the backward
+        (``torch.utils.checkpoint``, for the reference's ``jax.checkpoint``);
+        MoE stacks add ``router_aux_loss * aux / num_layers``, aux summed
+        over the layers; ``"ce"`` is the total loss, aux included, as the
+        reference returns it."""
+
+        cfg = self.cfg
+        enc_out = self._enc_out(batch)
+        x = self._embed_inputs(batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(len(self.layers)):
+            x, a = self._block_ffn_aux(i, self._block_mix_seq(i, x, positions, None, enc_out))
+            if a is not None:
+                aux = aux + a
+        x = rms_norm(x, self.final_norm.scale, cfg.norm_eps)
+
+        labels = batch["labels"]
+        s = labels.shape[1]
+        x = x[:, -s:]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+        n_chunks, ck = max(s // CE_CHUNK, 1), min(CE_CHUNK, s)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(n_chunks):
+            sl = slice(c * ck, (c + 1) * ck)
+            mc = mask[:, sl].float()
+            total = total + checkpoint(self._ce_chunk, x[:, sl], labels[:, sl], mc,
+                                       use_reentrant=False)
+            count = count + mc.sum()
+        loss = total / torch.clamp(count, min=1.0)
+        if cfg.moe is not None and cfg.moe.num_experts:
+            loss = loss + cfg.moe.router_aux_loss * aux / max(cfg.num_layers, 1)
+        return loss, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
     def decode_step(self, token, cache):

@@ -1,0 +1,12 @@
+from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_init, adamw_update, global_norm
+from repro_torch.optim.schedule import cosine_schedule, linear_warmup_cosine
+
+__all__ = [
+    "AdamWConfig",
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "cosine_schedule",
+    "global_norm",
+    "linear_warmup_cosine",
+]

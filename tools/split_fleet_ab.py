@@ -1,5 +1,6 @@
-"""Phase 7(b)'s split fleet (openvla-7b at full width, 16 robots x 300
-ticks, cold and warm) from the ``chip_smoke.py`` of a given tree, so that
+"""Phase 7(b)'s split fleet (openvla-7b at full width and phase 7's depth,
+``FLEET_LAYERS`` where the tree sets it, else 32; 16 robots x 300 ticks,
+cold and warm) from the ``chip_smoke.py`` of a given tree, so that
 two versions of the split lanes can be compared on one card in one call:
 unpack the parent into a gitignored directory (``git archive <commit> |
 tar -x -C build/before``) and run, on a machine with an H100,
@@ -29,8 +30,9 @@ cs.log(f"== tree {root}")
 cs.log(f"  card: {cs.card_line()}")
 torch.backends.cuda.matmul.allow_tf32 = False
 cs._lib.build_all(force=True)
-model = cs.Model(cs.get_config("openvla-7b"), device="cuda",
-                 generator=torch.Generator("cuda").manual_seed(0))
+cfg = cs.get_config("openvla-7b")
+model = cs.Model(cfg.replace(num_layers=getattr(cs, "FLEET_LAYERS", cfg.num_layers)),
+                 device="cuda", generator=torch.Generator("cuda").manual_seed(0))
 tok = cs.EpisodeTokenizer(model.cfg.vocab_size)
 launches = {n: 0 for n in cs._lib.KERNELS}
 cs.phase("7(b) split fleet")
