@@ -124,7 +124,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    256 in bf16 and float32, qwen3-moe's G = 16, gemma2-9b's heads with
    softcap 50 and window 256 at S = 1024, a ragged S = 300, seamless's
    non-causal heads), timed as phase 3 times a kernel, beside the backward
-   of ``F.scaled_dot_product_attention`` through autograd (the yardstick);
+   of ``F.scaled_dot_product_attention`` through autograd (the yardstick),
+   held to the plain version under ``BWD_TOL`` (bf16: the bound of the
+   kernel's rounding of P and dS) and to the float64 truth beside the plain
+   version's and SDPA's distances, each case's plan (splits, grids) logged;
    (b) f32 smoke twins, card against CPU on the same weights: the loss and
    every gradient of openvla-smoke and xlstm-smoke, then one AdamW update
    on the same (the card's) gradients;
@@ -2963,19 +2966,33 @@ def monitor_path(fleet, launches):
 # ---------------------------------------------------------------------------
 
 # The backward kernel against its plain version on the same inputs (the
-# kernel forward's out and lse), as (atol as a share of the output's
-# largest |value|, rtol).  Both sum in float32, in another order, over up
-# to S * G terms: an element whose terms cancel (dq of a row that sees one
+# kernel forward's out and lse), per element |got - want| <= share *
+# max|want| + rtol * |want| + terms * 2^-8 * A.  float32 (share, rtol,
+# terms) = (1e-5, 1e-4, 0): both sum in float32, in another order, over up
+# to S * G terms; an element whose terms cancel (dq of a row that sees one
 # key is 0: ds = dout.v - dout.out = 0) is float32 noise on either side,
-# ~1e-6 of the output's scale (measured on one H100), hence the atol;
-# otherwise float32 agrees to 1e-4, and a bf16 output is rounded once on
-# each side, so the two differ by at most one bf16 step, at most 2^-7 of
-# the value.  Besides, each output of the kernel must be as close to the
-# float64 truth (the plain version in float64 on the same inputs) as the
-# plain version's: within 1.5x of its largest error, plus the atol.  The
-# forward's lse (float32 both ways, the bf16 kernel's from tensor-core
-# scores and ex2.approx) to 1e-4 absolute plus 1e-5 relative.
-BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-5, 2.0**-7)}
+# ~1e-6 of the output's scale (measured on one H100), hence the share.
+# bf16 (1e-5, 2^-7, 2): the tensor-core kernel rounds P to bf16 before
+# dV += P^T dO and dS before dK += dS^T Q and dQ += dS K (the A operands of
+# its mma.sync products), where the plain version keeps both in float32.
+# Rounding to bf16 moves a value by at most 2^-8 of itself (8 significant
+# bits, round to nearest), so each output element moves by at most 2^-8 A,
+# A its sum of absolute terms (sum p |dout| for dv, sum |ds| |q| for dk,
+# sum |ds| |k| for dq; ``bwd_abs_terms``), i.e. terms = 1; it is doubled
+# because A is the plain version's and the kernel's p and ds differ from
+# it by float32 noise (ex2.approx, the softcap's tanh, tensor-core sums) on
+# which the rounding can land a step apart.  The outputs are rounded once on
+# each side, so they differ by one bf16 step, 2^-7 of the value, more.  (An
+# emulation of the kernel on the CPU needs terms <= 0.6,
+# tests/test_torch_flash_bwd_tiles.py.)  Besides, each output must be as
+# near the float64 truth (the plain version in float64 on the same inputs)
+# as the others: within 1.5x of the larger of the plain version's largest
+# error and SDPA's backward's (on the same q, k, v, dout; it rounds P and
+# dS too), plus the share; where SDPA cannot run (a softcap), within 1.5x
+# of the plain version's plus the element's bf16 bound taken about the
+# truth.  The forward's lse (float32 both ways, the bf16 kernel's from
+# tensor-core scores and ex2.approx) to 1e-4 absolute plus 1e-5 relative.
+BWD_TOL = {torch.float32: (1e-5, 1e-4, 0.0), torch.bfloat16: (1e-5, 2.0**-7, 2.0)}
 LSE_TOL = (1e-4, 1e-5, 0.0)
 # the backward's flops: 2.5x the forward's 4 H D a visible pair (five
 # products of the FA-2 backward against the forward's two)
@@ -3070,37 +3087,100 @@ def bwd_cases(rng):
     ]
 
 
+def bwd_abs_terms(q, k, v, out, lse, dout, causal, window, logit_cap):
+    """Each output element's sum of absolute terms, the plain arithmetic on
+    absolute values, dense over (query, key): (sum |ds| |k|, sum |ds| |q|,
+    sum p |dout|) -> like (dq, dk, dv), float32 (the bf16 bound's A)."""
+
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g, scale = h // kv, d**-0.5
+    qf, gf = (x.float().reshape(b, s, kv, g, d) for x in (q, dout))
+    kf, vf = k.float(), v.float()
+    x = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    sc = logit_cap * torch.tanh(x / logit_cap) if logit_cap else x
+    pos = torch.arange(s, device=q.device)
+    vis = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        vis &= pos[:, None] >= pos[None, :]
+    if window:
+        vis &= pos[:, None] - pos[None, :] < window
+    p = torch.where(vis, torch.exp(sc - lse.float().reshape(b, kv, g, s)[..., None]), 0.0)
+    delta = (gf * out.float().reshape(b, s, kv, g, d)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqkgd,bskd->bkgqs", gf, vf) - delta[..., None])
+    if logit_cap:
+        ds = ds * (1 - (sc / logit_cap) ** 2)
+    ds = (ds * scale).abs()
+    return (torch.einsum("bkgqs,bskd->bqkgd", ds, kf.abs()).reshape(b, s, h, d),
+            torch.einsum("bkgqs,bqkgd->bskd", ds, qf.abs()),
+            torch.einsum("bkgqs,bqkgd->bskd", p, gf.abs()))
+
+
+def bwd_limits(wants, terms, dtype, about=None):
+    """``compare``'s limits of ``BWD_TOL`` for each output, per element,
+    about ``wants`` (or the values ``about``, for the float64 check)."""
+
+    share, rtol, c = BWD_TOL[dtype]
+    lims = []
+    for w, t, a in zip(wants, terms, about or wants):
+        lim = share * float(w.abs().max()) + rtol * a.double().abs()
+        if c:
+            lim = lim + c * 2.0**-8 * t.double()
+        lims.append((lim, 0.0, 0.0))
+    return lims
+
+
 def check_bwd_kernel(cases):
     """Each case: the forward's out and lse against the plain forward, the
     backward's dq, dk, dv against the plain backward on the same out and
-    lse; a case with a cap or a window must disagree with the plain
-    version run without it.  Times as phase 3's."""
+    lse under ``BWD_TOL``, and against the float64 truth beside the plain
+    version's and SDPA's backward's distances; a case with a cap or a
+    window must disagree with the plain version run without it.  Times as
+    phase 3's."""
 
     main = None
     fmt = lambda x, n=4: "-" if x is None else f"{x:.{n}f}"  # noqa: E731
     for label, dtype, case, _ in cases:
         kw = case["kw"]
+        q, k, v = case["q"], case["k"], case["v"]
+        b, s_, h, d = q.shape
+        plan = _lib.flash_bwd_plan(b, s_, h, k.shape[2], d, dtype)
         controls = [n for n, key in (("cap", "logit_cap"), ("window", "window")) if kw[key]]
-        out_p, lse_p = ref.flash_attention_lse_ref(case["q"], case["k"], case["v"], **kw)
+        out_p, lse_p = ref.flash_attention_lse_ref(q, k, v, **kw)
         got = case["kernel"]()
         want = case["plain"]()
         torch.cuda.synchronize()
         f_err, f_ok = compare((case["out"], case["lse"]), (out_p, lse_p),
                               [TOL[dtype] + (0.0,), LSE_TOL])
-        share, rtol = BWD_TOL[dtype]
-        tols = [(share * float(w.abs().max()), rtol, 0.0) for w in want]
-        err, ok = compare(got, want, tols)
-        truth = ref.flash_attention_bwd_ref(*(case[n].double() for n in
-                                              ("q", "k", "v", "out", "lse", "dout")), **kw)
-        far = []
-        for name, a, w, t, tol in zip(("dq", "dk", "dv"), got, want, truth, tols):
-            k_t, p_t = float((a.double() - t).abs().max()), float((w.double() - t).abs().max())
-            if k_t > 1.5 * p_t + tol[0]:
-                far.append(f"{name}: {k_t:.3g} from float64 against the plain version's {p_t:.3g}")
-        del truth
-        key = {"cap": "logit_cap", "window": "window"}
-        blind = [n for n in controls if compare(got, case["plain"](**{key[n]: 0}), tols)[1]]
+        args = [case[n] for n in ("q", "k", "v", "out", "lse", "dout")]
+        terms = bwd_abs_terms(*args, kw["causal"], kw["window"], kw["logit_cap"])
+        lims = bwd_limits(want, terms, dtype)
+        err, ok = compare(got, want, lims)
+        truth = ref.flash_attention_bwd_ref(*(x.double() for x in args), **kw)
         lib = case["library"]
+        lib_grads = None
+        if lib:  # SDPA's gradients, [B, H, S, D] views back to [B, S, H, D]
+            lib_grads = [x.transpose(1, 2) for x in lib[0]()]
+        share = BWD_TOL[dtype][0]
+        far, dist = [], []
+        t_lims = bwd_limits(want, terms, dtype, about=truth) if lib is None else None
+        for i, (name, a, w, t) in enumerate(zip(("dq", "dk", "dv"), got, want, truth)):
+            k_t, p_t = float((a.double() - t).abs().max()), float((w.double() - t).abs().max())
+            l_t = float((lib_grads[i].double() - t).abs().max()) if lib_grads else None
+            dist.append(f"{name} {k_t:.3g}/{p_t:.3g}/{'-' if l_t is None else f'{l_t:.3g}'}")
+            atol = share * float(w.abs().max())
+            if dtype == torch.float32:
+                ok_t = k_t <= 1.5 * p_t + atol
+            elif lib_grads:
+                ok_t = k_t <= 1.5 * max(p_t, l_t) + atol
+            else:
+                ok_t = bool(((a.double() - t).abs() <= 1.5 * p_t + t_lims[i][0]).all())
+            if not ok_t:
+                far.append(f"{name}: {k_t:.3g} from float64 against the plain version's "
+                           f"{p_t:.3g}" + (f" and SDPA's {l_t:.3g}" if l_t is not None else ""))
+        key = {"cap": "logit_cap", "window": "window"}
+        blind = [n for n in controls if compare(got, case["plain"](**{key[n]: 0}), lims)[1]]
+        del truth, terms, lims, t_lims, lib_grads
         row = dict(
             max_abs_err=err,
             ms=time_ms(case["kernel"]),
@@ -3112,9 +3192,10 @@ def check_bwd_kernel(cases):
             library_host_us=host_us(lib[0]) if lib else None,
         )
         row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], dtype)
-        q, k, v = case["q"], case["k"], case["v"]
         fwd_ms = device_ms(lambda: kfa.flash_attention(q, k, v, with_lse=True, **kw))
         log(f"  flash_attention_bwd {label:58s} {str(dtype)[6:]:8s} err={err:.3g} "
+            f"splits={plan.splits} grid_dkdv={plan.grid_dkdv} grid_dq={plan.grid_dq} "
+            f"f64 dist kernel/plain/sdpa: {', '.join(dist)} "
             f"fwd out/lse err={f_err:.3g} fwd_lse_device_ms={fwd_ms:.5f} ms={row['ms']:.4f} "
             f"device_ms={row['device_ms']:.5f} host_us={row['host_us']:.1f} "
             f"plain_ms={row['plain_ms']:.4f} sdpa_bwd_ms={fmt(row['library_ms'])} "
@@ -3306,7 +3387,7 @@ def train_full_width(launches):
         f"{flops / 1e12:.2f} TFLOP a step (6 N tokens + attention {attn_flops / 1e12:.3f}) = "
         f"{share * 100:.1f}% of the bf16 dense peak; launches {counts['flash_attention']} "
         f"flash forward + {counts['flash_attention_bwd']} flash backward ({layers} a step each; "
-        "a backward launch is one call of three kernels)")
+        "a backward launch is one call of two kernels)")
     log(f"  one more step, split (host clock, synchronised): forward {split[0]:.1f} ms, "
         f"backward {split[1]:.1f} ms, AdamW update {split[2]:.1f} ms")
     del model, params, state, step_fn, batches

@@ -72,68 +72,21 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
+using rapid::cp_async16_zfill;
+using rapid::ex2;
+using rapid::ldsm_x4;
+using rapid::ldsm_x4_t;
+using rapid::LOG2E;
+using rapid::mma_bf16;
+using rapid::pack_bf16;
+using rapid::smem_u32;
+using rapid::softcap_scaled;
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core body
 // ---------------------------------------------------------------------------
 
 constexpr int TC_MAX_WARPS = 4;
-
-// 16 bytes, or 16 zero bytes when !valid (src-size 0: nothing is read)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x; 2^NEG_INF = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// cap_out * tanh(x * cap_in), tanh(y) = 1 - 2 / (2^(2 y log2 e) + 1): two
-// MUFU operations, absolute error ~1e-7 (tanhf inline is ~20 instructions,
-// and the tile body repeats it for every score a thread holds)
-__device__ __forceinline__ float softcap_scaled(float x, float cap_in, float cap_out) {
-  const float e = ex2(x * (2.f * LOG2E) * cap_in);
-  return cap_out * (1.f - __fdividef(2.f, e + 1.f));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // keys a K/V tile holds: 64, or 32 where D > 128 leaves fewer registers
 __host__ __device__ constexpr int tc_key_tile(int dt) { return dt <= 128 ? 64 : 32; }

@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every entry point returns cudaGetLastError() as an int
 SIGNATURES = {
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 7 + [_P]),
-    "flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 7 + [_F, _F] + [_I] * 5
+    "flash_attention_bwd": ("flash_attention_bwd", [_P] * 11 + [_I] * 7 + [_F, _F] + [_I] * 6
                             + [_P]),
     "decode_attention": ("decode_attention", [_P] * 4 + [_I, _P, _P] + [_I] * 6 + [_F, _F]
                          + [_I] * 3 + [_P]),
@@ -288,43 +288,61 @@ def _flash_plan(b, s, h, kv, d, tensor_cores):
     return FlashPlan(True, 16 * mt * warps, warps, key_tile, (tiles * pairs, 1, 1), tiles, g)
 
 
-# The training backward's plan (csrc/flash_attention_bwd.cu): tiles of
-# ``q_tile`` packed query rows (rows packed over the G heads of a KV head,
-# as the prefill kernel's) and of ``k_tile`` keys.  The dk / dv kernel takes
-# one block per (batch row, KV head, key tile), the dq kernel one per
-# (batch row, KV head, query tile); a third launch before them computes
-# delta = rowsum(dout * out), one warp a (row, head).
-BWD_Q_TILE, BWD_K_TILE = 32, 32
+# The training backward's plan (csrc/flash_attention_bwd.cu).  Rows are
+# packed over the G heads of a KV head, as the prefill kernel packs them.
+# bf16 (tensor cores): a dk / dv block takes ``k_tile`` keys (64; 32 where
+# D > 128) of one (batch row, KV head) and one of ``splits`` groups of G /
+# splits query heads, and walks its visible packed rows ``k_tile`` at a
+# time; ``splits`` is the smallest divisor of G whose grid reaches ``SMS``
+# blocks (else G), and with splits > 1 the blocks write float32 partials
+# that a reduce pass sums.  A dq block takes ``q_tile`` = 64 packed rows and
+# walks the key tiles they see; the dk / dv and dq blocks share one launch
+# (``grid_dkdv + grid_dq`` blocks).  float32 (scalar kernels): tiles of 32
+# keys and 32 packed rows, no split, dk / dv and dq in two launches.  Every
+# call launches delta = rowsum(dout * out) first.
+BWD_TC_Q_TILE, BWD_F32_TILE = 64, 32
 
 
 class FlashBwdPlan(NamedTuple):
-    q_tile: int     # packed query rows a tile
-    k_tile: int     # keys a tile
-    q_tiles: int    # ceil(S * G / q_tile)
-    k_tiles: int    # ceil(S / k_tile)
-    grid_dq: int    # q_tiles * B * KV blocks
-    grid_dkdv: int  # k_tiles * B * KV blocks
-    group: int      # G = H / KV
+    tensor_cores: bool  # bf16 mma.sync kernels (else the float32 scalar ones)
+    q_tile: int         # packed query rows a dq block takes
+    k_tile: int         # keys a dk / dv block takes, packed rows it walks a step, a dq key tile
+    splits: int         # dk / dv blocks a (batch row, KV head, key tile)
+    q_tiles: int        # ceil(S * G / q_tile)
+    k_tiles: int        # ceil(S / k_tile)
+    grid_dq: int        # q_tiles * B * KV blocks
+    grid_dkdv: int      # k_tiles * B * KV * splits blocks
+    group: int          # G = H / KV
 
 
-def flash_bwd_plan(b: int, s: int, h: int, kv: int, d: int) -> FlashBwdPlan:
+def flash_bwd_plan(b: int, s: int, h: int, kv: int, d: int, dtype) -> FlashBwdPlan:
     """The launch plan of the flash backward for q [b, s, h, d] and k/v
-    [b, s, kv, d].  Host integers only; cached."""
+    [b, s, kv, d] of ``dtype``.  Host integers only; cached."""
 
     for x in (b, s, h, kv, d):
         if type(x) is not int:
             raise TypeError(f"flash_bwd_plan takes host ints, got {x!r}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_bwd_plan: float32 or bfloat16, got {dtype!r}")
     if min(b, s, h, kv, d) < 1 or h % kv:
         raise ValueError(f"flash_bwd_plan: bad shape b={b} s={s} h={h} kv={kv} d={d}")
-    return _flash_bwd_plan(b, s, h, kv, d)
+    return _flash_bwd_plan(b, s, h, kv, d, dtype == torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=4096)
-def _flash_bwd_plan(b, s, h, kv, d):
-    g = h // kv
-    q_tiles, k_tiles = -(-s * g // BWD_Q_TILE), -(-s // BWD_K_TILE)
-    return FlashBwdPlan(BWD_Q_TILE, BWD_K_TILE, q_tiles, k_tiles, q_tiles * b * kv,
-                        k_tiles * b * kv, g)
+def _flash_bwd_plan(b, s, h, kv, d, tensor_cores):
+    g, pairs = h // kv, b * kv
+    if tensor_cores:
+        q_tile = BWD_TC_Q_TILE
+        k_tile = 64 if -(-d // 16) * 16 <= 128 else 32
+    else:
+        q_tile = k_tile = BWD_F32_TILE
+    q_tiles, k_tiles = -(-s * g // q_tile), -(-s // k_tile)
+    splits = 1
+    if tensor_cores:
+        splits = next((n for n in range(1, g + 1) if g % n == 0 and k_tiles * pairs * n >= SMS), g)
+    return FlashBwdPlan(tensor_cores, q_tile, k_tile, splits, q_tiles, k_tiles,
+                        q_tiles * pairs, k_tiles * pairs * splits, g)
 
 
 # The Mamba scan's plan (csrc/mamba_scan.cu).  A chunk of L steps is cut into
