@@ -118,6 +118,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
    ``PartitionedPolicy`` on xlstm-125m at cut 6 of 12.  Every run's
    launch counts are derived from what it dispatched (``SplitLedger``) and
    checked exactly;
+7b. data shards and disaggregated prefill (``launch/mesh.py``, the
+   scheduler's ``mesh`` and ``prefill_group``), on the same 8-layer model
+   after phase 7, every shard on the card: (a) f32 openvla-smoke card vs
+   CPU, a mesh of ``SHARDS`` = 2 data shards with disaggregated prefill, 8
+   robots staggered, R = 4 (admitted and completed rounds equal, chunks
+   equal or inside the f32 margin, every shard drained); (b) full width,
+   16 robots, 2 new at each boundary, R = 4, ``max_slots=8``, in four
+   modes (base, data=2, disaggregated, both), cold and warm: tokens/s,
+   chunk latency, per-shard high water, exact launches (a sharded round
+   launches the paged kernel twice a layer a token), each mode's chunks
+   held to base's by the greedy-margin rule; (c) two new robots at every
+   boundary for 12 windows without and with disaggregation, the mean host
+   ms a window, then one profiled window: the prefill's flash kernels on
+   another stream than the round graph's paged kernels, and how long the
+   two streams overlapped; (d) ``python -m repro_torch.launch.serve
+   --fleet 4 --sharded --disaggregate-prefill`` exits 0;
 8. train (``repro_torch.launch.train``): (a) the flash backward kernel
    (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
    their plain versions at the training shapes (openvla-7b's B = 4, S =
@@ -159,6 +175,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -191,6 +208,7 @@ from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
@@ -1361,12 +1379,13 @@ def staggered(sched, reqs):
 def sched_launches(model, sched, admits: int, rounds: int):
     """The launches a scheduler run must count: one flash (per attention
     layer) and one Mamba scan (per Mamba layer) per admission prefill, one
-    paged decode per attention layer per decoded token of every round."""
+    paged decode per attention layer per decoded token of every round, per
+    data shard of its mesh."""
 
     return {
         "flash_attention": model.n_attn * admits,
         "decode_attention": 0,
-        "paged_attention": model.n_attn * rounds * sched.decode_block,
+        "paged_attention": model.n_attn * rounds * sched.decode_block * sched.data_shards,
         "mamba_scan": model.n_mamba * admits,
         "rolling_stats": 0,
         "flash_attention_bwd": 0,
@@ -1579,6 +1598,8 @@ def openvla_scheduler(model, tok, launches, policy):
     fleet_phase(cut, tok, launches)
     phase(f"7. partition ({cfg.name}, {FLEET_LAYERS} layers)")
     partition_phase(cut, tok, launches)
+    phase(f"7b. data shards and disaggregated prefill ({cfg.name}, {FLEET_LAYERS} layers)")
+    sharded_phase(cut, tok, launches)
     del cut
     gc.collect()
     torch.cuda.empty_cache()
@@ -2929,6 +2950,288 @@ def partition_phase(model, tok, launches):
     split_fleet_card_vs_cpu()
     split_policy_full_width(model, tok, launches)
     split_fleet_full_width(model, tok, launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: data shards and disaggregated prefill on one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 2  # data shards of the phase's meshes, all on the model's card
+# (name, data shards (0: no mesh), disaggregated prefill)
+SHARD_MODES = (("base", 0, False), (f"data={SHARDS}", SHARDS, False),
+               ("disaggregated", 0, True), (f"data={SHARDS} + disaggregated", SHARDS, True))
+GAP_WINDOWS = 12  # windows of (c)'s staggered load, two new robots at each boundary
+
+
+def shard_kw(model, data: int, disagg: bool):
+    """The scheduler's ``mesh`` (``data`` shards, every one on the model's
+    device) and ``prefill_group`` (the model's device)."""
+
+    dev = model.device
+    return dict(mesh=make_test_mesh(data=data, devices=[dev] * data) if data else None,
+                prefill_group=[dev] if disagg else None)
+
+
+def boundary_arrivals(sched, reqs, per, gaps=None):
+    """``per`` new robots (``submit_batch``) at every window boundary until
+    all of ``reqs`` are in, then to the drain -> results; ``gaps`` gets each
+    window's host ms (the sum of its ``step`` calls)."""
+
+    results, nxt, cur = [], 0, 0.0
+    while nxt < len(reqs) or sched.n_pending or sched.n_active:
+        if sched._window is None and nxt < len(reqs):
+            batch = reqs[nxt:nxt + per]
+            sched.submit_batch([r for r, _, _ in batch], np.concatenate([b[1] for b in batch]),
+                               np.concatenate([b[2] for b in batch]))
+            nxt += len(batch)
+        closes = sched.window_closes
+        t0 = time.perf_counter()
+        results += sched.step()
+        cur += (time.perf_counter() - t0) * 1e3
+        if sched.window_closes > closes:
+            if gaps is not None:
+                gaps.append(cur)
+            cur = 0.0
+    return results
+
+
+def sharded_card_vs_cpu(launches):
+    """(a) f32 openvla-smoke, the same weights on the card (kernels, graphs,
+    the prefill stream) and on the CPU (plain versions, both phases of the
+    disaggregated admission in order): a scheduler over ``SHARDS`` data
+    shards with disaggregated prefill, 8 robots staggered, R = 4; admitted
+    and completed rounds equal, chunks equal or inside the f32 margin, every
+    shard back to 0; the card's launches exact."""
+
+    cfg = get_smoke_config("openvla-7b").replace(dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    reqs = requests(np.random.default_rng(5), 8)
+    out = {}
+    for name, m in (("card", gpu), ("cpu", cpu)):
+        sched = ContinuousBatchingScheduler(m, tok, max_slots=4, scan_rounds=4,
+                                            num_pages=8 * -(-(14 + 56) // 16),
+                                            **shard_kw(m, SHARDS, True))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        results = staggered(sched, reqs)
+        if name == "card":
+            counts = check_sched_counts(m, sched, 0, 0, launches)
+        out[name] = (sched, {r.robot_id: r for r in results})
+    (sc, card), (sp, cpu_res) = out["card"], out["cpu"]
+    if card.keys() != cpu_res.keys() or len(card) != 8:
+        raise AssertionError(f"(a) served {sorted(card)} on the card, {sorted(cpu_res)} on the CPU")
+    near = 0
+    obs_of = {r: (qd, tau) for r, qd, tau in reqs}
+    for r, got in card.items():
+        want = cpu_res[r]
+        if (got.admitted_round, got.completed_round) != (want.admitted_round,
+                                                          want.completed_round):
+            raise AssertionError(f"(a) robot {r}: rounds {got.admitted_round}-"
+                                 f"{got.completed_round} on the card, {want.admitted_round}-"
+                                 f"{want.completed_round} on the CPU")
+        diff = np.flatnonzero(np.asarray(got.tokens) != np.asarray(want.tokens))
+        if diff.size:
+            qd, tau = obs_of[r]
+            prompt = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)[0]
+            gap = top2_gap_tokens(cpu, tok, prompt, np.asarray(want.tokens), int(diff[0]))
+            if gap > F32_MARGIN:
+                raise AssertionError(f"(a) robot {r}: chunk differs at step {diff[0]} where the "
+                                     f"top-two gap is {gap:.3g}")
+            near += 1
+    for s in (sc, sp):
+        if s.pool_stats().shard_in_use != (0,) * SHARDS or s._pending_admit:
+            raise AssertionError(f"(a) pages or prefills left: {s.pool_stats()}")
+    log(f"  (a) f32 smoke, data={SHARDS} + disaggregated prefill, card vs CPU: 8 robots "
+        f"staggered, R = 4, rows {sc.rows}; admitted and completed rounds equal, {near} of 8 "
+        f"chunks inside the {F32_MARGIN:g} margin, the rest equal; shard high water card "
+        f"{sc.pool_stats().shard_high_water} CPU {sp.pool_stats().shard_high_water}, in use "
+        f"(0, 0); {len(sc.admit_ms)} prefills on the side stream, merges host ms mean "
+        f"{np.mean(sc.merge_ms):.2f}; launches {counts} (exact)")
+
+
+def sharded_full_width(model, tok, launches):
+    """(b) full width: 16 robots, 2 new at each boundary, R = 4,
+    ``max_slots=8``, in the four ``SHARD_MODES``, each cold (a new
+    scheduler, its graphs captured on the way) and warm (reset): tokens/s,
+    chunk latency, per-shard high water, exact launches (a sharded round
+    launches the paged kernel ``SHARDS`` times a layer a token); each mode's
+    chunks held to base's by the greedy-margin rule (a mode's split plan
+    follows the rows a launch holds, so modes need not agree bit for bit)."""
+
+    ppr = -(-(14 + 56) // 16)
+    reqs = requests(np.random.default_rng(13), 16)
+    obs_of = {r: (qd, tau) for r, qd, tau in reqs}
+    base = None
+    for name, data, disagg in SHARD_MODES:
+        sched = ContinuousBatchingScheduler(model, tok, max_slots=8, scan_rounds=4,
+                                            num_pages=16 * ppr, decode_block=7,
+                                            **shard_kw(model, data, disagg))
+        for run in ("cold", "warm"):
+            if run == "warm":
+                sched.reset()
+            sched.obs = Observability(trace=False)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            admits0, rounds0, captures0 = len(sched.admit_ms), sched.decode_rounds, \
+                sched.graph_captures
+            t0 = time.perf_counter()
+            results = boundary_arrivals(sched, reqs, 2)
+            counts = check_sched_counts(model, sched, admits0, rounds0, launches)
+            wall = time.perf_counter() - t0
+            if sorted(r.robot_id for r in results) != list(range(16)):
+                raise AssertionError(f"(b) {name} {run}: served {[r.robot_id for r in results]}")
+            per_layer = counts["paged_attention"] / (model.n_attn * 7 *
+                                                     (sched.decode_rounds - rounds0))
+            m = sched.obs.metrics
+            lat = m.get("serve.chunk_latency_ms")
+            st = sched.pool_stats()
+            merges = (f", merges host ms mean {np.mean(sched.merge_ms):.2f}"
+                      if sched.merge_ms else "")
+            log(f"  (b) {name} {run}: 16 chunks in {wall:.3f} s: action tokens/s "
+                f"{16 * 56 / wall:.1f}; chunk latency p50 {lat.quantile(0.5):.2f} p99 "
+                f"{lat.quantile(0.99):.2f} ms; rows {sched.rows}, pool high water "
+                f"{st.high_water} of {sched.allocator.num_pages}, per shard "
+                f"{st.shard_high_water}; {sched.decode_rounds - rounds0} rounds in "
+                f"{sched.windows} windows; admission host ms mean "
+                f"{np.mean(sched.admit_ms[admits0:]):.2f}{merges}; graphs captured "
+                f"{sched.graph_captures - captures0}; paged launches a layer a token "
+                f"{per_layer:g}; launches {counts} (exact)")
+            if per_layer != max(data, 1) or st.pages_in_use or (
+                    data and st.shard_in_use != (0,) * data):
+                raise AssertionError(f"(b) {name}: {per_layer} paged launches a layer a token, "
+                                     f"pool {st}")
+        chunks = {r.robot_id: np.asarray(r.tokens) for r in results}
+        if base is None:
+            base = chunks
+            continue
+        diverged = check_chunks(model, tok, results, base, obs_of)
+        log(f"  (b) {name} vs base: {diverged} of 16 chunks diverged within the margin")
+
+
+def stream_overlap(prof):
+    """The prefill's and the round graph's device activity in a profile:
+    their streams (the flash kernel's and the paged kernel's), each
+    stream's busy ms and the ms both were busy at once (None: the profiler
+    saw none of them)."""
+
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [(e.name(), e.device_resource_id(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    fl = {s for n, s, _, _ in evs if "flash" in n}
+    pg = {s for n, s, _, _ in evs if "paged" in n}
+    if not fl or not pg:
+        return None
+
+    def union(stream):
+        spans = sorted((a, b) for _, s, a, b in evs if s == stream)
+        out = []
+        for a, b in spans:
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def busy(spans):
+        return sum(b - a for a, b in spans) / 1e6
+
+    ps, ds = union(min(fl)), union(min(pg))
+    both, i, j = 0, 0, 0
+    while i < len(ps) and j < len(ds):
+        both += max(0, min(ps[i][1], ds[j][1]) - max(ps[i][0], ds[j][0]))
+        if ps[i][1] < ds[j][1]:
+            i += 1
+        else:
+            j += 1
+    return sorted(fl), sorted(pg), busy(ps), busy(ds), both / 1e6
+
+
+def disaggregation_gaps(model, tok, launches):
+    """(c) the staggered load of the reference's disaggregation test: two new
+    robots at every boundary for ``GAP_WINDOWS`` windows, R = 4, without and
+    with disaggregated prefill: the mean host ms of a window after the
+    third (printed, not held to anything); then one profiled window of the
+    disaggregated scheduler, two prompts prefilled while two robots decode:
+    the flash kernels must run on another stream than the round graph's
+    paged kernels, and the two streams' overlap is printed."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = requests(np.random.default_rng(17), 2 * GAP_WINDOWS)
+    scheds = {}
+    for name, disagg in (("base", False), ("disaggregated", True)):
+        sched = ContinuousBatchingScheduler(model, tok, max_slots=8, scan_rounds=4,
+                                            num_pages=63, **shard_kw(model, 0, disagg))
+        for run in ("cold", "warm"):
+            if run == "warm":
+                sched.reset()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            admits0, rounds0 = len(sched.admit_ms), sched.decode_rounds
+            gaps = []
+            boundary_arrivals(sched, reqs, 2, gaps)
+            counts = check_sched_counts(model, sched, admits0, rounds0, launches)
+            log(f"  (c) {name} {run}: {len(gaps)} windows, host ms a window after the third "
+                f"mean {np.mean(gaps[3:GAP_WINDOWS]):.2f} (all: mean {np.mean(gaps):.2f}, max "
+                f"{max(gaps):.2f}); launches {counts} (exact)")
+        scheds[name] = sched
+    sched = scheds["disaggregated"]
+    sched.reset()
+    sched.submit_batch([0, 1], np.concatenate([reqs[0][1], reqs[1][1]]),
+                       np.concatenate([reqs[0][2], reqs[1][2]]))
+    sched.step()
+    while sched._window is not None:
+        sched.step()
+    sched.submit_batch([2, 3], np.concatenate([reqs[2][1], reqs[3][1]]),
+                       np.concatenate([reqs[2][2], reqs[3][2]]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step()
+        while sched._window is not None:
+            sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sched.drain()
+    seen = stream_overlap(prof)
+    if seen is None:
+        log(f"  (c) profiled window: wall {wall_ms:.1f} ms; streams not measured (the profiler "
+            "recorded no flash or paged kernel)")
+        return
+    fl, pg, pre_ms, dec_ms, both_ms = seen
+    if set(fl) & set(pg):
+        raise AssertionError(f"(c) the prefill's flash kernels ran on the round graph's stream "
+                             f"{fl} / {pg}")
+    log(f"  (c) profiled window (2 prompts prefilled while 2 robots decode, R = 4): wall "
+        f"{wall_ms:.1f} ms (profiler on); prefill stream {fl} busy {pre_ms:.3f} ms, round "
+        f"stream {pg} busy {dec_ms:.3f} ms, both busy at once {both_ms:.3f} ms")
+
+
+def serve_cli_sharded():
+    """(d) ``python -m repro_torch.launch.serve --fleet 4 --sharded
+    --disaggregate-prefill`` on the card: exit 0."""
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "4",
+                           "--sharded", "--disaggregate-prefill"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"(d) serve CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"  (d) serve --fleet 4 --sharded --disaggregate-prefill: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(lines[:2] + lines[-1:]))
+
+
+def sharded_phase(model, tok, launches):
+    sharded_card_vs_cpu(launches)
+    sharded_full_width(model, tok, launches)
+    disaggregation_gaps(model, tok, launches)
+    serve_cli_sharded()
 
 
 def monitor_path(fleet, launches):

@@ -55,3 +55,29 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_lens, *,
     _lib.check(status, NAME)
     _lib.LAUNCHES[NAME] += 1
     return out
+
+
+def paged_decode_attention_sharded(q, k_pages, v_pages, page_table, cache_lens, *, mesh,
+                                   window: int = 0, logit_cap: float = 0.0):
+    """Rows sharded over the mesh's ``data`` axis (the reference's
+    ``shard_map`` of ``kernels/paged_attention.py:162``): the B rows split
+    into ``data`` contiguous blocks, each through ``ops.paged_decode_attention``
+    (one launch of the kernel a block on CUDA, the plain version on the
+    CPU) against the whole pool with its global page ids; the blocks'
+    outputs concatenate.  Decode attention is per-row math, so on the CPU
+    the result equals the unsharded call bit for bit; on CUDA a block may
+    take another split plan (``_lib.decode_splits`` reads its rows).  B must
+    divide by the data size."""
+
+    from repro_torch.kernels import ops
+
+    n = int(mesh.shape["data"])
+    b = q.shape[0]
+    if b % n:
+        raise ValueError(f"{b} rows do not divide over a data axis of {n}")
+    rows = b // n
+    outs = [ops.paged_decode_attention(q[i:i + rows], k_pages, v_pages, page_table[i:i + rows],
+                                       cache_lens[i:i + rows], window=window,
+                                       logit_cap=logit_cap)
+            for i in range(0, b, rows)]
+    return outs[0] if n == 1 else torch.cat(outs, 0)

@@ -1,0 +1,109 @@
+"""Device meshes (counterpart of ``repro/launch/mesh.py``).
+
+A ``Mesh`` is an ndarray of ``torch.device`` with named axes, built by a
+function, never at import, as the reference builds its meshes.  The port
+runs eagerly, so a mesh does not place anything: it names the shards that
+the logical rules (``launch/sharding.py``) lay arrays out over, and the
+scheduler splits its page pool and decode rows over the ``data`` axis.  A
+device may appear more than once, so that ``data`` shards can live on one
+CPU (the tests) or on one card (``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class Mesh:
+    """``devices``: an ndarray of ``torch.device`` shaped like the mesh;
+    ``axis_names``: one name per axis; ``shape``: ``{axis: size}``."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        flat = [torch.device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
+        shape = np.asarray(devices, dtype=object).shape
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh of shape {shape} needs {len(shape)} axis names, "
+                             f"got {tuple(axis_names)}")
+        self.devices = np.empty(len(flat), dtype=object)
+        self.devices[:] = flat
+        self.devices = self.devices.reshape(shape)
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+
+    @property
+    def distinct_devices(self) -> List[torch.device]:
+        """The mesh's devices, each once, in mesh order."""
+
+        out: List[torch.device] = []
+        for d in self.devices.reshape(-1):
+            if d not in out:
+                out.append(d)
+        return out
+
+
+def host_devices(device: str = "cuda") -> List[torch.device]:
+    """Every card (``device="cuda"``; none raises) or ``[cpu]``."""
+
+    if torch.device(device).type == "cuda":
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("no CUDA device: pass device='cpu'")
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cpu")]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production shapes, (16, 16) over ("data", "model")
+    or (2, 16, 16) over ("pod", "data", "model"), on the meta device: only
+    the shape is meant (a dry run's layout), no machine here holds it."""
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [torch.device("meta")] * devs.size
+    return Mesh(devs.reshape(shape), axes)
+
+
+def make_host_mesh(*, model: int = 1, device: str = "cuda") -> Mesh:
+    """Mesh over every device there is: the cards (``device="cuda"``) or
+    the CPU.  ``model`` asks for a model axis; it shrinks to the largest
+    divisor of the device count at most the request, so any count factors
+    into a (data, model) rectangle (``model=4`` on 6 devices -> (2, 3))."""
+
+    devs = host_devices(device)
+    n = len(devs)
+    m = max(1, min(model, n))
+    while n % m:
+        m -= 1
+    return Mesh(np.asarray(devs, dtype=object).reshape(n // m, m), ("data", "model"))
+
+
+def make_test_mesh(*, data: int, model: int = 1, devices: Optional[Sequence] = None,
+                   device: str = "cuda") -> Mesh:
+    """Exact-shape (data, model) mesh over ``devices`` (default: every
+    device of ``device``'s kind); raises when their count is not ``data *
+    model``.  A device may repeat: ``devices=[torch.device("cpu")] * 8``
+    gives 8 data shards on the CPU, ``[cuda:0] * 2`` two on one card."""
+
+    devs = [torch.device(d) for d in devices] if devices is not None else host_devices(device)
+    if data * model != len(devs):
+        raise ValueError(f"make_test_mesh(data={data}, model={model}) needs {data * model} "
+                         f"devices but found {len(devs)}; pass devices= (a device may repeat, "
+                         f"e.g. [torch.device('cpu')] * {data * model})")
+    return Mesh(np.asarray(devs, dtype=object).reshape(data, model), ("data", "model"))
+
+
+def split_device_groups(*, prefill: int = 1, device: str = "cuda"
+                        ) -> Tuple[List[torch.device], List[torch.device]]:
+    """(prefill devices, decode devices) for disaggregated serving: the
+    last ``prefill`` devices prefill, so decode keeps the first.  With no
+    more devices than ``prefill`` both groups are all of them (one card:
+    the prefill still runs on a stream of its own, beside the decode)."""
+
+    devs = host_devices(device)
+    if len(devs) <= prefill:
+        return list(devs), list(devs)
+    return list(devs[-prefill:]), list(devs[:-prefill])

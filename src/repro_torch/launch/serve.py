@@ -47,6 +47,8 @@ from repro_torch.core.dispatcher import DispatcherConfig, dispatcher_init, dispa
 from repro_torch.core.kinematics import KinematicFrame
 from repro_torch.core.trigger import TriggerConfig
 from repro_torch.data.pipeline import EpisodeTokenizer
+from repro_torch.launch.mesh import (host_devices, make_host_mesh, make_test_mesh,
+                                     split_device_groups)
 from repro_torch.models.model import Model
 from repro_torch.obs import Observability, build_slo_report
 from repro_torch.obs.clock import clock
@@ -238,6 +240,8 @@ def serve_fleet(
     defer_hot_admission: Optional[float] = None,
     num_pages: Optional[int] = None,
     scan_rounds: int = 1,
+    mesh=None,
+    prefill_group=None,
     trigger: str = "always",
     trigger_cfg: Optional[TriggerConfig] = None,
     record_streams: bool = False,
@@ -276,6 +280,11 @@ def serve_fleet(
     counts the harvested windows and ``telemetry.host_gap_ms()`` the mean
     host milliseconds the scheduler took over a window.
 
+    ``mesh`` splits the engine's page pool and decode rows over the mesh's
+    ``data`` axis (``launch/mesh.py``; shards of one device);
+    ``prefill_group`` disaggregates the prompt prefill (a stream of its own
+    on a CUDA model), its K/V merged at the next window boundary.
+
     ``defer_hot_admission`` (a preempt-rate threshold, e.g. ``0.2``): a
     robot that fires a mid-chunk preempt while its realized preempt rate is
     at or above the threshold has its resubmitted request's admission held
@@ -299,8 +308,9 @@ def serve_fleet(
 
     ``sched``: serve through this scheduler of ``model`` instead of a new
     one — it is ``reset()`` first and keeps its CUDA graphs, so a second run
-    is warm; its own ``max_slots``, ``num_pages`` and ``scan_rounds`` stand,
-    and lanes it already has for the fleet's keys are kept.
+    is warm; its own ``max_slots``, ``num_pages``, ``scan_rounds``, mesh and
+    prefill group stand, and lanes it already has for the fleet's keys are
+    kept.
     """
 
     if tick not in ("vectorized", "legacy"):
@@ -316,7 +326,8 @@ def serve_fleet(
     if sched is None:
         sched = ContinuousBatchingScheduler(
             model, tokenizer, max_slots=max_slots, chunk_len=chunk_len, n_joints=n_joints,
-            num_pages=num_pages, scan_rounds=scan_rounds, obs=obs,
+            num_pages=num_pages, scan_rounds=scan_rounds, obs=obs, mesh=mesh,
+            prefill_group=prefill_group,
         )
     else:
         sched.reset()
@@ -780,6 +791,13 @@ def parser() -> argparse.ArgumentParser:
                         "fractions, the second serves each robot at its assigned cut")
     p.add_argument("--max-cuts", "--k-max", dest="max_cuts", type=int, default=3,
                    help="most distinct cuts active at once (--assign-cuts)")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the fleet engine's page pool and decode rows over the data "
+                        "axis of a mesh over the device's cards (one card: one shard)")
+    p.add_argument("--disaggregate-prefill", action="store_true",
+                   help="prefill admitted prompts on a device group of their own (one card: "
+                        "a stream of its own), merged into the paged cache at the next "
+                        "window boundary")
     p.add_argument("--defer-hot", type=float, default=None,
                    help="cancellation-aware admission: preempt-rate threshold above "
                         "which a preempting robot's admission is held one round")
@@ -826,11 +844,23 @@ def main(argv=None):
                 if lane is not None and lane.lane_key != executor.lane_key:
                     robot_cuts = {r: (executor.lane_key if i % 2 == 0 else lane.lane_key)
                                   for i, r in enumerate(split)}
+        mesh = prefill_group = None
+        if args.disaggregate_prefill:
+            prefill_group, decode_group = split_device_groups(prefill=1, device=args.device)
+            print(f"disaggregated prefill: {prefill_group[0]}")
+        if args.sharded:
+            if prefill_group is not None and len(decode_group) < len(host_devices(args.device)):
+                # decode shards over its own group; prefill keeps its device
+                mesh = make_test_mesh(data=len(decode_group), devices=decode_group)
+            else:
+                mesh = make_host_mesh(device=args.device)
+            print(f"sharded engine: mesh {mesh.shape}")
         out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
                           partition_executor=executor, split_robots=split,
                           robot_cuts=robot_cuts, trigger=args.trigger,
                           defer_hot_admission=args.defer_hot,
-                          scan_rounds=args.scan_rounds, obs=mk_obs())
+                          scan_rounds=args.scan_rounds, obs=mk_obs(), mesh=mesh,
+                          prefill_group=prefill_group)
         if args.assign_cuts:
             # re-assign each robot's cut from the first episode's realized
             # fractions and serve the next episode heterogeneously
@@ -840,7 +870,8 @@ def main(argv=None):
                 out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
                                   partition_executor=executor2, robot_cuts=robot_cuts,
                                   trigger=args.trigger, defer_hot_admission=args.defer_hot,
-                                  scan_rounds=args.scan_rounds, obs=mk_obs())
+                                  scan_rounds=args.scan_rounds, obs=mk_obs(), mesh=mesh,
+                                  prefill_group=prefill_group)
         elif args.trigger == "rapid" and args.partition != "none":
             replan_from_telemetry(args.arch, out["telemetry"], args.network)
         obs = out["obs"]

@@ -1,0 +1,174 @@
+"""Logical-axis sharding rules with a divisibility guard (counterpart of
+``repro/launch/sharding.py``).
+
+Arrays are described by *logical* axis names ("batch", "heads", "pages",
+...); ``DEFAULT_RULES`` maps each name to mesh axes, and
+``logical_to_pspec`` turns a shape and its names into a ``PartitionSpec``,
+**dropping any mapping whose dimension does not divide by the mesh-axis
+product** (e.g. starcoder2's 24 heads over a 16-way model axis) and using
+each mesh axis at most once.  ``shard_shape`` gives one shard's local
+shape under a spec.
+
+The port runs eagerly, not under GSPMD: ``shard(x, *axes)`` returns ``x``
+itself.  The ``sharding_rules`` context makes a mesh active
+(``active_mesh``): the paged decode attention reads it and splits its rows
+over the ``data`` axis (``kernels.paged_attention.
+paged_decode_attention_sharded``); ``no_sharding`` suspends it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+MeshAxes = Union[str, Tuple[str, ...], None]
+
+# logical name -> mesh axes on the production mesh; a multi-pod mesh adds
+# "pod" to the batch mapping
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("data",),
+    "seq": (),            # sequence replicated by default (overridable)
+    "embed": (),          # d_model replicated on activations
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": (),
+    "qkv_features": ("model",),   # flattened heads*head_dim on weights
+    "mlp": ("model",),
+    # expert parallelism rides the data axis, leaving "model" free to shard
+    # each expert's FFN hidden
+    "expert": ("data",),
+    "vocab": ("model",),
+    "kv_seq": (),         # kv-cache sequence dim (sharded for long context)
+    # the paged KV pool's page dim: page ids are global, each data shard
+    # owns a contiguous [P+1]/ndata block (the trash page on the last shard)
+    "pages": ("data",),
+    "state": ("model",),  # ssm / xlstm inner feature dim
+    "conv": (),
+}
+
+MULTIPOD_BATCH = ("pod", "data")
+
+
+class PartitionSpec(tuple):
+    """One mesh-axis entry per array dimension: a name, a tuple of names,
+    or None (replicated).  A tuple, so specs compare as tuples."""
+
+    def __new__(cls, *entries: MeshAxes):
+        return super().__new__(cls, entries)
+
+
+P = PartitionSpec
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: Optional[Dict[str, Tuple[str, ...]]] = None
+
+
+_CTX = _Ctx()
+
+
+def make_rules(mesh, overrides: Optional[Dict[str, Tuple[str, ...]]] = None):
+    rules = dict(DEFAULT_RULES)
+    if "pod" in mesh.axis_names:
+        rules["batch"] = MULTIPOD_BATCH
+    if overrides:
+        rules.update(overrides)
+    return rules
+
+
+@contextlib.contextmanager
+def sharding_rules(mesh, overrides: Optional[Dict[str, Tuple[str, ...]]] = None):
+    """Make ``mesh`` (and its rules) active for the calls inside."""
+
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, make_rules(mesh, overrides)
+    try:
+        yield _CTX.rules
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+@contextlib.contextmanager
+def no_sharding():
+    """Suspend any active mesh (the disaggregated prefill runs so)."""
+
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = None, None
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def active_mesh():
+    """The mesh of the innermost ``sharding_rules``, or None."""
+
+    return _CTX.mesh
+
+
+def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
+    return math.prod(mesh.shape[a] for a in axes) if axes else 1
+
+
+def logical_to_pspec(shape: Sequence[int], logical_axes: Sequence[Optional[str]], mesh,
+                     rules: Optional[Dict[str, Tuple[str, ...]]] = None) -> PartitionSpec:
+    """A ``PartitionSpec`` for ``shape`` from logical axis names: a name
+    maps to its mesh axes only if the dim divides by their product, else
+    the dim stays unsharded; a mesh axis is used at most once (the first
+    dim that claims it wins)."""
+
+    rules = rules or make_rules(mesh)
+    if len(shape) != len(logical_axes):
+        raise ValueError(f"shape {tuple(shape)} and logical axes {tuple(logical_axes)} differ "
+                         "in length")
+    used: set = set()
+    spec = []
+    for dim, name in zip(shape, logical_axes):
+        entry: MeshAxes = None
+        if name is not None:
+            axes = tuple(a for a in rules.get(name, ()) if a not in used)
+            if axes and dim % _axis_size(mesh, axes) == 0:
+                entry = axes if len(axes) > 1 else axes[0]
+                used.update(axes)
+        spec.append(entry)
+    return PartitionSpec(*spec)
+
+
+def shard(x, *logical_axes: Optional[str]):
+    """The identity: the port places nothing by annotation."""
+
+    return x
+
+
+def shard_shape(mesh, shape: Sequence[int], pspec: Sequence[MeshAxes]) -> Tuple[int, ...]:
+    """One shard's local shape of an array of ``shape`` laid out by
+    ``pspec`` over ``mesh`` (each sharded dim divided by its axes' size)."""
+
+    out = []
+    for dim, entry in zip(shape, tuple(pspec) + (None,) * (len(shape) - len(pspec))):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        n = _axis_size(mesh, axes)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not divide over {axes} ({n} shards)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def _leaf(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (int, str, type(None))) for e in x)
+
+
+def pspec_tree(shapes_tree, logical_tree, mesh, rules=None):
+    """``logical_to_pspec`` over parallel trees (dicts, lists, tuples) of
+    shapes and logical axes; a leaf is a flat tuple of ints or of names."""
+
+    if _leaf(shapes_tree):
+        return logical_to_pspec(shapes_tree, logical_tree, mesh, rules)
+    if isinstance(shapes_tree, dict):
+        return {k: pspec_tree(shapes_tree[k], logical_tree[k], mesh, rules) for k in shapes_tree}
+    return type(shapes_tree)(pspec_tree(s, lg, mesh, rules)
+                             for s, lg in zip(shapes_tree, logical_tree))

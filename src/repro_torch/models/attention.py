@@ -38,6 +38,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import paged_decode_attention_sharded
+from repro_torch.launch import sharding
 from repro_torch.models.layers import dense, normal_
 
 
@@ -153,7 +155,8 @@ def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_poo
     or over ``cap`` (idle rows, rows decoding past their chunk) write the
     trash page and attend over ``min(len + 1, cap)`` tokens
     (repro/models/attention.py:512-523).  Pools are updated in place.
-    Returns out [B, 1, D].
+    Under ``sharding_rules(mesh)`` with ``data > 1`` the attention runs
+    row-sharded (``paged_decode_attention_sharded``).  Returns out [B, 1, D].
     """
 
     b = x.shape[0]
@@ -172,10 +175,15 @@ def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_poo
     v_pool.view(flat).index_copy_(0, slot, v[:, 0].to(v_pool.dtype))
 
     lens_eff = torch.minimum(pos_b + 1, cap_b)
-    out = ops.paged_decode_attention(
-        q[:, 0], k_pool[:n_pages].to(q.dtype), v_pool[:n_pages].to(q.dtype),
-        page_table, lens_eff, window=window, logit_cap=cfg.attn_logit_softcap,
-    )
+    args = (q[:, 0], k_pool[:n_pages].to(q.dtype), v_pool[:n_pages].to(q.dtype), page_table,
+            lens_eff)
+    kw = dict(window=window, logit_cap=cfg.attn_logit_softcap)
+    mesh = sharding.active_mesh()
+    if mesh is not None and mesh.shape["data"] > 1:
+        # the rows shard over the active mesh's data axis (a scheduler's round)
+        out = paged_decode_attention_sharded(*args, mesh=mesh, **kw)
+    else:
+        out = ops.paged_decode_attention(*args, **kw)
     return dense(out.reshape(b, 1, -1), p.wo)
 
 

@@ -45,7 +45,7 @@ own per-layer caches.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,35 @@ MOE_IMPLS = {"dense": moe_lib.moe_forward, "capacity": moe_lib.moe_forward_capac
 # the recurrent state a layer of each kind keeps, by its cache names
 STATE_NAMES = {"mamba": ("h", "conv"), "mlstm": ("mC", "mn", "mm"),
                "slstm": ("sc", "sn", "sh", "sm")}
+
+
+# each parameter's logical axes (``launch/sharding.py``), the reference's
+# names (repro/models/{layers,attention,moe,ssm,xlstm}.py): by the name
+# inside a block for block parameters, by the full name otherwise
+_QKV_IN = ("embed", "qkv_features")
+_BLOCK_AXES = {
+    "attn.wq": _QKV_IN, "attn.wk": _QKV_IN, "attn.wv": _QKV_IN,
+    "attn.wo": ("qkv_features", "embed"),
+    "xattn.wq": _QKV_IN, "xattn.wk": _QKV_IN, "xattn.wv": _QKV_IN,
+    "xattn.wo": ("qkv_features", "embed"),
+    "norm1.scale": (None,), "norm2.scale": (None,), "xnorm.scale": (None,),
+    "mlp.up.w": ("embed", "mlp"), "mlp.gate.w": ("embed", "mlp"), "mlp.down.w": ("mlp", "embed"),
+    "moe.router": ("embed", None), "moe.up": ("expert", "embed", "mlp"),
+    "moe.gate": ("expert", "embed", "mlp"), "moe.down": ("expert", "mlp", "embed"),
+    "mamba.in_proj": ("embed", "state"), "mamba.conv_w": ("conv", "state"),
+    "mamba.dt_proj": ("state", "heads"), "mamba.bc_proj": ("state", None),
+    "mamba.dt_bias": ("heads",), "mamba.a_log": ("heads",), "mamba.d_skip": ("heads",),
+    "mamba.out_proj": ("state", "embed"),
+    "mlstm.up_proj": ("embed", "state"), "mlstm.wq": ("state", "qkv_features"),
+    "mlstm.wk": ("state", "qkv_features"), "mlstm.wv": ("state", "qkv_features"),
+    "mlstm.w_if": ("state", None), "mlstm.if_bias": (None,), "mlstm.out_proj": ("state", "embed"),
+    "slstm.w_in": ("embed", "state"), "slstm.w_rec": ("embed", "state"), "slstm.bias": (None,),
+    "slstm.up": ("embed", "mlp"), "slstm.down": ("mlp", "embed"),
+}
+_TOP_AXES = {
+    "embed.table": ("vocab", "embed"), "mod_proj.w": ("embed", "embed"),
+    "final_norm.scale": (None,), "enc_norm.scale": (None,), "lm_head.w": ("embed", "vocab"),
+}
 
 
 def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
@@ -205,6 +234,24 @@ class Model(nn.Module):
         enc = [*self.enc_layers, self.enc_norm] if self.cfg.encoder_decoder else []
         for m in (self.embed, *front, *self.layers, self.final_norm, *head, *enc):
             m.init(generator)
+
+    def param_logical(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """The logical axes of every parameter in the bridge's layout
+        (``checkpoint.bridge.reference_tensors``: ``{reference key: names}``,
+        a block tensor stacked over its unit's repeats, so its names start
+        with None for the repeat axis), with the reference's names
+        (``repro/models/model.py:164``)."""
+
+        from repro_torch.checkpoint.bridge import reference_key
+
+        out = {}
+        for name, _ in self.named_parameters():
+            key, idx = reference_key(name, self.period)
+            if idx < 0:
+                out[key] = _TOP_AXES[name]
+            else:
+                out[key] = (None,) + _BLOCK_AXES[name.split(".", 2)[2]]
+        return out
 
     def _window_for(self, spec, seq_len: int) -> int:
         cfg = self.cfg

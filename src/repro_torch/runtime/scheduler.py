@@ -65,14 +65,45 @@ host-owned boundaries (no device syncs added), into the metrics registry
 ``pool.*`` gauges) and, when tracing, spans on one track per robot (chunk >
 queue > decode) and one for the lane (windows).
 
+**Mesh.**  ``mesh=`` (``launch/mesh.py``) splits the engine over the
+mesh's ``data`` axis as the reference does: the page pool is rounded so
+that its pages and the trash page split evenly into per-shard blocks of
+global page ids (the "pages" rule), the allocator steers each request to
+the least-loaded shard (``PoolStats.shard_in_use`` / ``shard_high_water``),
+the rows stay a multiple of the data size, and each decode round runs
+under ``sharding_rules(mesh)``, so its paged attention launches once a
+shard a layer over that shard's block of rows
+(``kernels.paged_attention.paged_decode_attention_sharded``).  The split
+lanes draw from the same shard-aware pool; their rounds are not
+row-sharded.  The shards share one device: a mesh over more than one
+distinct device, a ``model`` (or ``pod``) axis above 1, or a mesh on
+another device than the model's raises ``NotImplementedError`` (ROADMAP
+queue F).
+
+**Disaggregated prefill.**  ``prefill_group=[device]`` pipelines admission
+over two boundaries (the reference's ``_dispatch_prefill`` and
+``_merge_pending``): at a boundary the admitted prompts' batched prefill is
+issued after the window's rounds, and the sequences stay ``pending``
+(capacity 0: the window's writes on their rows go to the trash page, and
+harvest skips them); at the next boundary, before any new reservation, the
+prefill's K/V and logits merge into the live pool
+(``merge_prefill_into_paged``), rows cancelled meanwhile dropped by an
+out-of-range row index with their prompt K/V sent, at length 0, to the
+trash page.  On a CUDA model the prefill runs on a stream of its own, so
+the device runs it beside the window's graph replays on the current stream
+while the host issues it; the merge waits on its event, and its outputs
+are recorded on the current stream before they are dropped.  On the CPU
+both phases run in order, so admissions land one window later as on the
+card.  The prefill device must be the model's (``NotImplementedError``
+otherwise).
+
 An encoder-decoder stack is refused, as the reference refuses it: a
 request carries observation tokens only, no encoder frames.
-
-The mesh and prefill disaggregation are not ported (ROADMAP queue F).
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
@@ -81,6 +112,8 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import EpisodeTokenizer
+from repro_torch.launch.sharding import (logical_to_pspec, no_sharding, shard_shape,
+                                         sharding_rules)
 from repro_torch.models.model import Model
 from repro_torch.obs.clock import clock
 from repro_torch.runtime.graphs import GraphedCall, owner_call
@@ -105,6 +138,50 @@ def _bucket(n: int) -> int:
     return b
 
 
+def _canon(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _check_placement(device, mesh, prefill_group) -> None:
+    """Refuse what no machine of this repo can check: shards on more than
+    one distinct device, a model (or pod) axis, a mesh or prefill device
+    other than the model's."""
+
+    dev = _canon(device)
+    if mesh is not None:
+        devs = [_canon(d) for d in mesh.distinct_devices]
+        if len(devs) > 1:
+            raise NotImplementedError(
+                f"a mesh over {len(devs)} distinct devices {[str(d) for d in devs]}: the port "
+                "shards over shards of one device only (ROADMAP queue F)")
+        extra = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+        if extra:
+            raise NotImplementedError(f"mesh axes {extra}: only the data axis shards "
+                                      "(ROADMAP queue F)")
+        if devs[0] != dev:
+            raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} "
+                                      "(ROADMAP queue F)")
+    if prefill_group and _canon(prefill_group[0]) != dev:
+        raise NotImplementedError(f"prefill on {prefill_group[0]} apart from decode on {dev}: "
+                                  "the port prefills on the decode device, on a stream of its "
+                                  "own (ROADMAP queue F)")
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a cache (a dict of tensors or lists of tensors)."""
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
 @dataclass
 class ChunkRequest:
     robot_id: int
@@ -117,8 +194,8 @@ class ChunkRequest:
 
 @dataclass(frozen=True)
 class PoolStats:
-    """KV page-pool utilization snapshot (the per-shard tuples stay None:
-    the port's pool is single-shard)."""
+    """KV page-pool utilization snapshot; with a mesh, each data shard's
+    pages in use and high-water mark (None on a single-shard pool)."""
 
     pages_in_use: int
     pages_free: int
@@ -159,6 +236,9 @@ class _Sequence:
     # cancelled while its window was in flight: the dispatched rounds still
     # write this row's pages, so the boundary frees them
     dead: bool = False
+    # disaggregated admission: prefilled but not merged yet (capacity 0,
+    # not harvested) until the next boundary
+    pending: bool = False
     admit_ts: float = 0.0
 
 
@@ -192,10 +272,22 @@ class ContinuousBatchingScheduler:
         num_pages: Optional[int] = None,
         scan_rounds: int = 1,
         obs=None,
+        mesh=None,
+        prefill_group=None,
     ):
         if model.cfg.encoder_decoder:
             raise NotImplementedError("continuous batching targets decoder-only VLAs")
+        _check_placement(model.device, mesh, prefill_group)
         self.model = model
+        self.mesh = mesh
+        self.data_shards = int(mesh.shape["data"]) if mesh is not None else 1
+        # disaggregated prefill: its stream (CUDA), and the dispatched
+        # prefills awaiting their merge: (sequences, logits, cache, event)
+        self.prefill_device = torch.device(prefill_group[0]) if prefill_group else None
+        self._prefill_stream = None
+        if self.prefill_device is not None and model.device.type == "cuda":
+            self._prefill_stream = torch.cuda.Stream(device=model.device)
+        self._pending_admit: List[tuple] = []
         self.tok = tokenizer
         self.obs = obs
         # ``max_slots`` sizes the initial rows and the default pool; pass
@@ -222,19 +314,29 @@ class ContinuousBatchingScheduler:
         self.graph_captures = 0
         self.capture_s = 0.0
         self.admit_ms: List[float] = []
+        self.merge_ms: List[float] = []  # host time of the disaggregated merges
 
         # a request holds prompt + chunk tokens resident
         self.page_size = page_size
         self.pages_per_req = -(-(self.prompt_len + self.total_tokens) // page_size)
         pool = num_pages if num_pages is not None else self.pages_per_req * max_slots
-        self.allocator = PageAllocator(pool)
+        nd, per_shard = self.data_shards, None
+        if nd > 1:
+            # the pool and its trash page split evenly over the data axis, so
+            # each shard owns a contiguous block of global page ids
+            pool = nd * -(-(pool + 1) // nd) - 1
+            per_shard = shard_shape(mesh, (pool + 1,),
+                                    logical_to_pspec((pool + 1,), ("pages",), mesh))[0]
+        self.allocator = PageAllocator(pool, num_shards=nd, pages_per_shard=per_shard)
         self.paged_spec = PagedSpec(num_pages=pool, page_size=page_size,
                                     max_pages_per_seq=self.pages_per_req)
         self.cap_tokens = self.pages_per_req * page_size
 
+        # rows shard over the data axis: a multiple of it (doubling keeps it)
+        rows0 = nd * -(-max_slots // nd)
         self._queue: Deque[ChunkRequest] = deque()
         self._seqs: Dict[int, _Sequence] = {}    # row -> sequence
-        self._free_rows: List[int] = list(range(max_slots))
+        self._free_rows: List[int] = list(range(rows0))
         self._order = 0
         self._window: Optional[_ScanWindow] = None
         self._token_floor = tokenizer.action_base
@@ -251,7 +353,7 @@ class ContinuousBatchingScheduler:
 
         # live batch state: logits rows + the paged cache (shared pools,
         # per-row page table / length / capacity; zeros mean inactive)
-        self.rows = max_slots
+        self.rows = rows0
         self._vdim = model.embed.table.shape[0]  # the padded vocab, head tied or not
         self._logits = torch.zeros((self.rows, self._vdim), dtype=model.dtype,
                                    device=model.device)
@@ -439,20 +541,25 @@ class ContinuousBatchingScheduler:
 
     def pool_stats(self) -> PoolStats:
         a = self.allocator
+        sharded = a.num_shards > 1
         return PoolStats(pages_in_use=a.num_in_use, pages_free=a.num_free,
-                         high_water=a.high_water)
+                         high_water=a.high_water,
+                         shard_in_use=tuple(a.shard_in_use) if sharded else None,
+                         shard_high_water=tuple(a.shard_high_water) if sharded else None)
 
     def reset(self) -> None:
         """Drop all queued and in-flight work; keep the cloud rows' buffers
         and graphs (zeroed in place), while the split lanes free theirs (as
-        an emptied lane does).  Lifetime page counters survive; the
-        high-water mark restarts."""
+        an emptied lane does).  Dispatched prefills awaiting their merge are
+        dropped.  Lifetime page counters survive; the high-water mark
+        restarts."""
 
         self._queue.clear()
         self._seqs.clear()
         self._free_rows = list(range(self.rows))
         self.allocator.reclaim_all()
         self._window = None
+        self._pending_admit = []
         self._logits.zero_()
         self._pcache["len"].zero_()
         self._pcache["cap"].zero_()
@@ -518,15 +625,21 @@ class ContinuousBatchingScheduler:
         self._seqs[row] = seq
         return seq
 
-    def _try_admit(self) -> None:
+    def _try_admit(self) -> List[_Sequence]:
         """Admit pending requests FIFO across the cloud queue and every
         lane (split suffixes and cloud-only robots compete for the same
         pages in submission order) while a request's pages are free; a head
         whose ``earliest_round`` lies ahead holds its queue this round.  A
         lane's admissions prefill as one suffix batch (``flush``); the
         cloud's prompts as one batch of ``_bucket(n)`` rows (padding rows
-        dropped by the merge), eagerly."""
+        dropped by the merge), eagerly.  Disaggregated, the cloud admissions
+        are returned ``pending``: ``step`` issues their prefill after the
+        window (so that it runs beside it), and the next boundary merges it
+        before its reservations (so no page reserved there is one a
+        cancelled pending sequence held)."""
 
+        if self._pending_admit:
+            self._merge_pending()
         new: List[_Sequence] = []
         new_split: Dict[object, list] = {}
         while self.allocator.num_free >= self.pages_per_req:
@@ -557,7 +670,11 @@ class ContinuousBatchingScheduler:
         for key, seqs in new_split.items():
             self._lanes[key].flush(seqs)
         if not new:
-            return
+            return []
+        if self.prefill_device is not None:
+            for seq in new:
+                seq.pending = True
+            return new
         t0 = clock()
         n = _bucket(len(new))
         obs = np.zeros((n, self.prompt_len), np.int64)
@@ -577,6 +694,7 @@ class ContinuousBatchingScheduler:
         rows = torch.as_tensor(row_idx[: len(new)], device=dev)
         self._logits.index_copy_(0, rows, logits[: len(new), -1])
         self.admit_ms.append((clock() - t0) * 1e3)
+        return []
 
     def _release(self, seq: _Sequence) -> None:
         """Return pages and row; zero the row's capacity (in place) so the
@@ -587,13 +705,95 @@ class ContinuousBatchingScheduler:
         self._free_rows.append(seq.row)
         self._pcache["cap"][seq.row] = 0
 
+    # ------------------------------------------------------------------
+    # prefill/decode disaggregation (``prefill_group``)
+    # ------------------------------------------------------------------
+
+    def _dispatch_prefill(self, new: List[_Sequence]) -> None:
+        """Phase 1, at this boundary, after the window is issued: the
+        ``pending`` admissions' batched prefill is issued (on a CUDA model
+        on the prefill stream, so that the device runs it beside the
+        window's rounds while the host issues it); their rows keep
+        capacity 0 until the next boundary merges it."""
+
+        t0 = clock()
+        n = _bucket(len(new))
+        obs = np.zeros((n, self.prompt_len), np.int64)
+        for i, seq in enumerate(new):
+            obs[i] = seq.request.obs
+        stream, done = self._prefill_stream, None
+        dev = self.model.device
+        with no_sharding(), (torch.cuda.stream(stream) if stream is not None
+                             else contextlib.nullcontext()):
+            logits, dcache = self.model.prefill({"tokens": torch.as_tensor(obs, device=dev)},
+                                                extra=0)
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+        self._pending_admit.append((new, logits, dcache, done))
+        self.admit_ms.append((clock() - t0) * 1e3)
+
+    def _merge_pending(self) -> None:
+        """Phase 2, at the next boundary: the current stream waits for the
+        prefill, then its K/V and last logits merge into the live pool and
+        rows.  Sequences released while pending (cancelled) take an
+        out-of-range row and length 0: their prompt K/V goes to the trash
+        page, never to pages reserved again since."""
+
+        pending, self._pending_admit = self._pending_admit, []
+        dev = self.model.device
+        for new, logits, dcache, done in pending:
+            t0 = clock()
+            if done is not None:
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(done)
+                # made on the prefill stream, read here: the allocator must
+                # not hand their blocks out before this stream is past them
+                for t in [logits, *_tensors(dcache)]:
+                    t.record_stream(cur)
+            n = logits.shape[0]
+            pt_new = np.zeros((n, self.pages_per_req), np.int32)
+            row_idx = np.full((n,), self.rows, np.int64)  # released, padding: dropped
+            lens = np.zeros((n,), np.int32)
+            caps = np.zeros((n,), np.int32)
+            for i, seq in enumerate(new):
+                if seq.dead or self._seqs.get(seq.row) is not seq:
+                    continue
+                pt_new[i] = seq.pages
+                row_idx[i] = seq.row
+                lens[i] = self.prompt_len
+                caps[i] = self.cap_tokens
+                seq.pending = False
+            self.model.merge_prefill_into_paged(dcache, self._pcache, pt_new, row_idx, lens,
+                                                caps)
+            keep = np.flatnonzero(row_idx < self.rows)
+            if keep.size:
+                src = torch.as_tensor(keep, device=dev)
+                self._logits.index_copy_(0, torch.as_tensor(row_idx[keep], device=dev),
+                                         logits.index_select(0, src)[:, -1])
+            self.merge_ms.append((clock() - t0) * 1e3)
+
+    def _ctx(self):
+        """The mesh's rules around a decode round (nothing without a mesh)."""
+
+        return sharding_rules(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+
+    def _settle_prefill(self) -> None:
+        """Before a CUDA graph capture: no prefill in flight on the side
+        stream while the capture runs."""
+
+        if self._prefill_stream is not None:
+            self._prefill_stream.synchronize()
+
     def _round(self, block: int) -> torch.Tensor:
         """One decode round of ``block`` greedy tokens over every row, on the
-        live buffers in place -> tokens [rows, block]."""
+        live buffers in place, under the mesh's rules -> tokens [rows,
+        block]."""
 
-        toks, logits, cache = self.model.decode_chunk(
-            self._logits[:, None], self._pcache, block, self._token_floor
-        )
+        with self._ctx():
+            toks, logits, cache = self.model.decode_chunk(
+                self._logits[:, None], self._pcache, block, self._token_floor
+            )
         self._logits.copy_(logits[:, -1])
         self._pcache["len"].copy_(cache["len"])
         return toks
@@ -608,6 +808,8 @@ class ContinuousBatchingScheduler:
         if call is None:
             call = self._graphs[(block, self.rows)] = GraphedCall(owner_call(self, "_round", block))
         first = call.graph is None
+        if first:
+            self._settle_prefill()
         toks = call()
         if first:
             self.graph_captures += 1
@@ -678,6 +880,8 @@ class ContinuousBatchingScheduler:
                 out = self._fused_window(keys, block)
             else:
                 first = call.graph is None
+                if first:
+                    self._settle_prefill()
                 out = call()
                 if first:
                     self.graph_captures += 1
@@ -759,6 +963,11 @@ class ContinuousBatchingScheduler:
         m.gauge("pool.high_water").set(alloc.high_water)
         m.gauge("pool.page_allocs_total").set(alloc.total_allocs)
         m.gauge("pool.page_frees_total").set(alloc.total_frees)
+        if alloc.num_shards > 1:
+            m.gauge("pool.num_shards").set(alloc.num_shards)
+            for sh, (iu, hw) in enumerate(zip(alloc.shard_in_use, alloc.shard_high_water)):
+                m.gauge("pool.shard_pages_in_use", shard=str(sh)).set(iu)
+                m.gauge("pool.shard_high_water", shard=str(sh)).set(hw)
 
     # ------------------------------------------------------------------
     # the round loop
@@ -781,7 +990,7 @@ class ContinuousBatchingScheduler:
                 return self._close_window()
             return []
         self.round += 1
-        self._try_admit()
+        prefill = self._try_admit()
         n_cloud = len(self._seqs)
         n_split = sum(len(lane.seqs) for lane in self._lanes.values())
         if n_cloud + n_split == 0:
@@ -813,12 +1022,16 @@ class ContinuousBatchingScheduler:
             w.t_open = clock()
         if n_cloud:
             w.toks = self._decode_window(block, rounds)
-            w.seqs = list(self._seqs.values())
+            # pending (disaggregated) rows decode into the trash page this
+            # window; they are merged, and harvested, later
+            w.seqs = [s for s in self._seqs.values() if not s.pending]
         planes = [l for l in self._lanes.values() if l.seqs and l.pipelined]
         if planes:
             w.lane_toks = self._split_fused_step(planes, block, rounds)
             for lane in planes:
                 w.lane_seqs[lane.key] = list(lane.seqs.values())
+        if prefill:
+            self._dispatch_prefill(prefill)
         self._window = w
         w.steps_left -= 1
         if w.steps_left <= 0:
