@@ -155,6 +155,20 @@ Phases, in order; any failure exits nonzero and prints no result line:
    npz checkpoint round-tripped; (e) a Jamba smoke stack's ``loss_fn``
    under autograd on the card raises (the Mamba scan has no backward
    kernel);
+8b. dry run, roofline and examples: (a) ``python -m
+   repro_torch.launch.dryrun --arch all --shape all --mesh both`` for both
+   variants (every arch but openvla-7b, shape and production mesh laid out
+   on the meta device; 136 ok, 6 skip, 0 fail records), the same in this
+   process, where the card's allocated bytes and peak must not move; each
+   record's compute and memory seconds on ``HW_H100`` and GB a device;
+   (b) ``estimate``'s memory term of openvla-7b decode at kv length 70
+   over 56 tokens beside ``weight_floor_ms``, the gap held to the untied
+   embedding table; (c) ``examples/quickstart_torch.py`` and
+   ``examples/ecc_serving_torch.py`` (``--fleet 4 --trigger rapid
+   --scan-rounds 4``, ``--fleet 8 --arrivals poisson``, ``--fleet 4
+   --partition auto --network lan`` and one robot) on the card, side by
+   side, each exiting 0, the fleets having launched the flash and paged
+   kernels and the one robot the flash and dense decode kernels;
 9. the result: a ``{"kernels": [...]}`` line and, last, the device line.
 
 Phase 3 times each kernel three ways: ``ms`` (CUDA events around calls
@@ -171,13 +185,16 @@ phase 3 and prints no result line (a short call for kernel work);
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
@@ -192,7 +209,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import latest_checkpoint, restore  # noqa: E402
 from repro_torch.checkpoint.bridge import reference_tensors  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import kinematics as kin  # noqa: E402
 from repro_torch.core.trigger import TriggerConfig, run_trigger  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
@@ -207,6 +224,7 @@ from repro_torch.kernels import flash_attention_bwd as kfab  # noqa: E402
 from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
@@ -218,6 +236,8 @@ from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
 from repro_torch.robotics.episodes import generate_episode  # noqa: E402
+from repro_torch.roofline import HW_H100  # noqa: E402
+from repro_torch.roofline.costmodel import _decode_cache_bytes, estimate  # noqa: E402
 from repro_torch.runtime.engine import (  # noqa: E402
     STRATEGIES,
     EngineConfig,
@@ -237,9 +257,9 @@ from repro_torch.runtime.kv_cache import PagedSpec  # noqa: E402
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and flop/s by input type
-# (bf16 on the tensor cores; float32 outside them)
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# (bf16 on the tensor cores, ``roofline.HW_H100``; float32 outside them)
+HBM_BPS = HW_H100.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: HW_H100.peak_flops, torch.float32: 67e12}
 # float32: the same math summed in another order.  bf16: each output is a
 # weighted mean of standard-normal v rows, so |out| reaches ~3 where a row
 # sees few keys (the first rows of a prefill) and ~0.2 over 70+ keys.  The
@@ -3756,6 +3776,166 @@ def train_phase(launches):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: the dry run, the roofline and the examples
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARGV = ["--arch", "all", "--shape", "all", "--mesh", "both"]
+DRYRUN_COUNTS = {"ok": 2 * 2 * 34, "skip": 6, "fail": 0}  # 2 variants x 2 meshes x 34
+EXAMPLES = {
+    "quickstart": ["examples/quickstart_torch.py"],
+    "fleet rapid": ["examples/ecc_serving_torch.py", "--fleet", "4", "--trigger", "rapid",
+                    "--scan-rounds", "4"],
+    "churn": ["examples/ecc_serving_torch.py", "--fleet", "8", "--arrivals", "poisson"],
+    "fleet split": ["examples/ecc_serving_torch.py", "--fleet", "4", "--partition", "auto",
+                    "--network", "lan"],
+    "single robot": ["examples/ecc_serving_torch.py"],
+}
+# the kernels each serving example must have launched: the fleet's paged
+# rounds and flash prefill, the single robot's dense decode
+EXAMPLE_KERNELS = {"fleet rapid": ("flash_attention", "paged_attention"),
+                   "churn": ("flash_attention", "paged_attention"),
+                   "fleet split": ("flash_attention", "paged_attention"),
+                   "single robot": ("flash_attention", "decode_attention")}
+SUBPROCESS_S = 600
+
+
+def spawn(cmd, log_path):
+    """``python cmd`` from the repository root, its output into ``log_path``."""
+
+    out = open(log_path, "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env, stdout=out,
+                            stderr=subprocess.STDOUT)
+    out.close()
+    return proc
+
+
+def wait_all(procs, t0):
+    """Wait for every ``{name: (process, log path)}`` -> ``{name: seconds}``;
+    raises with the output's tail if one exits nonzero or runs past
+    ``SUBPROCESS_S``."""
+
+    secs = {}
+    while len(secs) < len(procs):
+        for name, (proc, path) in procs.items():
+            if name not in secs and proc.poll() is not None:
+                secs[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    tail = Path(path).read_text()[-3000:]
+                    raise AssertionError(f"{name} exited {proc.returncode}:\n{tail}")
+        if time.perf_counter() - t0 > SUBPROCESS_S:
+            raise AssertionError(f"still running after {SUBPROCESS_S} s: "
+                                 f"{sorted(set(procs) - set(secs))}")
+        time.sleep(0.2)
+    return secs
+
+
+def without_timing(results):
+    return {k: {f: v for f, v in r.items() if f != "layout_s"} for k, r in results.items()}
+
+
+def estimate_vs_floor(tokens: int = 56, kv_len: int = 70):
+    """(b) ``estimate``'s memory term of openvla-7b decode (batch 1, a
+    cache of ``kv_len``) for ``tokens`` steps on ``HW_H100``, against
+    ``weight_floor_ms``: the gap is the untied embedding table, which
+    ``estimate`` reads and the floor does not, plus the cache read, less
+    the parameters the floor counts and ``estimate`` does not (the stub
+    projector and the norms)."""
+
+    cfg = get_config("openvla-7b")
+    est = estimate(cfg, InputShape("openvla_decode_70", kv_len, 1, "decode"))
+    per_ms = tokens / HW_H100.hbm_bw * 1e3
+    est_ms, floor = est.hbm_bytes * per_ms, weight_floor_ms(cfg, tokens)
+    vpad = -(-cfg.vocab_size // 256) * 256
+    table = cfg.vocab_size * cfg.d_model
+    only_floor = (cfg.param_count() - vpad * cfg.d_model) - (cfg.param_counts()["total"] - table)
+    table_ms, cache_ms = 2.0 * table * per_ms, _decode_cache_bytes(cfg, 1, kv_len) * per_ms
+    other_ms = 2.0 * only_floor * per_ms
+    gap = est_ms - floor
+    log(f"  (b) openvla-7b decode, batch 1, kv {kv_len}, x {tokens} tokens on {HW_H100.name}: "
+        f"estimate's memory term {est_ms:.3f} ms, weight_floor_ms {floor:.3f} ms, gap "
+        f"{gap:.3f} ms ({gap / floor * 100:.2f}%) = untied embedding table "
+        f"{cfg.vocab_size} x {cfg.d_model} bf16 ({2 * table / 1e6:.1f} MB) {table_ms:.3f} + "
+        f"cache {cache_ms:.3f} - stub projector and norms {other_ms:.3f} ms")
+    if abs(gap - (table_ms + cache_ms - other_ms)) > 1e-9 * floor or \
+            abs(gap - table_ms) > cache_ms + other_ms:
+        raise AssertionError(f"the gap {gap:.4f} ms is not the table's {table_ms:.4f} ms")
+
+
+def dryrun_phase():
+    """(a) ``python -m repro_torch.launch.dryrun`` over every arch, shape and
+    production mesh for both variants, and the same in this process, where
+    the card's allocated bytes must not move; (b) ``estimate_vs_floor``; (c)
+    the examples on the card, each of which must exit 0.  The subprocesses
+    run side by side."""
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            for variant in ("baseline", "optimized"):
+                procs[f"dryrun {variant}"] = (spawn(
+                    ["-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV, "--variant", variant,
+                     "--out", str(tmp / f"cli_{variant}.json")], tmp / f"dryrun_{variant}.log"),
+                    tmp / f"dryrun_{variant}.log")
+            for name, cmd in EXAMPLES.items():
+                path = tmp / f"{name.replace(' ', '_')}.log"
+                procs[name] = (spawn(cmd, path), path)
+
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                for variant in ("baseline", "optimized"):
+                    mine = dryrun.main(DRYRUN_ARGV + ["--variant", variant,
+                                                      "--out", str(tmp / "inproc.json")])
+            took = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+            if (after, peak) != (held, held):
+                raise AssertionError(f"the dry run moved the card's memory: allocated {held} -> "
+                                     f"{after}, peak {peak}")
+            counts = {k: sum(r["status"] == k for r in mine.values()) for k in DRYRUN_COUNTS}
+            if counts != DRYRUN_COUNTS:
+                raise AssertionError(f"dry-run records {counts}, expected {DRYRUN_COUNTS}")
+            log(f"  (a) dry run in this process, both variants: {counts['ok']} ok / "
+                f"{counts['skip']} skip / {counts['fail']} fail in {took:.1f} s; the card's "
+                f"allocated bytes {held} before and after, peak {peak}")
+            for key, r in mine.items():
+                if r["status"] == "ok":
+                    log(f"    {key}: compute {r['compute_s']:.6g} s memory {r['memory_s']:.6g} "
+                        f"s ({r['bottleneck']}), {r['mem_per_device_gb']:.3f} GB a device")
+            estimate_vs_floor()
+
+            secs = wait_all(procs, t0)
+            cli = {}
+            for variant in ("baseline", "optimized"):
+                cli.update(json.loads((tmp / f"cli_{variant}.json").read_text()))
+            if without_timing(cli) != without_timing(mine):
+                raise AssertionError("the dry-run CLI's records differ from the in-process run's")
+            log(f"  (a) the dry-run CLI, both variants: exit 0, records equal to the in-process "
+                f"run's ({secs['dryrun baseline']:.1f} / {secs['dryrun optimized']:.1f} s)")
+            for name, cmd in EXAMPLES.items():
+                lines = procs[name][1].read_text().splitlines()
+                log(f"  (c) {' '.join(cmd)}: exit 0 in {secs[name]:.1f} s (side by side)")
+                for line in lines[1:] if name == "quickstart" else lines[-7:]:
+                    log(f"      {line}")
+                if name in EXAMPLE_KERNELS:
+                    counts = json.loads(lines[-1].removeprefix("kernel launches: "))
+                    idle = [k for k in EXAMPLE_KERNELS[name] if not counts[k]]
+                    if idle:
+                        raise AssertionError(f"{name} launched no {idle}: {counts}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main(argv) -> int:
     kernels_only = argv == ["--kernels-only"]
     train_only = argv == ["--train-only"]
@@ -3827,6 +4007,8 @@ def main(argv) -> int:
     serve_encdec(get_config(ENCDEC), launches)
     phase("8. train")
     main_rows["flash_attention_bwd"] = train_phase(launches)
+    phase("8b. dry run, roofline and examples")
+    dryrun_phase()
 
     phase("9. result")
     rows = []

@@ -1,3 +1,13 @@
-from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config, get_smoke_config
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    get_config,
+    get_smoke_config,
+    registry,
+    supports_shape,
+)
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "get_config",
+           "get_smoke_config", "registry", "supports_shape"]

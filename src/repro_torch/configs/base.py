@@ -4,7 +4,8 @@ An own copy of the subset of ``repro.configs.base.ModelConfig`` that the
 dense-attention, the MoE, the hybrid Mamba/MoE, the xLSTM and the
 encoder-decoder paths need (the port imports nothing of ``repro``).  Field
 names and defaults match the reference, so a config built here describes
-the same model as its reference twin.
+the same model as its reference twin.  ``INPUT_SHAPES`` are the dry run's
+workloads (``launch/dryrun.py``), the reference's four.
 """
 
 from __future__ import annotations
@@ -13,6 +14,25 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A dry-run workload: ``global_batch`` sequences of ``seq_len`` tokens,
+    trained, prefilled, or decoded one token against a cache of ``seq_len``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -283,3 +303,14 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
+
+
+def registry() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> bool:
+    """Whether (arch, shape) is a dry-run combination: ``long_500k`` needs
+    sub-quadratic decode (an SSM, a hybrid or a sliding window)."""
+
+    return not (shape.name == "long_500k" and not cfg.subquadratic_decode)

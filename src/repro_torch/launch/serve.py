@@ -727,6 +727,77 @@ def replan_from_telemetry(arch: str, telemetry, network: str = "wan", pipelined:
     return plan, global_plan, repriced
 
 
+def fleet_lanes(model: Model, arch: str, n_robots: int, partition: str = "none",
+                network: str = "wan", plan_2d: bool = False):
+    """The split lanes of a mixed fleet -> ``(executor or None, split
+    robots, robot_cuts or None)``: with ``partition`` ``"auto"`` (the
+    planned cut, ``plan_fleet_partition``) or an edge layer count, every
+    second robot serves through the split; with ``plan_2d`` those robots
+    alternate between the planned cut and the 2-D space's best
+    expert-offload lane (``plan_expert_lane``) where it differs."""
+
+    if partition == "none":
+        return None, [], None
+    if partition == "auto":
+        executor, _ = plan_fleet_partition(model, arch, network, plan_2d=plan_2d)
+    else:
+        from repro_torch.partition.executor import PartitionExecutor
+        from repro_torch.partition.planner import NETWORK_PROFILES
+
+        executor = PartitionExecutor(model, int(partition), channel=NETWORK_PROFILES[network])
+    if executor is None:
+        return None, [], None
+    split = list(range(1, n_robots, 2))
+    robot_cuts = None
+    if plan_2d and split:
+        lane = plan_expert_lane(model, arch, network, base=executor)
+        if lane is not None and lane.lane_key != executor.lane_key:
+            robot_cuts = {r: (executor.lane_key if i % 2 == 0 else lane.lane_key)
+                          for i, r in enumerate(split)}
+    return executor, split, robot_cuts
+
+
+def engine_placement(device: str = "cuda", sharded: bool = False,
+                     disaggregate_prefill: bool = False):
+    """``serve_fleet``'s ``(mesh or None, prefill_group or None)``: with
+    ``disaggregate_prefill`` the last device prefills (one card: a stream
+    of its own); with ``sharded`` the decode shards over the data axis of
+    a mesh over its own group, or over every device."""
+
+    mesh = prefill_group = None
+    if disaggregate_prefill:
+        prefill_group, decode_group = split_device_groups(prefill=1, device=device)
+        print(f"disaggregated prefill: {prefill_group[0]}")
+    if sharded:
+        if prefill_group is not None and len(decode_group) < len(host_devices(device)):
+            # decode shards over its own group; prefill keeps its device
+            mesh = make_test_mesh(data=len(decode_group), devices=decode_group)
+        else:
+            mesh = make_host_mesh(device=device)
+        print(f"sharded engine: mesh {mesh.shape}")
+    return mesh, prefill_group
+
+
+def write_obs(obs: Optional[Observability], trace_out: Optional[str] = None,
+              metrics_json: Optional[str] = None, metrics_prom: Optional[str] = None) -> None:
+    """Write a fleet run's request trace (Chrome-trace JSON) and metrics
+    registry (flat JSON, Prometheus text) where asked."""
+
+    if obs is None:
+        return
+    if trace_out:
+        obs.trace.write(trace_out)
+        print(f"trace: {obs.trace.n_events} events -> {trace_out}")
+    if metrics_json:
+        with open(metrics_json, "w") as f:
+            json.dump(obs.metrics.to_json(), f, indent=1)
+        print(f"metrics: -> {metrics_json}")
+    if metrics_prom:
+        with open(metrics_prom, "w") as f:
+            f.write(obs.metrics.to_prometheus())
+        print(f"metrics: -> {metrics_prom}")
+
+
 def build_policy(model: Model, tok: EpisodeTokenizer, arch: str, partition: str = "none",
                  network: str = "wan", paged: bool = False, plan_2d: bool = False,
                  verbose: bool = True):
@@ -823,38 +894,10 @@ def main(argv=None):
         def mk_obs():
             return Observability(trace=args.trace_out is not None) if want_obs else None
 
-        executor, split, robot_cuts = None, [], None
-        if args.partition != "none":
-            # a mixed fleet: every second robot serves through the split
-            if args.partition == "auto":
-                executor, _ = plan_fleet_partition(model, args.arch, args.network,
-                                                   plan_2d=args.plan_2d)
-            else:
-                from repro_torch.partition.executor import PartitionExecutor
-                from repro_torch.partition.planner import NETWORK_PROFILES
-
-                executor = PartitionExecutor(model, int(args.partition),
-                                             channel=NETWORK_PROFILES[args.network])
-            if executor is not None:
-                split = list(range(1, args.fleet, 2))
-            if args.plan_2d and executor is not None and split:
-                # alternate the split robots between the planned cut and the
-                # 2-D space's best expert-offload lane
-                lane = plan_expert_lane(model, args.arch, args.network, base=executor)
-                if lane is not None and lane.lane_key != executor.lane_key:
-                    robot_cuts = {r: (executor.lane_key if i % 2 == 0 else lane.lane_key)
-                                  for i, r in enumerate(split)}
-        mesh = prefill_group = None
-        if args.disaggregate_prefill:
-            prefill_group, decode_group = split_device_groups(prefill=1, device=args.device)
-            print(f"disaggregated prefill: {prefill_group[0]}")
-        if args.sharded:
-            if prefill_group is not None and len(decode_group) < len(host_devices(args.device)):
-                # decode shards over its own group; prefill keeps its device
-                mesh = make_test_mesh(data=len(decode_group), devices=decode_group)
-            else:
-                mesh = make_host_mesh(device=args.device)
-            print(f"sharded engine: mesh {mesh.shape}")
+        executor, split, robot_cuts = fleet_lanes(model, args.arch, args.fleet, args.partition,
+                                                  args.network, args.plan_2d)
+        mesh, prefill_group = engine_placement(args.device, args.sharded,
+                                               args.disaggregate_prefill)
         out = serve_fleet(model, tok, n_robots=args.fleet, max_steps=args.steps,
                           partition_executor=executor, split_robots=split,
                           robot_cuts=robot_cuts, trigger=args.trigger,
@@ -874,19 +917,7 @@ def main(argv=None):
                                   prefill_group=prefill_group)
         elif args.trigger == "rapid" and args.partition != "none":
             replan_from_telemetry(args.arch, out["telemetry"], args.network)
-        obs = out["obs"]
-        if obs is not None:
-            if args.trace_out:
-                obs.trace.write(args.trace_out)
-                print(f"trace: {obs.trace.n_events} events -> {args.trace_out}")
-            if args.metrics_json:
-                with open(args.metrics_json, "w") as f:
-                    json.dump(obs.metrics.to_json(), f, indent=1)
-                print(f"metrics: -> {args.metrics_json}")
-            if args.metrics_prom:
-                with open(args.metrics_prom, "w") as f:
-                    f.write(obs.metrics.to_prometheus())
-                print(f"metrics: -> {args.metrics_prom}")
+        write_obs(out["obs"], args.trace_out, args.metrics_json, args.metrics_prom)
         return out
     policy, _ = build_policy(model, tok, args.arch, args.partition, args.network,
                              paged=args.paged, plan_2d=args.plan_2d)

@@ -106,6 +106,14 @@ _BLOCK_AXES = {
     "slstm.w_in": ("embed", "state"), "slstm.w_rec": ("embed", "state"), "slstm.bias": (None,),
     "slstm.up": ("embed", "mlp"), "slstm.down": ("mlp", "embed"),
 }
+# the logical axes of each recurrent state tensor [L_kind, B, ...]
+# (repro/models/model.py:871-902)
+_STATE_AXES = {
+    "h": (None, "batch", "heads", None, None), "conv": (None, "batch", None, "state"),
+    "mC": (None, "batch", None, None, None), "mn": (None, "batch", None, None),
+    "mm": (None, "batch", None),
+    **{name: (None, "batch", "state") for name in ("sc", "sn", "sh", "sm")},
+}
 _TOP_AXES = {
     "embed.table": ("vocab", "embed"), "mod_proj.w": ("embed", "embed"),
     "final_norm.scale": (None,), "enc_norm.scale": (None,), "lm_head.w": ("embed", "vocab"),
@@ -173,7 +181,11 @@ class Model(nn.Module):
                  generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
                  moe_impl: str = "dense", cache_cross_kv: bool = False):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
-        (default: a generator on ``device`` seeded with 0).
+        (default: a generator on ``device`` seeded with 0).  On
+        ``device="meta"`` the model is abstract (the reference's
+        ``abstract_params``): every parameter has its shape and dtype, and
+        nothing is drawn or allocated; ``init_cache`` then gives meta
+        tensors too (the dry run, ``launch/dryrun.py``).
 
         ``windowed_cache``: dense decode caches are rings sized to each
         attention layer's window (the reference's ``Model(windowed_cache=
@@ -224,6 +236,8 @@ class Model(nn.Module):
                                             for _ in range(cfg.num_encoder_layers))
             self.enc_norm = Norm(cfg.d_model, dt, dev)
         self.embed_scale = embed_scale(cfg.d_model) if cfg.scale_embeddings else 0.0
+        if self.device.type == "meta":
+            return  # an abstract model: shapes and dtypes, nothing drawn
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
@@ -251,6 +265,42 @@ class Model(nn.Module):
                 out[key] = _TOP_AXES[name]
             else:
                 out[key] = (None,) + _BLOCK_AXES[name.split(".", 2)[2]]
+        return out
+
+    def abstract_params(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """``{reference key: (shape, dtype)}`` of every parameter in the
+        bridge's layout, keyed as ``param_logical`` keys its names (a block
+        tensor stacked over its unit's repeats): the reference's
+        ``abstract_params`` (``repro/models/model.py:170``)."""
+
+        from repro_torch.checkpoint.bridge import reference_key
+
+        out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        for name, p in self.named_parameters():
+            key, idx = reference_key(name, self.period)
+            # the layers come in order, so a key's last write has its repeats
+            out[key] = (tuple(p.shape) if idx < 0 else (idx + 1,) + tuple(p.shape), p.dtype)
+        return out
+
+    def cache_logical(self, batch: int, seq: int):
+        """The logical axes of the decode state, key for key: the tensors
+        of ``init_cache(batch, seq)`` (``k`` / ``v`` stacked over the
+        attention layers, or with ``windowed_cache`` a list of one entry a
+        ring; the recurrent state under ``state_names``; not the host int
+        ``len``) and what ``prefill`` adds to an enc-dec stack's cache,
+        ``enc_out`` and, with ``cache_cross_kv``, ``xk`` / ``xv``.  The
+        counterpart of the reference's ``cache_logical``
+        (``repro/models/model.py:871``), which names its own ``{"unit":
+        [...]}`` layout; the two lay out the same bytes."""
+
+        kv = (None, "batch", "kv_seq", "kv_heads", None)
+        out = {name: _STATE_AXES[name] for name in self.state_names}
+        if self.n_attn:
+            out["k"] = out["v"] = [kv[1:]] * self.n_attn if self.windowed_cache else kv
+        if self.cfg.encoder_decoder:
+            out["enc_out"] = ("batch", "act_seq", "act_embed")
+            if self.cache_cross_kv:
+                out["xk"] = out["xv"] = kv
         return out
 
     def _window_for(self, spec, seq_len: int) -> int:

@@ -1,21 +1,35 @@
-"""Analytic executed-FLOPs and decode-bytes terms of one layer, the part
-of the reference's ``repro/roofline/costmodel.py`` that the partition graph
+"""Analytic executed-FLOPs and HBM-bytes model (counterpart of
+``repro/roofline/costmodel.py``): the per-layer terms the partition graph
 prices (``block_flops``, ``block_decode_bytes``, ``head_flops``,
-``encoder_flops``).  Counts follow the reference's baseline implementation:
-attention over the full masked rectangle unless ``sparse_attn``, the dense
-MoE dispatch evaluating every expert unless ``dense_dispatch=False``.
+``encoder_flops``), their sum over the stack (``forward_flops``,
+``_decode_cache_bytes``) and a whole workload's count (``estimate``), the
+work a roofline divides by (``roofline/analysis.py``, ``launch/dryrun.py``).
 
+Counts follow the reference's baseline implementation and its waste:
+attention over the full masked rectangle unless ``sparse_attn``, the dense
+MoE dispatch evaluating every expert unless ``dense_dispatch=False``, the
+full cache read at decode unless ``windowed``, remat's extra forward in
+training; ``estimate(optimized=True)`` counts the optimized variant.
 Every block kind of the reference is priced: attention (with the
 cross-attention of an enc-dec decoder layer), Mamba, mLSTM and sLSTM, and
-the encoder stack.  The rest of the reference's roofline (``forward_flops``, ``estimate``, the HLO analysis) is ROADMAP
-queue H, which builds on this module.
+the encoder stack.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, SSMConfig, XLSTMConfig
+from dataclasses import dataclass
+from typing import Optional
+
+from repro_torch.configs.base import InputShape, ModelConfig, SSMConfig, XLSTMConfig
 
 VOCAB_PAD = 256
+
+
+@dataclass
+class CostEstimate:
+    flops: float        # executed FLOPs, whole program, all devices
+    hbm_bytes: float    # HBM traffic, whole program, all devices
+    flops_model: float  # useful FLOPs: 6 N_active D to train, 2 N_active D to infer
 
 
 def _causal_kv_sum(s: int, window: int, sparse: bool) -> float:
@@ -182,3 +196,75 @@ def block_decode_bytes(cfg: ModelConfig, spec, b: int, s: int, windowed: bool = 
     elif blk == "slstm":
         total += 8.0 * b * cfg.d_model * 4
     return total
+
+
+def forward_flops(cfg: ModelConfig, batch: int, s: int, *, decode: bool = False,
+                  kv_len: int = 0, optimized: bool = False,
+                  sparse_attn: Optional[bool] = None,
+                  cached_cross_kv: Optional[bool] = None) -> float:
+    """Executed forward FLOPs of ``batch`` sequences of ``s`` tokens, or
+    with ``decode`` of one new token each against a ``kv_len`` cache:
+    ``block_flops`` over ``layer_specs``, the head and (enc-dec, not at
+    decode) the encoder.  ``optimized`` (default for ``sparse_attn`` and
+    ``cached_cross_kv``) counts flash attention's causal and windowed
+    blocks only and the top-k experts only."""
+
+    from repro_torch.models.model import layer_specs
+
+    if sparse_attn is None:
+        sparse_attn = optimized
+    if cached_cross_kv is None:
+        cached_cross_kv = optimized
+    total = sum(block_flops(cfg, spec, batch, s, decode=decode, kv_len=kv_len,
+                            sparse_attn=sparse_attn, dense_dispatch=not optimized,
+                            cached_cross_kv=cached_cross_kv)
+                for spec in layer_specs(cfg))
+    total += head_flops(cfg, batch, s, decode=decode)
+    if not decode:
+        total += encoder_flops(cfg, batch, s)
+    return total
+
+
+def estimate(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
+             optimized: bool = False) -> CostEstimate:
+    """Executed FLOPs, HBM bytes and useful FLOPs of one step of ``shape``
+    over bf16 weights (the reference's ``estimate``, term for term).
+
+    train: forward over the masked rectangle in both variants, backward 2x,
+    remat one more forward; bytes: weights 3x, the layer boundaries stored
+    and loaded, AdamW's reads of p, m, v and writes of m, v (bf16 moments).
+    prefill: one forward, weights and boundaries once.  decode: one token a
+    sequence against a ``seq_len`` cache, the weights (active ones only for
+    an optimized MoE) and ``_decode_cache_bytes``."""
+
+    b, s = shape.global_batch, shape.seq_len
+    counts = cfg.param_counts()
+    p_active, p_total = counts["active"], counts["total"]
+    param_bytes = 2.0 * p_total
+    if shape.kind == "train":
+        fwd = forward_flops(cfg, b, s, optimized=optimized, sparse_attn=False)
+        flops = fwd * (4.0 if remat else 3.0)
+        act_bytes = 2.0 * 2.0 * b * s * cfg.d_model * cfg.num_layers * 2
+        hbm = 3.0 * param_bytes + act_bytes + 5.0 * param_bytes
+        model_flops = 6.0 * p_active * b * s
+    elif shape.kind == "prefill":
+        flops = forward_flops(cfg, b, s, optimized=optimized)
+        hbm = param_bytes + 2.0 * 2.0 * b * s * cfg.d_model * cfg.num_layers
+        model_flops = 2.0 * p_active * b * s
+    else:
+        flops = forward_flops(cfg, b, 1, decode=True, kv_len=s, optimized=optimized)
+        pb = param_bytes if not (optimized and cfg.moe) else 2.0 * p_active
+        hbm = pb + _decode_cache_bytes(cfg, b, s, windowed=optimized)
+        model_flops = 2.0 * p_active * b
+    return CostEstimate(flops=flops, hbm_bytes=hbm, flops_model=model_flops)
+
+
+def _decode_cache_bytes(cfg: ModelConfig, b: int, s: int, windowed: bool = False) -> float:
+    """KV-cache and recurrent-state bytes one decode step reads and writes
+    (the memory wall): the full cache unless ``windowed`` (ring caches,
+    only each window resident)."""
+
+    from repro_torch.models.model import layer_specs
+
+    return sum(block_decode_bytes(cfg, spec, b, s, windowed=windowed)
+               for spec in layer_specs(cfg))

@@ -2,8 +2,9 @@
 
 A fresh interpreter imports every ``repro_torch`` module and the
 module-level code of ``chip_smoke.py`` and must end with no ``jax`` and no
-``repro`` (or ``repro.*``) in ``sys.modules``; a source scan backs that up
-for imports that only run inside functions.
+``repro`` (or ``repro.*``) in ``sys.modules``; a source scan of the same
+and of the port's examples (``examples/*_torch.py``) backs that up for
+imports that only run inside functions.
 """
 
 import ast
@@ -54,7 +55,10 @@ def _imported_roots(path: Path):
 
 
 def test_port_sources_never_import_jax_or_the_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {f.name for f in examples} >= {"quickstart_torch.py", "ecc_serving_torch.py",
+                                          "train_vla_torch.py"}
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     bad = {
         str(f.relative_to(ROOT)): root
@@ -69,7 +73,8 @@ def test_the_scan_covers_the_partition_and_roofline_modules():
     mods = set(_modules())
     assert {"repro_torch.partition", "repro_torch.partition.graph",
             "repro_torch.partition.planner", "repro_torch.partition.executor",
-            "repro_torch.roofline", "repro_torch.roofline.costmodel"} <= mods
+            "repro_torch.roofline", "repro_torch.roofline.costmodel",
+            "repro_torch.roofline.analysis", "repro_torch.launch.dryrun"} <= mods
 
 
 def test_the_scan_covers_the_moe_configs():
