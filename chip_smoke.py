@@ -4,9 +4,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
 
 1. environment: the card's name and power limit, the PyTorch and CUDA
    versions; TF32 is switched off for float32 matmuls and convolutions;
-2. build: the five kernels from ``src/repro_torch/csrc/`` (three attention
-   kernels, the Mamba scan, the monitor statistics), one nvcc each, in
-   parallel;
+2. build: the seven kernel sources in ``src/repro_torch/csrc/`` (three
+   attention kernels, the Mamba scan, the monitor statistics, and the two
+   training backwards, flash attention's and the Mamba scan's), one nvcc
+   each, in parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
    inputs (numpy, seeded, or a fleet's episodes), at the main paths' shapes
    and at harder ones, with times: the kernel, the plain version, one
@@ -144,17 +145,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
    held to the plain version under ``BWD_TOL`` (bf16: the bound of the
    kernel's rounding of P and dS) and to the float64 truth beside the plain
    version's and SDPA's distances, each case's plan (splits, grids) logged;
+   then the Mamba scan backward kernel (``csrc/mamba_scan_bwd.cu``) against
+   its plain version in float64, every gradient under ``MAMBA_BWD_TOL`` (a
+   share of each element's sum of absolute terms), a rerun bitwise equal,
+   at Jamba's training shape (B = 2, S = 1024, H = 256, 4 chunks), one
+   chunk, with h0 and dh_t, jamba-smoke's H = 8, a large dt and a ragged
+   small shape, timed as phase 3 times a kernel;
    (b) f32 smoke twins, card against CPU on the same weights: the loss and
-   every gradient of openvla-smoke and xlstm-smoke, then one AdamW update
-   on the same (the card's) gradients;
+   every gradient of openvla-smoke, xlstm-smoke and jamba-smoke (S = 512,
+   two chunks; its experts in layers 1 and 3), then one AdamW update on the
+   same (the card's) gradients;
    (c) openvla-7b at full width and depth (32 layers, bf16, AdamW with bf16
    moments), ``TRAIN_STEPS`` steps of ``make_train_step`` on episode
-   batches of B = 4, S = 256: finite, falling losses, step ms, tokens/s,
-   peak memory, the share of the bf16 peak, exact launches; (d) xlstm-125m
-   through ``launch.train.main`` on the card, its loss falling, and its
-   npz checkpoint round-tripped; (e) a Jamba smoke stack's ``loss_fn``
-   under autograd on the card raises (the Mamba scan has no backward
-   kernel);
+   batches of B = 4, S = 256, then Jamba at full width, its first
+   ``JAMBA_TRAIN_LAYERS`` = 4 layers (mamba, mamba, mamba, attn) with dense
+   MLPs, ``JAMBA_TRAIN_STEPS`` steps of B = 2, S = 1024: finite, falling
+   losses, step ms, tokens/s, peak memory, the share of the bf16 peak,
+   exact launches (Jamba: 3 Mamba scans forward and backward and one flash
+   forward and backward a step), the forward / backward / AdamW split; (d)
+   xlstm-125m through ``launch.train.main`` on the card, its loss falling,
+   and its npz checkpoint round-tripped;
 8b. dry run, roofline and examples: (a) ``python -m
    repro_torch.launch.dryrun --arch all --shape all --mesh both`` for both
    variants (every arch but openvla-7b, shape and production mesh laid out
@@ -222,6 +232,7 @@ from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as kfab  # noqa: E402
 from repro_torch.kernels import mamba_scan as kms  # noqa: E402
+from repro_torch.kernels import mamba_scan_bwd as kmsb  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -280,6 +291,17 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 # sums reach ~-10^3): atol 5e-4, rtol 5e-3, the JAX package's tolerance for
 # its own kernel (tests/test_kernels.py:147-148).
 MAMBA_TOL = (5e-4, 5e-3)
+# mamba_scan_bwd is held against its plain version evaluated in float64 on
+# the same inputs (h_in from the forward kernel): each output element within
+# 1e-30 (values past float32's range, which the kernel flushes to 0: a
+# chunk's decay at a large dt) plus 2^-14 of its sum of absolute terms
+# (``mamba_bwd_abs_terms``: the plain arithmetic on |values|, dcum's
+# differences taken as sums).  The kernel sums in float32 over up to 256
+# steps a chunk and over the heads (dB, dC); the emulation of its algorithm
+# (tests/test_torch_mamba_bwd_tiles.py) came within 2e-6 of the terms on the
+# CPU, and the float32 plain version within 2.6e-4 (its float32 prefix sums;
+# the kernel's are float64, as the forward's).
+MAMBA_BWD_TOL = (1e-30, 2.0**-14)
 # rolling_stats: the JAX package's tolerances (tests/test_kernels.py:88-90):
 # scores 5e-4, the moving average 5e-5 — the kernel's incremental window
 # sums drift from the plain version's recomputed ones.  On episode streams
@@ -325,9 +347,11 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:100",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:85",
     "rolling_stats": "src/repro/kernels/rolling_stats.py:104",
-    # a port-only kernel: the reference's training backward is the jnp
-    # custom VJP strip_bwd, which has no Pallas kernel
+    # port-only kernels: the reference's training backward is the jnp
+    # custom VJP strip_bwd, which has no Pallas kernel, and XLA's autodiff
+    # of ssd_chunked
     "flash_attention_bwd": "src/repro/models/attention.py:261",
+    "mamba_scan_bwd": "src/repro/models/ssm.py:94",
 }
 JAMBA = "jamba-1.5-large-398b"
 # the dense attention stacks served at full width after openvla-7b
@@ -1092,6 +1116,7 @@ def serve_main_path(model, tok, paged: bool, steps: int = STEPS):
         "mamba_scan": mamba_layers * n_off,
         "rolling_stats": 0,
         "flash_attention_bwd": 0,
+        "mamba_scan_bwd": 0,
     }
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -1409,6 +1434,7 @@ def sched_launches(model, sched, admits: int, rounds: int):
         "mamba_scan": model.n_mamba * admits,
         "rolling_stats": 0,
         "flash_attention_bwd": 0,
+        "mamba_scan_bwd": 0,
     }
 
 
@@ -1726,7 +1752,8 @@ def long_prompt(model, tok, launches):
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     want = {"flash_attention": 2 * n, "decode_attention": 56 * n, "paged_attention": 56 * n,
-            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0}
+            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0,
+            "mamba_scan_bwd": 0}
     if counts != want:
         raise AssertionError(f"long prompt launch counts {counts}, expected {want}")
     for k in launches:
@@ -1771,7 +1798,8 @@ def frontend_prompt(model, tok, launches):
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
     want = {"flash_attention": model.n_attn, "decode_attention": 0, "paged_attention": 0,
-            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0}
+            "mamba_scan": 0, "rolling_stats": 0, "flash_attention_bwd": 0,
+            "mamba_scan_bwd": 0}
     if counts != want:
         raise AssertionError(f"frontend prefill launch counts {counts}, expected {want}")
     for k in launches:
@@ -3330,6 +3358,19 @@ XLSTM_TRAIN = ["--steps", "30", "--batch", "8", "--seq", "64", "--data", "episod
 # AdamW update on the same gradients within an ulp of the leaf plus 1e-3
 # of the learning rate
 TWIN_LOSS_RTOL, TWIN_LEAF, TWIN_EMBED = 1e-5, 1e-4, 2.0**-7
+# jamba-smoke's a_log leaves (the decay rates, whose gradient da sums over
+# every step): 1e-3 of their largest |value|.  The CPU twin's plain scan keeps
+# float32 prefix sums, the kernels float64; at S = 512 (two chunks of 256)
+# that alone moved a_log's gradient by 1.6e-4 of its scale on the CPU (the
+# plain scan in float32 against the same in float64), and 2e-5 for dt_bias
+TWIN_DECAY = 1e-3
+TWIN_SMOKE_SEQ = {JAMBA: 512}  # jamba-smoke's twin over two chunks (else S = 64)
+# Jamba at full width, trained: the first 4 layers (mamba, mamba, mamba,
+# attn), dense MLPs (one 16-expert layer alone holds 9.66 G parameters,
+# which with gradients and two moments cannot train on one card), bf16,
+# AdamW with bf16 moments, on B 2 x S 1024 episode tokens (4 chunks of the
+# scan a sequence)
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 4, 30, 2, 1024
 
 
 def bwd_case(rng, dtype, b, s, h, kv, d, causal=True, window=0, cap=0.0, q_scale=1.0):
@@ -3562,6 +3603,132 @@ def train_forward_row(case, dtype):
         f"sdpa_host_us={host_us(lib):.1f} bound_ms={ms_:.5f} ({bound_by})")
 
 
+def mamba_bwd_case(rng, b, s, h, p, n, chunk, with_h0=False, with_dht=False, dt_scale=1.0):
+    """The backward's inputs, drawn as ``mamba_case`` draws the forward's,
+    h_in from the forward kernel (its plain version where P does not divide
+    256), dy normal; dh_t normal or None (the
+    training path's: the loss does not read hT)."""
+
+    f32 = torch.float32
+    x, bm, c = _t(rng, (b, s, h, p), f32), _t(rng, (b, s, n), f32), _t(rng, (b, s, n), f32)
+    dt = F.softplus(_t(rng, (b, s, h), f32)) * dt_scale
+    a = -torch.exp(_t(rng, (h,), f32))
+    h0 = _t(rng, (b, h, p, n), f32) if with_h0 else None
+    dy = _t(rng, (b, s, h, p), f32)
+    dh_t = _t(rng, (b, h, p, n), f32) if with_dht else None
+    # the forward kernel takes P dividing 256; the backward any P <= 64
+    fwd = kms.mamba_scan if 256 % p == 0 else ref.mamba_scan_ref
+    _, _, h_in = fwd(x, dt, a, bm, c, h0=h0, chunk=chunk, with_states=True)
+    args = (x, dt, a, bm, c, h_in, dy, dh_t)
+    L = min(chunk, s)
+    pairs = L * (L + 1) // 2
+    # per causal pair: G = C B^T once for all heads (2N); per pair and head
+    # dy_t . x_s and the r sum (2P each), dB and dC (2N each), the weights;
+    # per step and head the state terms (dS, r, dB, dC's carry: 2PN each)
+    # and V, dx, ddt; per chunk and head the pass
+    per_head = pairs * (4 * p + 4 * n + 6) + L * p * (8 * n + 6) + 3 * p * n + 8 * L
+    flops = b * (s // L) * (pairs * 2 * n + h * per_head)
+    state = b * h * p * n * 4
+    return dict(
+        args=args, chunk=chunk,
+        kernel=lambda: kmsb.mamba_scan_bwd(*args, chunk=chunk),
+        plain=lambda: ref.mamba_scan_bwd_ref(*args, chunk=chunk),
+        # x, dy read and dx written; dt, ddt; a, da; B, C, dB, dC; h_in; dh_t, dh0
+        bytes=3 * nbytes(x) + 2 * nbytes(dt) + 2 * nbytes(a) + 4 * nbytes(bm) + nbytes(h_in)
+        + (2 if with_dht else 1) * state,
+        flops=float(flops),
+    )
+
+
+def mamba_bwd_cases(rng):
+    return [
+        # (label, case, main-path shape?)
+        ("Jamba train B=2 S=1024 H=256 P=64 N=16 chunk 256 (4 chunks)",
+         mamba_bwd_case(rng, 2, 1024, 256, 64, 16, 256), True),
+        ("one chunk B=2 S=256 H=256 P=64 N=16", mamba_bwd_case(rng, 2, 256, 256, 64, 16, 256),
+         False),
+        ("h0 and dh_t B=1 S=512 H=256 P=64 N=16 chunk 256",
+         mamba_bwd_case(rng, 1, 512, 256, 64, 16, 256, with_h0=True, with_dht=True), False),
+        ("jamba-smoke B=2 S=512 H=8 P=64 N=16 chunk 256",
+         mamba_bwd_case(rng, 2, 512, 8, 64, 16, 256), False),
+        ("large dt (x30) B=1 S=512 H=64 P=64 N=16 chunk 256",
+         mamba_bwd_case(rng, 1, 512, 64, 64, 16, 256, dt_scale=30.0), False),
+        ("ragged B=1 S=300 H=5 P=6 N=5 chunk 100, h0 and dh_t",
+         mamba_bwd_case(rng, 1, 300, 5, 6, 5, 100, with_h0=True, with_dht=True), False),
+    ]
+
+
+MAMBA_GRADS = ("dx", "ddt", "da", "dbm", "dc", "dh0")
+
+
+def mamba_bwd_abs_terms(x, dt, a, bm, c, h_in, dy, dh_t, chunk):
+    """Each output element's sum of absolute terms, float64: the plain
+    backward's arithmetic on |x|, |B|, |C|, |h_in|, |dy|, |dh_t| (dt and the
+    decays are positive), dcum's row, column, carry and V terms added
+    where the plain version subtracts some, and |a|."""
+
+    ab = [None if t is None else t.double().abs() for t in (x, bm, c, h_in, dy, dh_t)]
+    x, bm, c, h_in, dy, dh_t = ab
+    t = ref.mamba_bwd_terms(x, dt.double(), a.double(), bm, c, h_in, dy, dh_t, chunk)
+    return ref.mamba_bwd_finish(t, t["row"] + t["col"] + t["carry"] + t["v"], a.double().abs())
+
+
+def check_mamba_bwd(cases):
+    """Each case: every gradient of the kernel against the plain backward in
+    float64 on the same inputs under ``MAMBA_BWD_TOL``, a rerun bitwise
+    equal, and the float32 plain version's distance for scale; times as
+    phase 3's (no PyTorch call computes this function)."""
+
+    main = None
+    atol, share = MAMBA_BWD_TOL
+    for label, case, is_main in cases:
+        got = case["kernel"]()
+        again = case["kernel"]()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        args, chunk = case["args"], case["chunk"]
+        want = ref.mamba_scan_bwd_ref(*(None if t is None else t.double() for t in args),
+                                      chunk=chunk)
+        terms = mamba_bwd_abs_terms(*args, chunk)
+        plain = case["plain"]()
+        err, dist, bad = 0.0, [], []
+        for name, g, w, t, p32 in zip(MAMBA_GRADS, got, want, terms, plain):
+            d = (g.double() - w).abs()
+            share_k = float((d / (t + 1e-300)).max())
+            share_p = float(((p32.double() - w).abs() / (t + 1e-300)).max())
+            err = max(err, float(d.max()))
+            dist.append(f"{name} {float(d.max()):.3g} ({share_k:.2g}/{share_p:.2g})")
+            if not (bool(torch.isfinite(g).all()) and bool((d <= atol + share * t).all())):
+                bad.append(name)
+        del want, terms, plain
+        b, s_, h, p = args[0].shape
+        plan = _lib.mamba_bwd_plan(b, s_, h, p, args[3].shape[-1], chunk)
+        row = dict(
+            max_abs_err=err,
+            ms=time_ms(case["kernel"]),
+            plain_ms=time_ms(case["plain"]),
+            library_ms=None,
+            device_ms=device_ms(case["kernel"]),
+            host_us=host_us(case["kernel"]),
+        )
+        row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], torch.float32)
+        log(f"  mamba_scan_bwd    {label:58s} err={err:.3g} heads/block={plan.heads} "
+            f"chunk_blocks={plan.chunk_blocks} rerun {'bitwise equal' if same else 'DIFFERS'}; "
+            f"max err (of its terms, kernel/float32 plain): {', '.join(dist)} "
+            f"ms={row['ms']:.4f} device_ms={row['device_ms']:.5f} host_us={row['host_us']:.1f} "
+            f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
+            f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e9:.3f} GB)")
+        if not same:
+            raise AssertionError(f"mamba_scan_bwd [{label}]: a rerun on the same inputs differs")
+        if bad:
+            raise AssertionError(f"mamba_scan_bwd [{label}] disagrees with its plain version in "
+                                 f"{', '.join(bad)}: max abs err {err:.3g}")
+        if is_main:
+            main = row
+    return main
+
+
 def smoke_train_batch(cfg, rng, b=2, s=64):
     tok = EpisodeTokenizer(cfg.vocab_size)
     data = episode_dataset(tok, tasks=("pick_place",), seeds=(0, 1))
@@ -3582,6 +3749,12 @@ def grads_of(model, batch):
     return loss.detach(), params, {n: p.grad for n, p in params.items()}
 
 
+def twin_leaf_tol(name):
+    if name == "embed.table":
+        return TWIN_EMBED
+    return TWIN_DECAY if name.endswith("mamba.a_log") else TWIN_LEAF
+
+
 def train_card_vs_cpu(arch):
     """The f32 smoke stack's loss and every gradient, card (kernels) against
     CPU (plain versions) on the same weights and batch, then one AdamW
@@ -3591,22 +3764,25 @@ def train_card_vs_cpu(arch):
     cpu = Model(cfg, device="cpu")
     gpu = Model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    batch = smoke_train_batch(cfg, np.random.default_rng(5))
+    seq = TWIN_SMOKE_SEQ.get(arch, 64)
+    batch = smoke_train_batch(cfg, np.random.default_rng(5), s=seq)
     ops.reset_launch_counts()
     lg, pg, gg = grads_of(gpu, batch)
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
     lc, pc, gc_ = grads_of(cpu, batch)
     n_attn = sum(spec[0] == "attn" for spec in gpu.specs)
+    n_mamba = sum(spec[0] == "mamba" for spec in gpu.specs)
     want = {n: 0 for n in _lib.KERNELS}
-    want.update(flash_attention=n_attn, flash_attention_bwd=n_attn)
+    want.update(flash_attention=n_attn, flash_attention_bwd=n_attn, mamba_scan=n_mamba,
+                mamba_scan_bwd=n_mamba)
     if counts != want:
         raise AssertionError(f"{cfg.name} f32 loss_fn + backward launches {counts}, expected {want}")
     if abs(float(lg) - float(lc)) > TWIN_LOSS_RTOL * abs(float(lc)):
         raise AssertionError(f"{cfg.name} f32 loss card {float(lg)} vs CPU {float(lc)}")
     worst = 0.0
     for name, g in gc_.items():
-        tol = (TWIN_EMBED if name == "embed.table" else TWIN_LEAF) * float(g.abs().max())
+        tol = twin_leaf_tol(name) * float(g.abs().max())
         err = float((gg[name].cpu() - g).abs().max())
         worst = max(worst, err / max(float(g.abs().max()), 1e-30))
         if err > tol:
@@ -3622,18 +3798,22 @@ def train_card_vs_cpu(arch):
         p_err = max(p_err, err)
         if err > 1e-6 * float(p.detach().abs().max()) + 1e-3 * ocfg.lr:
             raise AssertionError(f"{cfg.name} f32 AdamW step {name} card vs CPU err {err:.3g}")
-    log(f"  {cfg.name} f32 train twin, card kernels vs CPU plain: loss {float(lg):.6f} vs "
+    moe = [i for i, spec in enumerate(gpu.specs) if spec[1]]
+    log(f"  {cfg.name} f32 train twin, card kernels vs CPU plain, B=2 S={seq}"
+        + (f" (experts in layers {moe})" if moe else "") + f": loss {float(lg):.6f} vs "
         f"{float(lc):.6f}, {len(gc_)} gradients within {TWIN_LEAF:g} of their leaf's max "
-        f"(worst {worst:.3g} of it), one AdamW update on the card's gradients: params "
+        f"(a_log {TWIN_DECAY:g}; worst {worst:.3g} of it), one AdamW update on the card's "
+        "gradients: params "
         f"max err {p_err:.3g}; "
         f"launches {dict((k, v) for k, v in counts.items() if v)}")
 
 
-def train_full_width(launches):
-    """openvla-7b at full width and depth, bf16, ``TRAIN_STEPS`` AdamW steps
-    (bf16 moments) of ``make_train_step`` on episode batches."""
+def train_full_width(launches, cfg, batch_size, seq, steps, per_step):
+    """``cfg`` at full width, bf16, ``steps`` AdamW steps (bf16 moments) of
+    ``make_train_step`` on ``batch_size`` x ``seq`` episode tokens; the
+    hand kernels must launch exactly ``per_step`` a step."""
 
-    cfg = get_config("openvla-7b")
+    name = cfg.name
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3644,12 +3824,12 @@ def train_full_width(launches):
     n_params = sum(p.numel() for p in params.values())
     ocfg = AdamWConfig(moment_dtype="bfloat16")
     state = adamw_init(params, ocfg)
-    step_fn = make_train_step(model, ocfg, TRAIN_STEPS)
+    step_fn = make_train_step(model, ocfg, steps)
     tok = EpisodeTokenizer(cfg.vocab_size)
-    it = iter(TokenBatchIterator(episode_dataset(tok), TRAIN_BATCH, TRAIN_SEQ,
+    it = iter(TokenBatchIterator(episode_dataset(tok), batch_size, seq,
                                  action_base=tok.action_base))
     batches = [{k: torch.as_tensor(v, device="cuda") for k, v in next(it).items()}
-               for _ in range(TRAIN_STEPS)]
+               for _ in range(steps)]
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     losses, step_ms, gnorms = [], [], []
@@ -3677,29 +3857,30 @@ def train_full_width(launches):
         torch.cuda.synchronize()
         split.append((time.perf_counter() - t1) * 1e3)
         t1 = time.perf_counter()
-    layers = cfg.num_layers
     want = {n: 0 for n in _lib.KERNELS}
-    want.update(flash_attention=layers * TRAIN_STEPS, flash_attention_bwd=layers * TRAIN_STEPS)
+    want.update({k: v * steps for k, v in per_step.items()})
     if counts != want:
-        raise AssertionError(f"openvla-7b training launches {counts}, expected {want}")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        launches[name] += counts[name]
+        raise AssertionError(f"{name} training launches {counts}, expected {want}")
+    for k in per_step:
+        launches[k] += counts[k]
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
-        raise AssertionError(f"openvla-7b training: non-finite loss or grad norm {losses}")
+        raise AssertionError(f"{name} training: non-finite loss or grad norm {losses}")
     last = float(np.mean(losses[-5:]))
     if not last < losses[0]:
-        raise AssertionError(f"openvla-7b training: loss did not fall ({losses[0]:.4f} -> "
+        raise AssertionError(f"{name} training: loss did not fall ({losses[0]:.4f} -> "
                              f"mean of the last 5 {last:.4f})")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     steady = float(np.mean(step_ms[1:]))
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn_flops = (1 + BWD_FLOPS_X) * 4.0 * TRAIN_BATCH * cfg.num_heads * \
-        cfg.resolved_head_dim * pairs * layers
+    pairs = seq * (seq + 1) // 2
+    n_attn = sum(spec[0] == "attn" for spec in model.specs)
+    attn_flops = (1 + BWD_FLOPS_X) * 4.0 * batch_size * cfg.num_heads * \
+        cfg.resolved_head_dim * pairs * n_attn
     flops = 6.0 * n_params * tokens + attn_flops
     share = flops / (steady * 1e-3) / PEAK_FLOPS[torch.bfloat16]
-    log(f"  openvla-7b train: {layers} layers, {n_params / 1e9:.3f} G params, bf16, AdamW bf16 "
-        f"moments, B={TRAIN_BATCH} S={TRAIN_SEQ}, {TRAIN_STEPS} steps (set-up {setup_s:.1f} s; "
-        f"{held / 2**30:.2f} GiB held by earlier phases)")
+    kinds = "".join(spec[0][0] for spec in model.specs)  # m(amba), a(ttn), ...
+    log(f"  {name} train: {cfg.num_layers} layers ({kinds}), {n_params / 1e9:.3f} G params, "
+        f"bf16, AdamW bf16 moments, B={batch_size} S={seq}, {steps} steps (set-up "
+        f"{setup_s:.1f} s; {held / 2**30:.2f} GiB held by earlier phases)")
     log(f"  losses {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"  grad norms first {gnorms[0]:.3f} last {gnorms[-1]:.3f}; loss {losses[0]:.4f} -> mean "
         f"of the last 5 {last:.4f}")
@@ -3708,9 +3889,9 @@ def train_full_width(launches):
         f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) of "
         f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB; "
         f"{flops / 1e12:.2f} TFLOP a step (6 N tokens + attention {attn_flops / 1e12:.3f}) = "
-        f"{share * 100:.1f}% of the bf16 dense peak; launches {counts['flash_attention']} "
-        f"flash forward + {counts['flash_attention_bwd']} flash backward ({layers} a step each; "
-        "a backward launch is one call of two kernels)")
+        f"{share * 100:.1f}% of the bf16 dense peak; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)} ({per_step} a step; a backward "
+        "launch is one call of several kernels)")
     log(f"  one more step, split (host clock, synchronised): forward {split[0]:.1f} ms, "
         f"backward {split[1]:.1f} ms, AdamW update {split[2]:.1f} ms")
     del model, params, state, step_fn, batches
@@ -3749,31 +3930,25 @@ def train_xlstm():
     ckpt.rmdir()
 
 
-def jamba_refuses_to_train():
-    cfg = get_smoke_config(JAMBA).replace(dtype="float32")
-    model = Model(cfg, device="cuda")
-    trainable_params(model)
-    batch = smoke_train_batch(cfg, np.random.default_rng(6))
-    try:
-        model.loss_fn({k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})[0].backward()
-    except NotImplementedError as e:
-        if "mamba_scan" not in str(e):
-            raise AssertionError(f"Jamba under autograd raised another NotImplementedError: {e}")
-        log(f"  {cfg.name} loss_fn under autograd on the card raises NotImplementedError: {e}")
-        return
-    raise AssertionError("Jamba trained on the card: the Mamba scan has no backward kernel")
-
-
 def train_phase(launches):
-    """Phase 8 -> the backward kernel's main-shape row."""
+    """Phase 8 -> the two backward kernels' main-shape rows."""
 
-    row = check_bwd_kernel(bwd_cases(np.random.default_rng(8)))
-    for arch in ("openvla-7b", XLSTM):
+    rows = {"flash_attention_bwd": check_bwd_kernel(bwd_cases(np.random.default_rng(8))),
+            "mamba_scan_bwd": check_mamba_bwd(mamba_bwd_cases(np.random.default_rng(9)))}
+    for arch in ("openvla-7b", XLSTM, JAMBA):
         train_card_vs_cpu(arch)
-    train_full_width(launches)
+    layers = get_config("openvla-7b").num_layers
+    train_full_width(launches, get_config("openvla-7b"), TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                     {"flash_attention": layers, "flash_attention_bwd": layers})
+    jamba = get_config(JAMBA).replace(num_layers=JAMBA_TRAIN_LAYERS, moe=None)
+    pattern = jamba.block_pattern
+    n_mamba = sum(pattern[i % len(pattern)] == "mamba" for i in range(JAMBA_TRAIN_LAYERS))
+    train_full_width(launches, jamba, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS,
+                     {"mamba_scan": n_mamba, "mamba_scan_bwd": n_mamba,
+                      "flash_attention": JAMBA_TRAIN_LAYERS - n_mamba,
+                      "flash_attention_bwd": JAMBA_TRAIN_LAYERS - n_mamba})
     train_xlstm()
-    jamba_refuses_to_train()
-    return row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4006,7 +4181,7 @@ def main(argv) -> int:
     encdec_card_vs_cpu()
     serve_encdec(get_config(ENCDEC), launches)
     phase("8. train")
-    main_rows["flash_attention_bwd"] = train_phase(launches)
+    main_rows.update(train_phase(launches))
     phase("8b. dry run, roofline and examples")
     dryrun_phase()
 

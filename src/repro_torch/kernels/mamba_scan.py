@@ -15,7 +15,10 @@ states, the pass over the chunks, and the intra-chunk scan, whose G = C B^T
 is built once per row tile and shared by a block's heads
 (``_lib.mamba_plan``).  A prompt of one chunk takes one kernel launch;
 longer ones take three (the pass's workspaces are allocated here).  Either
-way a call counts one launch.
+way a call counts one launch.  ``with_states=True`` (the training
+forward) also returns h_in [B, nc, H, P, N], the state entering each chunk:
+the pass's workspace, or, for one chunk, h0 (zeros without it); the
+launches are the same.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ NAME = "mamba_scan"
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 32
 
 
-def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
+def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256, with_states: bool = False):
     b, s, h, p = x.shape
     n = bm.shape[-1]
     chunk = min(chunk, s)
@@ -63,4 +66,9 @@ def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
     )
     _lib.check(status, NAME)
     _lib.LAUNCHES[NAME] += 1
-    return y, h_t
+    if not with_states:
+        return y, h_t
+    if plan.fused:
+        h_in = h0[:, None] if h0 is not None else torch.zeros(
+            (b, 1, h, p, n), dtype=torch.float32, device=x.device)
+    return y, h_t, h_in

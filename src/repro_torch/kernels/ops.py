@@ -6,9 +6,13 @@ Nothing here checks whether a GPU exists and nothing falls back: any other
 device raises.  ``flash_attention_train`` is the differentiable attention
 of the training path: the flash forward kernel (keeping each row's
 log-sum-exp) and the flash backward kernel on the card, their plain
-versions on the CPU.  The Mamba scan has no backward kernel: called on the
-card under autograd it raises.  ``LAUNCHES`` counts kernel launches by name (plain-version
-calls never count); ``reset_launch_counts`` zeroes it.
+versions on the CPU.  ``mamba_scan`` is differentiable in the same way when
+grad is enabled and an input requires it: the scan kernel keeping the state
+entering each chunk, then the hand-written scan backward on the card;
+``ref.mamba_scan_ref`` and ``ref.mamba_scan_bwd_ref`` on the CPU.  Without
+grad (serving) it is the forward kernel alone.  ``LAUNCHES`` counts kernel
+launches by name (plain-version calls never count); ``reset_launch_counts``
+zeroes it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import mamba_scan_bwd as _msb
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rolling_stats as _rs
@@ -91,19 +96,41 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_lens, *,
     return fn(q, k_pages, v_pages, page_table, cache_lens, window=window, logit_cap=logit_cap)
 
 
+class _MambaScanTrain(torch.autograd.Function):
+    """The scan with its gradients: the forward keeps the state entering
+    each chunk, from which the backward recomputes what it needs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, c, h0, chunk):
+        ctx.set_materialize_grads(False)  # hT unused by the loss: its cotangent stays None
+        x, dt, a, bm, c = (t.contiguous() for t in (x, dt, a, bm, c))
+        h0 = None if h0 is None else h0.contiguous()
+        fn = _ms.mamba_scan if _on_cuda(x, "mamba_scan") else _ref.mamba_scan_ref
+        y, h_t, h_in = fn(x, dt, a, bm, c, h0=h0, chunk=chunk, with_states=True)
+        ctx.save_for_backward(x, dt, a, bm, c, h_in)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        x, dt, a, bm, c, h_in = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh_t = None if dh_t is None else dh_t.contiguous()
+        fn = _msb.mamba_scan_bwd if _on_cuda(x, "mamba_scan") else _ref.mamba_scan_bwd_ref
+        dx, ddt, da, dbm, dc, dh0 = fn(x, dt, a, bm, c, h_in, dy, dh_t, chunk=ctx.chunk)
+        return dx, ddt, da, dbm, dc, dh0 if ctx.has_h0 else None, None
+
+
 def mamba_scan(x, dt, a, bm, c, h0=None, chunk: int = 256):
     """Chunked SSD scan (Mamba-2) -> (y [B,S,H,P], hT [B,H,P,N]); starts
-    from ``h0`` [B,H,P,N] when given.  ``min(chunk, S)`` must divide S."""
+    from ``h0`` [B,H,P,N] when given.  ``min(chunk, S)`` must divide S.
+    Differentiable (``_MambaScanTrain``) when grad is enabled and an input
+    requires it."""
 
-    if _on_cuda(x, "mamba_scan"):
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, dt, a, bm, c, h0)):
-            raise NotImplementedError(
-                "mamba_scan has no backward kernel: a Mamba stack cannot train on "
-                "CUDA yet (on the CPU the plain scan is differentiable)")
-        fn = _ms.mamba_scan
-    else:
-        fn = _ref.mamba_scan_ref
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, bm, c, h0)):
+        return _MambaScanTrain.apply(x, dt, a, bm, c, h0, int(chunk))
+    fn = _ms.mamba_scan if _on_cuda(x, "mamba_scan") else _ref.mamba_scan_ref
     return fn(x, dt, a, bm, c, h0=h0, chunk=chunk)
 
 

@@ -203,12 +203,14 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, cache_lens, *,
     return _attend_rows(q, k, v, valid, logit_cap)
 
 
-def mamba_scan_ref(x, dt, a, bm, c, h0=None, chunk: int = 256):
+def mamba_scan_ref(x, dt, a, bm, c, h0=None, chunk: int = 256, with_states: bool = False):
     """Chunked SSD scan; torch twin of ``repro.models.ssm.ssd_chunked``.
 
     x [B,S,H,P], dt [B,S,H] (post-softplus), a [H] (negative), bm/c
-    [B,S,N], h0 [B,H,P,N] or None (zeros) -> (y [B,S,H,P], hT [B,H,P,N]).
-    Materialises the [B, chunks, L, L, H] decay tensor.
+    [B,S,N], h0 [B,H,P,N] or None (zeros) -> (y [B,S,H,P], hT [B,H,P,N]),
+    and with ``with_states`` also h_in [B,nc,H,P,N], the state entering each
+    chunk (what the backward reads).  Materialises the [B, chunks, L, L, H]
+    decay tensor.
     """
 
     b, s, nh, p = x.shape
@@ -225,11 +227,7 @@ def mamba_scan_ref(x, dt, a, bm, c, h0=None, chunk: int = 256):
     cum = torch.cumsum(dtr * a, dim=2)  # inclusive cumsum of the log-decay
     # ---- intra-chunk quadratic form ----
     g = torch.einsum("bctn,bcsn->bcts", cr, bmr)
-    m = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # decay s -> t: cum[t] - cum[s]
-    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    # mask BEFORE exp: above the diagonal m > 0 can overflow
-    m = torch.exp(torch.where(tril[None, None, :, :, None], m, torch.full_like(m, -1e30)))
-    w = g[..., None] * m * dtr[:, :, None, :, :]
+    w = g[..., None] * _decay(cum) * dtr[:, :, None, :, :]
     y = torch.einsum("bctsh,bcshp->bcthp", w, xr)
 
     # ---- inter-chunk recurrence over chunk states ----
@@ -243,7 +241,114 @@ def mamba_scan_ref(x, dt, a, bm, c, h0=None, chunk: int = 256):
         h = h * chunk_decay[:, ci, :, None, None] + sc[:, ci]
     h_prev = torch.stack(h_prev, dim=1)
     y_carry = torch.einsum("bctn,bchpn,bcth->bcthp", cr, h_prev, torch.exp(cum))
-    return (y + y_carry).reshape(b, s, nh, p), h
+    y = (y + y_carry).reshape(b, s, nh, p)
+    return (y, h, h_prev) if with_states else (y, h)
+
+
+def _decay(cum):
+    """exp(cum[t] - cum[s]) for s <= t, else 0: [B, nc, t, s, H] from cum
+    [B, nc, L, H]; masked BEFORE the exp, since above the diagonal the
+    difference is > 0 and can overflow."""
+
+    chunk = cum.shape[2]
+    m = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # decay s -> t: cum[t] - cum[s]
+    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=cum.device).tril()
+    return torch.exp(torch.where(tril[None, None, :, :, None], m, torch.full_like(m, -1e30)))
+
+
+def mamba_scan_bwd_ref(x, dt, a, bm, c, h_in, dy, dh_t=None, chunk: int = 256):
+    """The gradients of ``mamba_scan_ref`` -> (dx, ddt, da, dbm, dc, dh0),
+    written out step by step in the scan's chunked form (not autograd).
+
+    h_in [B,nc,H,P,N] is the state entering each chunk (``mamba_scan_ref(...,
+    with_states=True)``); dy [B,S,H,P] and dh_t [B,H,P,N] (None: zeros) the
+    cotangents of y and hT.  Per (batch row, chunk, head), with la = dt a,
+    cum its inclusive prefix sum in the chunk, E[t,s] = exp(cum[t] - cum[s])
+    for s <= t and G = C B^T:
+      states, over the chunks in reverse: dh_in = exp(cum[L-1]) dh_out +
+        sum_t exp(cum[t]) dy_t C_t^T, dh_out of the last chunk = dh_t, of
+        chunk c - 1 = dh_in of chunk c, dh0 = dh_in of chunk 0;
+      r_s = sum_{t>=s} G[t,s] E[t,s] dy_t + exp(cum[L-1] - cum[s]) dh_out B_s:
+        dx_s = dt_s r_s and the direct part of ddt_s = x_s . r_s;
+      with Q[t,s] = E[t,s] dt_s (dy_t . x_s): dC_t = sum_s Q[t,s] B_s +
+        exp(cum[t]) h_in^T dy_t, dB_s = sum_t Q[t,s] C_t + exp(cum[L-1] -
+        cum[s]) dt_s dh_out^T x_s, both summed over the heads;
+      dcum: the in-chunk pairs W = G Q (+ at t, - at s), the carried state
+        (+ exp(cum[t]) dy_t . h_in C_t), the chunk state (- V_s at s, with
+        V_s = exp(cum[L-1] - cum[s]) dt_s x_s . dh_out B_s, and their sum at
+        L-1) and the chunk decay (+ exp(cum[L-1]) <dh_out, h_in> at L-1); its
+        reverse prefix sum in the chunk is dla, so ddt += dla a and da =
+        sum dla dt.
+    """
+
+    t = mamba_bwd_terms(x, dt, a, bm, c, h_in, dy, dh_t, chunk)
+    return mamba_bwd_finish(t, t["row"] - t["col"] + t["carry"] - t["v"], a)
+
+
+def mamba_bwd_terms(x, dt, a, bm, c, h_in, dy, dh_t, chunk):
+    """``mamba_scan_bwd_ref``'s terms: dx, dbm, dc, dh0 as it returns them,
+    the direct part of ddt ([B,nc,L,H]), dcum's terms row (sum over s of W),
+    col (over t), carry, v ([B,nc,L,H]) and the one at L-1 ("last",
+    [B,nc,H]), dt in chunks, and the shapes."""
+
+    b, s, nh, p = x.shape
+    n = bm.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    nc = s // chunk
+    xr, dyr = x.reshape(b, nc, chunk, nh, p), dy.reshape(b, nc, chunk, nh, p)
+    dtr = dt.reshape(b, nc, chunk, nh)
+    bmr, cr = bm.reshape(b, nc, chunk, n), c.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtr * a, dim=2)
+    from_start = torch.exp(cum)  # [B,nc,L,H]
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # [B,nc,H]
+
+    # ---- the states, over the chunks in reverse ----
+    ds = torch.einsum("bcth,bcthp,bctn->bchpn", from_start, dyr, cr)
+    dh = torch.zeros_like(h_in[:, 0]) if dh_t is None else dh_t
+    dh_out = [None] * nc
+    for ci in reversed(range(nc)):
+        dh_out[ci] = dh
+        dh = dh * chunk_decay[:, ci, :, None, None] + ds[:, ci]
+    dh0, dh_out = dh, torch.stack(dh_out, dim=1)
+
+    # ---- in-chunk: r, dx and the direct part of ddt ----
+    g = torch.einsum("bctn,bcsn->bcts", cr, bmr)
+    e = _decay(cum)  # [B,nc,t,s,H]
+    dhb = torch.einsum("bchpn,bcsn->bcshp", dh_out, bmr)  # dh_out B_s
+    r = torch.einsum("bcts,bctsh,bcthp->bcshp", g, e, dyr) + to_end[..., None] * dhb
+
+    # ---- dC and dB, summed over the heads ----
+    q = e * dtr[:, :, None, :, :] * torch.einsum("bcthp,bcshp->bctsh", dyr, xr)
+    dc = (torch.einsum("bctsh,bcsn->bctn", q, bmr)
+          + torch.einsum("bcth,bchpn,bcthp->bctn", from_start, h_in, dyr))
+    dbm = (torch.einsum("bctsh,bctn->bcsn", q, cr)
+           + torch.einsum("bcsh,bchpn,bcshp->bcsn", to_end * dtr, dh_out, xr))
+
+    # ---- dcum's terms ----
+    w = g[..., None] * q
+    v = to_end * dtr * (xr * dhb).sum(-1)
+    return dict(
+        dx=(dtr[..., None] * r).reshape(b, s, nh, p), dbm=dbm.reshape(b, s, n),
+        dc=dc.reshape(b, s, n), dh0=dh0, direct=(xr * r).sum(-1),
+        row=w.sum(3), col=w.sum(2), v=v,
+        carry=from_start * torch.einsum("bcthp,bchpn,bctn->bcth", dyr, h_in, cr),
+        last=v.sum(2) + chunk_decay * (dh_out * h_in).sum((-1, -2)), dtr=dtr,
+        shape=(b, s, nh))
+
+
+def mamba_bwd_finish(t, dcum, a):
+    """dcum [B,nc,L,H] (without its term at L-1) -> (dx, ddt, da, dbm, dc,
+    dh0): dla is dcum's reverse prefix sum in each chunk, ddt = direct + dla
+    a, da = sum dla dt."""
+
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + t["last"][:, :, None]], dim=2)
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = t["direct"] + dla * a
+    da = (dla * t["dtr"]).sum((0, 1, 2))
+    return t["dx"], ddt.reshape(t["shape"]), da, t["dbm"], t["dc"], t["dh0"]
 
 
 def rolling_stats_ref(m_acc, tau_pow, *, window_acc=64, window_tau=16, sigma_floor_acc=1.0,

@@ -5,8 +5,8 @@ End to end: config -> ``Model`` -> episode or synthetic batches ->
 ``Model.loss_fn`` -> autograd -> AdamW under the warmup-cosine schedule ->
 npz checkpoints.  The reference's flags plus ``--device`` (default
 ``cuda``; the attention runs the flash forward and backward kernels there,
-their plain versions on the CPU).  A Mamba stack (Jamba) trains only on
-the CPU: the Mamba scan has no backward kernel yet.
+the Mamba scan its forward and backward kernels, and their plain versions
+on the CPU).  Every arch trains on either device, Jamba included.
 """
 
 from __future__ import annotations
