@@ -20,7 +20,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    and gemma2-9b's 4608-token prompt and 4664-token decode; and at
    seamless-m4t-medium's (H = KV = 16, D = 64): its decoder's prompt, its
    encoder over 300 frames (non-causal), decode at length 70 (dense and
-   paged) and its cross-attention decode over the 300 frames;
+   paged) and its cross-attention decode over the 300 frames; the Mamba
+   scan also at Jamba's training shape with the chunk states (the forward
+   of the training pair);
 4. model: for each served stack, its smoke size in float32 on the card
    against the same weights on the CPU (plain versions; ``CloudPolicy``
    chunks and a scheduler run whose decode rounds are CUDA graphs), then
@@ -150,7 +152,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    share of each element's sum of absolute terms), a rerun bitwise equal,
    at Jamba's training shape (B = 2, S = 1024, H = 256, 4 chunks), one
    chunk, with h0 and dh_t, jamba-smoke's H = 8, a large dt and a ragged
-   small shape, timed as phase 3 times a kernel;
+   small shape, timed as phase 3 times a kernel, beside its float32 and its
+   tensor-core (3xTF32) bounds, and its main case's device time split by
+   launch (state, chunk, reduce) under torch.profiler, in a process of its
+   own;
    (b) f32 smoke twins, card against CPU on the same weights: the loss and
    every gradient of openvla-smoke, xlstm-smoke and jamba-smoke (S = 512,
    two chunks; its experts in layers 1 and 3), then one AdamW update on the
@@ -271,6 +276,9 @@ from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E
 # (bf16 on the tensor cores, ``roofline.HW_H100``; float32 outside them)
 HBM_BPS = HW_H100.hbm_bw
 PEAK_FLOPS = {torch.bfloat16: HW_H100.peak_flops, torch.float32: 67e12}
+# the tensor cores' dense TF32 rate; a 3xTF32 product takes three of its
+# multiplies a float32 one (the scan backward's second bound)
+TF32_FLOPS = 495e12
 # float32: the same math summed in another order.  bf16: each output is a
 # weighted mean of standard-normal v rows, so |out| reaches ~3 where a row
 # sees few keys (the first rows of a prefill) and ~0.2 over 70+ keys.  The
@@ -609,9 +617,11 @@ def paged_case(rng, dtype, lens, page, h, kv, window=0, cap=0.0, identity=False,
     return checked_case(case, plain, kw, controls) if checked else case
 
 
-def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
+def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False, with_states=False):
     """x, dt = softplus(normal), a = -exp(normal), B, C, and h0 as the JAX
-    package's kernel tests draw them; compared in float64."""
+    package's kernel tests draw them; compared in float64.  ``with_states``:
+    the training forward's call, which also returns the state entering each
+    chunk (written: B x chunks x H x P x N floats more)."""
 
     f32 = torch.float32
     x, bm, c = _t(rng, (b, s, h, p), f32), _t(rng, (b, s, n), f32), _t(rng, (b, s, n), f32)
@@ -630,13 +640,16 @@ def mamba_case(rng, b, s, h, p, n, chunk, with_h0=False):
     per_head = pairs * (4 + 2 * p) + L * p * (2 * n + 2) + p * n * (3 * L + 2) + 5 * L
     flops = b * nc * pairs * 2 * n + b * h * nc * per_head
     flops_old = b * h * nc * (pairs * 2 * n + per_head)
+    kw = dict(h0=h0, chunk=chunk, with_states=with_states)
     return dict(
-        kernel=lambda: kms.mamba_scan(*args, h0=h0, chunk=chunk),
-        plain=lambda: ref.mamba_scan_ref(*args, h0=h0, chunk=chunk),
-        oracle=lambda: ref.mamba_scan_ref(*wide, h0=h0_wide, chunk=chunk),
-        tols=[MAMBA_TOL + (0.0,)] * 2,
+        kernel=lambda: kms.mamba_scan(*args, **kw),
+        plain=lambda: ref.mamba_scan_ref(*args, **kw),
+        oracle=lambda: ref.mamba_scan_ref(*wide, h0=h0_wide, chunk=chunk,
+                                          with_states=with_states),
+        tols=[MAMBA_TOL + (0.0,)] * (3 if with_states else 2),
         library=None,
-        bytes=2 * nbytes(x) + nbytes(dt, a, bm, c) + (2 if with_h0 else 1) * b * h * p * n * 4,
+        bytes=2 * nbytes(x) + nbytes(dt, a, bm, c) + (2 if with_h0 else 1) * b * h * p * n * 4
+        + (b * nc * h * p * n * 4 if with_states else 0),
         flops=float(flops),
         flops_old=float(flops_old),
     )
@@ -876,6 +889,11 @@ def kernel_cases(rng, fleet):
         # a long Jamba prompt: 16 chunks of 256 (operations-bound)
         ("mamba_scan", "B=1 S=4096 H=256 P=64 N=16 chunk 256", f32,
          mamba_case(rng, 1, 4096, 256, 64, 16, 256), False),
+        # Jamba's training forward (phase 8(c)), the scan backward's pair;
+        # drawn from a generator of its own, so the cases after it keep theirs
+        ("mamba_scan", "Jamba train B=2 S=1024 H=256 P=64 N=16 chunk 256 with states", f32,
+         mamba_case(np.random.default_rng(27), 2, 1024, 256, 64, 16, 256, with_states=True),
+         False),
         # the monitor: a fleet's 1024 episodes, a 16x replay bank, a ragged tile
         ("rolling_stats", f"fleet N={fleet_acc.shape[0]} T=600 episodes", f32,
          stats_case(fleet_acc, fleet_tau, peak_relative=True, **wins), True),
@@ -3673,6 +3691,27 @@ def mamba_bwd_abs_terms(x, dt, a, bm, c, h_in, dy, dh_t, chunk):
     return ref.mamba_bwd_finish(t, t["row"] + t["col"] + t["carry"] + t["v"], a.double().abs())
 
 
+def launch_split(fn, calls=5):
+    """{kernel name: mean device ms a call} of the kernels ``fn`` launches,
+    over ``calls`` calls under torch.profiler (None: the profiler saw no
+    kernel).  The name is the kernel's own, template arguments dropped."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for name, ms in device_events(prof):
+        bare = name.replace("(anonymous namespace)::", "")
+        key = (bare.split("(")[0].split("<")[0].split("::")[-1].split() or [name[:40]])[-1]
+        per[key] = per.get(key, 0.0) + ms / calls
+    return per or None
+
+
 def check_mamba_bwd(cases):
     """Each case: every gradient of the kernel against the plain backward in
     float64 on the same inputs under ``MAMBA_BWD_TOL``, a rerun bitwise
@@ -3713,12 +3752,14 @@ def check_mamba_bwd(cases):
             host_us=host_us(case["kernel"]),
         )
         row["bound_ms"], row["bound_by"] = bound_ms(case["bytes"], case["flops"], torch.float32)
+        tc_ms = max(case["bytes"] / HBM_BPS, 3 * case["flops"] / TF32_FLOPS) * 1e3
         log(f"  mamba_scan_bwd    {label:58s} err={err:.3g} heads/block={plan.heads} "
             f"chunk_blocks={plan.chunk_blocks} rerun {'bitwise equal' if same else 'DIFFERS'}; "
             f"max err (of its terms, kernel/float32 plain): {', '.join(dist)} "
             f"ms={row['ms']:.4f} device_ms={row['device_ms']:.5f} host_us={row['host_us']:.1f} "
             f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
-            f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e9:.3f} GB)")
+            f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e9:.3f} GB) "
+            f"tc_bound_ms={tc_ms:.5f} (3xTF32 at {TF32_FLOPS / 1e12:g} TFLOP/s, or the bytes)")
         if not same:
             raise AssertionError(f"mamba_scan_bwd [{label}]: a rerun on the same inputs differs")
         if bad:
@@ -3727,6 +3768,38 @@ def check_mamba_bwd(cases):
         if is_main:
             main = row
     return main
+
+
+def scan_bwd_split():
+    """The Mamba scan backward's device time at Jamba's training shape
+    split by launch (``launch_split``), printed.  Phase 8(a) runs it in a
+    process of its own (``scan_bwd_split_apart``)."""
+
+    case = mamba_bwd_case(np.random.default_rng(9), 2, 1024, 256, 64, 16, 256)
+    split = launch_split(case["kernel"])
+    log("  mamba_scan_bwd launch split, Jamba train B=2 S=1024 H=256 P=64 N=16 chunk 256 "
+        "(device ms a call, profiler, 5 calls): " + (
+            "not measured (the profiler recorded no CUDA kernels)" if split is None else
+            ", ".join(f"{k} {v:.5f}" for k, v in split.items())
+            + f"; sum {sum(split.values()):.5f}"))
+
+
+def scan_bwd_split_apart():
+    """``scan_bwd_split`` in a fresh process (the kernels already built):
+    after the serving phases this process's profiler recorded no CUDA
+    kernel in a whole run on an H100 80GB HBM3 (700 W), and a run that
+    profiled it before them saw a later CUDA graph capture fail in cuBLAS."""
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.scan_bwd_split()"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if "launch split" in ln]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the scan backward's launch split failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    for ln in lines:
+        log(ln)
 
 
 def smoke_train_batch(cfg, rng, b=2, s=64):
@@ -3935,6 +4008,7 @@ def train_phase(launches):
 
     rows = {"flash_attention_bwd": check_bwd_kernel(bwd_cases(np.random.default_rng(8))),
             "mamba_scan_bwd": check_mamba_bwd(mamba_bwd_cases(np.random.default_rng(9)))}
+    scan_bwd_split_apart()
     for arch in ("openvla-7b", XLSTM, JAMBA):
         train_card_vs_cpu(arch)
     layers = get_config("openvla-7b").num_layers

@@ -1,6 +1,6 @@
 // The backward of the Mamba-2 chunked SSD scan (csrc/mamba_scan.cu) for
-// Hopper (sm_90a): chunk-parallel, in the forward's three stages run the
-// other way, plus a reduce.
+// Hopper (sm_90a): chunk-parallel, its products on the tensor cores in
+// 3xTF32, three launches.
 //
 // Replaces no TPU kernel: the JAX package trains through XLA's autodiff of
 // ssd_chunked (repro/models/ssm.py:94), and the Pallas scan
@@ -28,43 +28,63 @@
 // h_in [B,nc,H,P,N], dh_t (or null: zeros), dh0 [B,H,P,N]; all float32.
 //
 // Bound on an H100: at Jamba's training shape (B 2, S 1024, H 256, P 64,
-// N 16, L 256) the float32 operations, ~26 GFLOP (per causal pair and head
-// dy_t . x_s and the r sum over P, dB and dC over N; G once a pair), 0.39 ms
-// at 67 TFLOP/s, against ~0.46 GB of inputs and outputs, 0.14 ms.
+// N 16, L 256) ~26 GFLOP (per causal pair and head dy_t . x_s and the r sum
+// over P, dB and dC over N; G once a pair): 0.40 ms on float32 FMAs at 67
+// TFLOP/s; on the tensor cores in 3xTF32, three products each at 495
+// TFLOP/s, 0.16 ms; against ~0.42 GB of inputs and outputs, 0.13 ms.  What
+// bounds it in practice: mma.sync's latency (~60 cycles for a TF32
+// m16n8k8) and the issue slots of the hi/lo split around each product, at
+// 16 warps an SM (the registers of 3xTF32 fragments allow no more).
 //
-// Design.  Four launches on one stream:
-//   1. bwd_state, one block a (batch row, chunk, head): cum in float64 (as
-//      the forward keeps it), the chunk decay exp(cum[L-1]) and dS =
-//      sum_t exp(cum[t]) dy_t C_t^T;
-//   2. bwd_pass, one block a (batch row, head), a thread a few state
-//      elements: over the chunks in reverse, dh_out of each chunk (written
-//      over its dS), the decay term exp(cum[L-1]) <dh_out, h_in> (a block
-//      sum in a fixed order), and dh0;
-//   3. bwd_chunk, one block a (row tile of 64 steps s, batch row, chunk,
-//      group of HG heads): the heads' x rows stay in shared memory; the
-//      steps t >= the tile's first s are walked in tiles of 64, and each
-//      tile's G = C_t B_s^T is built once, in registers, for the block's
-//      heads.  Per head and tile a thread owns 4 t x 4 s pairs: their
-//      dy_t . x_s, then E (s > t masked BEFORE the exp, which would
-//      overflow there), K = G E, Q and W = G Q off the diagonal go to
-//      shared memory, the rows of W are summed across the 16 lanes that
-//      share them and its columns by 4 lanes a step s; then r (4 s x 4
-//      channels a thread, in registers for every head of the group), dB (a
-//      thread a step and 4 state columns) and dC of the tile's t (the same,
-//      summed over the group's heads) take their products from K, Q, dy, C
-//      and B.  r starts from the state term; the carried state's terms are
-//      added on the tile's own steps.  dx and the direct part of ddt are
-//      written at the end, with the tile's own rows of dcum (their row
-//      sums less their column sums and V); dB, dC and the rows of dcum are
-//      per-block partials, each element written by one block;
-//   4. bwd_reduce: a block a head sums its rows of dcum in a fixed order,
-//      takes their reverse prefix sum over each chunk in float64, finishes
-//      ddt and sums da over the batch rows and chunks; the other blocks sum
-//      the partials of dB (over head groups) and dC (over head groups and
-//      the row tiles at or before the step's).
-// No float atomics anywhere, so a rerun gives the same bits.  The heads a
-// block (HG) comes from the host's plan (kernels/_lib.py mamba_bwd_plan);
-// the workspaces are the launcher's (kernels/mamba_scan_bwd.py).
+// Numerics.  Every product runs on the tensor cores as
+// mma.sync.m16n8k8.tf32 in 3xTF32: each operand is split into a TF32 high
+// part (its low 13 mantissa bits masked off) and the float32 residual,
+// which the tensor core reads as TF32, and hi.hi + hi.lo + lo.hi go into
+// float32 accumulators (~2^-20 of each product's size; one TF32 product
+// would keep ~2^-10).  cum stays float64 (as the forward keeps it), s > t
+// is masked before the exp, dcum's reverse prefix sums are float64, and no
+// sum uses float atomics: each is taken in a fixed order, so a rerun gives
+// the same bits.
+//
+// Design.  Three launches on one stream:
+//   1. bwd_state, one block (8 warps) a (batch row, pair of heads), over the
+//      chunks in reverse: cum (float64; written out with dt, by chunk and
+//      head, for the chunk blocks), dS = sum_t exp(cum[t]) dy_t C_t^T (A =
+//      dy^T, B = C scaled as its fragments are read), then dh_out of the
+//      chunk (written), the decay term exp(cum[L-1]) <dh_out, h_in> and
+//      dh_in, the state kept in the accumulators' layout; dh0 at the end;
+//   2. bwd_chunk, one block (16 warps) a (row tile of 64 steps s, batch
+//      row, chunk, group of HG <= 2 heads): the heads' x rows, B and their
+//      dh_out stay in shared memory; the t tiles from the row tile's own on
+//      are walked, each tile's dy (both heads) and C staged in two buffers,
+//      the next tile in flight while the current one is used.  Per t tile G
+//      = C B^T once for the block's heads; per head M = dy x^T, then in its
+//      accumulators E (masked before the exp), K = G E (to shared memory),
+//      Q, the rows and columns of W = G Q off the diagonal (lane shuffles in
+//      a fixed tree) and the sum of Q over the block's heads; then r += K^T
+//      dy.  After the tile's heads, dC += Qsum B and dB += Qsum^T C: one
+//      product for all the heads.  r starts from the state term dh_out B_s;
+//      the carried state's terms (dy h_in) are added on the tile's own
+//      steps (with two heads and N <= 16, both heads' small products -- the
+//      carry and dB's state term -- at once, on the two halves of the
+//      warps).  Two barriers a head and tile.  dx and the direct part of ddt
+//      are written at the end, with the tile's own rows of dcum; dB, dC and
+//      the rows of dcum are per-block partials, each element written by one
+//      block;
+//   3. bwd_reduce: a block a head, a warp a (batch row, chunk), sums its rows
+//      of dcum, takes their reverse prefix sum in float64, finishes ddt and
+//      sums da (the warps' parts in a fixed order); the other blocks sum the
+//      partials of dB (over head groups) and dC (over head groups and the
+//      row tiles at or before the step's), 8 threads an element, then in a
+//      fixed order.
+// Tiles reach shared memory by the TMA (cp.async.bulk, one copy a row of
+// the group's heads or a contiguous block, completing on an mbarrier) where
+// P and N are multiples of 8, else by 4-byte cp.async.  The x, dy, K and
+// Qsum tiles are padded to a row stride of 8 mod 32 floats, so that every
+// fragment of the big products is read without bank conflicts, along rows
+// as a float2 or down columns.  The heads a block (HG) comes from the host's
+// plan (kernels/_lib.py mamba_bwd_plan); the workspaces are the launcher's
+// (kernels/mamba_scan_bwd.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,629 +92,1009 @@
 namespace {
 
 constexpr int MAX_L = 256, MAX_P = 64, MAX_N = 32;
-constexpr int R = 64;         // steps a row tile (s) and a t tile hold
-constexpr int KP = R + 4;     // row stride of the K, Q and W tiles
-constexpr int THREADS = 256;  // every kernel's block
-constexpr int SMS = 132;
+constexpr int R = 64;              // steps a row tile (s) and a t tile of the chunk blocks
+constexpr int RS = 32;             // steps a tile of the state blocks
+constexpr int TS = 72;             // row stride (floats) of the K / Qsum tile: 8 mod 32
+constexpr int CHUNK_THREADS = 512, STATE_THREADS = 256, REDUCE_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Bwd {
   const float *x, *dt, *a, *bm, *c, *hin, *dy, *dht;
   float *dx, *ddt, *da, *dbm, *dc, *dh0;
-  float* ds;     // [B,nc,H,P,N]: dS, then dh_out (the pass writes over it)
-  float* dec;    // [B,nc,H] exp(cum[L-1])
+  float* dho;    // [B,nc,H,P,N] dh_out of each chunk
+  double* cumw;  // [B,nc,H,L] cum of each chunk and head
+  float* dtw;    // [B,nc,H,L] dt of each chunk and head
   float* dterm;  // [B,nc,H] exp(cum[L-1]) <dh_out, h_in>
   float* rowp;   // [B*nc, rt, H, L] the chunk blocks' rows of dcum
   float* dbp;    // [groups, B*S, N] their dB
   float* dcp;    // [B*nc, rt, groups, L, N] their dC
-  int B, S, H, P, N, L, nc, rt, hg, groups, p4, n4, xp;
+  int B, S, H, P, N, L, nc, rt, groups, p8, n8;
+  int bulk;      // rows of x, dy, B, C and the states copied by the TMA (16-byte rows)
 };
 
 __host__ __device__ inline int up(int v, int m) { return (v + m - 1) / m * m; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
-// Byte offsets into a chunk block's dynamic shared memory.
-struct Layout {
-  int cum;    // [hg][L] float64 prefix sums
-  int dts;    // [hg][L] dt
-  int xs;     // [hg][R][xp] x rows of the tile
-  int bs;     // [R][n4] B rows of the tile
-  int ct;     // [R][n4] C rows of the t tile
-  int dys;    // [R][xp] dy rows of the t tile, one head
-  int kq;     // [3][R][KP] K, Q and W; before the t tiles dh_out [p4][n4] and its transpose
-  int hin;    // [p4][n4] h_in of one head
-  int hd;     // [R][n4] exp(cum[t]) h_in^T dy_t
-  int vs, rdiag;        // [hg][R] V_s; the rows of dcum on the tile's own steps
-  int carry, vsum;      // [R], [hg]
-  int total;
+// ---------------------------------------------------------------------------
+// staging: TMA bulk copies (or cp.async) into padded shared tiles
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(saddr(bar)));
+}
+// The phase's one arrival, with the bytes its copies will bring.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(saddr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [0, rows) of a tile (row stride ds floats) whose row r holds `heads`
+// segments of cols8 floats, segment hh at dst + r ds + hh cols8, from src +
+// r ld + hh ncols (ncols floats a segment): rows < nrows of segments < live
+// copied, the rest zero.  Bulk (ncols == cols8, a multiple of 4, 16-byte
+// aligned rows): one TMA copy a row of live segments, issued by the thread
+// (lead + row) % nthreads, or, with `block`, one copy of the nrows rows
+// (ds == ld == cols8) by the thread lead; the zero rows and segments by
+// plain stores, fenced for the async proxy; the bytes are the caller's to
+// expect on bar.  Else 4-byte cp.async with zero fill, by every thread.
+__device__ void stage(float* dst, int ds, const float* src, int64_t ld, int rows, int nrows,
+                      int heads, int live, int ncols, int cols8, bool bulk, bool block,
+                      uint64_t* bar, int lead, int nthreads) {
+  const int tid = threadIdx.x, per = heads * cols8;
+  if (!bulk) {
+    for (int e = tid; e < rows * per; e += nthreads) {
+      const int r = e / per, hh = e % per / cols8, cc = e % cols8;
+      const bool ok = r < nrows && hh < live && cc < ncols;
+      cp_async4(dst + r * ds + hh * cols8 + cc, ok ? src + r * ld + hh * ncols + cc : src, ok);
+    }
+    return;
+  }
+  if (live > 0) {
+    if (block) {
+      if (tid == lead && nrows > 0) bulk_copy(dst, src, 4u * nrows * ncols, bar);
+    } else {
+      for (int r = (tid - lead + nthreads) % nthreads; r < nrows; r += nthreads)
+        bulk_copy(dst + r * ds, src + r * ld, 4u * live * ncols, bar);
+    }
+  }
+  if (nrows < rows || live < heads) {
+    for (int e = tid; e < rows * per; e += nthreads) {
+      const int r = e / per, hh = e % per / cols8;
+      if (r >= nrows || hh >= live) dst[r * ds + e % per] = 0.f;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 mma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[j] += A B_j over k in [0, kend) (a multiple of 8) for n-tiles j < non,
+// in 3xTF32: hi.hi into d, the two cross terms into an accumulator of its
+// own (two independent chains a tile: an mma's latency is ~60 cycles),
+// added to d at the end.  la(k0, a) gives the warp's A fragment at depth k0,
+// lb(j, k0, b0, b1) the B fragment of n-tile j.  Accumulator element e of a
+// tile: row g + 8 (e >> 1), column 2 tig + (e & 1) (g = lane / 4, tig = lane
+// % 4).
+template <int NT, class LA, class LB>
+__device__ __forceinline__ void mma3(float (&d)[NT][4], int kend, int non, LA la, LB lb) {
+  float c[NT][4] = {};
+#pragma unroll 2
+  for (int k0 = 0; k0 < kend; k0 += 8) {
+    float af[4];
+    la(k0, af);
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(af[i], ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < non) {
+        float b0, b1;
+        lb(j, k0, b0, b1);
+        uint32_t bh0, bl0, bh1, bl1;
+        split(b0, bh0, bl0);
+        split(b1, bh1, bl1);
+        mma_tf32(c[j], al, bh0, bh1);
+        mma_tf32(c[j], ah, bl0, bl1);
+        mma_tf32(d[j], ah, bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] += c[j][e];
+}
+
+// Fragment reads from shared tiles, as offsets from the shared base sm,
+// for a row stride st (8 mod 32 floats where the tile is padded: no bank
+// conflicts).  Two orders of depth: Pair ("k-pairs", logical k tig and tig
+// + 4 at physical k0 + 2 tig and + 1, a float2 along a row, for products
+// whose operands both run along their rows) and the mma's own (tig, tig +
+// 4), read one float at a time along rows (Row) or down columns (Col).
+// Row's reads have two-way conflicts on a padded tile (its products run
+// once a head or tile), as all do on the unpadded [steps x N] tiles.
+struct Pair {  // rows r0 + g (+ 8), depth k0 + 2 tig (+ 1)
+  int o, o8;
+  __device__ __forceinline__ Pair(int base, int r0, int st) {
+    const int lane = threadIdx.x & 31;
+    o = base + (r0 + (lane >> 2)) * st + 2 * (lane & 3);
+    o8 = o + 8 * st;
+  }
+  __device__ __forceinline__ float2 at(const float* sm, int k0, bool plus8 = false) const {
+    return *reinterpret_cast<const float2*>(sm + (plus8 ? o8 : o) + k0);
+  }
+  __device__ __forceinline__ void a(const float* sm, int k0, float (&f)[4]) const {
+    const float2 u = at(sm, k0), v = at(sm, k0, true);
+    f[0] = u.x;
+    f[1] = v.x;
+    f[2] = u.y;
+    f[3] = v.y;
+  }
+  __device__ __forceinline__ void b(const float* sm, int k0, float& b0, float& b1) const {
+    const float2 u = at(sm, k0);
+    b0 = u.x;
+    b1 = u.y;
+  }
+};
+struct Row {  // rows r0 + g (+ 8), depth k0 + tig (+ 4)
+  int o, o8;
+  __device__ __forceinline__ Row(int base, int r0, int st) {
+    const int lane = threadIdx.x & 31;
+    o = base + (r0 + (lane >> 2)) * st + (lane & 3);
+    o8 = o + 8 * st;
+  }
+  __device__ __forceinline__ void a(const float* sm, int k0, float (&f)[4]) const {
+    f[0] = sm[o + k0];
+    f[1] = sm[o8 + k0];
+    f[2] = sm[o + k0 + 4];
+    f[3] = sm[o8 + k0 + 4];
+  }
+};
+struct Col {  // depth rows k0 + tig (+ 4), column c0 + g (+ 8)
+  int o, st;
+  __device__ __forceinline__ Col(int base, int c0, int st_) : st(st_) {
+    const int lane = threadIdx.x & 31;
+    o = base + (lane & 3) * st + c0 + (lane >> 2);
+  }
+  __device__ __forceinline__ void a(const float* sm, int k0, float (&f)[4]) const {
+    const int u = o + k0 * st, v = u + 4 * st;
+    f[0] = sm[u];
+    f[1] = sm[u + 8];
+    f[2] = sm[v];
+    f[3] = sm[v + 8];
+  }
+  __device__ __forceinline__ void b(const float* sm, int k0, float& b0, float& b1) const {
+    const int u = o + k0 * st;
+    b0 = sm[u];
+    b1 = sm[u + 4 * st];
+  }
 };
 
-__host__ __device__ inline Layout layout(int L, int hg, int p4, int n4) {
+// The sums of a warp's accumulator rows over the 4 lanes of a quad: ra
+// (row g) and rb (row g + 8) in -> the lane's row total out (row g for
+// tig < 2, g + 8 for tig >= 2).
+__device__ __forceinline__ float quad_rows(float ra, float rb) {
+  const bool hi = threadIdx.x & 2;
+  float v = hi ? rb : ra;
+  v += __shfl_xor_sync(FULL, hi ? ra : rb, 2);
+  return v + __shfl_xor_sync(FULL, v, 1);
+}
+
+// ---------------------------------------------------------------------------
+// launch 1: dS, dh_out, the decay terms and dh0
+// ---------------------------------------------------------------------------
+
+// One (batch row, pair of heads) a block, its chunks in reverse.  Warp w
+// takes head w / 4 of the pair and rows p in [16 (w % 4), +16) of its dS
+// and running state, n-tiles 0 .. n8/8.  Tiles of 32 steps: a dy row holds
+// both heads (one TMA copy, as they lie side by side in device memory, row
+// stride SW), C rows one contiguous copy; two buffers, the next in flight.
+// Warps 0 and 4 load the next chunk's dt of their head into registers while
+// the current one runs, and scan it.
+constexpr int SH = 2;                            // heads a state block
+constexpr int SW = SH * MAX_P + 8;               // row stride of its dy tiles
+__global__ void __launch_bounds__(STATE_THREADS) bwd_state(Bwd k) {
+  __shared__ float ef[SH][MAX_L];
+  __shared__ __align__(16) float tiles_s[2 * RS * SW + 2 * RS * MAX_N];
+  __shared__ __align__(8) uint64_t bars[2];
+  __shared__ float red[STATE_THREADS / 32];
+  const int H = k.H, P = k.P, N = k.N, L = k.L, nc = k.nc, p8 = k.p8, n8 = k.n8;
+  const int pairs = (H + SH - 1) / SH, h0 = blockIdx.x % pairs * SH, b = blockIdx.x / pairs;
+  const int live = imin(SH, H - h0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int hh = warp >> 2, head = h0 + hh, pm = 16 * (warp & 3), nn = n8 / 8;
+  const int tiles = (L + RS - 1) / RS;
+  const bool on = hh < live && pm < p8, bulk = k.bulk;
+  const int64_t own = ((int64_t)b * H + head) * P * N;
+  const float ah = hh < live ? k.a[head] : 0.f;
+  float* const sm = tiles_s;
+
+  float dh[4][4], ds[4][4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = pm + g + 8 * (e >> 1), n = 8 * jj + 2 * q + (e & 1);
+      dh[jj][e] = k.dht != nullptr && on && jj < nn && p < P && n < N ? k.dht[own + p * N + n]
+                                                                          : 0.f;
+    }
+  if (tid == 0) {
+    bar_init(&bars[0]);
+    bar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float dtn[MAX_L / 32];  // warps 0 and 4: the next chunk's dt of their head, lane + 32 i
+  const bool scanner = (warp & 3) == 0 && hh < live;
+  auto load_dt = [&](int cc) {
+    const int64_t c0 = (int64_t)b * k.S + (int64_t)cc * L;
+#pragma unroll
+    for (int i = 0; i < MAX_L / 32; ++i) {
+      const int t = lane + 32 * i;
+      dtn[i] = t < L ? k.dt[(c0 + t) * H + head] : 0.f;
+    }
+  };
+  if (scanner) load_dt(nc - 1);
+  __syncthreads();
+  auto issue = [&](int flat) {  // tile flat % tiles of chunk nc - 1 - flat / tiles
+    const int cc = nc - 1 - flat / tiles, t0 = flat % tiles * RS, nr = imin(RS, L - t0);
+    const int64_t r0 = (int64_t)b * k.S + (int64_t)cc * L + t0;
+    float* dyt = sm + (flat & 1) * RS * SW;
+    float* ct = sm + 2 * RS * SW + (flat & 1) * RS * MAX_N;
+    if (bulk && tid == 0) bar_expect(&bars[flat & 1], 4u * nr * (live * P + N));
+    stage(dyt, SW, k.dy + (r0 * H + h0) * P, (int64_t)H * P, RS, nr, SH, live, P, p8, bulk, false,
+          &bars[flat & 1], 0, STATE_THREADS);
+    stage(ct, n8, k.c + r0 * N, N, RS, nr, 1, 1, N, n8, bulk, true, &bars[flat & 1], RS,
+          STATE_THREADS);
+    cp_commit();
+  };
+  auto land = [&](int flat) {  // tile flat in, for every thread
+    if (bulk)
+      bar_wait(&bars[flat & 1], (flat >> 1) & 1);
+    else
+      cp_wait_all();
+    __syncthreads();
+  };
+  issue(0);
+  for (int cc = nc - 1; cc >= 0; --cc) {
+    const int64_t bc = (int64_t)b * nc + cc;
+    __syncthreads();  // the previous chunk's cum and ef have been read
+    if (scanner) {  // cum: the float64 prefix sum of the float32 products dt a
+      const int64_t w = (bc * H + head) * L;  // cum and dt, also for the chunk blocks
+      double carry = 0.0;
+#pragma unroll
+      for (int i = 0; i < MAX_L / 32; ++i) {
+        const int t = lane + 32 * i;
+        if (32 * i < L) {
+          double v = t < L ? (double)(dtn[i] * ah) : 0.0;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const double o = __shfl_up_sync(FULL, v, off);
+            if (lane >= off) v += o;
+          }
+          ef[hh][t] = t < L ? expf((float)(carry + v)) : 0.f;  // 0 past L
+          if (t < L) {
+            k.cumw[w + t] = carry + v;
+            k.dtw[w + t] = dtn[i];
+          }
+          carry += __shfl_sync(FULL, v, 31);
+        }
+      }
+      if (cc > 0) load_dt(cc - 1);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[jj][e] = 0.f;
+    for (int i = 0; i < tiles; ++i) {
+      const int flat = (nc - 1 - cc) * tiles + i, t0 = i * RS;
+      land(flat);  // this tile (and cum, ef) in; the other buffers read
+      if (flat + 1 < nc * tiles) issue(flat + 1);
+      if (on) {  // dS += dy^T (exp(cum) C): both down their rows t
+        const int dyb = (flat & 1) * RS * SW + hh * p8, cb = 2 * RS * SW + (flat & 1) * RS * MAX_N;
+        const Col a_dy(dyb, pm, SW);
+        const Col b_c[4] = {Col(cb, 0, n8), Col(cb, 8, n8), Col(cb, 16, n8), Col(cb, 24, n8)};
+        const float* e2 = ef[hh] + t0 + q;
+        mma3<4>(ds, up(imin(RS, L - t0), 8), nn, [&](int k0, float(&af)[4]) { a_dy.a(sm, k0, af); },
+                [&](int j, int k0, float& b0, float& b1) {
+                  b_c[j].b(sm, k0, b0, b1);
+                  b0 *= e2[k0];
+                  b1 *= e2[k0 + 4];
+                });
+      }
+    }
+    // dh_out of chunk cc, the decay term, then dh_in
+    const float dec = hh < live ? ef[hh][L - 1] : 0.f;  // exp(cum[L-1])
+    const int64_t base = (bc * H + head) * P * N;
+    float part = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = pm + g + 8 * (e >> 1), n = 8 * jj + 2 * q + (e & 1);
+        if (on && jj < nn && p < P && n < N) {
+          part = fmaf(dh[jj][e], k.hin[base + p * N + n], part);
+          k.dho[base + p * N + n] = dh[jj][e];
+        }
+        dh[jj][e] = fmaf(dh[jj][e], dec, ds[jj][e]);
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    if (tid < live) {  // the head's four warps, in order
+      float s = 0.f;
+      for (int w = 0; w < 4; ++w) s += red[4 * tid + w];
+      k.dterm[bc * H + h0 + tid] = ef[tid][L - 1] * s;
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = pm + g + 8 * (e >> 1), n = 8 * jj + 2 * q + (e & 1);
+      if (on && jj < nn && p < P && n < N) k.dh0[own + p * N + n] = dh[jj][e];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launch 2: the chunk blocks
+// ---------------------------------------------------------------------------
+
+// Float offsets into a chunk block's dynamic shared memory (the float64
+// prefix sums and the barriers first).  x and dy tiles hold the group's
+// heads side by side in a row (xw = HG p8 + 8 floats: 8 mod 32 at P = 64),
+// as they lie side by side in device memory; B, C and the states are
+// unpadded ([64][n8], [p8][n8]), each one contiguous block.
+struct Layout {
+  int xw;       // row stride of the x and dy tiles
+  int cum;      // [hg][MAX_L] float64 prefix sums (2 floats each)
+  int bars;     // 3 mbarriers: the block's inputs, dy / C buffer 0 and 1
+  int dts;      // [hg][MAX_L] dt
+  int xs;       // [R][xw] x rows of the s tile
+  int dys;      // [2][R][xw] dy rows of a t tile
+  int ks;       // [R][TS] K of one head, then Qsum of the tile
+  int bs;       // [R][n8] B rows of the s tile
+  int cts;      // [2][R][n8] C rows of a t tile
+  int hs;       // [hg][p8][n8] dh_out of each head, then h_in
+  int rowpart;  // [4][R] a head's row sums of W, by column block
+  int carryp;   // [hg][4][R] the carry terms, by n-tile
+  int xfer;     // [R][n8] the second head's dB state term and carry (2 heads, N <= 16)
+  int rdiag;    // [hg][R] the rows of dcum on the tile's own steps
+  int vs;       // [hg][R] V_s
+  int vsum;     // [4]
+  int part;     // [4][hg][R] V, then ddt's parts, by column block
+  int colacc;   // [4][hg][R] the column sums of W, by row block
+  int total;    // floats
+};
+
+__host__ __device__ inline Layout layout(int hg, int p8, int n8) {
   Layout o;
-  const int xp = p4 + 4;
+  o.xw = hg * p8 + 8;
   o.cum = 0;
-  o.dts = up(8 * hg * L, 16);
-  o.xs = o.dts + up(4 * hg * L, 16);
-  o.bs = o.xs + 4 * hg * R * xp;
-  o.ct = o.bs + 4 * R * n4;
-  o.dys = o.ct + 4 * R * n4;
-  o.kq = o.dys + 4 * R * xp;
-  o.hin = o.kq + 4 * 3 * R * KP;
-  o.hd = o.hin + 4 * p4 * n4;
-  o.vs = o.hd + 4 * R * n4;
-  o.rdiag = o.vs + 4 * hg * R;
-  o.carry = o.rdiag + 4 * hg * R;
-  o.vsum = o.carry + 4 * R;
-  o.total = o.vsum + 16;
+  o.bars = o.cum + 2 * hg * MAX_L;
+  o.dts = o.bars + 8;
+  o.xs = o.dts + hg * MAX_L;
+  o.dys = o.xs + R * o.xw;
+  o.ks = o.dys + 2 * R * o.xw;
+  o.bs = o.ks + R * TS;
+  o.cts = o.bs + R * n8;
+  o.hs = o.cts + 2 * R * n8;
+  o.rowpart = o.hs + hg * p8 * n8;
+  o.carryp = o.rowpart + 4 * R;
+  o.xfer = o.carryp + 4 * hg * R;
+  o.rdiag = o.xfer + R * n8;
+  o.vs = o.rdiag + hg * R;
+  o.vsum = o.vs + hg * R;
+  o.part = o.vsum + 4;
+  o.colacc = o.part + 4 * hg * R;
+  o.total = o.colacc + 4 * hg * R;
   return o;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float at(const float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The sum over the 16 lanes that share bit 4 of the lane id (a fixed tree).
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// cum[hh * L + s] = the inclusive float64 prefix sum over s < L of the
-// float32 products dts[hh * L + s] * a[head], one warp a head (the forward's
-// cum_scan).
-__device__ void cum_scan(const float* dts, const float* a, int h_first, int nh, int H, int L,
-                         double* cum) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int hh = warp; hh < nh; hh += blockDim.x >> 5) {
-    const int head = h_first + hh;
-    const float ah = head < H ? __ldg(a + head) : 0.f;
-    double carry = 0.0;
-    for (int s0 = 0; s0 < L; s0 += 32) {
-      const int s = s0 + lane;
-      double v = s < L ? (double)(dts[hh * L + s] * ah) : 0.0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double o = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += o;
-      }
-      if (s < L) cum[hh * L + s] = carry + v;
-      carry += __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-}
-
-// Launch 1: the chunk decay and dS of one (batch row, chunk, head).
-__global__ void __launch_bounds__(THREADS) bwd_state(Bwd k) {
-  __shared__ double cum[MAX_L];
-  __shared__ float dts[MAX_L], ef[MAX_L];
-  __shared__ __align__(16) float dys[R * MAX_P];
-  __shared__ __align__(16) float cs[R * MAX_N];
-  const int head = blockIdx.x % k.H, bc = blockIdx.x / k.H, b = bc / k.nc, c = bc % k.nc;
-  const int L = k.L, P = k.P, N = k.N, PN = P * N, H = k.H, tid = threadIdx.x;
-  const int64_t row0 = (int64_t)b * k.S + (int64_t)c * L;
-  for (int t = tid; t < L; t += THREADS) dts[t] = k.dt[(row0 + t) * H + head];
-  __syncthreads();
-  cum_scan(dts, k.a, head, 1, H, L, cum);
-  __syncthreads();
-  for (int t = tid; t < L; t += THREADS) ef[t] = expf((float)cum[t]);
-  if (tid == 0) k.dec[(int64_t)bc * H + head] = expf((float)cum[L - 1]);
-  float acc[8] = {};  // state element tid + THREADS * i (P * N <= 2048)
-  for (int t0 = 0; t0 < L; t0 += R) {
-    const int nt = imin(R, L - t0);
-    __syncthreads();
-    for (int e = tid; e < nt * P; e += THREADS) {
-      const int tl = e / P, p = e % P;
-      dys[e] = k.dy[((row0 + t0 + tl) * H + head) * P + p] * ef[t0 + tl];
-    }
-    for (int e = tid; e < nt * N; e += THREADS) cs[e] = k.c[(row0 + t0) * N + e];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = tid + THREADS * i;
-      if (e < PN) {
-        const int p = e / N, n = e % N;
-        float v = acc[i];
-        for (int tl = 0; tl < nt; ++tl) v = fmaf(dys[tl * P + p], cs[tl * N + n], v);
-        acc[i] = v;
-      }
-    }
-  }
-  float* out = k.ds + ((int64_t)bc * H + head) * PN;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int e = tid + THREADS * i;
-    if (e < PN) out[e] = acc[i];
-  }
-}
-
-// Launch 2: the states' gradient over the chunks in reverse, one (batch
-// row, head) a block.
-__global__ void __launch_bounds__(THREADS) bwd_pass(Bwd k) {
-  __shared__ float red[THREADS / 32];
-  const int head = blockIdx.x % k.H, b = blockIdx.x / k.H, H = k.H, PN = k.P * k.N;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t own = ((int64_t)b * H + head) * PN;
-  float dh[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int e = tid + THREADS * i;
-    dh[i] = e < PN && k.dht != nullptr ? k.dht[own + e] : 0.f;
-  }
-  for (int c = k.nc - 1; c >= 0; --c) {
-    const int64_t bc = (int64_t)b * k.nc + c, base = (bc * H + head) * PN;
-    const float dec = k.dec[bc * H + head];
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = tid + THREADS * i;
-      if (e < PN) {
-        part = fmaf(dh[i], k.hin[base + e], part);
-        const float s = k.ds[base + e];
-        k.ds[base + e] = dh[i];  // dh_out of chunk c
-        dh[i] = fmaf(dh[i], dec, s);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
-      k.dterm[bc * H + head] = dec * s;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int e = tid + THREADS * i;
-    if (e < PN) k.dh0[own + e] = dh[i];
-  }
-}
-
-// Launch 3: one row tile of steps s, for HG heads.  Thread roles: pairs
-// (rows 4 pt.. of the t tile x rows 4 ps.. of the s tile), r (rows 4 rs.. x
-// channels 4 rp..), and dB / dC units (a row and 4 state columns, two a
-// thread at most).
+// Warp w: rows [16 (w % 4), +16) of every 64-row product; columns [16 (w /
+// 4), +16) (two n-tiles) of the [64 x 64] ones (G, M and K, r) and n-tile
+// w / 4 of the [64 x N] ones (dB, dC, the state terms), where it exists.
 template <int HG>
-__global__ void __launch_bounds__(THREADS, 1) bwd_chunk(Bwd k) {
-  extern __shared__ __align__(16) char smem[];
-  const int L = k.L, P = k.P, N = k.N, H = k.H, p4 = k.p4, n4 = k.n4, xp = k.xp, nq4 = n4 / 4;
-  const Layout lo = layout(L, HG, p4, n4);
-  double* cum = reinterpret_cast<double*>(smem + lo.cum);
-  float* dts = reinterpret_cast<float*>(smem + lo.dts);
-  float* xs = reinterpret_cast<float*>(smem + lo.xs);
-  float* bs = reinterpret_cast<float*>(smem + lo.bs);
-  float* ct = reinterpret_cast<float*>(smem + lo.ct);
-  float* dys = reinterpret_cast<float*>(smem + lo.dys);
-  float* ks = reinterpret_cast<float*>(smem + lo.kq);
-  float* qs = ks + R * KP;
-  float* ws = qs + R * KP;
-  float* rdiag = reinterpret_cast<float*>(smem + lo.rdiag);
-  float* hin = reinterpret_cast<float*>(smem + lo.hin);
-  float* hd = reinterpret_cast<float*>(smem + lo.hd);
-  float* vs = reinterpret_cast<float*>(smem + lo.vs);
-  float* carry = reinterpret_cast<float*>(smem + lo.carry);
-  float* vsum = reinterpret_cast<float*>(smem + lo.vsum);
+__global__ void __launch_bounds__(CHUNK_THREADS, 1) bwd_chunk(Bwd k) {
+  extern __shared__ __align__(16) float sm[];
+  const int L = k.L, P = k.P, N = k.N, H = k.H, p8 = k.p8, n8 = k.n8;
+  const bool bulk = k.bulk;
+  const Layout lo = layout(HG, p8, n8);
+  const int xw = lo.xw;
+  double* cum = reinterpret_cast<double*>(sm + lo.cum);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + lo.bars);
+  float* dts = sm + lo.dts;
+  float* rowpart = sm + lo.rowpart;
+  float* carryp = sm + lo.carryp;
+  float* xfer = sm + lo.xfer;
+  float* rdiag = sm + lo.rdiag;
+  float* vs = sm + lo.vs;
+  float* vsum = sm + lo.vsum;
+  float* part = sm + lo.part;
+  float* colacc = sm + lo.colacc;
 
   const int nbc = k.B * k.nc, idx = blockIdx.x;
   const int j = idx / (nbc * k.groups), rest = idx % (nbc * k.groups);
-  const int g = rest % k.groups, bc = rest / k.groups, b = bc / k.nc, c = bc % k.nc;
-  const int s0 = j * R, ns = imin(R, L - s0), h_first = g * HG, tid = threadIdx.x;
-  const int64_t row0 = (int64_t)b * k.S + (int64_t)c * L;
-  const int pt = tid >> 4, ps = tid & 15;  // pair roles
-  const int rs = tid >> 4, rp = tid & 15;  // r roles
-  const bool r_on = 4 * rp < p4;
-  const int cs_ = tid >> 2, cpart = tid & 3;  // column roles: step s, rows cpart * 16 ..
+  const int grp = rest % k.groups, bc = rest / k.groups, b = bc / k.nc, c = bc % k.nc;
+  const int s0 = j * R, ns = imin(R, L - s0), h_first = grp * HG;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int wm = 16 * (warp & 3), wc = warp >> 2;  // row block; column block / n-tile
+  const int np_on = imin(2, (p8 - 16 * wc) > 0 ? (p8 - 16 * wc) / 8 : 0);  // r's n-tiles
+  const bool n_on = 8 * wc < n8;
+  const int sa = wm + g, sb = sa + 8;  // the thread's accumulator rows
+  // the lane's column of W after the column reduce (lanes with bit 2 clear keep it)
+  const int my_col = 16 * wc + 8 * ((lane >> 4) & 1) + 2 * q + ((lane >> 3) & 1);
+  const int64_t row0 = (int64_t)b * k.S + (int64_t)c * L, HP = (int64_t)H * P;
+  const int live = imin(HG, H - h_first);
+  // two heads and N <= 16: the warps of column blocks 2 and 3 take the
+  // second head's small products (its dB state term and carry) while 0 and
+  // 1 take the first's; they pass their parts through xfer
+  const bool par = HG == 2 && n8 <= 16;
+  const int ph = wc >> 1, pn = wc & 1;  // that head and n-tile
+  const bool p_on = par && 8 * pn < n8;
+  const int64_t st0 = ((int64_t)bc * H + h_first) * P * N;  // the group's states
 
-  for (int e = tid; e < HG * L; e += THREADS) {
-    const int hh = e / L, t = e % L, head = h_first + hh;
-    dts[e] = head < H ? k.dt[(row0 + t) * H + head] : 0.f;
-  }
-  for (int e = tid; e < R * n4; e += THREADS) {
-    const int sl = e / n4, n = e % n4;
-    bs[e] = sl < ns && n < N ? k.bm[(row0 + s0 + sl) * N + n] : 0.f;
-  }
-  for (int e = tid; e < HG * R * p4; e += THREADS) {
-    const int hh = e / (R * p4), sl = e / p4 % R, p = e % p4, head = h_first + hh;
-    xs[(hh * R + sl) * xp + p] =
-        head < H && sl < ns && p < P ? k.x[((row0 + s0 + sl) * H + head) * P + p] : 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) bar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  cum_scan(dts, k.a, h_first, HG, H, L, cum);
-
-  // The state terms, before the t tiles: r = exp(cum[L-1] - cum[s]) dh_out
-  // B_s, dB += exp(..) dt_s dh_out^T x_s, and the tile's sum of V_s.
-  float r[HG][4][4];
-  float col[HG] = {};  // this thread's part of the column sums of W at step cs_
-  float db[2][4] = {};
-#pragma unroll
-  for (int hh = 0; hh < HG; ++hh) {
-    const int head = h_first + hh;
-    const bool live = head < H;
-    float* dho = ks;              // [p4][n4]
-    float* dhot = ks + p4 * n4;   // [n4][xp]
-    __syncthreads();  // cum is built; the previous head's dh_out has been read
-    const float* src = k.ds + ((int64_t)bc * H + head) * P * N;
-    for (int e = tid; e < p4 * n4; e += THREADS) {
-      const int p = e / n4, n = e % n4;
-      const float v = live && p < P && n < N ? src[p * N + n] : 0.f;
-      dho[e] = v;
-      dhot[n * xp + p] = v;
+  // the block's inputs on bars[0]: x and B rows of the s tile, dh_out; the
+  // first t tile's dy and C on bars[1]; h_in (bars[0] again) after the state
+  // terms
+  const bool bulk_cum = bulk && L % 4 == 0;  // cum and dt rows of 16-byte multiples
+  if (bulk && tid == 0)
+    bar_expect(&bars[0], 4u * (live * (ns * P + P * N + (bulk_cum ? 3 * L : 0)) + ns * N));
+  stage(sm + lo.xs, xw, k.x + ((row0 + s0) * H + h_first) * P, HP, R, ns, HG, live, P, p8, bulk,
+        false, &bars[0], 0, CHUNK_THREADS);
+  stage(sm + lo.bs, n8, k.bm + (row0 + s0) * N, N, R, ns, 1, 1, N, n8, bulk, true, &bars[0], 64,
+        CHUNK_THREADS);
+  for (int hh = 0; hh < HG; ++hh)
+    stage(sm + lo.hs + hh * p8 * n8, n8, hh < live ? k.dho + st0 + hh * P * N : k.dho, N, p8, P, 1,
+          hh < live ? 1 : 0, N, n8, bulk, true, &bars[0], 96 + 32 * hh, CHUNK_THREADS);
+  cp_commit();
+  // the group's dy rows of t tile kt and its C rows into buffer (kt - j) & 1;
+  // ready at bars[1 + buffer], parity ((kt - j) >> 1) & 1
+  auto issue = [&](int kt) {
+    const int t0 = kt * R, nt = imin(R, L - t0), buf = (kt - j) & 1;
+    uint64_t* bar = &bars[1 + buf];
+    if (bulk && tid == 0) bar_expect(bar, 4u * nt * (live * P + N));
+    stage(sm + lo.dys + buf * R * xw, xw, k.dy + ((row0 + t0) * H + h_first) * P, HP, R, nt, HG,
+          live, P, p8, bulk, false, bar, 64 * (kt & 7), CHUNK_THREADS);
+    stage(sm + lo.cts + buf * R * n8, n8, k.c + (row0 + t0) * N, N, R, nt, 1, 1, N, n8, bulk, true,
+          bar, 64 * (kt & 7) + 32, CHUNK_THREADS);
+    cp_commit();
+  };
+  issue(j);
+  if (bulk_cum) {  // cum and dt of each head, from the state blocks
+    if (tid >= 160 && tid < 160 + live) {
+      const int hh = tid - 160;
+      const int64_t w = ((int64_t)bc * H + h_first + hh) * L;
+      bulk_copy(reinterpret_cast<float*>(cum + hh * MAX_L),
+                reinterpret_cast<const float*>(k.cumw + w), 8u * L, &bars[0]);
+      bulk_copy(dts + hh * MAX_L, k.dtw + w, 4u * L, &bars[0]);
     }
-    __syncthreads();
-    const double* cm = cum + hh * L;
-    const float* xh = xs + hh * R * xp;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int sl = 4 * rs + i;
-      float acc[4] = {};
-      if (r_on && sl < ns) {
-        const float es = expf((float)(cm[L - 1] - cm[s0 + sl]));
-        for (int n = 0; n < N; ++n) {
-          const float bv = bs[sl * n4 + n];
-          const float4 d4 = ld4(dhot + n * xp + 4 * rp);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) acc[kk] = fmaf(bv, at(d4, kk), acc[kk]);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc[kk] *= es;
-      }
-      float v = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        r[hh][i][kk] = acc[kk];
-        if (r_on) v = fmaf(xh[sl * xp + 4 * rp + kk], acc[kk], v);
-      }
-      v = sum16(v);
-      if (rp == 0) vs[hh * R + sl] = sl < ns ? v * dts[hh * L + s0 + sl] : 0.f;
+    for (int e = live * MAX_L + tid; e < HG * MAX_L; e += CHUNK_THREADS) {  // no head: a = 0
+      dts[e] = 0.f;
+      cum[e] = 0.0;
     }
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int u = tid + THREADS * ii, row = u / nq4, q = u % nq4;
-      if (row < ns) {
-        const float f = expf((float)(cm[L - 1] - cm[s0 + row])) * dts[hh * L + s0 + row];
-        float acc[4] = {};
-        for (int p = 0; p < P; ++p) {
-          const float xv = xh[row * xp + p];
-          const float4 d4 = ld4(dho + p * n4 + 4 * q);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) acc[kk] = fmaf(xv, at(d4, kk), acc[kk]);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) db[ii][kk] = fmaf(f, acc[kk], db[ii][kk]);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float v = 0.f;
-      for (int sl = 0; sl < R; ++sl) v += vs[hh * R + sl];
-      vsum[hh] = v;
+  } else {
+    for (int e = tid; e < HG * L; e += CHUNK_THREADS) {
+      const int hh = e / L, t = e % L, head = h_first + hh;
+      const int64_t w = ((int64_t)bc * H + head) * L + t;
+      dts[hh * MAX_L + t] = head < H ? k.dtw[w] : 0.f;
+      cum[hh * MAX_L + t] = head < H ? k.cumw[w] : 0.0;
     }
   }
+  for (int e = tid; e < 4 * HG * R; e += CHUNK_THREADS) colacc[e] = 0.f;
+  if (bulk)
+    bar_wait(&bars[0], 0);
+  else
+    cp_wait_all();
+  __syncthreads();  // x, B, dh_out, dt and cum in
 
-  for (int kt = j; kt < k.rt; ++kt) {
-    const int t0 = kt * R, nt = imin(R, L - t0);
-    const bool diag = kt == j;
-    __syncthreads();  // the last tile's C, dy, K and Q have been read
-    for (int e = tid; e < R * n4; e += THREADS) {
-      const int tl = e / n4, n = e % n4;
-      ct[e] = tl < nt && n < N ? k.c[(row0 + t0 + tl) * N + n] : 0.f;
-    }
-    __syncthreads();
-    float gr[4][4] = {};  // G[t][s] of this thread's pairs, for every head
-    for (int n = 0; n < n4; n += 4) {
-      float4 cv[4], bv[4];
+  // The state terms, before the t tiles: r = exp(cum[L-1] - cum[s]) dh_out
+  // B_s (A = B rows, B = dh_out rows p), V_s, and dB += exp(..) dt_s x_s
+  // dh_out (A = x rows, B = dh_out down its rows p).
+  float r[HG][2][4];
+  float db[4] = {};
+  const Pair b_pair(lo.bs, wm, n8);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        cv[i] = ld4(ct + (4 * pt + i) * n4 + n);
-        bv[i] = ld4(bs + (4 * ps + i) * n4 + n);
+  for (int hh = 0; hh < HG; ++hh) {
+    const double* cm = cum + hh * MAX_L;
+    const int xo = lo.xs + hh * p8, ho = lo.hs + hh * p8 * n8;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[hh][jj][e] = 0.f;
+    const Pair hp[2] = {Pair(ho, 16 * wc, n8), Pair(ho, 16 * wc + 8, n8)};
+    mma3<2>(r[hh], n8, np_on, [&](int k0, float(&af)[4]) { b_pair.a(sm, k0, af); },
+            [&](int jj, int k0, float& b0, float& b1) { hp[jj].b(sm, k0, b0, b1); });
+    const float esa = sa < ns ? expf((float)(cm[L - 1] - cm[s0 + sa])) : 0.f;
+    const float esb = sb < ns ? expf((float)(cm[L - 1] - cm[s0 + sb])) : 0.f;
+    float va = 0.f, vb = 0.f;
+    const Pair xp(xo, wm, xw);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      r[hh][jj][0] *= esa;
+      r[hh][jj][1] *= esa;
+      r[hh][jj][2] *= esb;
+      r[hh][jj][3] *= esb;
+      if (jj < np_on) {
+        const float2 xa = xp.at(sm, 16 * wc + 8 * jj), xb = xp.at(sm, 16 * wc + 8 * jj, true);
+        va = fmaf(xa.x, r[hh][jj][0], fmaf(xa.y, r[hh][jj][1], va));
+        vb = fmaf(xb.x, r[hh][jj][2], fmaf(xb.y, r[hh][jj][3], vb));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          gr[i][kk] += cv[i].x * bv[kk].x + cv[i].y * bv[kk].y + cv[i].z * bv[kk].z +
-                       cv[i].w * bv[kk].w;
     }
-    float dcr[2][4] = {};
+    const float v = quad_rows(va, vb);
+    if (!(lane & 1)) part[(wc * HG + hh) * R + ((lane & 2) ? sb : sa)] = v;
+  }
+  // dB's state term, exp(cum[L-1] - cum[s]) dt_s x_s dh_out, a head at a time
+  // on the n-tiles' warps, or both heads at once (par)
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh) {
+    const int hw = par ? ph : hh;  // the head this warp takes
+    if (par ? (p_on && hh == 0) : n_on) {
+      const double* cm = cum + hw * MAX_L;
+      const int xo = lo.xs + hw * p8, ho = lo.hs + hw * p8 * n8, nb = 8 * (par ? pn : wc);
+      float tmp[1][4] = {};
+      const Row xr(xo, wm, xw);
+      const Col hc(ho, nb, n8);
+      mma3<1>(tmp, p8, 1, [&](int k0, float(&af)[4]) { xr.a(sm, k0, af); },
+              [&](int, int k0, float& b0, float& b1) { hc.b(sm, k0, b0, b1); });
+      const float fa = sa < ns ? expf((float)(cm[L - 1] - cm[s0 + sa])) *
+                                     dts[hw * MAX_L + s0 + sa] : 0.f;
+      const float fb = sb < ns ? expf((float)(cm[L - 1] - cm[s0 + sb])) *
+                                     dts[hw * MAX_L + s0 + sb] : 0.f;
+      if (par && hw == 1) {
+        *reinterpret_cast<float2*>(xfer + sa * n8 + nb + 2 * q) =
+            make_float2(fa * tmp[0][0], fa * tmp[0][1]);
+        *reinterpret_cast<float2*>(xfer + sb * n8 + nb + 2 * q) =
+            make_float2(fb * tmp[0][2], fb * tmp[0][3]);
+      } else {
+        db[0] = fmaf(fa, tmp[0][0], db[0]);
+        db[1] = fmaf(fa, tmp[0][1], db[1]);
+        db[2] = fmaf(fb, tmp[0][2], db[2]);
+        db[3] = fmaf(fb, tmp[0][3], db[3]);
+      }
+    }
+  }
+  __syncthreads();  // V's parts in; dh_out read
+  if (par && n_on) {  // the second head's dB state term
+    const float2 u = *reinterpret_cast<const float2*>(xfer + sa * n8 + 8 * wc + 2 * q);
+    const float2 v = *reinterpret_cast<const float2*>(xfer + sb * n8 + 8 * wc + 2 * q);
+    db[0] += u.x;
+    db[1] += u.y;
+    db[2] += v.x;
+    db[3] += v.y;
+  }
+  if (bulk && tid == 0) bar_expect(&bars[0], 4u * live * P * N);
+  for (int hh = 0; hh < HG; ++hh)  // h_in, for the tile's own steps
+    stage(sm + lo.hs + hh * p8 * n8, n8, hh < live ? k.hin + st0 + hh * P * N : k.hin, N, p8, P, 1,
+          hh < live ? 1 : 0, N, n8, bulk, true, &bars[0], 32 * hh, CHUNK_THREADS);
+  cp_commit();
+  for (int e = tid; e < HG * R; e += CHUNK_THREADS) {
+    const int hh = e / R, s = e % R;
+    const float v = part[(0 * HG + hh) * R + s] + part[(1 * HG + hh) * R + s] +
+                    part[(2 * HG + hh) * R + s] + part[(3 * HG + hh) * R + s];
+    vs[e] = s < ns ? v * dts[hh * MAX_L + s0 + s] : 0.f;
+  }
+  __syncthreads();
+  if (warp < HG) {  // V summed over the tile, a warp a head (a fixed tree)
+    float v = vs[warp * R + lane] + vs[warp * R + 32 + lane];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    if (lane == 0) vsum[warp] = v;
+  }
+  if (bulk) bar_wait(&bars[0], 1);  // h_in (the first tile's barrier publishes it)
 
+  // The t tiles; the heads of a tile share its dy and C buffers.
+  const Col k_col(lo.ks, wm, TS);  // K, Qsum down their rows t (A of r and dB)
+  const Row q_row(lo.ks, wm, TS);  // Qsum along its rows t (A of dC)
+  const Col b_col(lo.bs, 8 * wc, n8);
+  // The carried state on the row tile's own steps (t0 = s0), head hh,
+  // n-tile nb: hd = exp(cum[t]) dy_t h_in, its carry terms C_t . hd_t into
+  // carryp, hd itself into dcacc or, for the second head in par, into xfer.
+  auto carry = [&](int hh, int nb, int dyt, int cto, float (&dcacc)[1][4]) {
+    const double* cm = cum + hh * MAX_L;
+    float hd[1][4] = {};
+    const Row dy_row(dyt + hh * p8, wm, xw);
+    const Col hc(lo.hs + hh * p8 * n8, 8 * nb, n8);
+    mma3<1>(hd, p8, 1, [&](int k0, float(&af)[4]) { dy_row.a(sm, k0, af); },
+            [&](int, int k0, float& b0, float& b1) { hc.b(sm, k0, b0, b1); });
+    const float ea = sa < ns ? expf((float)cm[s0 + sa]) : 0.f;
+    const float eb = sb < ns ? expf((float)cm[s0 + sb]) : 0.f;
+    hd[0][0] *= ea;
+    hd[0][1] *= ea;
+    hd[0][2] *= eb;
+    hd[0][3] *= eb;
+    const Pair c_pair(cto, wm, n8);
+    const float2 ca = c_pair.at(sm, 8 * nb), cb = c_pair.at(sm, 8 * nb, true);
+    const float v = quad_rows(fmaf(ca.x, hd[0][0], ca.y * hd[0][1]),
+                              fmaf(cb.x, hd[0][2], cb.y * hd[0][3]));
+    if (!(lane & 1)) carryp[(hh * 4 + nb) * R + ((lane & 2) ? sb : sa)] = v;
+    if (par && hh == 1) {
+      *reinterpret_cast<float2*>(xfer + sa * n8 + 8 * nb + 2 * q) = make_float2(hd[0][0], hd[0][1]);
+      *reinterpret_cast<float2*>(xfer + sb * n8 + 8 * nb + 2 * q) = make_float2(hd[0][2], hd[0][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dcacc[0][e] += hd[0][e];
+    }
+  };
+  for (int kt = j; kt < k.rt; ++kt) {
+    const int t0 = kt * R, nt = imin(R, L - t0), buf = (kt - j) & 1;
+    const bool diag = kt == j;
+    const int cto = lo.cts + buf * R * n8, dyt = lo.dys + buf * R * xw;
+    if (bulk)
+      bar_wait(&bars[1 + buf], ((kt - j) >> 1) & 1);
+    else
+      cp_wait_all();
+    __syncthreads();  // dy and C of this tile in; the other buffers and K free
+    if (kt + 1 < k.rt) issue(kt + 1);
+    float gr[2][4] = {}, qs[2][4] = {}, dcacc[1][4] = {};
+    {  // G = C B^T, once for the block's heads
+      const Pair c_pair(cto, wm, n8);
+      const Pair bp[2] = {Pair(lo.bs, 16 * wc, n8), Pair(lo.bs, 16 * wc + 8, n8)};
+      mma3<2>(gr, n8, 2, [&](int k0, float(&af)[4]) { c_pair.a(sm, k0, af); },
+              [&](int jj, int k0, float& b0, float& b1) { bp[jj].b(sm, k0, b0, b1); });
+    }
+    if (diag && p_on) carry(ph, pn, dyt, cto, dcacc);  // both heads at once
 #pragma unroll
     for (int hh = 0; hh < HG; ++hh) {
       const int head = h_first + hh;
-      const bool live = head < H;
-      const double* cm = cum + hh * L;
-      const float* dtv = dts + hh * L;
-      const float* xh = xs + hh * R * xp;
-      __syncthreads();  // dy, K, Q and hd of the previous head have been read
-      for (int e = tid; e < R * p4; e += THREADS) {
-        const int tl = e / p4, p = e % p4;
-        dys[tl * xp + p] =
-            live && tl < nt && p < P ? k.dy[((row0 + t0 + tl) * H + head) * P + p] : 0.f;
+      const bool live_h = head < H;
+      const double* cm = cum + hh * MAX_L;
+      const float* dtv = dts + hh * MAX_L;
+      const int dyo = dyt + hh * p8;
+      if (hh > 0) __syncthreads();  // the last head's K has been read
+      if (diag && !par && n_on) carry(hh, wc, dyt, cto, dcacc);
+      // M = dy x^T, then E, K, Q and W in its accumulators
+      float m[2][4] = {};
+      {
+        const Pair dy_pair(dyo, wm, xw);
+        const int xo = lo.xs + hh * p8;
+        const Pair xp[2] = {Pair(xo, 16 * wc, xw), Pair(xo, 16 * wc + 8, xw)};
+        mma3<2>(m, p8, 2, [&](int k0, float(&af)[4]) { dy_pair.a(sm, k0, af); },
+                [&](int jj, int k0, float& b0, float& b1) { xp[jj].b(sm, k0, b0, b1); });
       }
-      if (diag) {
-        const float* src = k.hin + ((int64_t)bc * H + head) * P * N;
-        for (int e = tid; e < p4 * n4; e += THREADS) {
-          const int p = e / n4, n = e % n4;
-          hin[e] = live && p < P && n < N ? src[p * N + n] : 0.f;
-        }
-      }
-      __syncthreads();
-      if (diag) {  // the carried state on the tile's own steps
+      const double cta = cm[imin(t0 + sa, L - 1)], ctb = cm[imin(t0 + sb, L - 1)];
+      float ra = 0.f, rb = 0.f, cw[4];
 #pragma unroll
-        for (int ii = 0; ii < 2; ++ii) {
-          const int u = tid + THREADS * ii, row = u / nq4, q = u % nq4;
-          if (row < nt) {
-            float acc[4] = {};
-            for (int p = 0; p < P; ++p) {
-              const float dv = dys[row * xp + p];
-              const float4 h4 = ld4(hin + p * n4 + 4 * q);
+      for (int jj = 0; jj < 2; ++jj) {
+        const int sl = 16 * wc + 8 * jj + 2 * q;
 #pragma unroll
-              for (int kk = 0; kk < 4; ++kk) acc[kk] = fmaf(dv, at(h4, kk), acc[kk]);
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int s = sl + e1, sg = s0 + s;
+          const double cs = cm[imin(sg, L - 1)];
+          const float dts_ = dtv[imin(sg, L - 1)];
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int e = 2 * e2 + e1, tl = e2 ? sb : sa, tg = t0 + tl;
+            const bool keep = tl < nt && s < ns && sg <= tg;  // masked before the exp
+            const float ee =
+                __expf(keep ? (float)((e2 ? ctb : cta) - cs) : __int_as_float(0xff800000));
+            const float qv = ee * dts_ * m[jj][e];
+            const float wv = sg < tg ? gr[jj][e] * qv : 0.f;  // the diagonal enters neither side
+            m[jj][e] = gr[jj][e] * ee;                         // K
+            qs[jj][e] += qv;
+            if (e2) {
+              rb += wv;
+              cw[2 * jj + e1] += wv;
+            } else {
+              ra += wv;
+              cw[2 * jj + e1] = wv;
             }
-            const float et = expf((float)cm[t0 + row]);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              dcr[ii][kk] = fmaf(et, acc[kk], dcr[ii][kk]);
-              hd[row * n4 + 4 * q + kk] = et * acc[kk];
-            }
-          } else if (row < R) {
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) hd[row * n4 + 4 * q + kk] = 0.f;
           }
         }
-        __syncthreads();
-        if (tid < R) {
-          float v = 0.f;
-          for (int n = 0; n < N; ++n) v = fmaf(ct[tid * n4 + n], hd[tid * n4 + n], v);
-          carry[tid] = v;
-        }
+        *reinterpret_cast<float2*>(sm + lo.ks + sa * TS + sl) = make_float2(m[jj][0], m[jj][1]);
+        *reinterpret_cast<float2*>(sm + lo.ks + sb * TS + sl) = make_float2(m[jj][2], m[jj][3]);
       }
-      // the pairs: M = dy_t . x_s, then K, Q and the rows of G Q
-      float m[4][4] = {};
-      for (int p = 0; p < p4; p += 4) {
-        float4 dv[4], xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv[i] = ld4(dys + (4 * pt + i) * xp + p);
-          xv[i] = ld4(xh + (4 * ps + i) * xp + p);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            m[i][kk] += dv[i].x * xv[kk].x + dv[i].y * xv[kk].y + dv[i].z * xv[kk].z +
-                        dv[i].w * xv[kk].w;
+      {  // W's rows over the quad, its columns over the 8 rows of lanes (a fixed tree)
+        const float v = quad_rows(ra, rb);
+        if (!(lane & 1)) rowpart[wc * R + ((lane & 2) ? sb : sa)] = v;
+        const bool b4 = lane & 16, b3 = lane & 8;
+        float k0v = b4 ? cw[2] : cw[0], k1v = b4 ? cw[3] : cw[1];
+        k0v += __shfl_xor_sync(FULL, b4 ? cw[0] : cw[2], 16);
+        k1v += __shfl_xor_sync(FULL, b4 ? cw[1] : cw[3], 16);
+        float cv = b3 ? k1v : k0v;
+        cv += __shfl_xor_sync(FULL, b3 ? k0v : k1v, 8);
+        cv += __shfl_xor_sync(FULL, cv, 4);
+        if (!(lane & 4)) colacc[((warp & 3) * HG + hh) * R + my_col] += cv;
       }
-      float wrow[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int tl = 4 * pt + i, t = t0 + tl;
-        float kv[4], qv[4], wv[4], w = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int sl = 4 * ps + kk, s = s0 + sl;
-          kv[kk] = qv[kk] = wv[kk] = 0.f;
-          if (tl < nt && sl < ns && s <= t) {  // masked before the exp
-            const float e = expf((float)(cm[t] - cm[s]));
-            kv[kk] = gr[i][kk] * e;
-            qv[kk] = e * dtv[s] * m[i][kk];
-            if (s < t) wv[kk] = gr[i][kk] * qv[kk];  // the diagonal enters neither side
-            w += wv[kk];
-          }
-        }
-        *reinterpret_cast<float4*>(ks + tl * KP + 4 * ps) = make_float4(kv[0], kv[1], kv[2], kv[3]);
-        *reinterpret_cast<float4*>(qs + tl * KP + 4 * ps) = make_float4(qv[0], qv[1], qv[2], qv[3]);
-        *reinterpret_cast<float4*>(ws + tl * KP + 4 * ps) = make_float4(wv[0], wv[1], wv[2], wv[3]);
-        wrow[i] = sum16(w);
+      __syncthreads();  // K, the row sums and the carry terms in
+      {  // r += K^T dy (both down their rows t)
+        const Col dyc[2] = {Col(dyo, 16 * wc, xw), Col(dyo, 16 * wc + 8, xw)};
+        mma3<2>(r[hh], up(nt, 8), np_on, [&](int k0, float(&af)[4]) { k_col.a(sm, k0, af); },
+                [&](int jj, int k0, float& b0, float& b1) { dyc[jj].b(sm, k0, b0, b1); });
       }
-      __syncthreads();  // K, Q, W and the carry terms are in
-      if (ps == 0 && live) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int tl = 4 * pt + i, t = t0 + tl;
-          if (tl < nt) {
-            float v = wrow[i];
-            if (diag) v += carry[tl];
-            if (t == L - 1) v += vsum[hh];
-            if (diag)  // written at the end, less its column sum and V
-              rdiag[hh * R + tl] = v;
-            else
-              k.rowp[(((int64_t)bc * k.rt + j) * H + head) * L + t] = v;
-          }
-        }
-      }
-      for (int tl = cpart * (R / 4); tl < imin(nt, (cpart + 1) * (R / 4)); ++tl)
-        col[hh] += ws[tl * KP + cs_];
-      if (r_on) {  // r += K^T dy
-        for (int tl = 0; tl < nt; ++tl) {
-          const float4 kv = ld4(ks + tl * KP + 4 * rs);
-          const float4 dv = ld4(dys + tl * xp + 4 * rp);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) r[hh][i][kk] = fmaf(at(kv, i), at(dv, kk), r[hh][i][kk]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < 2; ++ii) {
-        const int u = tid + THREADS * ii, row = u / nq4, q = u % nq4;
-        if (row < R) {
-          for (int tl = 0; tl < nt; ++tl) {  // dB += Q^T C
-            const float qv = qs[tl * KP + row];
-            const float4 cv = ld4(ct + tl * n4 + 4 * q);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) db[ii][kk] = fmaf(qv, at(cv, kk), db[ii][kk]);
-          }
-          for (int sl = 0; sl < ns; ++sl) {  // dC += Q B
-            const float qv = qs[row * KP + sl];
-            const float4 bv = ld4(bs + sl * n4 + 4 * q);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) dcr[ii][kk] = fmaf(qv, at(bv, kk), dcr[ii][kk]);
-          }
-        }
+      if (tid < nt && live_h) {  // the tile's row of dcum (on its own steps: finished at the end)
+        float v = rowpart[tid] + rowpart[R + tid] + rowpart[2 * R + tid] + rowpart[3 * R + tid];
+        if (diag)
+          for (int u = 0; u < n8 / 8; ++u) v += carryp[(hh * 4 + u) * R + tid];
+        if (t0 + tid == L - 1) v += vsum[hh];
+        if (diag)
+          rdiag[hh * R + tid] = v;
+        else
+          k.rowp[(((int64_t)bc * k.rt + j) * H + head) * L + t0 + tid] = v;
       }
     }
+    // the tile's dC and dB, once for the heads: from their sum of Q
+    __syncthreads();  // every warp's K has been read
 #pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {  // the tile's dC, summed over the group's heads
-      const int u = tid + THREADS * ii, row = u / nq4, q = u % nq4;
-      if (row < nt) {
-        float* out = k.dcp + ((((int64_t)bc * k.rt + j) * k.groups + g) * L + t0 + row) * N;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          if (4 * q + kk < N) out[4 * q + kk] = dcr[ii][kk];
+    for (int jj = 0; jj < 2; ++jj) {
+      const int sl = 16 * wc + 8 * jj + 2 * q;
+      *reinterpret_cast<float2*>(sm + lo.ks + sa * TS + sl) = make_float2(qs[jj][0], qs[jj][1]);
+      *reinterpret_cast<float2*>(sm + lo.ks + sb * TS + sl) = make_float2(qs[jj][2], qs[jj][3]);
+    }
+    __syncthreads();
+    if (n_on) {
+      if (diag && par) {  // the second head's carry
+        const float2 u = *reinterpret_cast<const float2*>(xfer + sa * n8 + 8 * wc + 2 * q);
+        const float2 v = *reinterpret_cast<const float2*>(xfer + sb * n8 + 8 * wc + 2 * q);
+        dcacc[0][0] += u.x;
+        dcacc[0][1] += u.y;
+        dcacc[0][2] += v.x;
+        dcacc[0][3] += v.y;
       }
+      mma3<1>(dcacc, up(ns, 8), 1, [&](int k0, float(&af)[4]) { q_row.a(sm, k0, af); },
+              [&](int, int k0, float& b0, float& b1) { b_col.b(sm, k0, b0, b1); });
+      float* out = k.dcp + ((((int64_t)bc * k.rt + j) * k.groups + grp) * L + t0) * N;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = (e >> 1) ? sb : sa, n = 8 * wc + 2 * q + (e & 1);
+        if (tl < nt && n < N) out[tl * N + n] = dcacc[0][e];
+      }
+      float dbt[1][4] = {{db[0], db[1], db[2], db[3]}};
+      const Col c_col(cto, 8 * wc, n8);
+      mma3<1>(dbt, up(nt, 8), 1, [&](int k0, float(&af)[4]) { k_col.a(sm, k0, af); },
+              [&](int, int k0, float& b0, float& b1) { c_col.b(sm, k0, b0, b1); });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) db[e] = dbt[0][e];
     }
   }
 
-  // dx and the direct part of ddt (x_s . r_s); the tile's own rows of dcum
-  __syncthreads();  // rdiag is in
+  // dx, the direct part of ddt (x_s . r_s) and the tile's own rows of dcum
 #pragma unroll
   for (int hh = 0; hh < HG; ++hh) {
     const int head = h_first + hh;
-    const float* xh = xs + hh * R * xp;
+    const Pair xp(lo.xs + hh * p8, wm, xw);
+    const float* dtv = dts + hh * MAX_L + s0;
+    float va = 0.f, vb = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int sl = 4 * rs + i;
-      const bool on = head < H && r_on && sl < ns;
-      float v = 0.f;
-      if (on) {
-        const float dtv = dts[hh * L + s0 + sl];
-        float* out = k.dx + ((row0 + s0 + sl) * H + head) * P;
+    for (int jj = 0; jj < 2; ++jj) {
+      const int p = 16 * wc + 8 * jj + 2 * q;
+      if (jj < np_on) {
+        const float2 xa = xp.at(sm, 16 * wc + 8 * jj), xb = xp.at(sm, 16 * wc + 8 * jj, true);
+        va = fmaf(xa.x, r[hh][jj][0], fmaf(xa.y, r[hh][jj][1], va));
+        vb = fmaf(xb.x, r[hh][jj][2], fmaf(xb.y, r[hh][jj][3], vb));
+        if (head < H) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int p = 4 * rp + kk;
-          v = fmaf(xh[sl * xp + p], r[hh][i][kk], v);
-          if (p < P) out[p] = dtv * r[hh][i][kk];
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int sl = h2 ? sb : sa;
+            if (sl >= ns || p >= P) continue;
+            float* out = k.dx + ((row0 + s0 + sl) * H + head) * P + p;
+            const float d0 = dtv[sl] * r[hh][jj][2 * h2], d1 = dtv[sl] * r[hh][jj][2 * h2 + 1];
+            if ((P & 1) == 0)
+              *reinterpret_cast<float2*>(out) = make_float2(d0, d1);
+            else {
+              out[0] = d0;
+              if (p + 1 < P) out[1] = d1;
+            }
+          }
         }
       }
-      v = sum16(v);
-      if (rp == 0 && head < H && sl < ns) k.ddt[(row0 + s0 + sl) * H + head] = v;
     }
-    float cv = col[hh];  // the column sum of W at step cs_, its 4 parts in a fixed order
-    cv += __shfl_xor_sync(0xffffffffu, cv, 1);
-    cv += __shfl_xor_sync(0xffffffffu, cv, 2);
-    if (cpart == 0 && head < H && cs_ < ns)
-      k.rowp[(((int64_t)bc * k.rt + j) * H + head) * L + s0 + cs_] =
-          rdiag[hh * R + cs_] - cv - vs[hh * R + cs_];
+    const float v = quad_rows(va, vb);
+    if (!(lane & 1)) part[(wc * HG + hh) * R + ((lane & 2) ? sb : sa)] = v;
   }
+  if (n_on) {  // the tile's dB, summed over the group's heads
+    float* out = k.dbp + ((int64_t)grp * k.B * k.S + row0 + s0) * N;
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {  // the tile's dB, summed over the group's heads
-    const int u = tid + THREADS * ii, row = u / nq4, q = u % nq4;
-    if (row < ns) {
-      float* out = k.dbp + ((int64_t)g * k.B * k.S + row0 + s0 + row) * N;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        if (4 * q + kk < N) out[4 * q + kk] = db[ii][kk];
+    for (int e = 0; e < 4; ++e) {
+      const int sl = (e >> 1) ? sb : sa, n = 8 * wc + 2 * q + (e & 1);
+      if (sl < ns && n < N) out[sl * N + n] = db[e];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < HG * R; e += CHUNK_THREADS) {
+    const int hh = e / R, s = e % R, head = h_first + hh;
+    if (head < H && s < ns) {
+      const float cv = colacc[(0 * HG + hh) * R + s] + colacc[(1 * HG + hh) * R + s] +
+                       colacc[(2 * HG + hh) * R + s] + colacc[(3 * HG + hh) * R + s];
+      k.rowp[(((int64_t)bc * k.rt + j) * H + head) * L + s0 + s] = rdiag[e] - cv - vs[e];
+      k.ddt[(row0 + s0 + s) * H + head] = part[(0 * HG + hh) * R + s] +
+                                          part[(1 * HG + hh) * R + s] +
+                                          part[(2 * HG + hh) * R + s] +
+                                          part[(3 * HG + hh) * R + s];
     }
   }
 }
 
-// Launch 4: blocks [0, H) finish ddt and da of one head; the rest sum dB and dC.
-__global__ void __launch_bounds__(THREADS) bwd_reduce(Bwd k) {
-  __shared__ double sc[THREADS];
-  const int tid = threadIdx.x, L = k.L, H = k.H;
+// ---------------------------------------------------------------------------
+// launch 3: the reduce
+// ---------------------------------------------------------------------------
+
+// Blocks [0, H): ddt and da of one head, a warp a (batch row, chunk).  The
+// rest: 32 elements of dB and dC each, 8 threads an element.  Loads are
+// unrolled so that several are in flight; the sums keep their order.
+__global__ void __launch_bounds__(REDUCE_THREADS) bwd_reduce(Bwd k) {
+  constexpr int WARPS = REDUCE_THREADS / 32, RT = MAX_L / R;
+  __shared__ double sda[WARPS];
+  __shared__ float sdb[WARPS][32], sdc[WARPS][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, L = k.L, H = k.H;
   if (blockIdx.x < H) {
-    const int head = blockIdx.x;
+    const int head = blockIdx.x, per = (L + 31) / 32;  // steps a lane: lane * per ..
     const float ah = k.a[head];
     double da = 0.0;
-    for (int bc = 0; bc < k.B * k.nc; ++bc) {
+    for (int bc = warp; bc < k.B * k.nc; bc += WARPS) {
       const int64_t row0 = (int64_t)(bc / k.nc) * k.S + (int64_t)(bc % k.nc) * L;
-      float dcum = 0.f, ddir = 0.f, dtu = 0.f;
-      if (tid < L) {
-        for (int jj = 0; jj <= tid / R; ++jj)
-          dcum += k.rowp[(((int64_t)bc * k.rt + jj) * H + head) * L + tid];
-        ddir = k.ddt[(row0 + tid) * H + head];
-        dtu = k.dt[(row0 + tid) * H + head];
-        if (tid == L - 1) dcum += k.dterm[(int64_t)bc * H + head];
+      const float* rows = k.rowp + ((int64_t)bc * k.rt * H + head) * L;
+      float dcum[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = lane * per + i;
+        dcum[i] = 0.f;
+        if (i < per && t < L) {
+#pragma unroll
+          for (int jj = 0; jj < RT; ++jj)
+            if (jj <= t / R) dcum[i] += rows[(int64_t)jj * H * L + t];
+          if (t == L - 1) dcum[i] += k.dterm[(int64_t)bc * H + head];
+        }
       }
-      sc[tid] = dcum;
-      __syncthreads();
-      for (int off = 1; off < L; off <<= 1) {  // reverse inclusive prefix sum, float64
-        const double o = tid + off < L ? sc[tid + off] : 0.0;
-        __syncthreads();
-        sc[tid] += o;
-        __syncthreads();
+      double v[8];
+      double tot = 0.0;
+#pragma unroll
+      for (int i = 7; i >= 0; --i) {  // the lane's steps, reverse inclusive sums
+        tot += dcum[i];
+        v[i] = tot;
       }
-      const double dla = sc[tid];
-      if (tid < L) k.ddt[(row0 + tid) * H + head] = ddir + (float)dla * ah;
-      __syncthreads();
-      sc[tid] = tid < L ? dla * dtu : 0.0;
-      __syncthreads();
-      for (int off = THREADS / 2; off > 0; off >>= 1) {
-        if (tid < off) sc[tid] += sc[tid + off];
-        __syncthreads();
+      double after = tot;  // the sum over this lane's steps and every later lane's
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double o = __shfl_down_sync(FULL, after, off);
+        if (lane + off < 32) after += o;
       }
-      if (tid == 0) da += sc[0];
-      __syncthreads();
+      after = __shfl_down_sync(FULL, after, 1);
+      if (lane == 31) after = 0.0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = lane * per + i;
+        if (i < per && t < L) {
+          const double dla = v[i] + after;
+          const int64_t at = (row0 + t) * H + head;
+          k.ddt[at] += (float)dla * ah;
+          da += dla * (double)k.dt[at];
+        }
+      }
     }
-    if (tid == 0) k.da[head] = (float)da;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
+    if (lane == 0) sda[warp] = da;
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+      for (int w = 0; w < WARPS; ++w) s += sda[w];
+      k.da[head] = (float)s;
+    }
     return;
   }
-  const int64_t total = (int64_t)k.B * k.S * k.N;
-  for (int64_t e = (int64_t)(blockIdx.x - H) * THREADS + tid; e < total;
-       e += (int64_t)(gridDim.x - H) * THREADS) {
+  const int64_t total = (int64_t)k.B * k.S * k.N, e = (int64_t)(blockIdx.x - H) * 32 + lane;
+  float db = 0.f, dc = 0.f;
+  if (e < total) {
     const int64_t step = e / k.N, b = step / k.S;
     const int n = (int)(e % k.N), s = (int)(step % k.S), t = s % L;
-    const int64_t bc = b * k.nc + s / L;
-    float db = 0.f, dc = 0.f;
-    for (int g = 0; g < k.groups; ++g) db += k.dbp[g * total + e];
-    for (int jj = 0; jj <= t / R; ++jj)
-      for (int g = 0; g < k.groups; ++g)
-        dc += k.dcp[(((bc * k.rt + jj) * k.groups + g) * L + t) * k.N + n];
-    k.dbm[e] = db;
-    k.dc[e] = dc;
+    const int64_t bc = b * k.nc + s / L, gstride = (int64_t)L * k.N;
+#pragma unroll 8
+    for (int g = warp; g < k.groups; g += WARPS) db += k.dbp[g * total + e];
+    for (int jj = 0; jj <= t / R; ++jj) {
+      const float* src = k.dcp + ((bc * k.rt + jj) * k.groups * L + t) * k.N + n;
+#pragma unroll 8
+      for (int g = warp; g < k.groups; g += WARPS) dc += src[g * gstride];
+    }
+  }
+  sdb[warp][lane] = db;
+  sdc[warp][lane] = dc;
+  __syncthreads();
+  if (tid < 32 && e < total) {
+    float sb = 0.f, sc = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      sb += sdb[w][tid];
+      sc += sdc[w][tid];
+    }
+    k.dbm[e] = sb;
+    k.dc[e] = sc;
   }
 }
 
 }  // namespace
 
-// hg (heads a chunk block, 1, 2 or 4) comes from the host (kernels/_lib.py
-// mamba_bwd_plan); ds, dec, dterm, rowp, dbp and dcp are the launcher's
-// workspaces, sized as the Bwd struct says.  dht may be null (zeros).
+// hg (heads a chunk block, 1 or 2) comes from the host (kernels/_lib.py
+// mamba_bwd_plan); dho, cumw, dtw, dterm, rowp, dbp and dcp are the
+// launcher's workspaces, sized as the Bwd struct says.  dht may be null (zeros).
 extern "C" int mamba_scan_bwd(const float* x, const float* dt, const float* a, const float* bm,
                               const float* c, const float* hin, const float* dy, const float* dht,
                               float* dx, float* ddt, float* da, float* dbm, float* dc, float* dh0,
-                              float* ds, float* dec, float* dterm, float* rowp, float* dbp,
-                              float* dcp, int B, int S, int H, int P, int N, int L, int hg,
-                              void* stream) {
+                              float* dho, double* cumw, float* dtw, float* dterm, float* rowp,
+                              float* dbp, float* dcp, int B, int S, int H, int P, int N, int L,
+                              int hg, void* stream) {
   if (B < 1 || H < 1 || L < 1 || L > MAX_L || S < L || S % L || P < 1 || P > MAX_P || N < 1 ||
-      N > MAX_N || (hg != 1 && hg != 2 && hg != 4))
+      N > MAX_N || (hg != 1 && hg != 2))
     return (int)cudaErrorInvalidValue;
   const int nc = S / L, rt = (L + R - 1) / R, groups = (H + hg - 1) / hg;
-  const int p4 = up(P, 4), n4 = up(N, 4);
-  Bwd k{x,  dt, a,  bm, c,  hin, dy,  dht, dx, ddt, da, dbm, dc, dh0, ds, dec, dterm,
-        rowp, dbp, dcp, B, S, H, P, N, L, nc, rt, hg, groups, p4, n4, p4 + 4};
-  const Layout lo = layout(L, hg, p4, n4);
-  if (lo.total > 227 * 1024) return (int)cudaErrorInvalidValue;
-  void (*chunk)(Bwd) = hg == 1 ? bwd_chunk<1> : hg == 2 ? bwd_chunk<2> : bwd_chunk<4>;
-  static int granted[3] = {48 * 1024, 48 * 1024, 48 * 1024};  // by hg: 1, 2, 4
-  int& have = granted[hg == 1 ? 0 : hg == 2 ? 1 : 2];
-  if (lo.total > have) {
+  // the TMA copies whole 16-byte rows from 16-byte aligned addresses: P and
+  // N multiples of 8 (no zero columns), aligned tensors
+  const int bulk = P % 8 == 0 && N % 8 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)bm | (uintptr_t)c | (uintptr_t)hin |
+                    (uintptr_t)dy | (uintptr_t)dho) % 16 == 0;
+  Bwd k{x,   dt,    a,    bm,   c,   hin, dy, dht, dx, ddt, da, dbm, dc,       dh0,      dho,
+        cumw, dtw, dterm, rowp, dbp, dcp, B,  S,   H,  P,   N,  L,   nc,  rt, groups, up(P, 8),
+        up(N, 8), bulk};
+  const int smem = 4 * layout(hg, k.p8, k.n8).total;
+  void (*chunk)(Bwd) = hg == 1 ? bwd_chunk<1> : bwd_chunk<2>;
+  static int granted[2] = {48 * 1024, 48 * 1024};  // by hg: 1, 2
+  int& have = granted[hg - 1];
+  if (smem > have) {
     const cudaError_t err =
-        cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, lo.total);
+        cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    have = lo.total;
+    have = smem;
   }
   const auto st = static_cast<cudaStream_t>(stream);
   const int64_t elems = (int64_t)B * S * N;
-  const int bc_blocks = (int)((elems + THREADS - 1) / THREADS < SMS * 8
-                                  ? (elems + THREADS - 1) / THREADS : SMS * 8);
-  bwd_state<<<B * nc * H, THREADS, 0, st>>>(k);
+  bwd_state<<<B * ((H + SH - 1) / SH), STATE_THREADS, 0, st>>>(k);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {
-    bwd_pass<<<B * H, THREADS, 0, st>>>(k);
+    chunk<<<rt * B * nc * groups, CHUNK_THREADS, smem, st>>>(k);
     err = cudaGetLastError();
   }
   if (err == cudaSuccess) {
-    chunk<<<rt * B * nc * groups, THREADS, lo.total, st>>>(k);
-    err = cudaGetLastError();
-  }
-  if (err == cudaSuccess) {
-    bwd_reduce<<<H + bc_blocks, THREADS, 0, st>>>(k);
+    bwd_reduce<<<H + (int)((elems + 31) / 32), REDUCE_THREADS, 0, st>>>(k);
     err = cudaGetLastError();
   }
   return (int)err;

@@ -43,7 +43,7 @@ SIGNATURES = {
     "paged_attention": ("paged_decode_attention", [_P] * 7 + [_I] * 7 + [_F, _F] + [_I] * 3
                         + [_P]),
     "mamba_scan": ("mamba_scan", [_P] * 11 + [_I] * 10 + [_P]),
-    "mamba_scan_bwd": ("mamba_scan_bwd", [_P] * 20 + [_I] * 7 + [_P]),
+    "mamba_scan_bwd": ("mamba_scan_bwd", [_P] * 21 + [_I] * 7 + [_P]),
     "rolling_stats": ("rolling_stats", [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
@@ -407,17 +407,18 @@ def _mamba_plan(b, s, h, p, n, chunk):
                      row_tiles * b * nc * groups, b * nc * groups, nc == 1)
 
 
-# The Mamba scan backward's plan (csrc/mamba_scan_bwd.cu).  Four launches:
-# per-chunk dS blocks, one a (batch row, chunk, head); the reverse pass, one
-# block a (batch row, head); chunk blocks, each ``rows`` = 64 steps s of one
-# (batch row, chunk) and ``heads`` consecutive heads, walking the chunk's
-# steps t >= its first s in tiles of 64 (G = C B^T of a tile built once for
-# the block's heads); then the reduce: one block a head (dcum -> ddt, da),
-# the rest summing the chunk blocks' partials of dB and dC.  Chunk block
-# ``i`` (linear) is row tile ``i // (B * chunks * groups)`` -- the tiles
-# with the most steps after them first -- of group ``i % groups`` of (batch
-# row, chunk) ``i // groups % (B * chunks)``.
-BWD_ROWS, BWD_HEADS = 64, (4, 2, 1)
+# The Mamba scan backward's plan (csrc/mamba_scan_bwd.cu).  Three launches:
+# state blocks, one a (batch row, pair of heads), over its chunks in reverse
+# (dS, dh_out, dh0); chunk blocks, each ``rows`` = 64 steps s of one (batch row,
+# chunk) and ``heads`` consecutive heads, walking the chunk's steps t >= its
+# first s in tiles of 64 (G = C B^T of a tile built once for the block's
+# heads, and dB / dC taken once from the heads' sum of Q); then the reduce:
+# one block a head (dcum -> ddt, da), the rest summing the chunk blocks'
+# partials of dB and dC, 32 elements a block.  Chunk block ``i`` (linear)
+# is row tile ``i // (B * chunks * groups)`` -- the tiles with the most
+# steps after them first -- of group ``i % groups`` of (batch row, chunk)
+# ``i // groups % (B * chunks)``.
+BWD_ROWS, BWD_HEADS, BWD_STATE_HEADS, BWD_REDUCE_ELEMS = 64, (2, 1), 2, 32
 
 
 class MambaBwdPlan(NamedTuple):
@@ -427,14 +428,14 @@ class MambaBwdPlan(NamedTuple):
     heads: int          # heads a chunk block
     groups: int         # ceil(H / heads)
     chunk_blocks: int   # row_tiles * B * chunks * groups
-    state_blocks: int   # B * chunks * H
-    pass_blocks: int    # B * H
+    state_blocks: int   # B * ceil(H / 2)
+    reduce_blocks: int  # H + ceil(B * S * N / 32)
 
 
 def mamba_bwd_plan(b: int, s: int, h: int, p: int, n: int, chunk: int) -> MambaBwdPlan:
     """The launch plan of the Mamba scan backward for x [b, s, h, p], B/C
     [b, s, n] and ``chunk``.  Host integers only (a CUDA graph can capture
-    the launches); cached.  The most heads a chunk block (at most 4) whose
+    the launches); cached.  The most heads a chunk block (at most 2) whose
     launch still has at least ``SMS`` blocks, else one."""
 
     for x in (b, s, h, p, n, chunk):
@@ -456,4 +457,5 @@ def _mamba_bwd_plan(b, s, h, p, n, chunk):
         if row_tiles * b * nc * groups >= SMS:
             break
     return MambaBwdPlan(L, nc, row_tiles, heads, groups, row_tiles * b * nc * groups,
-                        b * nc * h, b * h)
+                        b * -(-h // BWD_STATE_HEADS),
+                        h + -(-b * s * n // BWD_REDUCE_ELEMS))

@@ -9,12 +9,14 @@ x [B, S, H, P], dt [B, S, H], a [H], bm/c [B, S, N], h_in [B, nc, H, P, N]
 them), all float32 -> (dx, ddt, da, dbm, dc, dh0), shaped like x, dt, a,
 bm, c and dh_t.  ``ref.mamba_scan_bwd_ref`` is its plain version.
 
-Four launches on the current stream, counted as one: dS a chunk, the
-reverse pass over the chunks, the chunk blocks (``_lib.mamba_bwd_plan``),
-and the reduce of their partials.  dB and dC (summed over the heads) and
-da (over batch rows and steps) are summed from per-block partials in a
-fixed order, with no atomics: a rerun gives the same bits.  The
-partials' workspaces are allocated here.  Only CUDA tensors are accepted.
+Three launches on the current stream, counted as one
+(``_lib.mamba_bwd_plan``): the states (dS and dh_out of each chunk, over
+the chunks in reverse, and dh0), the chunk blocks, their products on the
+tensor cores in 3xTF32, and the reduce of their partials.  dB and dC
+(summed over the heads) and da (over batch rows and steps) are summed from
+per-block partials in a fixed order, with no atomics: a rerun gives the
+same bits.  The workspaces are allocated here.  Only CUDA tensors are
+accepted.
 """
 
 from __future__ import annotations
@@ -51,17 +53,20 @@ def mamba_scan_bwd(x, dt, a, bm, c, h_in, dy, dh_t=None, chunk: int = 256):
     dx, ddt, dbm, dc = (torch.empty_like(t) for t in (x, dt, bm, c))
     da = torch.empty((h,), **f32)
     dh0 = torch.empty((b, h, p, n), **f32)
-    # dS, then dh_out (the pass writes it over dS); the chunk decays and the
-    # decay terms; the chunk blocks' partials: rows of dcum, dB, dC
-    ds = torch.empty_like(h_in)
-    dec, dterm = torch.empty((b, nc, h), **f32), torch.empty((b, nc, h), **f32)
+    # dh_out of each chunk, cum (float64) and dt by (chunk, head), the decay
+    # terms; the chunk blocks' partials: rows of dcum, dB, dC
+    dho = torch.empty_like(h_in)
+    cumw = torch.empty((b, nc, h, plan.chunk), dtype=torch.float64, device=x.device)
+    dtw = torch.empty((b, nc, h, plan.chunk), **f32)
+    dterm = torch.empty((b, nc, h), **f32)
     rowp = torch.empty((b * nc * plan.row_tiles * h * plan.chunk,), **f32)
     dbp = torch.empty((plan.groups * b * s * n,), **f32)
     dcp = torch.empty((b * nc * plan.row_tiles * plan.groups * plan.chunk * n,), **f32)
     status = _lib.load(NAME)(
         *(t.data_ptr() for t in (x, dt, a, bm, c, h_in, dy)),
         None if dh_t is None else dh_t.data_ptr(),
-        *(t.data_ptr() for t in (dx, ddt, da, dbm, dc, dh0, ds, dec, dterm, rowp, dbp, dcp)),
+        *(t.data_ptr() for t in (dx, ddt, da, dbm, dc, dh0, dho, cumw, dtw, dterm, rowp, dbp,
+                                 dcp)),
         b, s, h, p, n, plan.chunk, plan.heads,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
