@@ -44,7 +44,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
    patch embeddings (its flash call at S = 590 held the same way); then
    the monitor path:
    ``ops.rolling_stats`` over a fleet's bank of 1024 episode streams, held
-   against the port's ``run_trigger`` scores; then the MoE stacks of
+   against the port's ``run_trigger`` scores; then the dispatcher:
+   ``run_episode`` (Algorithm 1) over the same bank with each robot's
+   cloud and edge-policy chunks, in cloud and edge modes, its decisions
+   equal to the decision core's ``rollout``, every field bitwise equal to
+   a tick loop of ``dispatcher_step``, the first 8 robots held to a CPU
+   run (equal up to a decision within 1e-5 of its threshold), no hand
+   kernel launched, with its ms a tick; then the MoE stacks of
    ``MOE_ARCHS`` at published widths, depth cut to fit the card
    (qwen3-moe-235b-a22b 4 layers, phi3.5-moe-42b-a6.6b 7): the f32 smoke
    twins card vs CPU under ``Model(moe_impl=...)`` "dense" and "capacity",
@@ -225,7 +231,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.checkpoint import latest_checkpoint, restore  # noqa: E402
 from repro_torch.checkpoint.bridge import reference_tensors  # noqa: E402
 from repro_torch.configs import InputShape, get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import dispatcher_init, dispatcher_step, run_episode  # noqa: E402
 from repro_torch.core import kinematics as kin  # noqa: E402
+from repro_torch.core.dispatcher import DispatcherConfig, _leaves  # noqa: E402
 from repro_torch.core.trigger import TriggerConfig, run_trigger  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     EpisodeTokenizer,
@@ -251,7 +259,11 @@ from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
-from repro_torch.robotics.episodes import generate_episode  # noqa: E402
+from repro_torch.robotics.episodes import (  # noqa: E402
+    edge_policy_chunks,
+    generate_episode,
+    reference_chunks,
+)
 from repro_torch.roofline import HW_H100  # noqa: E402
 from repro_torch.roofline.costmodel import _decode_cache_bytes, estimate  # noqa: E402
 from repro_torch.runtime.engine import (  # noqa: E402
@@ -397,6 +409,8 @@ ENC_FRAMES = 300   # stub frame embeddings of a seamless prompt (a few seconds o
 # (700 W), and a run on another such card passed the 1200 s limit
 FLEET_LAYERS = 8
 FLEET = 1024      # robots in the monitor's episode bank
+DISPATCH_CPU_ROBOTS = 8  # the dispatcher phase's robots run again on the CPU
+DISPATCH_WARMUP = 8      # its untimed ticks before the timed run of each mode
 TASKS = ("pick_place", "drawer_open", "peg_insertion")
 
 
@@ -681,14 +695,30 @@ def random_streams(rng, n, t):
                             device="cuda"))
 
 
-def fleet_streams(n_robots=FLEET, t_len=600):
-    """One fleet's episodes: tasks in turn, seeds 0..n-1, cut to the
-    shortest task's 600 ticks -> (q, qd, tau [T, R, 7] on the card)."""
+def fleet_episodes(n_robots=FLEET):
+    """One fleet's episodes: tasks in turn, seeds 0..n-1."""
 
-    eps = [generate_episode(TASKS[r % 3], seed=r) for r in range(n_robots)]
+    return [generate_episode(TASKS[r % 3], seed=r) for r in range(n_robots)]
+
+
+def fleet_streams(eps, t_len=600):
+    """The fleet's episodes cut to the shortest task's 600 ticks -> (q, qd,
+    tau [T, R, 7] on the card)."""
+
     return tuple(
         torch.as_tensor(np.stack([getattr(e, k)[:t_len] for e in eps], axis=1), device="cuda")
         for k in ("q", "qd", "tau")
+    )
+
+
+def fleet_chunks(eps, t_len, device):
+    """Each robot's cloud (reference) and edge-policy chunks at the default
+    k -> (cloud, edge [T, R, k, A] on ``device``)."""
+
+    k = DispatcherConfig().chunk_len
+    return tuple(
+        torch.as_tensor(np.stack([fn(e, k)[:t_len] for e in eps], axis=1), device=device)
+        for fn in (reference_chunks, edge_policy_chunks)
     )
 
 
@@ -2313,12 +2343,12 @@ def threshold_distance(pcfg, frames, t, r):
     return min(abs(acc - tc) / tc, abs(tau - tr) / tr)
 
 
-def first_decision_flip(card, cpu, pcfg, frames):
-    """None when the two runs' decision streams are equal; else (t, r) of
-    the first tick whose decision differs, which must lie within
-    ``DECISION_RTOL`` of a threshold (the runs part ways from there)."""
+def first_decision_flip(sc, sp, pcfg, frames):
+    """None when two runs' decision streams (dicts of [T, R] arrays) are
+    equal; else (t, r, distance) of the first tick whose decision differs,
+    which must lie within ``DECISION_RTOL`` of a threshold (the runs part
+    ways from there)."""
 
-    sc, sp = card["telemetry"].streams(), cpu["telemetry"].streams()
     diff = np.zeros_like(sc["offload"])
     for k in sc:
         diff |= sc[k] != sp[k]
@@ -2367,7 +2397,8 @@ def fleet_card_vs_cpu():
             out = {name: serve_fleet(m, tok, tick=tick, **kw) for name, m in
                    (("card", gpu), ("cpu", cpu))}
             card, ref_ = out["card"], out["cpu"]
-            flip = first_decision_flip(card, ref_, pcfg, frames)
+            flip = first_decision_flip(card["telemetry"].streams(),
+                                       ref_["telemetry"].streams(), pcfg, frames)
             if flip is not None:
                 log(f"  (a) {tick}: decisions part ways at tick {flip[0]} robot {flip[1]}, "
                     f"{flip[2]:.3g} from its threshold (within {DECISION_RTOL:g}); "
@@ -2750,8 +2781,8 @@ def split_fleet_card_vs_cpu():
     finally:
         serve_mod.ContinuousBatchingScheduler = ContinuousBatchingScheduler
     card, ref_ = out["card"], out["cpu"]
-    flip = first_decision_flip(card, ref_, fleet_policy_config("rapid", 8, 7),
-                               fleet_frames(8, 0, FLEET_TICKS))
+    flip = first_decision_flip(card["telemetry"].streams(), ref_["telemetry"].streams(),
+                               fleet_policy_config("rapid", 8, 7), fleet_frames(8, 0, FLEET_TICKS))
     if flip is not None:
         log(f"  (a) split fleet: decisions part ways at tick {flip[0]} robot {flip[1]}, "
             f"{flip[2]:.3g} from its threshold; the rest is not compared")
@@ -3328,6 +3359,89 @@ def monitor_path(fleet, launches):
     log(f"  monitor: ops.rolling_stats over {m_acc.shape[0]} streams x {m_acc.shape[1]} ticks, "
         f"1 launch; scores of the first {head} streams vs run_trigger max err {err:.3g} "
         "(atol = rtol = 1e-3, the JAX package's kernel-vs-trigger tolerance)")
+
+
+def _dispatch_fields(out):
+    """A ``DispatchOutput``'s fields by name, the trigger's flattened."""
+
+    return {**{n: getattr(out, n) for n in out._fields[:-1]},
+            **{f"trig.{n}": getattr(out.trig, n) for n in out.trig._fields}}
+
+
+@torch.inference_mode()
+def dispatcher_path(fleet, eps, card):
+    """``run_episode`` over the fleet's bank of episodes with each robot's
+    cloud and edge-policy chunks, in both modes: (a) its decisions equal to
+    the decision core's ``rollout`` (``offloaded`` to ``offload``,
+    ``edge_refill`` to ``replayed``); (b) every field bitwise equal to a
+    tick loop of ``dispatcher_step``; (c) the first ``DISPATCH_CPU_ROBOTS`` robots
+    run on the CPU, decisions equal up to the first flip within
+    ``DECISION_RTOL`` of a threshold and actions equal before it.  No hand
+    kernel runs here.  The ms a tick is of a run after a warm-up of
+    ``DISPATCH_WARMUP`` ticks."""
+
+    cfg = DispatcherConfig()
+    frames = kin.KinematicFrame(*fleet)
+    t_len, robots = frames.q.shape[:2]
+    chunks = dict(zip(("cloud", "edge"), fleet_chunks(eps, t_len, frames.q.device)))
+    cpu_robots = DISPATCH_CPU_ROBOTS
+    head = kin.KinematicFrame(*(f[:, :cpu_robots].cpu() for f in frames))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for mode in ("cloud", "edge"):
+        edge = chunks["edge"] if mode == "edge" else None
+        pcfg = PolicyConfig(trigger=cfg.trigger, chunk_len=cfg.chunk_len, on_empty=mode)
+        warm = DISPATCH_WARMUP
+        run_episode(cfg, kin.KinematicFrame(*(f[:warm] for f in frames)), chunks["cloud"][:warm],
+                    edge_chunks=None if edge is None else edge[:warm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = run_episode(cfg, frames, chunks["cloud"], edge_chunks=edge)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms_tick = (t1 - t0) * 1e3 / t_len
+        got = _dispatch_fields(out)
+        # (a) the decision core
+        _, dec = rollout(pcfg, frames)
+        if not (torch.equal(out.offloaded, dec.offload)
+                and torch.equal(out.edge_refill, dec.replayed)):
+            raise AssertionError(f"dispatcher ({mode}): decisions differ from rollout")
+        # (b) the tick loop
+        loop_state, outs = dispatcher_init(cfg, (robots,), device=frames.q.device), []
+        for t in range(t_len):
+            loop_state, o = dispatcher_step(
+                loop_state, kin.KinematicFrame(*(f[t] for f in frames)), chunks["cloud"][t], cfg,
+                edge_chunk=None if edge is None else edge[t])
+            outs.append(_dispatch_fields(o))
+        t2 = time.perf_counter()
+        for name, want in got.items():
+            if not torch.equal(torch.stack([o[name] for o in outs]), want):
+                raise AssertionError(f"dispatcher ({mode}): {name} differs from the tick loop")
+        if not all(torch.equal(a, b) for a, b in zip(_leaves(state), _leaves(loop_state))):
+            raise AssertionError(f"dispatcher ({mode}): the final state differs from the tick loop")
+        # (c) the CPU
+        t3 = time.perf_counter()
+        _, cpu = run_episode(cfg, head, chunks["cloud"][:, :cpu_robots].cpu(),
+                             edge_chunks=None if edge is None else edge[:, :cpu_robots].cpu())
+        streams = lambda o: {"offload": o.offloaded[:, :cpu_robots].cpu().numpy(),  # noqa: E731
+                             "replayed": o.edge_refill[:, :cpu_robots].cpu().numpy()}
+        flip = first_decision_flip(streams(out), streams(cpu), pcfg, head)
+        upto = t_len if flip is None else flip[0]
+        if not torch.equal(out.action[:upto, :cpu_robots].cpu(), cpu.action[:upto]):
+            raise AssertionError(f"dispatcher ({mode}): actions differ card vs CPU before "
+                                 f"tick {upto}")
+        where = ("decisions and actions equal over every tick" if flip is None else
+                 f"decisions part ways at tick {flip[0]} robot {flip[1]}, {flip[2]:.3g} from its "
+                 f"threshold (within {DECISION_RTOL:g}); actions equal before it")
+        log(f"  dispatcher ({mode}): run_episode over {robots} robots x {t_len} ticks: offloads "
+            f"{int(out.offloaded.sum())}, edge refills {int(out.edge_refill.sum())}, "
+            f"{ms_tick:.4f} ms a tick (host clock, CUDA-synchronised) on {card}; (a) decisions = "
+            f"rollout(on_empty={mode!r}), (b) every field bitwise = the dispatcher_step loop, "
+            f"(c) first {cpu_robots} robots vs the CPU: {where}; seconds: run {t1 - t0:.2f}, "
+            f"(a) + (b) {t3 - t1:.2f} (the loops {t2 - t1:.2f}), (c) {time.perf_counter() - t3:.2f}")
+    counts = dict(ops.LAUNCHES)
+    if sum(counts.values()):
+        raise AssertionError(f"dispatcher: hand kernels launched {counts}, expected none")
 
 
 # ---------------------------------------------------------------------------
@@ -4225,7 +4339,8 @@ def main(argv) -> int:
         return 0
 
     phase("3. kernels against their plain versions")
-    fleet = fleet_streams()
+    fleet_eps = fleet_episodes()
+    fleet = fleet_streams(fleet_eps)
     main_rows = check_kernels(kernel_cases(np.random.default_rng(0), fleet))
     if kernels_only:
         phase()
@@ -4243,6 +4358,8 @@ def main(argv) -> int:
         serve_stack(cfg, launches, sched_phase, brief)
     phase("4. monitor")
     monitor_path(fleet, launches)
+    phase("4. dispatcher")
+    dispatcher_path(fleet, fleet_eps, card)
     for arch, layers in MOE_ARCHS.items():
         phase(f"4. model ({arch})")
         for impl in MOE_IMPLS:

@@ -3,11 +3,14 @@ from repro_torch.configs.base import (
     INPUT_SHAPES,
     InputShape,
     ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    XLSTMConfig,
     get_config,
     get_smoke_config,
     registry,
     supports_shape,
 )
 
-__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "get_config",
-           "get_smoke_config", "registry", "supports_shape"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "MoEConfig", "SSMConfig",
+           "XLSTMConfig", "get_config", "get_smoke_config", "registry", "supports_shape"]

@@ -5,6 +5,7 @@ The dispatcher owns the cached action-chunk queue Q and the trigger state.
 Each tick the caller supplies the chunk the cloud *would* return now; the
 shared decision core (``runtime/policy.py``) decides refill, preemption and
 the executed slot, and this module adds the chunk contents and the action.
+``run_episode`` steps it over an episode (the reference's ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -88,3 +89,47 @@ def dispatcher_step(state: DispatcherState, frame: kin.KinematicFrame, cloud_chu
     new_state = DispatcherState(trigger=pstate.trigger, queue=QueueState(chunk, pstate.head))
     return new_state, DispatchOutput(action=action, offloaded=offload,
                                      edge_refill=edge_refill, trig=dec.trig)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, tuple):
+        for x in tree:
+            yield from _leaves(x)
+
+
+def run_episode(cfg: DispatcherConfig, frames: kin.KinematicFrame, cloud_chunks,
+                state: Optional[DispatcherState] = None,
+                edge_chunks: Optional[torch.Tensor] = None):
+    """Algorithm 1 over an episode, one ``dispatcher_step`` a tick on the
+    frames' device.
+
+    ``frames`` [T, ..., N] streams; ``cloud_chunks`` (and ``edge_chunks``)
+    [T, ..., k, A].  Returns (final state, ``DispatchOutput`` with each
+    field stacked over T).  Inputs on another device than the frames raise.
+    """
+
+    device = frames.q.device
+    given = [("frames", t) for t in frames] + [("cloud_chunks", cloud_chunks)]
+    if edge_chunks is not None:
+        given.append(("edge_chunks", edge_chunks))
+    if state is not None:
+        given += [("state", t) for t in _leaves(state)]
+    for name, t in given:
+        if t.device != device:
+            raise ValueError(f"run_episode: {name} is on {t.device}, the frames on {device}")
+    if state is None:
+        state = dispatcher_init(cfg, tuple(frames.q.shape[1:-1]), device=device)
+
+    outs = []
+    for t in range(frames.q.shape[0]):
+        state, out = dispatcher_step(
+            state, kin.KinematicFrame(*(f[t] for f in frames)), cloud_chunks[t], cfg,
+            edge_chunk=None if edge_chunks is None else edge_chunks[t])
+        outs.append(out)
+    trig = TriggerOutput(*(torch.stack(f) for f in zip(*(o.trig for o in outs))))
+    return state, DispatchOutput(
+        *(torch.stack([getattr(o, n) for o in outs]) for n in DispatchOutput._fields[:-1]),
+        trig=trig,
+    )

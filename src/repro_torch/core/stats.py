@@ -46,10 +46,14 @@ def window_mean_std(s: WindowStats):
     return mean, torch.sqrt(torch.clamp(var, min=0.0))
 
 
+def window_sum(s: WindowStats):
+    return torch.where(_mask(s), s.buf, 0.0).sum(-1)
+
+
 def window_moving_average(s: WindowStats):
     """Mean over the (possibly not yet full) window — Eq. 5's 1/w sum."""
 
-    return torch.where(_mask(s), s.buf, 0.0).sum(-1) / torch.clamp(s.count, min=1).float()
+    return window_sum(s) / torch.clamp(s.count, min=1).float()
 
 
 class RunningStats(NamedTuple):

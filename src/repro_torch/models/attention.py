@@ -76,6 +76,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                   window: int) -> torch.Tensor:
+    """Boolean mask [*, Sq, Sk]; True = attend.  (The kernels mask by
+    position themselves; this is the mask they apply.)"""
+
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok &= diff >= 0
+    if window:
+        ok &= diff < window
+    return ok
+
+
 def _qkv(x, p: Attention, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads

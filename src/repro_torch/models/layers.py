@@ -134,6 +134,37 @@ def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0) 
     return x * scale if scale else x
 
 
+def logits_from_embedding(x: torch.Tensor, table: torch.Tensor, vocab_size: int,
+                          cap: float = 0.0) -> torch.Tensor:
+    """Tied-head logits x . table^T, then ``mask_padded_vocab``."""
+
+    return mask_padded_vocab(x @ table.to(x.dtype).T, vocab_size, cap)
+
+
+def mask_padded_vocab(logits: torch.Tensor, vocab_size: int, cap: float = 0.0) -> torch.Tensor:
+    """The softcap, then -1e9 on ids >= ``vocab_size`` of a padded head
+    (repro/models/layers.py:139-150)."""
+
+    logits = softcap(logits, cap)
+    if logits.shape[-1] != vocab_size:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32; logits [..., V], labels
+    int [...]; with ``mask``, the mean over its weights (at least 1)."""
+
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
 def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Sinusoidal position encoding [seq, d] (sines, then cosines), in
     float32 and then cast, as the reference's (layers.py:152-159): its

@@ -65,10 +65,11 @@ from repro_torch.models.layers import (
     dense,
     embed_lookup,
     embed_scale,
+    logits_from_embedding,
+    mask_padded_vocab,
     mlp,
     rms_norm,
     sinusoidal_positions,
-    softcap,
 )
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 
@@ -539,18 +540,13 @@ class Model(nn.Module):
 
     def _logits(self, x):
         cfg = self.cfg
-        if cfg.tie_embeddings:  # x . table^T (layers.py:139-150)
-            logits = x @ self.embed.table.to(x.dtype).T
-        else:
-            logits = dense(x, self.lm_head.w)
+        if cfg.tie_embeddings:
+            return logits_from_embedding(x, self.embed.table, cfg.vocab_size,
+                                         cfg.final_logit_softcap)
         # parity: the softcap, then ids >= vocab in the padded head get -1e9
         # (model.py:500-511)
-        logits = softcap(logits, cfg.final_logit_softcap)
-        vpad = logits.shape[-1]
-        if vpad != cfg.vocab_size:
-            pad = torch.arange(vpad, device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, -1e9)
-        return logits
+        return mask_padded_vocab(dense(x, self.lm_head.w), cfg.vocab_size,
+                                 cfg.final_logit_softcap)
 
     # ------------------------------------------------------------------
     # public entry points

@@ -10,3 +10,9 @@ from __future__ import annotations
 import time
 
 clock = time.perf_counter
+
+
+def clock_ms() -> float:
+    """Monotonic milliseconds (convenience for ms-denominated metrics)."""
+
+    return time.perf_counter() * 1e3

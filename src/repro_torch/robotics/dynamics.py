@@ -49,6 +49,37 @@ def inverse_dynamics(arm: ArmModel, q, qd, qdd, tau_ext) -> np.ndarray:
     )
 
 
+def min_jerk(t: np.ndarray) -> np.ndarray:
+    """Minimum-jerk scalar profile s(t) on t in [0, 1] (smooth approach)."""
+
+    _, t3, t4, t5 = _powers(t)
+    return F32(10.0) * t3 - F32(15.0) * t4 + F32(6.0) * t5
+
+
+def _powers(t: np.ndarray):
+    """t^2..t^5 as XLA's integer powers form them (by squaring), not
+    numpy's ``pow``: the min-jerk sums cancel near t = 1, where one ulp of
+    a power shows."""
+
+    t2 = t * t
+    t4 = t2 * t2
+    return t2, t * t2, t4, t * t4
+
+
+def min_jerk_segment(q0: np.ndarray, q1: np.ndarray, steps: int, dt: float):
+    """Joint trajectory q(t), qd(t), qdd(t) between two waypoints."""
+
+    # the reference's float32 linspace: i / (steps - 1), not i * step
+    t = np.arange(steps, dtype=F32) / F32(max(steps - 1, 1))
+    s = min_jerk(t)
+    t2, t3, t4, _ = _powers(t)
+    # analytic derivatives of the min-jerk polynomial
+    sd = (F32(30.0) * t2 - F32(60.0) * t3 + F32(30.0) * t4) / F32(steps * dt)
+    sdd = (F32(60.0) * t - F32(180.0) * t2 + F32(120.0) * t3) / F32((steps * dt) ** 2)
+    dq = (q1 - q0)[None, :]
+    return q0[None, :] + s[:, None] * dq, sd[:, None] * dq, sdd[:, None] * dq
+
+
 def trapezoid_segment(q0: np.ndarray, q1: np.ndarray, steps: int, dt: float,
                       blend_frac: float = 0.15):
     """Trapezoidal-velocity point-to-point move with smoothstep blends."""

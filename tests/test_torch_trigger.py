@@ -58,22 +58,17 @@ def test_dispatcher_streams_match_reference(task, edge):
         lambda f, c, e: jdisp.run_episode(jdisp.DispatcherConfig(), f, c, edge_chunks=e)
     )(frames, jnp.asarray(cloud), None if edge_chunks is None else jnp.asarray(edge_chunks))
 
-    cfg = tdisp.DispatcherConfig()
-    state = tdisp.dispatcher_init(cfg, device="cpu")
-    offloaded, refills, actions, importance = [], [], [], []
-    for t in range(ep.q.shape[0]):
-        state, out = tdisp.dispatcher_step(
-            state, _frames(ep, t), torch.as_tensor(cloud[t]), cfg,
-            edge_chunk=None if edge_chunks is None else torch.as_tensor(edge_chunks[t]),
-        )
-        offloaded.append(bool(out.offloaded))
-        refills.append(bool(out.edge_refill))
-        actions.append(out.action.numpy())
-        importance.append(float(out.trig.importance))
-    np.testing.assert_array_equal(offloaded, np.asarray(want.offloaded))
-    np.testing.assert_array_equal(refills, np.asarray(want.edge_refill))
-    np.testing.assert_allclose(np.stack(actions), np.asarray(want.action), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(importance, np.asarray(want.trig.importance), rtol=1e-4, atol=1e-4)
+    _, got = tdisp.run_episode(
+        tdisp.DispatcherConfig(),
+        KinematicFrame(*(torch.as_tensor(getattr(ep, n)) for n in ("q", "qd", "tau"))),
+        torch.as_tensor(cloud),
+        edge_chunks=None if edge_chunks is None else torch.as_tensor(edge_chunks),
+    )
+    np.testing.assert_array_equal(got.offloaded.numpy(), np.asarray(want.offloaded))
+    np.testing.assert_array_equal(got.edge_refill.numpy(), np.asarray(want.edge_refill))
+    np.testing.assert_allclose(got.action.numpy(), np.asarray(want.action), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.trig.importance.numpy(), np.asarray(want.trig.importance),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_reuse_mode_decisions_match_reference_rollout():
