@@ -20,9 +20,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
    and gemma2-9b's 4608-token prompt and 4664-token decode; and at
    seamless-m4t-medium's (H = KV = 16, D = 64): its decoder's prompt, its
    encoder over 300 frames (non-causal), decode at length 70 (dense and
-   paged) and its cross-attention decode over the 300 frames; the Mamba
-   scan also at Jamba's training shape with the chunk states (the forward
-   of the training pair);
+   paged) and its cross-attention decode over the 300 frames; the paged
+   and flash kernels also at a model-axis rank's shape (phase 7c: H = KV =
+   16, the round's 32 rows and the prompt's S = 14); the
+   Mamba scan also at Jamba's training shape with the chunk states (the
+   forward of the training pair);
 4. model: for each served stack, its smoke size in float32 on the card
    against the same weights on the CPU (plain versions; ``CloudPolicy``
    chunks and a scheduler run whose decode rounds are CUDA graphs), then
@@ -143,6 +145,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
    another stream than the round graph's paged kernels, and how long the
    two streams overlapped; (d) ``python -m repro_torch.launch.serve
    --fleet 4 --sharded --disaggregate-prefill`` exits 0;
+7c. the mesh's model axis (``launch/dist.py``, ``make_rank_mesh``,
+   ``Model(group=...)``), on the same 8-layer model after phase 7b:
+   ``MODEL_AXIS`` = 2 tensor-parallel ranks, each a process of its own
+   (gloo with both on card 0 where there is one card, since NCCL takes no
+   two ranks on one card; NCCL one rank a card where there are two), the
+   backend printed; each rank builds openvla-7b at full width on 8 layers
+   from the phase-6 model's seed and checks every parameter block against
+   the parent's tensor (shared from the parent's card), then serves
+   ``serve_fleet(trigger="rapid")`` on 8 robots x ``AXIS_TICKS`` = 221
+   over a rank mesh (the bootstrap fetches, the first trigger fires and
+   the first cancels); the ranks equal to each other, their chunks held to
+   the one-rank model's same run by the greedy-margin rule, rounds,
+   offloads, cancels and the rest of the actions equal, the first
+   prefill's logits within ``TP_LOGIT_TOL`` and a rank that skips the
+   attention output's all-reduce in every layer outside it; launches exact
+   (one paged launch a layer a decode step at 16 heads and 16 KV heads),
+   the collectives a decode token exact (2 all-reduces a layer, one for
+   the embedding, one all-gather of the logits); each rank's weight and
+   pool bytes and engine ms a round beside the one rank's, timed warm
+   after the ranks' join; the ranks joined within ``RANKS_TIMEOUT_S``;
 8. train (``repro_torch.launch.train``): (a) the flash backward kernel
    (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
    their plain versions at the training shapes (openvla-7b's B = 4, S =
@@ -219,6 +241,7 @@ import tempfile
 import time
 import weakref
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -248,13 +271,14 @@ from repro_torch.kernels import mamba_scan as kms  # noqa: E402
 from repro_torch.kernels import mamba_scan_bwd as kmsb  # noqa: E402
 from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dist, dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
-from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_rank_mesh, make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.layers import block_of  # noqa: E402
 from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
@@ -833,6 +857,7 @@ def kernel_cases(rng, fleet):
     fleet_acc, fleet_tau = monitor_features(*fleet[1:], tcfg)
     wins = dict(window_acc=tcfg.window_acc, window_tau=tcfg.window_tau,
                 sigma_floor_acc=tcfg.sigma_floor_acc, sigma_floor_tau=tcfg.sigma_floor_tau)
+    rank_rng = np.random.default_rng(29)
     return [
         # (kernel, label, dtype, case, main-path shape?)
         ("flash_attention", "S=14 H=KV=32 D=128", bf, flash_case(rng, bf, 14, 32, 32), True),
@@ -853,6 +878,14 @@ def kernel_cases(rng, fleet):
         # the scheduler's decode round: 32 rows, ragged lengths, idle rows at 0
         ("paged_attention", "scheduler rows=32 lens 0..70 (8 idle) page 16 shuffled", bf,
          paged_case(rng, bf, scheduler_lens(rng), 16, 32, 32, masked_library=True), True),
+        # the same round and the prompt's prefill on a rank of phase 7c's
+        # model axis (M = 2: 16 heads, 16 KV heads); drawn from a generator
+        # of their own, so the cases after them keep theirs
+        ("paged_attention", "model-axis rank M=2 rows=32 lens 0..70 (8 idle) H=KV=16", bf,
+         paged_case(rank_rng, bf, scheduler_lens(rank_rng), 16, 16, 16, masked_library=True),
+         False),
+        ("flash_attention", "model-axis rank M=2 S=14 H=KV=16 D=128", bf,
+         flash_case(rank_rng, bf, 14, 16, 16), False),
         ("paged_attention", "B=1 len=70 page 16 identity", bf,
          paged_case(rng, bf, [70], 16, 32, 32, identity=True), False),
         ("paged_attention", "B=1 len=70 page 16 identity", f32,
@@ -1694,6 +1727,8 @@ def openvla_scheduler(model, tok, launches, policy):
     partition_phase(cut, tok, launches)
     phase(f"7b. data shards and disaggregated prefill ({cfg.name}, {FLEET_LAYERS} layers)")
     sharded_phase(cut, tok, launches)
+    phase(f"7c. model axis ({cfg.name}, {FLEET_LAYERS} layers, {MODEL_AXIS} ranks)")
+    model_axis_phase(cut, tok, launches)
     del cut
     gc.collect()
     torch.cuda.empty_cache()
@@ -3329,6 +3364,336 @@ def sharded_phase(model, tok, launches):
     sharded_full_width(model, tok, launches)
     disaggregation_gaps(model, tok, launches)
     serve_cli_sharded()
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the mesh's model axis, tensor-parallel ranks
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = 2      # ranks of phase 7c's model axis
+RANKS_TIMEOUT_S = 150  # the ranks' own limit: started, served and joined within it
+# the rapid fleet's ticks in phase 7c: the 8 bootstrap fetches, the first
+# trigger fires (ticks 190-200), the first cancels (ticks 214-216) and the
+# window after them: 24 offloads, 2 cancels, 40 decode rounds (a gloo round
+# of 7 tokens, 126 collectives each a pinned-host round trip, took 531-666
+# ms on one H100 80GB HBM3 at 700 W, so the episodes' later contact phases,
+# 80 rounds more to tick 300, stay with phase 6)
+AXIS_TICKS = 221
+# the first prefill's logits, rank vs one rank: every element within 2^-5
+# of the row's largest |logit|, twice the error measured on the card
+# (0.06445 at a largest |logit| of 4.344: 2^-6.1 of it); a rank that skips
+# the attention output's all-reduce must fail it (``control_logits``)
+TP_LOGIT_TOL = (0.0, 0.0, 2.0**-5)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def axis_plan():
+    """(backend, each rank's device): NCCL one rank a card where there are
+    ``MODEL_AXIS`` cards, else gloo with every rank on card 0 (NCCL takes
+    no two ranks on one card)."""
+
+    if torch.cuda.device_count() >= MODEL_AXIS:
+        return "nccl", [f"cuda:{m}" for m in range(MODEL_AXIS)]
+    return "gloo", ["cuda:0"] * MODEL_AXIS
+
+
+def first_logits(model, tok, reqs):
+    """The last position's logits of the first request's prompt, on the host."""
+
+    qd, tau = reqs[0][1:]
+    prompt = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
+    logits = model.prefill({"tokens": torch.as_tensor(prompt, device=model.device)})[0]
+    return logits[0, -1].float().cpu().numpy()
+
+
+def control_logits(model, tok, reqs, layers):
+    """``first_logits`` of a rank that skips the attention output's
+    all-reduce in ``layers`` (every rank skips it alike, so the other
+    collectives still pair): the fault ``TP_LOGIT_TOL`` must catch."""
+
+    attn = [model.layers[i].attn for i in layers]
+    for a in attn:
+        a.tp = None
+    try:
+        return first_logits(model, tok, reqs)
+    finally:
+        for a in attn:
+            a.tp = model.group
+
+
+def axis_runs(model, tok, mesh, reqs, launches, sched=None):
+    """The runs phase 7c holds a rank to: the first request's prefill
+    logits, then ``serve_fleet(trigger="rapid")`` on 8 robots x
+    ``AXIS_TICKS`` (through ``sched`` when given: a warm run); exact
+    launches -> (a picklable record, the fleet's scheduler)."""
+
+    out = {"logits": first_logits(model, tok, reqs)}
+    admits0, rec0 = (len(sched.admit_ms), len(sched.record)) if sched is not None else (0, 0)
+    serve_mod.ContinuousBatchingScheduler = RecordingScheduler
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dist.reset_calls()
+        t0 = time.perf_counter()
+        fl = serve_fleet(model, tok, mesh=mesh, n_robots=8, max_steps=AXIS_TICKS,
+                         max_slots=8, scan_rounds=4, trigger="rapid", verbose=False, sched=sched)
+        wall = time.perf_counter() - t0
+    finally:
+        serve_mod.ContinuousBatchingScheduler = ContinuousBatchingScheduler
+    fs = fl["sched"]
+    counts = check_sched_counts(model, fs, admits0, 0, launches)
+    out["fleet"] = dict(actions=fl["actions"], offloads=fl["offloads"],
+                        service_rounds=fl["service_rounds"], cancelled=fl["cancelled"],
+                        decode_rounds=fl["decode_rounds"], record=fs.record[rec0:],
+                        launches=counts, admits=len(fs.admit_ms) - admits0,
+                        steps=fs.decode_rounds * fs.decode_block, collectives=dict(dist.CALLS),
+                        mode=fs.round_mode, wall_s=wall,
+                        ms_round=fl["engine_s"] * 1e3 / fs.decode_rounds,
+                        pool_bytes=sum(fs._pcache[k].nbytes for k in ("kp", "vp")))
+    out["weight_bytes"] = sum(p.nbytes for p in model.parameters())
+    return out, fs
+
+
+def model_axis_rank(rank, backend, init, device, parent, reqs, queue):
+    """One rank of phase 7c, in a process of its own: joins the model axis,
+    builds openvla-7b at full width on ``FLEET_LAYERS`` layers from the
+    phase-6 model's seed, checks each parameter block against the parent's
+    tensor (``parent``, shared from the parent's card), runs ``axis_runs``
+    over a rank mesh and puts (rank, record or error) on ``queue``."""
+
+    try:
+        if backend == "gloo":
+            os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        else:
+            os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        group = dist.init_model_group(rank, MODEL_AXIS, backend=backend, init_method=init,
+                                      device=device)
+        dev = group.device
+        cfg = get_config("openvla-7b").replace(num_layers=FLEET_LAYERS)
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0), group=group)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        cut = 0
+        for name, p in model.named_parameters():
+            _, index = block_of(p)
+            if not torch.equal(p, parent[name][index].to(dev)):
+                raise AssertionError(f"rank {rank}: {name} is not its block of the parent's")
+            cut += tuple(p.shape) != tuple(parent[name].shape)
+        parent.clear()  # the parent's tensors, released as soon as checked
+        heads = set()
+
+        def paged(q, k_pages, *a, **kw):
+            heads.add((q.shape[1], k_pages.shape[2]))
+            return paged_kernel(q, k_pages, *a, **kw)
+
+        paged_kernel, kpa.paged_decode_attention = kpa.paged_decode_attention, paged
+        tok = EpisodeTokenizer(cfg.vocab_size)
+        counts = {n: 0 for n in _lib.KERNELS}
+        rec = axis_runs(model, tok, make_rank_mesh(1, group), reqs, counts)[0]
+        rec.update(rank=rank, device=str(dev), cut=cut, build_s=build_s, launches=counts,
+                   paged_heads=sorted(heads),
+                   controls={n: control_logits(model, tok, reqs, layers) for n, layers in
+                             (("every layer", range(model.n_attn)),
+                              ("the last layer", [model.n_attn - 1]))})
+        queue.put((rank, rec))
+        dist.destroy_model_group(group)
+    except Exception:  # the rank's failure goes to the parent, which fails the phase
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def start_model_axis(backend, devices, parent, reqs):
+    """Start ``MODEL_AXIS`` ranks (``torch.multiprocessing``, spawned) ->
+    what ``join_model_axis`` waits on."""
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=model_axis_rank, args=(m, backend, init, devices[m], parent,
+                                                       reqs, q), daemon=True)
+             for m in range(MODEL_AXIS)]
+    for p in procs:
+        p.start()
+    return procs, q, time.perf_counter() + RANKS_TIMEOUT_S
+
+
+def join_model_axis(procs, q, deadline):
+    """The ranks' records by rank, within ``RANKS_TIMEOUT_S`` of their
+    start; ranks past it are killed, and any rank's failure fails the
+    phase."""
+
+    import queue as queue_mod
+
+    recs, errors, heard = {}, [], set()
+    try:
+        while len(heard) < MODEL_AXIS:
+            try:
+                rank, rec = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                # a rank that exited has put its record before it did
+                gone = [m for m in range(MODEL_AXIS)
+                        if m not in heard and procs[m].exitcode is not None]
+                if gone and q.empty():
+                    raise AssertionError(f"(7c) ranks {gone} exited "
+                                         f"({[procs[m].exitcode for m in gone]}) with no record")
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"(7c) ranks {sorted(set(range(MODEL_AXIS)) - heard)} "
+                                         f"not done in {RANKS_TIMEOUT_S} s") from None
+                continue
+            heard.add(rank)
+            if isinstance(rec, str):
+                errors.append(f"rank {rank}:\n{rec}")
+            else:
+                recs[rank] = rec
+        if errors:
+            raise AssertionError("(7c) " + "\n".join(errors)[-6000:])
+        for p in procs:
+            p.join(timeout=max(deadline - time.perf_counter(), 1.0))
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"(7c) rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        torch.cuda.ipc_collect()
+    return [recs[m] for m in range(MODEL_AXIS)]
+
+
+def same_axis_runs(a, b):
+    """Two ranks' records: the same logits, actions, chunks and counts."""
+
+    fa, fb = a["fleet"], b["fleet"]
+    return (np.array_equal(a["logits"], b["logits"])
+            and all(np.array_equal(a["controls"][n], b["controls"][n]) for n in a["controls"])
+            and np.array_equal(fa["actions"], fb["actions"])
+            and np.array_equal(fa["offloads"], fb["offloads"])
+            and len(fa["record"]) == len(fb["record"])
+            and all(x[0] == y[0] and np.array_equal(x[2], y[2])
+                    for x, y in zip(fa["record"], fb["record"]))
+            and all(fa[k] == fb[k] for k in ("service_rounds", "cancelled", "decode_rounds")))
+
+
+def hold_axis_to_one_rank(model, tok, rank, one):
+    """A rank's record against the parent's one-rank run: the fleet's
+    rounds, offloads, cancels and chunk order equal; every chunk equal or
+    differing only where the one-rank top-two gap is within ``MARGIN_TOL``;
+    actions equal for robots whose chunks are all equal; the first
+    prefill's logits within ``TP_LOGIT_TOL``, and the every-layer control
+    past it -> (robots with a chunk inside the margin, the logits' max abs
+    error, {control: (max abs error, caught)})."""
+
+    f, f1 = rank["fleet"], one["fleet"]
+    for k in ("service_rounds", "cancelled", "decode_rounds"):
+        if f[k] != f1[k]:
+            raise AssertionError(f"(7c) fleet {k}: {f[k]} vs one rank {f1[k]}")
+    if not np.array_equal(f["offloads"], f1["offloads"]) or \
+            [(r, o.tolist()) for r, o, _ in f["record"]] != \
+            [(r, o.tolist()) for r, o, _ in f1["record"]]:
+        raise AssertionError("(7c) fleet offloads or chunk order differ from one rank")
+    fleet_near = set()
+    for (r, obs_t, tg), (_, _, t1) in zip(f["record"], f1["record"]):
+        diff = np.flatnonzero(np.asarray(tg) != np.asarray(t1))
+        if diff.size:
+            gap = top2_gap_tokens(model, tok, obs_t, np.asarray(t1), int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"(7c) fleet robot {r}: chunk differs at step {diff[0]} "
+                                     f"where the top-two gap is {gap:.3g}")
+            fleet_near.add(r)
+    same = [r for r in range(8) if r not in fleet_near]
+    if not np.array_equal(f["actions"][:, same], f1["actions"][:, same]):
+        raise AssertionError("(7c) fleet actions differ from one rank's")
+    want = [torch.as_tensor(one["logits"])[None]]
+    err, ok = compare([torch.as_tensor(rank["logits"])[None]], want, [TP_LOGIT_TOL])
+    if not ok:
+        raise AssertionError(f"(7c) first prefill's logits: max abs error {err:.4g} past "
+                             f"2^-5 of max |logit| {np.abs(one['logits']).max():.4g}")
+    controls = {}
+    for name, logits in rank["controls"].items():
+        c_err, c_ok = compare([torch.as_tensor(logits)[None]], want, [TP_LOGIT_TOL])
+        controls[name] = (c_err, not c_ok)
+    if not controls["every layer"][1]:
+        raise AssertionError("(7c) a rank that skips the attention output's all-reduce in every "
+                             f"layer passes TP_LOGIT_TOL (max abs error "
+                             f"{controls['every layer'][0]:.4g})")
+    return len(fleet_near), err, controls
+
+
+def model_axis_phase(model, tok, launches):
+    """(7c) the mesh's model axis: ``MODEL_AXIS`` tensor-parallel ranks of
+    ``model`` (each its own process, gloo on one card or NCCL one a card)
+    serve the rapid fleet on a rank mesh, held to the same run of the
+    one-rank ``model``."""
+
+    backend, devices = axis_plan()
+    log(f"  backend {backend}: {MODEL_AXIS} ranks on {devices} "
+        + ("(one card: NCCL takes no two ranks on one card; collectives staged through pinned "
+           "host memory, rounds eager)" if backend == "gloo" else "(one rank a card)"))
+    reqs = requests(np.random.default_rng(5), 8)
+    parent = {n: p.detach() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    # the one-rank reference run while the ranks start (python, CUDA, the
+    # group); it is timed again, warm, once they are done
+    started = start_model_axis(backend, devices, parent, reqs)
+    one, one_sched = axis_runs(model, tok, None, reqs, launches)
+    ranks = join_model_axis(*started)
+    spawn_s = time.perf_counter() - t0
+    warm = axis_runs(model, tok, None, reqs, {n: 0 for n in launches}, sched=one_sched)[0]
+    for r in ranks[1:]:
+        if not same_axis_runs(ranks[0], r):
+            raise AssertionError(f"(7c) rank {r['rank']}'s runs differ from rank 0's")
+    n_layers = model.n_attn
+    per_token = {"all_reduce": 2 * n_layers + 1, "all_gather": 1}
+    for r in ranks:
+        f = r["fleet"]
+        calls = f["admits"] + f["steps"]
+        want = {k: n * calls for k, n in per_token.items()}
+        if f["collectives"] != want:
+            raise AssertionError(f"(7c) rank {r['rank']}: collectives {f['collectives']}, "
+                                 f"expected {want}")
+        if r["paged_heads"] != [(model.cfg.num_heads // MODEL_AXIS,
+                                 model.cfg.num_kv_heads // MODEL_AXIS)]:
+            raise AssertionError(f"(7c) rank {r['rank']}: paged launches at (H, KV) "
+                                 f"{r['paged_heads']}")
+        for n in launches:
+            launches[n] += r["launches"][n]
+    fleet_near, err, controls = hold_axis_to_one_rank(model, tok, ranks[0], one)
+    for r in ranks:
+        f = r["fleet"]
+        log(f"  rank {r['rank']} on {r['device']}: built in {r['build_s']:.2f} s, {r['cut']} of "
+            f"{len(parent)} parameters cut, every block equal to the parent's; weights "
+            f"{r['weight_bytes'] / 2**30:.3f} GiB (one rank {one['weight_bytes'] / 2**30:.3f}), "
+            f"pool {f['pool_bytes'] / 2**20:.1f} MiB (one rank "
+            f"{one['fleet']['pool_bytes'] / 2**20:.1f}); fleet {f['mode']}: "
+            f"{f['decode_rounds']} rounds, {f['wall_s']:.2f} s, engine ms a round "
+            f"{f['ms_round']:.2f} (one rank, {warm['fleet']['mode']}, warm, after the ranks' "
+            f"join: {warm['fleet']['ms_round']:.2f}, {warm['fleet']['wall_s']:.2f} s); "
+            f"collectives a decode token {per_token} (2 a layer + the embedding, + the "
+            f"logits' gather), in all {f['collectives']} (exact); paged launches at (H, KV) "
+            f"{r['paged_heads']}; launches {f['launches']} (exact)")
+    f1 = one["fleet"]
+    log(f"  ranks equal to each other; against one rank: fleet {len(f1['record'])} chunks, "
+        f"{f1['cancelled']} cancels, offloads {int(f1['offloads'].sum())} and rounds equal, "
+        f"{fleet_near} robots' chunks inside the {MARGIN_TOL:g} margin, actions of the rest "
+        f"equal; first prefill's logits max abs error {err:.4g} (limit 2^-5 of max |logit| "
+        f"{np.abs(one['logits']).max():.4g}); a rank skipping the attention output's "
+        "all-reduce: " + ", ".join(f"in {n} {e:.4g} ({'caught' if c else 'not caught'})"
+                                   for n, (e, c) in controls.items())
+        + f"; the ranks took {spawn_s:.1f} s from spawn to join")
+    if f1["cancelled"] < 1 or int(f1["offloads"].sum()) <= 8:
+        raise AssertionError(f"(7c) the fleet's {AXIS_TICKS} ticks fired no trigger or cancel")
 
 
 def monitor_path(fleet, launches):

@@ -19,6 +19,10 @@ lacks is never asked for: a tied stack (gemma) has no ``lm_head/w`` and a
 plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
 
+A tensor-parallel rank's model (``Model(group=...)``) takes its block of
+each flat array (``models.layers.block_of``), so the ranks' models put
+together hold the reference's weights.
+
 ``reference_tensors`` is the inverse: the port's parameters, or any
 tensors keyed like them (gradients, AdamW moments), in the reference's flat
 layout, block tensors stacked over the repeats (what the gradient twins
@@ -33,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.layers import block_of
 from repro_torch.models.model import Model
 
 
@@ -57,8 +62,9 @@ def reference_key(name: str, period: int = 1) -> Tuple[str, int]:
 @torch.no_grad()
 def load_reference_params(model: Model, flat: Dict[str, np.ndarray]) -> Model:
     """Copy every parameter of ``model`` from ``flat`` (numpy arrays or
-    tensors; cast to the parameter's dtype and device).  Raises on a missing key or a shape
-    mismatch; returns ``model``."""
+    tensors; cast to the parameter's dtype and device; a rank's model its
+    block of each).  Raises on a missing key or a shape mismatch; returns
+    ``model``."""
 
     for name, p in model.named_parameters():
         key, idx = reference_key(name, model.period)
@@ -70,8 +76,10 @@ def load_reference_params(model: Model, flat: Dict[str, np.ndarray]) -> Model:
         arr = np.asarray(arr)
         if idx >= 0:
             arr = arr[idx]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{key}: shape {arr.shape} != port {tuple(p.shape)}")
+        shape, index = block_of(p)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{key}: shape {arr.shape} != port {shape}")
+        arr = arr[index]
         p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
 

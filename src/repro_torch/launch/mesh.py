@@ -7,6 +7,12 @@ the logical rules (``launch/sharding.py``) lay arrays out over, and the
 scheduler splits its page pool and decode rows over the ``data`` axis.  A
 device may appear more than once, so that ``data`` shards can live on one
 CPU (the tests) or on one card (``chip_smoke.py``).
+
+A rank mesh (``make_rank_mesh``) is one rank's view of a mesh whose
+``model`` axis is a ``torch.distributed`` group (``launch/dist.py``): it
+holds the group and its own rank, and column ``m`` of its devices is rank
+``m``'s device, once a data shard.  A mesh of one process has no group
+and rank 0.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ import torch
 
 class Mesh:
     """``devices``: an ndarray of ``torch.device`` shaped like the mesh;
-    ``axis_names``: one name per axis; ``shape``: ``{axis: size}``."""
+    ``axis_names``: one name per axis; ``shape``: ``{axis: size}``;
+    ``group``: the ``model`` axis's ranks (``launch.dist.ModelGroup``; None
+    in one process), and ``rank``, this process's place on it."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], group=None):
         flat = [torch.device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
         shape = np.asarray(devices, dtype=object).shape
         if len(shape) != len(axis_names):
@@ -32,6 +40,11 @@ class Mesh:
         self.devices = self.devices.reshape(shape)
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+        self.group = group
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank if self.group is not None else 0
 
     @property
     def distinct_devices(self) -> List[torch.device]:
@@ -94,6 +107,21 @@ def make_test_mesh(*, data: int, model: int = 1, devices: Optional[Sequence] = N
                          f"devices but found {len(devs)}; pass devices= (a device may repeat, "
                          f"e.g. [torch.device('cpu')] * {data * model})")
     return Mesh(np.asarray(devs, dtype=object).reshape(data, model), ("data", "model"))
+
+
+def make_rank_mesh(data: int, group) -> Mesh:
+    """A (data, model) mesh whose ``model`` axis is ``group``'s ranks
+    (``launch.dist.ModelGroup``): column ``m`` is rank ``m``'s device,
+    repeated ``data`` times (the data shards of one device, as
+    ``make_test_mesh`` repeats a device); the mesh keeps the group and this
+    process's rank."""
+
+    if data < 1:
+        raise ValueError(f"data={data}: at least 1")
+    devs = np.empty((data, group.size), dtype=object)
+    for m, d in enumerate(group.devices):
+        devs[:, m] = [torch.device(d)] * data
+    return Mesh(devs, ("data", "model"), group=group)
 
 
 def split_device_groups(*, prefill: int = 1, device: str = "cuda"

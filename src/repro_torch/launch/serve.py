@@ -145,9 +145,9 @@ class CloudPolicy:
     def chunk(self, tokens):
         """tokens [B, S] on the model's device -> (action tokens [B, n_steps],
         the next logits [B, 1, V]); on a CUDA model a graph replay (its
-        outputs hold until the next call)."""
+        outputs hold until the next call), eager over a gloo group."""
 
-        if self.model.device.type != "cuda":
+        if not self.model.graphs:
             return self.eager_chunk(tokens)
         b, prompt = tokens.shape
         entry = self._graphs.get((b, prompt))
@@ -281,7 +281,11 @@ def serve_fleet(
     host milliseconds the scheduler took over a window.
 
     ``mesh`` splits the engine's page pool and decode rows over the mesh's
-    ``data`` axis (``launch/mesh.py``; shards of one device);
+    ``data`` axis (``launch/mesh.py``; shards of one device); a rank mesh
+    (``make_rank_mesh``) over a tensor-parallel model's group runs the
+    fleet on every rank (call ``serve_fleet`` on each, with the same
+    arguments: the decision core and the engine run the same on every rank,
+    and every rank returns the same run);
     ``prefill_group`` disaggregates the prompt prefill (a stream of its own
     on a CUDA model), its K/V merged at the next window boundary.
 

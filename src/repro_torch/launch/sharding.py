@@ -7,7 +7,8 @@ Arrays are described by *logical* axis names ("batch", "heads", "pages",
 **dropping any mapping whose dimension does not divide by the mesh-axis
 product** (e.g. starcoder2's 24 heads over a 16-way model axis) and using
 each mesh axis at most once.  ``shard_shape`` gives one shard's local
-shape under a spec.
+shape under a spec, and ``local_slice`` a rank's block of a global tensor
+over the ``model`` axis of a rank mesh (``launch/mesh.py``).
 
 The port runs eagerly, not under GSPMD: ``shard(x, *axes)`` returns ``x``
 itself.  The ``sharding_rules`` context makes a mesh active
@@ -156,6 +157,39 @@ def shard_shape(mesh, shape: Sequence[int], pspec: Sequence[MeshAxes]) -> Tuple[
             raise ValueError(f"dim {dim} does not divide over {axes} ({n} shards)")
         out.append(dim // n)
     return tuple(out)
+
+
+def local_index(shape: Sequence[int], pspec: Sequence[MeshAxes], mesh,
+                rank: int) -> Tuple[slice, ...]:
+    """The index of model-axis rank ``rank``'s block of an array of
+    ``shape`` laid out by ``pspec`` over ``mesh``: a dim that ``pspec``
+    maps to ``"model"`` is cut into ``mesh.shape["model"]`` contiguous
+    blocks and the rank keeps block ``rank``; every other dim is whole (a
+    rank holds each of its data shards' blocks: they share its device).  A
+    dim mapped to ``"model"`` with other axes raises."""
+
+    m = int(mesh.shape.get("model", 1))
+    out = []
+    for dim, entry in zip(shape, tuple(pspec) + (None,) * (len(shape) - len(pspec))):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        if "model" not in axes or m == 1:
+            out.append(slice(None))
+            continue
+        if axes != ("model",):
+            raise ValueError(f"dim {dim} over {axes}: a rank holds a model-axis block only")
+        if dim % m:
+            raise ValueError(f"dim {dim} does not divide over the model axis ({m} ranks)")
+        n = dim // m
+        out.append(slice(rank * n, (rank + 1) * n))
+    return tuple(out)
+
+
+def local_slice(t, pspec: Sequence[MeshAxes], mesh, rank: int):
+    """Rank ``rank``'s block of the global tensor ``t`` under ``pspec``
+    (``logical_to_pspec``'s, whose divisibility guard decides which dims
+    are cut) -> a view of ``t`` (``local_index``)."""
+
+    return t[local_index(t.shape, pspec, mesh, rank)]
 
 
 def _leaf(x) -> bool:

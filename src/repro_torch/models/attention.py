@@ -27,6 +27,14 @@ any kernel, and so does the port, as a plain float32 softmax
 decode kernel at ``cache_len = S_enc``, every key valid: over K/V cached at
 prefill (``cross_attention_cached``) or projected from the encoder's output
 each token (``cross_attention_decode``, the reference's baseline).
+
+On a tensor-parallel rank (``Model(group=...)``) a self-attention layer
+runs the rank's heads: ``n_heads`` query heads, ``[m H/M, (m+1) H/M)``,
+and ``n_kv`` KV heads, its own ``KV/M`` where KV divides over the M ranks,
+else the one KV head its query heads read (``kv_cols``: the columns of
+the whole ``wk`` / ``wv`` it projects, a contiguous block).  ``wo`` is cut
+by rows, and its partial products are summed over the ranks (``tp``).
+RoPE, windows and softcaps are per head and unchanged.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import paged_decode_attention_sharded
 from repro_torch.launch import sharding
-from repro_torch.models.layers import dense, normal_
+from repro_torch.launch.dist import all_reduce_sum
+from repro_torch.models.layers import dense, global_shape, normal_
 
 
 class Attention(nn.Module):
@@ -54,10 +63,12 @@ class Attention(nn.Module):
 
         self.wq, self.wk, self.wv = p((d, nh * hd)), p((d, nkv * hd)), p((d, nkv * hd))
         self.wo = p((nh * hd, d))
+        # the heads this rank runs (all of them outside a model axis)
+        self.n_heads, self.n_kv, self.kv_cols, self.tp = nh, nkv, None, None
 
     def init(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
-            normal_(w, w.shape[0] ** -0.5, generator)
+            normal_(w, global_shape(w)[0] ** -0.5, generator)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -92,11 +103,20 @@ def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 def _qkv(x, p: Attention, cfg: ModelConfig, positions):
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd, nh, nkv = cfg.resolved_head_dim, p.n_heads, p.n_kv
+    wk, wv = (p.wk, p.wv) if p.kv_cols is None else (p.wk[:, p.kv_cols], p.wv[:, p.kv_cols])
     q = dense(x, p.wq).reshape(b, s, nh, hd)
-    k = dense(x, p.wk).reshape(b, s, nkv, hd)
-    v = dense(x, p.wv).reshape(b, s, nkv, hd)
+    k = dense(x, wk).reshape(b, s, nkv, hd)
+    v = dense(x, wv).reshape(b, s, nkv, hd)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _out(o, p: Attention):
+    """The output projection of o [B, S, n_heads, Dh] -> [B, S, D], summed
+    over the ranks of ``p.tp``."""
+
+    b, s = o.shape[:2]
+    return all_reduce_sum(dense(o.reshape(b, s, -1), p.wo), p.tp)
 
 
 def _attend(q, k, v, **kw):
@@ -112,10 +132,9 @@ def attention_forward(x, p: Attention, cfg: ModelConfig, positions, window: int)
     the RoPE'd keys and the values [B, S, KV, Dh] for the decode cache.
     """
 
-    b, s, _ = x.shape
     q, k, v = _qkv(x, p, cfg, positions)
     out = _attend(q, k, v, causal=True, window=window, logit_cap=cfg.attn_logit_softcap)
-    return dense(out.reshape(b, s, -1), p.wo), k, v
+    return _out(out, p), k, v
 
 
 def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
@@ -157,7 +176,7 @@ def attention_decode_step(x, p: Attention, cfg: ModelConfig, cache_k, cache_v,
         q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype), cache_len=lens,
         window=0 if ring else window, logit_cap=cfg.attn_logit_softcap,
     )
-    return dense(out.reshape(b, 1, -1), p.wo)
+    return _out(out[:, None], p)
 
 
 def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_pool,
@@ -198,7 +217,7 @@ def attention_decode_step_paged(x, p: Attention, cfg: ModelConfig, k_pool, v_poo
         out = paged_decode_attention_sharded(*args, mesh=mesh, **kw)
     else:
         out = ops.paged_decode_attention(*args, **kw)
-    return dense(out.reshape(b, 1, -1), p.wo)
+    return _out(out[:, None], p)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,16 @@ reference's distributions from an explicit ``torch.Generator``: normal x
 to a multiple of 256), zeros for norm scales.  Parameters are built with
 ``requires_grad=False`` (serving); training turns it on
 (``launch/train.py``).
+
+Tensor-parallel ranks (``Model(group=...)``, the mesh's ``model`` axis): a
+parameter may hold only its rank's block of the global tensor
+(``block_of``); ``normal_`` then draws the global tensor, as one rank
+would, and keeps the block, so the ranks' blocks put together are the
+one-rank weights bit for bit.  A module whose weight is cut over the ranks
+names their group in ``tp`` (None otherwise): the MLP's ``down`` partial
+products are summed over it, the embedding's vocab blocks looked up by
+block and summed, and the logits' vocab blocks gathered
+(``launch.dist``).
 """
 
 from __future__ import annotations
@@ -16,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.dist import all_gather_cat, all_reduce_sum
+
 VOCAB_PAD = 256
 
 
@@ -23,20 +35,36 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
-def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    """Fill ``p`` with N(0, std^2) drawn in float32, then cast (as ``_normal``)."""
+def block_of(p: torch.Tensor):
+    """(global shape, index of ``p``'s block in it): a rank's block of a
+    tensor-parallel parameter (``Model(group=...)``), or ``p``'s own shape
+    and the whole of it."""
 
-    draw = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-    p.copy_(draw.mul_(std))
+    return getattr(p, "tp_block", (tuple(p.shape), (slice(None),) * p.dim()))
+
+
+def global_shape(p: torch.Tensor):
+    return block_of(p)[0]
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill ``p`` with N(0, std^2) drawn in float32, then cast (as
+    ``_normal``); a rank's block draws the global tensor and keeps its
+    block."""
+
+    shape, index = block_of(p)
+    draw = torch.randn(shape, generator=generator, device=p.device, dtype=torch.float32)
+    p.copy_(draw[index].mul_(std))
 
 
 class Dense(nn.Module):
     def __init__(self, d_in: int, d_out: int, dtype, device):
         super().__init__()
         self.w = _param((d_in, d_out), dtype, device)
+        self.tp = None
 
     def init(self, generator: torch.Generator) -> None:
-        normal_(self.w, self.w.shape[0] ** -0.5, generator)
+        normal_(self.w, global_shape(self.w)[0] ** -0.5, generator)
 
 
 class Norm(nn.Module):
@@ -53,6 +81,7 @@ class Embedding(nn.Module):
         super().__init__()
         vpad = -(-vocab // pad_to) * pad_to
         self.table = _param((vpad, d), dtype, device)
+        self.tp = None
 
     def init(self, generator: torch.Generator) -> None:
         normal_(self.table, 1.0, generator)
@@ -68,6 +97,7 @@ class MLP(nn.Module):
         if gated:
             self.gate = Dense(d_model, d_ff, dtype, device)
         self.down = Dense(d_ff, d_model, dtype, device)
+        self.tp = None
 
     def init(self, generator: torch.Generator) -> None:
         for m in self.children():
@@ -107,10 +137,13 @@ ACTIVATIONS = {"silu": F.silu, "gelu": _gelu, "gelu_plain": _gelu}
 
 
 def mlp(x: torch.Tensor, m: MLP, activation: str = "silu") -> torch.Tensor:
+    """The MLP; on a rank of ``m.tp`` over its ``d_ff`` columns, the
+    ``down`` partial products summed over the ranks."""
+
     act = ACTIVATIONS[activation]
     h = dense(x, m.up.w)
     h = act(dense(x, m.gate.w)) * h if hasattr(m, "gate") else act(h)
-    return dense(h, m.down.w)
+    return all_reduce_sum(dense(h, m.down.w), m.tp)
 
 
 def embed_scale(d_model: int) -> float:
@@ -121,24 +154,38 @@ def embed_scale(d_model: int) -> float:
     return float(torch.tensor(d_model**0.5, dtype=torch.bfloat16))
 
 
-def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0) -> torch.Tensor:
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, scale: float = 0.0,
+                 tp=None) -> torch.Tensor:
     """Rows of ``table`` in bf16, times ``scale`` in bf16 when it is set.
 
     Parity: the reference casts the table to bf16 even in f32 stacks and
     scales in bf16 (repro/models/layers.py:132-136), so the gradient of a
     row that occurs several times is summed in bf16 too; a bf16 product of
     two bf16 values is the exact product rounded once, as a float32
-    product rounded to bf16 is.  (A bf16 table is not copied.)"""
+    product rounded to bf16 is.  (A bf16 table is not copied.)
 
-    x = table.to(torch.bfloat16)[tokens]
-    return x * scale if scale else x
+    ``tp``: ``table`` is rank ``tp.rank``'s block of the vocab rows; an id
+    outside it gives a zero row, and the rows are summed over the ranks.
+    One rank holds each id, so the sum adds zeros to one row, exactly."""
+
+    if tp is None:
+        x = table.to(torch.bfloat16)[tokens]
+        return x * scale if scale else x
+    n = table.shape[0]
+    local = tokens - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    x = table.to(torch.bfloat16)[torch.where(mine, local, torch.zeros_like(local))]
+    x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    return all_reduce_sum(x * scale if scale else x, tp)
 
 
 def logits_from_embedding(x: torch.Tensor, table: torch.Tensor, vocab_size: int,
-                          cap: float = 0.0) -> torch.Tensor:
-    """Tied-head logits x . table^T, then ``mask_padded_vocab``."""
+                          cap: float = 0.0, tp=None) -> torch.Tensor:
+    """Tied-head logits x . table^T, then ``mask_padded_vocab``; with
+    ``tp``, ``table``'s vocab block's logits gathered over the ranks
+    first."""
 
-    return mask_padded_vocab(x @ table.to(x.dtype).T, vocab_size, cap)
+    return mask_padded_vocab(all_gather_cat(x @ table.to(x.dtype).T, -1, tp), vocab_size, cap)
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab_size: int, cap: float = 0.0) -> torch.Tensor:

@@ -41,6 +41,22 @@ Entry points: ``prefill``, ``decode_step``, ``decode_chunk``, ``forward``,
 the reference's), over per-layer views of these caches
 (``layer_cache``); the partition executor runs the same functions over its
 own per-layer caches.
+
+**The mesh's model axis.**  ``Model(cfg, device, group=g)`` with a
+``launch.dist.ModelGroup`` of M > 1 ranks is one rank of a
+tensor-parallel model (the reference's GSPMD placement over
+``param_logical()``): every parameter holds the rank's block of its
+global tensor by the logical rules (``launch.sharding.local_index``;
+attention weights by whole heads), drawn from the global tensor in the
+one-rank model's order, so the M blocks put together are the one-rank
+weights bit for bit.  The MLP and the attention output sum their partial
+products over the ranks, the embedding looks up by vocab block and sums,
+and the logits gather their vocab blocks (``models/layers.py``,
+``models/attention.py``); the caches hold the rank's KV heads.  The
+dense attention stacks only: MoE, Mamba, xLSTM and encoder-decoder stacks,
+a head count that does not divide over the ranks and training raise
+``NotImplementedError`` (ROADMAP queue I).  ``param_logical`` and
+``abstract_params`` keep the global shapes.
 """
 
 from __future__ import annotations
@@ -53,6 +69,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.dist import all_gather_cat
+from repro_torch.launch.sharding import local_index, logical_to_pspec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -62,9 +80,11 @@ from repro_torch.models.layers import (
     Dense,
     Embedding,
     Norm,
+    _param,
     dense,
     embed_lookup,
     embed_scale,
+    global_shape,
     logits_from_embedding,
     mask_padded_vocab,
     mlp,
@@ -119,6 +139,28 @@ _TOP_AXES = {
     "embed.table": ("vocab", "embed"), "mod_proj.w": ("embed", "embed"),
     "final_norm.scale": (None,), "enc_norm.scale": (None,), "lm_head.w": ("embed", "vocab"),
 }
+
+
+def check_model_axis(cfg: ModelConfig, ranks: int) -> None:
+    """Refuse a stack that ``ranks`` tensor-parallel ranks cannot run yet:
+    experts, Mamba, xLSTM or an encoder, or heads that do not divide."""
+
+    blocks = set(cfg.blocks)
+    why = []
+    if any(cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
+        why.append("MoE layers (ROADMAP queue I, item 1: expert over data, mlp over model)")
+    if "mamba" in blocks:
+        why.append("Mamba layers (ROADMAP queue I, item 2: Jamba's state and heads)")
+    if blocks & {"mlstm", "slstm"} or cfg.encoder_decoder:
+        why.append("xLSTM or encoder-decoder layers (ROADMAP queue I, item 3)")
+    if cfg.num_heads % ranks:
+        why.append(f"{cfg.num_heads} heads (ROADMAP queue I: heads must divide)")
+    elif cfg.num_kv_heads % ranks and ranks % cfg.num_kv_heads:
+        why.append(f"{cfg.num_kv_heads} KV heads, neither dividing the ranks nor divided by "
+                   "them (ROADMAP queue I: heads must divide)")
+    if why:
+        raise NotImplementedError(f"{cfg.name} over a model axis of {ranks} ranks: "
+                                  + "; ".join(why))
 
 
 def layer_specs(cfg: ModelConfig) -> List[Tuple[str, bool, bool]]:
@@ -180,7 +222,7 @@ class Block(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
-                 moe_impl: str = "dense", cache_cross_kv: bool = False):
+                 moe_impl: str = "dense", cache_cross_kv: bool = False, group=None):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
         (default: a generator on ``device`` seeded with 0).  On
         ``device="meta"`` the model is abstract (the reference's
@@ -201,7 +243,12 @@ class Model(nn.Module):
         ``cache_cross_kv`` (enc-dec stacks): prefill caches each decoder
         layer's cross-attention K/V (``xk`` / ``xv``), which decode then
         reads; without it decode projects them from ``enc_out`` every token
-        (the reference's baseline)."""
+        (the reference's baseline).
+
+        ``group`` (a ``launch.dist.ModelGroup`` of M > 1 ranks): this model
+        is the group's rank ``group.rank`` of a tensor-parallel model (see
+        the module's docstring); every rank builds it with the same
+        ``generator`` seed and calls its entry points in the same order."""
 
         super().__init__()
         if moe_impl not in MOE_IMPLS:
@@ -211,6 +258,9 @@ class Model(nn.Module):
         self.moe_impl = moe_impl
         self.cache_cross_kv = cache_cross_kv
         self.device = torch.device(device)
+        self.group = group if group is not None and group.size > 1 else None
+        if self.group is not None:
+            check_model_axis(cfg, self.group.size)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.specs = layer_specs(cfg)
         self.period = unit_period(self.specs)
@@ -222,7 +272,9 @@ class Model(nn.Module):
         # the recurrent state's cache keys (row axis 1), kind by kind
         self.state_names = tuple(name for kind, names in STATE_NAMES.items()
                                  if self.n_kind[kind] for name in names)
-        dt, dev = self.dtype, self.device
+        # a rank's modules are laid out on the meta device at their global
+        # shapes, then each parameter is made at its block's shape
+        dt, dev = self.dtype, torch.device("meta") if self.group else self.device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
         if cfg.modality in ("vision", "audio") and not cfg.encoder_decoder:
             # stub frontend projector (precomputed patch embeddings -> d_model)
@@ -237,6 +289,9 @@ class Model(nn.Module):
                                             for _ in range(cfg.num_encoder_layers))
             self.enc_norm = Norm(cfg.d_model, dt, dev)
         self.embed_scale = embed_scale(cfg.d_model) if cfg.scale_embeddings else 0.0
+        self.kv_heads = cfg.num_kv_heads
+        if self.group is not None:
+            self._take_blocks()
         if self.device.type == "meta":
             return  # an abstract model: shapes and dtypes, nothing drawn
         if generator is None:
@@ -249,6 +304,71 @@ class Model(nn.Module):
         enc = [*self.enc_layers, self.enc_norm] if self.cfg.encoder_decoder else []
         for m in (self.embed, *front, *self.layers, self.final_norm, *head, *enc):
             m.init(generator)
+
+    def _rank_pspec(self, name: str, shape, mesh):
+        """The layout of parameter ``name`` (global ``shape``) over the rank
+        mesh: the logical rules, attention weights by whole heads."""
+
+        cfg = self.cfg
+        leaf = name.split(".", 2)[2] if name.startswith("layers.") else name
+        if leaf == "attn.wo":
+            return logical_to_pspec((cfg.num_heads, shape[1]), ("heads", "embed"), mesh)
+        if leaf in ("attn.wq", "attn.wk", "attn.wv"):
+            n, axis = (cfg.num_heads, "heads") if leaf == "attn.wq" else (cfg.num_kv_heads,
+                                                                          "kv_heads")
+            return logical_to_pspec((shape[0], n), ("embed", axis), mesh)
+        return logical_to_pspec(shape, _BLOCK_AXES.get(leaf) or _TOP_AXES[leaf], mesh)
+
+    def _take_blocks(self) -> None:
+        """Make every parameter at the shape of this rank's block (on the
+        model's device, its global shape and index kept in ``tp_block``)
+        and tell each module what of it the ranks share (``tp``, the
+        attention's heads)."""
+
+        from repro_torch.launch.mesh import make_rank_mesh
+
+        g, cfg, hd = self.group, self.cfg, self.cfg.resolved_head_dim
+        mesh = make_rank_mesh(1, g)
+        cut = set()
+        for name, p in list(self.named_parameters()):
+            shape = tuple(p.shape)
+            index = local_index(shape, self._rank_pspec(name, shape, mesh), mesh, g.rank)
+            local = _param(tuple(len(range(n)[ix]) for n, ix in zip(shape, index)), p.dtype,
+                           self.device)
+            local.tp_block = (shape, index)
+            if tuple(local.shape) != shape:
+                cut.add(name)
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(owner), leaf, local)
+        if "embed.table" in cut:
+            self.embed.tp = g
+        if "lm_head.w" in cut:
+            self.lm_head.tp = g
+        m = g.size
+        if cfg.num_kv_heads % m == 0:
+            self.kv_heads, kv_cols = cfg.num_kv_heads // m, None
+        else:  # every KV head on every rank; a rank reads its query heads' one
+            j = g.rank // (m // cfg.num_kv_heads)
+            self.kv_heads, kv_cols = 1, slice(j * hd, (j + 1) * hd)
+        for i, blk in enumerate(self.layers):
+            if f"layers.{i}.mlp.up.w" in cut:
+                blk.mlp.tp = g
+            a = blk.attn
+            a.n_heads, a.n_kv, a.kv_cols, a.tp = cfg.num_heads // m, self.kv_heads, kv_cols, g
+
+    @property
+    def graphs(self) -> bool:
+        """Whether this model's calls may be captured as CUDA graphs: on a
+        card, unless its group stages collectives through the host (gloo),
+        whose rounds then run eagerly."""
+
+        return self.device.type == "cuda" and (self.group is None or self.group.graphs)
+
+    @property
+    def vocab_padded(self) -> int:
+        """The padded vocab: the width of the logits (every rank's)."""
+
+        return global_shape(self.embed.table)[0]
 
     def param_logical(self) -> Dict[str, Tuple[Optional[str], ...]]:
         """The logical axes of every parameter in the bridge's layout
@@ -280,7 +400,8 @@ class Model(nn.Module):
         for name, p in self.named_parameters():
             key, idx = reference_key(name, self.period)
             # the layers come in order, so a key's last write has its repeats
-            out[key] = (tuple(p.shape) if idx < 0 else (idx + 1,) + tuple(p.shape), p.dtype)
+            shape = global_shape(p)
+            out[key] = (shape if idx < 0 else (idx + 1,) + shape, p.dtype)
         return out
 
     def cache_logical(self, batch: int, seq: int):
@@ -506,7 +627,8 @@ class Model(nn.Module):
         return s
 
     def _embed_inputs(self, batch):
-        x = embed_lookup(batch["tokens"], self.embed.table, self.embed_scale).to(self.dtype)
+        x = embed_lookup(batch["tokens"], self.embed.table, self.embed_scale,
+                         self.embed.tp).to(self.dtype)
         if "frontend" in batch and not self.cfg.encoder_decoder:
             fe = dense(batch["frontend"].to(self.dtype), self.mod_proj.w)
             x = torch.cat([fe, x], dim=1)
@@ -542,11 +664,11 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.tie_embeddings:
             return logits_from_embedding(x, self.embed.table, cfg.vocab_size,
-                                         cfg.final_logit_softcap)
+                                         cfg.final_logit_softcap, self.embed.tp)
         # parity: the softcap, then ids >= vocab in the padded head get -1e9
         # (model.py:500-511)
-        return mask_padded_vocab(dense(x, self.lm_head.w), cfg.vocab_size,
-                                 cfg.final_logit_softcap)
+        return mask_padded_vocab(all_gather_cat(dense(x, self.lm_head.w), -1, self.lm_head.tp),
+                                 cfg.vocab_size, cfg.final_logit_softcap)
 
     # ------------------------------------------------------------------
     # public entry points
@@ -623,6 +745,9 @@ class Model(nn.Module):
         reference returns it."""
 
         cfg = self.cfg
+        if self.group is not None:
+            raise NotImplementedError("training over a model axis: the backward's collectives "
+                                      "are not written (ROADMAP queue I)")
         enc_out = self._enc_out(batch)
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -662,7 +787,7 @@ class Model(nn.Module):
         both.  Caches update in place.
         """
 
-        x = embed_lookup(token, self.embed.table, self.embed_scale).to(self.dtype)
+        x = embed_lookup(token, self.embed.table, self.embed_scale, self.embed.tp).to(self.dtype)
         paged = (cache["pt"], cache["cap"]) if "pt" in cache else None
         for i in range(len(self.layers)):
             x = self._block_step(i, x, self.layer_cache(cache, i), cache["len"], paged)
@@ -697,7 +822,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def _kv_shape(self):
-        return (self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+        """A cache's KV heads (this rank's) and head size."""
+
+        return (self.kv_heads, self.cfg.resolved_head_dim)
 
     def _recurrent_state(self, batch: int):
         """Zero recurrent state of every Mamba, mLSTM and sLSTM layer,

@@ -80,6 +80,9 @@ class PartitionExecutor:
         cfg = model.cfg
         if cfg.encoder_decoder:
             raise NotImplementedError("split execution targets decoder-only stacks")
+        if model.group is not None:
+            raise NotImplementedError("split execution of a tensor-parallel rank's model "
+                                      "(ROADMAP queue I)")
         if not 0 <= cut_layer <= cfg.num_layers:
             raise ValueError(f"cut_layer {cut_layer} outside [0, {cfg.num_layers}]")
         self.model = model

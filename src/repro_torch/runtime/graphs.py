@@ -13,7 +13,15 @@ import weakref
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.launch import dist
 from repro_torch.obs.clock import clock
+
+
+def _counters():
+    """What a replay runs without running Python, as counted: the kernel
+    launches and the collectives (an NCCL group's)."""
+
+    return _lib.LAUNCHES, dist.CALLS
 
 
 class GraphedCall:
@@ -30,7 +38,9 @@ class GraphedCall:
     The kernel launchers count their launches in Python (``_lib.LAUNCHES``),
     which a replay does not run: the counts that the capture added are
     taken back after it (a capture launches nothing) and added again at
-    each replay, so the counts stay those of the kernels that ran.
+    each replay, so the counts stay those of the kernels that ran
+    (``launches``).  The collectives' counts (``dist.CALLS``) are kept so
+    too (``collectives``).
     """
 
     def __init__(self, fn):
@@ -38,6 +48,7 @@ class GraphedCall:
         self.graph = None
         self.out = None
         self.launches = {}
+        self.collectives = {}
         self.capture_s = 0.0
         self.replays = 0
 
@@ -48,19 +59,23 @@ class GraphedCall:
             return out
         self.graph.replay()
         self.replays += 1
-        for name, n in self.launches.items():
-            _lib.LAUNCHES[name] += n
+        for counter, added in zip(_counters(), (self.launches, self.collectives)):
+            for name, n in added.items():
+                counter[name] += n
         return self.out
 
     def _capture(self) -> None:
-        before = dict(_lib.LAUNCHES)
+        counters = _counters()
+        before = [dict(c) for c in counters]
         t0 = clock()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.out = self.fn()
         self.capture_s = clock() - t0
-        self.launches = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n != before[k]}
-        _lib.LAUNCHES.update(before)
+        self.launches, self.collectives = (
+            {k: n - b[k] for k, n in c.items() if n != b[k]} for c, b in zip(counters, before))
+        for c, b in zip(counters, before):
+            c.update(b)
         self.graph = graph
 
 

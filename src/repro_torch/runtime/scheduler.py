@@ -76,9 +76,22 @@ shard a layer over that shard's block of rows
 (``kernels.paged_attention.paged_decode_attention_sharded``).  The split
 lanes draw from the same shard-aware pool; their rounds are not
 row-sharded.  The shards share one device: a mesh over more than one
-distinct device, a ``model`` (or ``pod``) axis above 1, or a mesh on
-another device than the model's raises ``NotImplementedError`` (ROADMAP
-queue F).
+distinct device, a ``pod`` axis above 1, or a mesh on another device than
+the model's raises ``NotImplementedError`` (ROADMAP queue F).
+
+**Model axis.**  A rank mesh (``launch.mesh.make_rank_mesh``) over a
+tensor-parallel model (``Model(group=...)``, the same group) runs the
+engine on every rank, SPMD: each rank makes the same admissions, rounds,
+reservations and harvests from the same requests, over its own heads and
+its page pool of its KV heads (page ids, the allocator and the data shards
+as above); every rank's results are the same, and rank 0's are the
+engine's.  Its data shards share the rank's device; a mesh whose model
+axis is not the model's group, or whose data shards lie on distinct
+devices, is refused (ROADMAP queue F).  Decode rounds are CUDA graphs when
+the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one
+card) the collectives stage through the host and the rounds run eagerly
+(``round_mode`` says which, and the scheduler logs it).  Split lanes are
+not served over a model axis (ROADMAP queue I).
 
 **Disaggregated prefill.**  ``prefill_group=[device]`` pipelines admission
 over two boundaries (the reference's ``_dispatch_prefill`` and
@@ -104,6 +117,7 @@ request carries observation tokens only, no encoder frames.
 from __future__ import annotations
 
 import contextlib
+import logging
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
@@ -120,6 +134,7 @@ from repro_torch.runtime.graphs import GraphedCall, owner_call
 from repro_torch.runtime.kv_cache import PageAllocator, PagedSpec
 
 DEFAULT_PAGE_SIZE = 16
+LOG = logging.getLogger(__name__)
 
 
 def _lane_order(key) -> Tuple[int, tuple]:
@@ -145,22 +160,33 @@ def _canon(device) -> torch.device:
     return d
 
 
-def _check_placement(device, mesh, prefill_group) -> None:
-    """Refuse what no machine of this repo can check: shards on more than
-    one distinct device, a model (or pod) axis, a mesh or prefill device
-    other than the model's."""
+def _check_placement(model, mesh, prefill_group) -> None:
+    """Refuse what no machine of this repo can check: a ``pod`` axis, a
+    ``model`` axis that is not the model's group, data shards on more than
+    one distinct device, a mesh or prefill device other than the model's."""
 
-    dev = _canon(device)
+    dev = _canon(model.device)
     if mesh is not None:
-        devs = [_canon(d) for d in mesh.distinct_devices]
+        extra = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
+        if extra:
+            raise NotImplementedError(f"mesh axes {extra}: only the data and model axes shard "
+                                      "(ROADMAP queue F)")
+        ranks = int(mesh.shape.get("model", 1))
+        group = model.group
+        if ranks != (group.size if group else 1) or (ranks > 1 and mesh.group is not group):
+            raise NotImplementedError(
+                f"a mesh whose model axis ({ranks}) is not the model's group "
+                f"({group.size if group else 1} ranks): build the model with the mesh's group "
+                "(ROADMAP queue F)")
+        col = mesh.devices.reshape(-1, ranks)[:, mesh.rank] if ranks > 1 else mesh.devices
+        devs = []
+        for d in (_canon(d) for d in np.asarray(col).reshape(-1)):
+            if d not in devs:
+                devs.append(d)
         if len(devs) > 1:
             raise NotImplementedError(
-                f"a mesh over {len(devs)} distinct devices {[str(d) for d in devs]}: the port "
-                "shards over shards of one device only (ROADMAP queue F)")
-        extra = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
-        if extra:
-            raise NotImplementedError(f"mesh axes {extra}: only the data axis shards "
-                                      "(ROADMAP queue F)")
+                f"data shards over {len(devs)} distinct devices {[str(d) for d in devs]}: the "
+                "port shards over shards of one device only (ROADMAP queue F)")
         if devs[0] != dev:
             raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} "
                                       "(ROADMAP queue F)")
@@ -277,8 +303,13 @@ class ContinuousBatchingScheduler:
     ):
         if model.cfg.encoder_decoder:
             raise NotImplementedError("continuous batching targets decoder-only VLAs")
-        _check_placement(model.device, mesh, prefill_group)
+        _check_placement(model, mesh, prefill_group)
         self.model = model
+        self.round_mode = ("cuda graphs" if model.graphs else "eager") + (
+            f", {model.group.size} ranks over {model.group.backend}" if model.group else "")
+        if model.group is not None:
+            LOG.info("scheduler rank %d of %d: decode rounds %s", model.group.rank,
+                     model.group.size, self.round_mode)
         self.mesh = mesh
         self.data_shards = int(mesh.shape["data"]) if mesh is not None else 1
         # disaggregated prefill: its stream (CUDA), and the dispatched
@@ -354,7 +385,7 @@ class ContinuousBatchingScheduler:
         # live batch state: logits rows + the paged cache (shared pools,
         # per-row page table / length / capacity; zeros mean inactive)
         self.rows = rows0
-        self._vdim = model.embed.table.shape[0]  # the padded vocab, head tied or not
+        self._vdim = model.vocab_padded  # the logits' width, head tied or not
         self._logits = torch.zeros((self.rows, self._vdim), dtype=model.dtype,
                                    device=model.device)
         self._pcache = model.init_paged_cache(self.rows, self.paged_spec)
@@ -374,6 +405,8 @@ class ContinuousBatchingScheduler:
         decodes the lane in the fused window; ``pipelined=False`` keeps the
         per-token host ping-pong."""
 
+        if self.model.group is not None:
+            raise NotImplementedError("split lanes over a model axis (ROADMAP queue I)")
         key = executor.lane_key
         if key in self._lanes:
             raise ValueError(f"lane {key} already attached")
@@ -799,10 +832,10 @@ class ContinuousBatchingScheduler:
         return toks
 
     def _decode_round(self, block: int) -> torch.Tensor:
-        """``_round`` eagerly on a CPU model; on a CUDA model a replay of its
-        graph for ``(block, rows)``."""
+        """``_round`` eagerly on a CPU model or a gloo group's; else a
+        replay of its CUDA graph for ``(block, rows)``."""
 
-        if self.model.device.type != "cuda":
+        if not self.model.graphs:
             return self._round(block)
         call = self._graphs.get((block, self.rows))
         if call is None:

@@ -568,12 +568,12 @@ def test_dropped_owner_frees_its_graphs_by_refcount(st, monkeypatch, owner):
     frees it at once, by reference count, with the cyclic collector off: a
     graph freed by the collector in the middle of a later capture would
     invalidate that capture on the card.  The model is seen through a
-    stand-in whose device reads "cuda", so the graph path runs on the
-    CPU with the fake graph."""
+    stand-in whose device reads "cuda" and whose ``graphs`` is set, so the
+    graph path runs on the CPU with the fake graph."""
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
-    model = SimpleNamespace(device=torch.device("cuda"), prefill=st.tmodel.prefill,
+    model = SimpleNamespace(device=torch.device("cuda"), graphs=True, prefill=st.tmodel.prefill,
                             decode_chunk=st.tmodel.decode_chunk)
     if owner == "policy":
         obj = CloudPolicy(st.tmodel, st.tok, paged=False)

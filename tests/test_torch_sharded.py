@@ -37,7 +37,7 @@ from repro_torch.data.pipeline import EpisodeTokenizer  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_decode_attention_sharded  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import serve_fleet  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.partition import PartitionExecutor  # noqa: E402
@@ -377,19 +377,55 @@ def test_serve_fleet_disaggregated_matches_reference(st, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+def _rank_group():
+    """Rank 0 of a model axis of 2 with no process group: what is refused
+    is refused before any collective."""
+
+    from repro_torch.launch.dist import ModelGroup
+
+    return ModelGroup(0, 2, "gloo", CPU, (CPU, CPU))
+
+
+def _scheduler(**kw):
+    return lambda st: ContinuousBatchingScheduler(
+        st.tmodel, st.tok, **{k: make() for k, make in kw.items()})
+
+
+def _rank_model(arch):
+    return lambda st: Model(get_smoke_config(arch).replace(dtype="float32"), device="cpu",
+                            group=_rank_group())
+
+
+def _rank_mesh_on_two_devices(st):
+    """A rank mesh whose data shards of rank 0 lie on two devices."""
+
+    g = _rank_group()
+    model = Model(st.tmodel.cfg, device="cpu", group=g)
+    mesh = Mesh(np.asarray([CPU, CPU, torch.device("meta"), CPU], dtype=object).reshape(2, 2),
+                ("data", "model"), group=g)
+    return ContinuousBatchingScheduler(model, st.tok, mesh=mesh)
+
+
+# what is refused -> (how to ask for it, the ROADMAP queue it names)
 REFUSED = {
-    "two devices": dict(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
-    "model axis": dict(mesh=lambda: make_test_mesh(data=1, model=2, devices=["cpu"] * 2)),
-    "mesh elsewhere": dict(mesh=lambda: make_test_mesh(data=2, devices=["meta"] * 2)),
-    "prefill elsewhere": dict(prefill_group=lambda: [torch.device("meta")]),
+    "two devices": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
+                    "F"),
+    "model axis on a MoE stack": (_rank_model("qwen3-moe-235b-a22b"), "I"),
+    "model axis on jamba-smoke": (_rank_model("jamba-1.5-large-398b"), "I"),
+    "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
+        2, 1, 1), ("pod", "data", "model"))), "F"),
+    "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, "F"),
+    "mesh elsewhere": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["meta"] * 2)),
+                       "F"),
+    "prefill elsewhere": (_scheduler(prefill_group=lambda: [torch.device("meta")]), "F"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_refuses_what_cannot_be_checked(st, what):
-    kw = {k: make() for k, make in REFUSED[what].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue F"):
-        ContinuousBatchingScheduler(st.tmodel, st.tok, **kw)
+    ask, queue = REFUSED[what]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
+        ask(st)
 
 
 def test_serve_cli_sharded_disaggregated():

@@ -1,0 +1,186 @@
+"""One rank of the port's tensor-parallel runs, for
+``tests/test_torch_model_axis.py``.  Imports torch and the port only.
+
+    GLOO_SOCKET_IFNAME=lo PYTHONPATH=src \\
+        python tests/torch_model_axis_rank.py RANK WORLD STORE REF.npz OUT_DIR
+
+Joins a gloo group of ``WORLD`` CPU ranks over the file store ``STORE``,
+runs the cases of its world and writes ``OUT_DIR/rank<RANK>.npz``:
+
+* world 2: (a) the layers of a f32 openvla-smoke rank model built by
+  ``Model.init`` (its parameter blocks, the MLP, prefill attention, a
+  paged decode step, ``embed_lookup`` and the logits on ``layer_inputs``);
+  the engine's ``tp42`` and ``gm42`` scenarios and the rapid fleet
+  (``TP_FLEET``) over a rank mesh, on the reference's weights from
+  ``REF.npz`` (``tests/torch_sharded_ref.py --model-axis``);
+* world 4: the ``sc24`` scenario.
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.bridge import load_reference_params
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import EpisodeTokenizer
+from repro_torch.launch import dist
+from repro_torch.launch.mesh import make_rank_mesh
+from repro_torch.launch.serve import serve_fleet
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import embed_lookup, mlp
+from repro_torch.models.model import Model
+from repro_torch.runtime.kv_cache import scatter_prompt_into_pool
+from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
+from torch_model_axis_cases import ENGINE_KW, TP_FLEET, TP_SCENARIOS, fleet_record, obs_pair
+
+F32 = dict(dtype="float32")
+# the paged step's plan: rows, page size, pages a row; its row lengths
+PAGED = dict(b=3, page=8, maxp=4)
+PAGED_LENS = (0, 5, 17)
+
+
+def layer_inputs(cfg):
+    """Case (a)'s numpy inputs (seeded): the MLP's and prefill's x, the
+    paged step's x, dense K/V, page table and lengths, the embedding's
+    token ids (every vocab block) and the logits' x."""
+
+    rng = np.random.default_rng(11)
+    b, page, maxp = PAGED["b"], PAGED["page"], PAGED["maxp"]
+    hd, kv, d = cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model
+    return {
+        "mlp_x": rng.normal(0, 1, (2, 5, d)).astype(np.float32),
+        "attn_x": rng.normal(0, 1, (2, 14, d)).astype(np.float32),
+        "step_x": rng.normal(0, 1, (b, 1, d)).astype(np.float32),
+        "ck": rng.normal(0, 1, (b, maxp * page, kv, hd)).astype(np.float32),
+        "cv": rng.normal(0, 1, (b, maxp * page, kv, hd)).astype(np.float32),
+        "table": rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32),
+        "lens": np.asarray(PAGED_LENS, np.int32),
+        "tokens": rng.integers(0, cfg.vocab_size, (2, 9)),
+        "logits_x": rng.normal(0, 1, (2, 1, d)).astype(np.float32),
+    }
+
+
+def rank_kv(model, a):
+    """The KV heads of a dense [B, S, KV, Dh] array that this rank's pool
+    holds (``Model.kv_heads`` of them)."""
+
+    blk = model.layers[0].attn
+    if blk.kv_cols is not None:
+        j = blk.kv_cols.start // model.cfg.resolved_head_dim
+        return a[:, :, j:j + 1]
+    n = model.kv_heads
+    r = model.group.rank
+    return a[:, :, r * n:(r + 1) * n]
+
+
+@torch.no_grad()
+def layers_case(group, out):
+    """(a) on a rank of openvla-smoke built by ``Model.init``."""
+
+    cfg = get_smoke_config("openvla-7b").replace(**F32)
+    model = Model(cfg, device="cpu", group=group)
+    for name, p in model.named_parameters():
+        out[f"a/param/{name}"] = p.numpy()
+    inp = layer_inputs(cfg)
+    blk = model.layers[0]
+    out["a/mlp"] = mlp(torch.as_tensor(inp["mlp_x"]), blk.mlp, cfg.mlp_activation).numpy()
+    s = inp["attn_x"].shape[1]
+    o, k, v = attn.attention_forward(torch.as_tensor(inp["attn_x"]), blk.attn, cfg,
+                                     torch.arange(s)[None], 0)
+    out["a/prefill"], out["a/prefill_k"], out["a/prefill_v"] = o.numpy(), k.numpy(), v.numpy()
+
+    b, page, maxp = PAGED["b"], PAGED["page"], PAGED["maxp"]
+    hd = cfg.resolved_head_dim
+    kp = torch.zeros((b * maxp + 1, page, model.kv_heads, hd))
+    vp = torch.zeros_like(kp)
+    table = torch.as_tensor(inp["table"])
+    full = torch.full((b,), maxp * page, dtype=torch.int32)
+    scatter_prompt_into_pool(kp, torch.as_tensor(rank_kv(model, inp["ck"])), table, full)
+    scatter_prompt_into_pool(vp, torch.as_tensor(rank_kv(model, inp["cv"])), table, full)
+    out["a/paged"] = attn.attention_decode_step_paged(
+        torch.as_tensor(inp["step_x"]), blk.attn, cfg, kp, vp, table,
+        torch.as_tensor(inp["lens"]), full, 0).numpy()
+    out["a/paged_kp"] = kp.numpy()
+
+    toks = torch.as_tensor(inp["tokens"])
+    for scale in (0.0, 16.0):
+        x = embed_lookup(toks, model.embed.table, scale, model.embed.tp)
+        out[f"a/embed_{int(scale)}"] = x.float().numpy()
+    out["a/logits"] = model._logits(torch.as_tensor(inp["logits_x"])).numpy()
+    out["a/collectives"] = np.asarray([dist.CALLS["all_reduce"], dist.CALLS["all_gather"]])
+
+
+def rank_model(group, ref, arch):
+    """The f32 smoke stack ``arch`` as this rank, on the reference's
+    weights."""
+
+    model = Model(get_smoke_config(arch).replace(**F32), device="cpu", group=group)
+    pre = f"params/{arch}/"
+    load_reference_params(model, {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)})
+    return model, EpisodeTokenizer(model.cfg.vocab_size)
+
+
+class Recording(ContinuousBatchingScheduler):
+    """Logs every reservation (robot, row, pages)."""
+
+    def __init__(self, *a, **kw):
+        self.reserved = []
+        super().__init__(*a, **kw)
+
+    def _reserve(self, req):
+        seq = super()._reserve(req)
+        self.reserved.append([req.robot_id, seq.row, *seq.pages])
+        return seq
+
+
+def engine_case(group, ref, out, name, arch, data, n, seed):
+    """One of ``TP_SCENARIOS`` over a rank mesh of ``data`` shards."""
+
+    model, tok = rank_model(group, ref, arch)
+    sched = Recording(model, tok, mesh=make_rank_mesh(data, group), **ENGINE_KW)
+    rng = np.random.default_rng(seed)
+    for r in range(n):
+        sched.submit(r, *obs_pair(rng))
+    results = sched.drain()
+    st = sched.pool_stats()
+    out[f"{name}/results"] = np.asarray([(r.robot_id, r.submitted_round, r.admitted_round,
+                                          r.completed_round, int(r.kind == "split"))
+                                         for r in results])
+    out[f"{name}/tokens"] = np.stack([np.asarray(r.tokens, np.int64) for r in results])
+    out[f"{name}/reserved"] = np.asarray(sched.reserved)
+    out[f"{name}/pool"] = np.asarray([st.pages_in_use, st.high_water, *(st.shard_in_use or ()),
+                                      *(st.shard_high_water or ())])
+    out[f"{name}/counters"] = np.asarray([sched.round, sched.windows, sched.window_closes,
+                                          sched.mixed_rounds, sched.peak_active, sched.rows,
+                                          sched.allocator.num_pages])
+    out[f"{name}/pool_shape"] = np.asarray(sched._pcache["kp"].shape)
+    out[f"{name}/round_mode"] = np.frombuffer(sched.round_mode.encode(), np.uint8)
+
+
+def fleet_case(group, ref, out):
+    model, tok = rank_model(group, ref, "openvla-7b")
+    mesh = make_rank_mesh(TP_FLEET["data"], group)
+    fleet_record(out, "fleet42", serve_fleet(model, tok, mesh=mesh, **TP_FLEET["kw"]))
+
+
+def main(rank, world, store, ref_path, out_dir):
+    torch.set_num_threads(1)
+    group = dist.init_model_group(rank, world, backend="gloo", init_method=f"file://{store}",
+                                  device="cpu")
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files if k.startswith("params/")}
+    out = {}
+    if world == 2:
+        layers_case(group, out)
+    for name, arch, data, model_axis, n, seed in TP_SCENARIOS:
+        if model_axis == world:
+            engine_case(group, ref, out, name, arch, data, n, seed)
+    if TP_FLEET["model"] == world:
+        fleet_case(group, ref, out)
+    np.savez(f"{out_dir}/rank{rank}.npz", **out)
+    dist.destroy_model_group(group)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])

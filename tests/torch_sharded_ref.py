@@ -4,7 +4,7 @@
 Run in a process of its own (the device count is fixed when jax starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
-        PYTHONPATH=src python tests/torch_sharded_ref.py OUT.npz
+        PYTHONPATH=src python tests/torch_sharded_ref.py OUT.npz [--model-axis]
 
 It runs the scenarios of ``tests/test_sharded.py`` on the f32 openvla-smoke
 stack (``ENGINE_KW``): cloud-only over an 8-way data mesh, a mixed fleet
@@ -15,6 +15,13 @@ scheduler run it writes the results (robot, rounds, kind) in harvest order,
 their tokens, every reservation (robot, row, pages) in order, the final
 ``PoolStats`` and counters; and the stack's parameters in the layout of
 ``repro/checkpoint/npz.py``, so that the port runs on the same weights.
+
+With ``--model-axis`` it runs the meshes with a ``model`` axis instead, for
+``tests/test_torch_model_axis.py`` (``TP_SCENARIOS``): the engine on
+f32 openvla-smoke over (data 4, model 2), starcoder2-smoke over (2, 4)
+and gemma2-smoke over (4, 2), and ``serve_fleet(trigger="rapid")`` on
+openvla-smoke over (4, 2) (``TP_FLEET``), each stack's parameters under
+``params/<arch>/``.
 """
 
 import sys
@@ -27,11 +34,12 @@ from repro.configs import get_smoke_config
 from repro.data.pipeline import EpisodeTokenizer
 from repro.kernels.paged_attention import paged_decode_attention_sharded
 from repro.launch.mesh import make_test_mesh
+from repro.launch.serve import serve_fleet
 from repro.models.model import Model
 from repro.partition.executor import PartitionExecutor
 from repro.runtime import scheduler as sched_mod
+from torch_model_axis_cases import ENGINE_KW, TP_FLEET, TP_SCENARIOS, fleet_record, obs_pair
 
-ENGINE_KW = dict(max_slots=8, num_pages=63, scan_rounds=2)
 # (name, robots, seed, data shards (0: no mesh), prefill on the last device,
 # split-lane cut (robots with an odd id go there; None: cloud only))
 SCENARIOS = (
@@ -41,12 +49,6 @@ SCENARIOS = (
     ("combo7", 6, 9, 7, True, None),
 )
 WRAPPER = dict(b=8, h=8, kv=2, d=64, page=16, pool=24, maxp=4, seed=7)
-
-
-def obs_pair(rng):
-    qd = rng.normal(0, 0.5, (1, 7)).astype(np.float32)
-    tau = rng.normal(0, 0.5, (1, 7)).astype(np.float32)
-    return qd, tau
 
 
 def wrapper_inputs(b, h, kv, d, page, pool, maxp, seed):
@@ -75,7 +77,37 @@ def record(out, name, sched, results):
                                           sched.allocator.num_pages], np.int64)
 
 
-def main(path):
+def f32_stack(arch):
+    """The reference's f32 smoke stack ``arch`` -> (model, params, tokenizer)."""
+
+    cfg = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    return model, model.init(jax.random.PRNGKey(0)), EpisodeTokenizer(cfg.vocab_size)
+
+
+def main_model_axis(path, devs, recording):
+    out = {}
+    stacks = {}
+    for name, arch, data, model_axis, n, seed in TP_SCENARIOS:
+        if arch not in stacks:
+            stacks[arch] = f32_stack(arch)
+            out.update({f"params/{arch}/{k}": np.asarray(v)
+                        for k, v in _flatten(stacks[arch][1]).items()})
+        model, params, tok = stacks[arch]
+        mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
+        sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
+        rng = np.random.default_rng(seed)
+        for r in range(n):
+            sched.submit(r, *obs_pair(rng))
+        record(out, name, sched, sched.drain())
+    model, params, tok = stacks["openvla-7b"]
+    f = TP_FLEET
+    mesh = make_test_mesh(data=f["data"], model=f["model"], devices=devs[:f["data"] * f["model"]])
+    fleet_record(out, "fleet42", serve_fleet(model, params, tok, mesh=mesh, **f["kw"]))
+    np.savez(path, **out)
+
+
+def main(path, model_axis=False):
     devs = jax.devices()
     assert len(devs) >= 8, "needs XLA_FLAGS=--xla_force_host_platform_device_count=8"
 
@@ -97,6 +129,8 @@ def main(path):
         return seq
 
     sched_mod._SplitLane.reserve = recording_lane_reserve
+    if model_axis:
+        return main_model_axis(path, devs, Recording)
 
     cfg = get_smoke_config("openvla-7b").replace(dtype="float32", param_dtype="float32")
     model = Model(cfg)
@@ -125,4 +159,4 @@ def main(path):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], model_axis="--model-axis" in sys.argv[2:])
