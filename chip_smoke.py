@@ -22,9 +22,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
    encoder over 300 frames (non-causal), decode at length 70 (dense and
    paged) and its cross-attention decode over the 300 frames; the paged
    and flash kernels also at a model-axis rank's shape (phase 7c: H = KV =
-   16, the round's 32 rows and the prompt's S = 14); the
-   Mamba scan also at Jamba's training shape with the chunk states (the
-   forward of the training pair);
+   16, the round's 32 rows and the prompt's S = 14; phase 7d's Jamba: H =
+   32, KV = 4), the Mamba scan at phase 7d's rank's 128 heads (S = 14) and
+   at Jamba's training shape with the chunk states (the forward of the
+   training pair);
 4. model: for each served stack, its smoke size in float32 on the card
    against the same weights on the CPU (plain versions; ``CloudPolicy``
    chunks and a scheduler run whose decode rounds are CUDA graphs), then
@@ -33,7 +34,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
    CUDA graphs), with the kernels' launch counts read around each run and
    the two runs' chunks held to the greedy-margin rule; ``CloudPolicy``'s
    graphs against the same chunks run eagerly (tokens equal, cloud_ms of
-   both); one profiled graph chunk a mode: openvla-7b (32 layers), then
+   both); one profiled graph chunk a mode: openvla-7b cut to its first
+   ``OPENVLA_LAYERS`` = 16 layers, then
    jamba-1.5-large-398b cut to its first 4 layers (mamba+MLP, mamba+MoE,
    mamba+MLP, attn+MoE; ~46 GB); then the five dense attention stacks of
    ``NEW_ARCHS`` at full width, depth cut to ``NEW_ARCH_LAYERS`` (gemma-7b,
@@ -54,7 +56,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    run (equal up to a decision within 1e-5 of its threshold), no hand
    kernel launched, with its ms a tick; then the MoE stacks of
    ``MOE_ARCHS`` at published widths, depth cut to fit the card
-   (qwen3-moe-235b-a22b 4 layers, phi3.5-moe-42b-a6.6b 7): the f32 smoke
+   (qwen3-moe-235b-a22b 2 layers, phi3.5-moe-42b-a6.6b 4): the f32 smoke
    twins card vs CPU under ``Model(moe_impl=...)`` "dense" and "capacity",
    then one set of bf16 weights served under both dispatches (``moe_twin``),
    dense and paged, graph and eager, each held as the dense stacks are, one
@@ -88,7 +90,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    tokens/s and chunk latency percentiles (their tokens are held card
    against CPU by the f32 smoke twin of phase 4);
 6. fleet, on openvla-7b at full width, depth cut to its first
-   ``FLEET_LAYERS`` = 8 layers (run between its phase 5 and Jamba's phase
+   ``FLEET_LAYERS`` = 4 layers (run between its phase 5 and Jamba's phase
    4): (a) f32 openvla-smoke, the same weights on the
    card and on the CPU, ``serve_fleet(trigger="rapid")`` with 8 robots, R =
    4, both ticks: decision streams, telemetry, rounds, cancels and latency
@@ -107,17 +109,17 @@ Phases, in order; any failure exits nonzero and prints no result line:
    core on the card against the CPU.  Fleet runs last 300 ticks: the
    episodes' first contact phases start at tick 220-260;
 7. partition, the edge-cloud split (``repro_torch.partition``), run after
-   openvla-7b's phase 6 on the same 8-layer model and after Jamba's phase 5: (a)
+   openvla-7b's phase 6 on the same 4-layer model and after Jamba's phase 5: (a)
    f32 smoke twins, card vs CPU on the same weights: ``PartitionedPolicy``
    at every cut of openvla-smoke and jamba-smoke's cut 2 with the experts
    of layer 1 cloud-side against its plain cut-2 lane (chunks equal to
    ``CloudPolicy``'s or inside the f32 margin), and ``serve_fleet(trigger=
    "rapid")`` with 8 robots at cuts {0, 1, 2}, R = 4 (decisions, counters,
    rounds, ``mixed_rounds``, ``hetero_rounds`` equal); (b) openvla-7b at
-   full width (8 layers): ``PartitionedPolicy`` at cuts 0, 4 and 8 (graph
+   full width (4 layers): ``PartitionedPolicy`` at cuts 0, 2 and 4 (graph
    equal to eager, greedy-margin rule against ``CloudPolicy``, cloud_ms beside
    ``CloudPolicy``'s and the modeled channel ms), a heterogeneous fleet of
-   16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 2, 4), R = 4,
+   16 robots x 300 ticks (4 cloud-only, 4 each at cuts 0, 1, 2), R = 4,
    ``max_slots=8``, pipelined, cold and warm, with ``Observability``
    (tokens/s, latency, fused windows, per-leg channel bytes, graph
    captures, pages back after a drain; each lane's buffers freed each time
@@ -130,7 +132,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    launch counts are derived from what it dispatched (``SplitLedger``) and
    checked exactly;
 7b. data shards and disaggregated prefill (``launch/mesh.py``, the
-   scheduler's ``mesh`` and ``prefill_group``), on the same 8-layer model
+   scheduler's ``mesh`` and ``prefill_group``), on the same 4-layer model
    after phase 7, every shard on the card: (a) f32 openvla-smoke card vs
    CPU, a mesh of ``SHARDS`` = 2 data shards with disaggregated prefill, 8
    robots staggered, R = 4 (admitted and completed rounds equal, chunks
@@ -146,11 +148,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
    two streams overlapped; (d) ``python -m repro_torch.launch.serve
    --fleet 4 --sharded --disaggregate-prefill`` exits 0;
 7c. the mesh's model axis (``launch/dist.py``, ``make_rank_mesh``,
-   ``Model(group=...)``), on the same 8-layer model after phase 7b:
+   ``Model(group=...)``), on the same 4-layer model after phase 7b:
    ``MODEL_AXIS`` = 2 tensor-parallel ranks, each a process of its own
    (gloo with both on card 0 where there is one card, since NCCL takes no
    two ranks on one card; NCCL one rank a card where there are two), the
-   backend printed; each rank builds openvla-7b at full width on 8 layers
+   backend printed; each rank builds openvla-7b at full width on 4 layers
    from the phase-6 model's seed and checks every parameter block against
    the parent's tensor (shared from the parent's card), then serves
    ``serve_fleet(trigger="rapid")`` on 8 robots x ``AXIS_TICKS`` = 221
@@ -165,6 +167,31 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the embedding, one all-gather of the logits); each rank's weight and
    pool bytes and engine ms a round beside the one rank's, timed warm
    after the ranks' join; the ranks joined within ``RANKS_TIMEOUT_S``;
+7d. MoE and Mamba layers on the model axis, after Jamba's phases 5 and 7:
+   the one-rank Jamba (4 layers at full width) records the first prompt's
+   logits and routes, a staggered scheduler run of ``JAMBA_AXIS_ROBOTS`` =
+   8 robots at R = 4 (its dense dispatch), itself teacher-forced along
+   those chunks (top-two gaps and routes) and an exact digest of every
+   rank's block of every parameter, and is freed (it and two ranks do not
+   fit on one card); then ``MODEL_AXIS`` = 2 ranks (as in 7c) each build
+   Jamba from the same seed, hold every block's digest to the parent's (a
+   block with one element changed must fail it), run the same prefill,
+   the two controls (a rank that skips the Mamba ``out_proj`` all-reduce,
+   one that skips the MoE all-reduce) and the same scheduler run over a
+   rank mesh: the ranks equal to each other (routes of every MoE call of
+   the prefill included), their chunks held to the one rank's by the
+   greedy-margin rule with routing near-ties (the one rank's top-two gap
+   at the first differing step, or its router gap where the two paths'
+   routes first part), the first prefill's tokens routed as the one
+   rank's or otherwise only at a router gap within ``MARGIN_TOL``, its
+   logits with the one rank's routes (``ForcedRoutes``) within
+   ``TP_LOGIT_TOL`` and both controls (with those routes) outside it,
+   launches exact (one paged launch an attention layer a decode step at
+   32 heads and 4 KV heads, one Mamba scan a Mamba layer a prefill at 128
+   heads), the collectives exact (12 all-reduces and 1 all-gather a
+   decode token or a prefill); each rank's weight, Mamba-state and pool
+   bytes and ms a round beside the one rank's; the ranks joined within
+   ``JAMBA_RANKS_TIMEOUT_S``;
 8. train (``repro_torch.launch.train``): (a) the flash backward kernel
    (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
    their plain versions at the training shapes (openvla-7b's B = 4, S =
@@ -278,7 +305,8 @@ from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # 
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
-from repro_torch.models.layers import block_of  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
+from repro_torch.models.layers import block_of, global_shape  # noqa: E402
 from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
@@ -400,18 +428,18 @@ REPLACES = {
 JAMBA = "jamba-1.5-large-398b"
 # the dense attention stacks served at full width after openvla-7b
 NEW_ARCHS = ("gemma-7b", "gemma2-9b", "h2o-danube-3-4b", "starcoder2-3b", "phi-3-vision-4.2b")
-# their depth since the MoE stacks joined the run (its time limit): the
-# first 4 layers at published widths (gemma2-9b: 2 local, 2 global); their
-# full-depth figures are in PERF.md, section 5
-NEW_ARCH_LAYERS = 4
+# their depth (the time limit): the first 2 layers at published widths
+# (gemma2-9b: 1 local, 1 global); their figures at 4 layers and at full
+# depth are in PERF.md, section 5
+NEW_ARCH_LAYERS = 2
 JAMBA_LAYERS = 4  # the first 4 layers of the real pattern: ~46 GB of bf16 weights
 # the MoE stacks at published widths, depth cut: PR 20 ran 14 and 28
 # layers (67.2 and 68.3 GiB, the most one 80 GB card held beside the
 # caches and graph pools; their figures are in PERF.md, sections 5-6);
-# then half that (7 and 14), the room the xLSTM and enc-dec stacks took
-# in the time limit; now half again, the room the train phase takes
-QWEN3_LAYERS = 4   # (437.9 GiB of bf16 weights at the published 94 layers)
-PHI35_LAYERS = 7   # (78.0 GiB at the published 32)
+# then 7 and 14 (the xLSTM and enc-dec stacks), 4 and 7 (the train
+# phase), now 2 and 4 (phase 7d, within the time limit)
+QWEN3_LAYERS = 2   # (437.9 GiB of bf16 weights at the published 94 layers)
+PHI35_LAYERS = 4   # (78.0 GiB at the published 32)
 MOE_ARCHS = {"qwen3-moe-235b-a22b": QWEN3_LAYERS, "phi3.5-moe-42b-a6.6b": PHI35_LAYERS}
 MIN_FREE_GIB = 6.0  # free device memory a MoE stack must leave after loading
 # the MoE stacks' brief mode (the time limit): the paged runs take the
@@ -427,11 +455,17 @@ XLSTM = "xlstm-125m"
 XLSTM_CUTS = (6,)  # its PartitionedPolicy cut: 6 of 12 blocks on the edge
 ENCDEC = "seamless-m4t-medium"
 ENC_FRAMES = 300   # stub frame embeddings of a seamless prompt (a few seconds of speech)
-# phases 6-7 (fleet, partition) run on openvla-7b at full width cut to its
-# first FLEET_LAYERS layers (the time limit): at all 32 these two phases,
-# mostly host-bound, took 466 s of a 1043 s run on an H100 80GB HBM3
-# (700 W), and a run on another such card passed the 1200 s limit
-FLEET_LAYERS = 8
+# phases 6-7c (fleet, partition, shards, model axis) run on openvla-7b at
+# full width cut to its first FLEET_LAYERS layers (the time limit): at all
+# 32 phases 6-7, mostly host-bound, took 466 s of a 1043 s run on an H100
+# 80GB HBM3 (700 W), and a run on another such card passed the 1200 s
+# limit; at 8 layers, with phase 7d, a run took 1120.4 s of phases on a
+# slower machine
+FLEET_LAYERS = 4
+# openvla-7b's phases 4-5 (served, the scheduler) on its first 16 of 32
+# layers, for the same run (the figures at all 32 are in PERF.md, section
+# 5); phase 8 trains all 32
+OPENVLA_LAYERS = 16
 FLEET = 1024      # robots in the monitor's episode bank
 DISPATCH_CPU_ROBOTS = 8  # the dispatcher phase's robots run again on the CPU
 DISPATCH_WARMUP = 8      # its untimed ticks before the timed run of each mode
@@ -857,7 +891,7 @@ def kernel_cases(rng, fleet):
     fleet_acc, fleet_tau = monitor_features(*fleet[1:], tcfg)
     wins = dict(window_acc=tcfg.window_acc, window_tau=tcfg.window_tau,
                 sigma_floor_acc=tcfg.sigma_floor_acc, sigma_floor_tau=tcfg.sigma_floor_tau)
-    rank_rng = np.random.default_rng(29)
+    rank_rng, jamba_rng = np.random.default_rng(29), np.random.default_rng(30)
     return [
         # (kernel, label, dtype, case, main-path shape?)
         ("flash_attention", "S=14 H=KV=32 D=128", bf, flash_case(rng, bf, 14, 32, 32), True),
@@ -886,6 +920,16 @@ def kernel_cases(rng, fleet):
          False),
         ("flash_attention", "model-axis rank M=2 S=14 H=KV=16 D=128", bf,
          flash_case(rank_rng, bf, 14, 16, 16), False),
+        # a rank of phase 7d's Jamba (M = 2): its attention layer's 32 heads
+        # and 4 KV heads over the round's rows and the prompt, its Mamba
+        # layers' 128 heads over the prompt; a generator of their own
+        ("paged_attention", "Jamba model-axis rank M=2 rows=32 lens 0..70 (8 idle) H=32 KV=4",
+         bf, paged_case(jamba_rng, bf, scheduler_lens(jamba_rng), 16, 32, 4,
+                        masked_library=True), False),
+        ("flash_attention", "Jamba model-axis rank M=2 S=14 H=32 KV=4", bf,
+         flash_case(jamba_rng, bf, 14, 32, 4), False),
+        ("mamba_scan", "Jamba model-axis rank M=2 B=1 S=14 H=128 P=64 N=16", f32,
+         mamba_case(jamba_rng, 1, 14, 128, 64, 16, 256), False),
         ("paged_attention", "B=1 len=70 page 16 identity", bf,
          paged_case(rng, bf, [70], 16, 32, 32, identity=True), False),
         ("paged_attention", "B=1 len=70 page 16 identity", f32,
@@ -1471,10 +1515,12 @@ def serve_stack(cfg, launches, scheduler_phase, brief: bool = False):
             f"against a weight-read floor of {floor:.1f} ms (graph {graph_ms / floor:.2f}x); "
             f"busy share {fmt(busy[mode])}; hand-kernel launches a chunk {per_replay}")
     phase(f"5. scheduler ({cfg.name})")
-    scheduler_phase(model, tok, launches, paged)
-    del model
+    after = scheduler_phase(model, tok, launches, paged)
+    del model, dense, paged
     gc.collect()
     torch.cuda.empty_cache()
+    if after is not None:
+        after()  # a phase that needs this model's memory back (7d)
 
 
 # ---------------------------------------------------------------------------
@@ -1735,9 +1781,16 @@ def openvla_scheduler(model, tok, launches, policy):
 
 
 def jamba_scheduler(model, tok, launches, policy):
+    """Jamba's phases 5 and 7, then 7d's one-rank runs -> phase 7d, which
+    ``serve_stack`` runs once this model is freed."""
+
     sched_parity(model, tok, launches, policy, rounds_list=(4,))
     phase(f"7. partition ({model.cfg.name})")
     split_jamba(model, tok, launches, policy)
+    phase(f"7d. MoE and Mamba on the model axis ({model.cfg.name}, {model.cfg.num_layers} "
+          f"layers, {MODEL_AXIS} ranks)")
+    one = jamba_axis_prepare(model, tok, launches)
+    return lambda: jamba_axis_phase(one, tok, launches)
 
 
 def dense_arch_scheduler(model, tok, launches, policy):
@@ -3512,30 +3565,33 @@ def model_axis_rank(rank, backend, init, device, parent, reqs, queue):
         queue.put((rank, traceback.format_exc()))
 
 
-def start_model_axis(backend, devices, parent, reqs):
-    """Start ``MODEL_AXIS`` ranks (``torch.multiprocessing``, spawned) ->
-    what ``join_model_axis`` waits on."""
+def start_model_axis(backend, devices, *args, target=model_axis_rank,
+                     timeout_s=RANKS_TIMEOUT_S, what="7c"):
+    """Start ``MODEL_AXIS`` ranks of ``target(rank, backend, init, device,
+    *args, queue)`` (``torch.multiprocessing``, spawned) -> what
+    ``join_model_axis`` waits on, ``timeout_s`` from now."""
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=model_axis_rank, args=(m, backend, init, devices[m], parent,
-                                                       reqs, q), daemon=True)
+    procs = [ctx.Process(target=target, args=(m, backend, init, devices[m], *args, q),
+                         daemon=True)
              for m in range(MODEL_AXIS)]
     for p in procs:
         p.start()
-    return procs, q, time.perf_counter() + RANKS_TIMEOUT_S
+    return procs, q, (time.perf_counter() + timeout_s, timeout_s, what)
 
 
-def join_model_axis(procs, q, deadline):
-    """The ranks' records by rank, within ``RANKS_TIMEOUT_S`` of their
-    start; ranks past it are killed, and any rank's failure fails the
-    phase."""
+def join_model_axis(procs, q, limit):
+    """The ranks' records by rank, within their limit (``start_model_axis``)
+    of their start; ranks past it are killed, and any rank's failure fails
+    the phase."""
 
     import queue as queue_mod
 
+    deadline, timeout_s, what = limit
     recs, errors, heard = {}, [], set()
     try:
         while len(heard) < MODEL_AXIS:
@@ -3546,11 +3602,12 @@ def join_model_axis(procs, q, deadline):
                 gone = [m for m in range(MODEL_AXIS)
                         if m not in heard and procs[m].exitcode is not None]
                 if gone and q.empty():
-                    raise AssertionError(f"(7c) ranks {gone} exited "
+                    raise AssertionError(f"({what}) ranks {gone} exited "
                                          f"({[procs[m].exitcode for m in gone]}) with no record")
                 if time.perf_counter() > deadline:
-                    raise AssertionError(f"(7c) ranks {sorted(set(range(MODEL_AXIS)) - heard)} "
-                                         f"not done in {RANKS_TIMEOUT_S} s") from None
+                    raise AssertionError(f"({what}) ranks "
+                                         f"{sorted(set(range(MODEL_AXIS)) - heard)} not done in "
+                                         f"{timeout_s} s") from None
                 continue
             heard.add(rank)
             if isinstance(rec, str):
@@ -3558,11 +3615,11 @@ def join_model_axis(procs, q, deadline):
             else:
                 recs[rank] = rec
         if errors:
-            raise AssertionError("(7c) " + "\n".join(errors)[-6000:])
+            raise AssertionError(f"({what}) " + "\n".join(errors)[-6000:])
         for p in procs:
             p.join(timeout=max(deadline - time.perf_counter(), 1.0))
         if any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"(7c) rank exit codes {[p.exitcode for p in procs]}")
+            raise AssertionError(f"({what}) rank exit codes {[p.exitcode for p in procs]}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -3694,6 +3751,443 @@ def model_axis_phase(model, tok, launches):
         + f"; the ranks took {spawn_s:.1f} s from spawn to join")
     if f1["cancelled"] < 1 or int(f1["offloads"].sum()) <= 8:
         raise AssertionError(f"(7c) the fleet's {AXIS_TICKS} ticks fired no trigger or cancel")
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: MoE and Mamba layers on the model axis (Jamba)
+# ---------------------------------------------------------------------------
+
+# phase 7d's own limit: its ranks started, built, checked, run and joined
+JAMBA_RANKS_TIMEOUT_S = 240
+# the staggered scheduler run phase 7d holds the ranks to: 4 robots, 3 at
+# once then one 2 rounds later, R = 4, Jamba's phase-5 (dense) dispatch (8
+# robots in its first runs: the time limit)
+JAMBA_AXIS_ROBOTS = 4
+# a parameter block's digest: the int64 sum (wrapping) of its elements' bit
+# patterns, each times its position + 1, taken this many elements at a time
+DIGEST_CHUNK = 1 << 24
+_BITS = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
+
+
+def digest(t) -> int:
+    """An exact digest of ``t``'s elements in order (``DIGEST_CHUNK``): one
+    element changed by any amount changes it."""
+
+    flat = t.detach().contiguous().view(_BITS[t.dtype]).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), DIGEST_CHUNK):
+        part = flat[i:i + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(i + 1, i + 1 + part.numel(), dtype=torch.int64, device=t.device)
+        total += (part * pos).sum()
+    return int(total)
+
+
+def block_digests(model, ranks):
+    """{parameter: [the digest of rank m's block of it, for m < ranks]} of a
+    one-rank ``model``: each rank's index from a meta rank model's
+    ``tp_block`` (``Model(group=...)``; ``in_proj`` by halves)."""
+
+    meta = torch.device("meta")
+    index = [{n: block_of(p)[1] for n, p in Model(
+        model.cfg, device="meta",
+        group=dist.ModelGroup(m, ranks, "gloo", meta, (meta,) * ranks)).named_parameters()}
+        for m in range(ranks)]
+    return {n: [digest(p[index[m][n]]) for m in range(ranks)]
+            for n, p in model.named_parameters()}
+
+
+def jamba_first(model, tok, reqs):
+    """``first_logits``, and the routed sets [T, E] and router boundary
+    gaps [T] of each of its router calls (numpy)."""
+
+    with RouteLog() as routes:
+        logits = first_logits(model, tok, reqs)
+    return logits, [(a.cpu().numpy(), g.cpu().numpy()) for a, g in routes.calls]
+
+
+class ForcedRoutes:
+    """While entered, the MoE router takes the given routed sets (one [T,
+    E] array a call, in call order) and keeps its own softmax weights over
+    them, renormalised as ``router_probs`` renormalises its top k: a path
+    held to another's arithmetic with that path's routing decisions."""
+
+    def __init__(self, sets):
+        self.sets = sets
+
+    def __enter__(self):
+        self.fn, calls = moe_lib.router_probs, iter(self.sets)
+
+        def forced(x, router_w, k):
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            sel = torch.as_tensor(next(calls), device=probs.device).reshape(probs.shape)
+            top = torch.where(sel, probs, torch.zeros_like(probs))
+            combine = top / top.sum(-1, keepdim=True)
+            lead = tuple(range(probs.dim() - 1))
+            density = (combine > 0).float().mean(dim=lead)
+            return combine, probs.shape[-1] * torch.sum(density * probs.mean(dim=lead)) / k
+
+        moe_lib.router_probs = forced
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.router_probs = self.fn
+
+
+def jamba_sched_run(model, tok, reqs, launches, mesh=None):
+    """``staggered`` over ``reqs`` (``max_slots=4``, R = 4) with exact
+    launches and every collective counted -> (a picklable record, the
+    scheduler)."""
+
+    sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4, mesh=mesh,
+                                        num_pages=len(reqs) * -(-(14 + 56) // 16))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dist.reset_calls()
+    t0 = time.perf_counter()
+    results = staggered(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = check_sched_counts(model, sched, 0, 0, launches)
+    pc = sched._pcache
+    return dict(chunks={r.robot_id: np.asarray(r.tokens) for r in results},
+                order=[r.robot_id for r in results], launches=counts,
+                collectives=dict(dist.CALLS), admits=len(sched.admit_ms),
+                steps=sched.decode_rounds * sched.decode_block, rounds=sched.decode_rounds,
+                wall_s=wall, ms_round=wall * 1e3 / sched.decode_rounds, mode=sched.round_mode,
+                pool_bytes=sum(pc[k].nbytes for k in ("kp", "vp")),
+                state_bytes=sum(pc[k].nbytes for k in model.state_names)), sched
+
+
+def forced_routes(model, tok, reqs, chunks):
+    """``model`` teacher-forced along ``chunks`` (each robot's tokens), the
+    robots in one batch -> (the top-two gap over the action bins before
+    each token [n, 56], the routed sets and router gaps of every router
+    call: the prefill's [n * 14, E], then each step's [n, E])."""
+
+    obs = np.concatenate([np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
+                          for _, qd, tau in reqs])
+    toks = np.stack([chunks[r] for r, _, _ in reqs])
+    dev = model.device
+    gaps = []
+    with RouteLog() as routes:
+        logits, cache = model.prefill({"tokens": torch.as_tensor(obs, device=dev)},
+                                      extra=toks.shape[1])
+        for j in range(toks.shape[1]):
+            top = logits[:, -1, tok.action_base:].float().topk(2).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            if j + 1 < toks.shape[1]:
+                logits, cache = model.decode_step(torch.as_tensor(toks[:, j:j + 1], device=dev),
+                                                  cache)
+    return np.stack(gaps, 1), [(a.cpu().numpy(), g.cpu().numpy()) for a, g in routes.calls]
+
+
+def skip_mamba_out(model, tok, reqs):
+    """``first_logits`` of a rank that skips the Mamba ``out_proj``
+    all-reduce in every Mamba layer (every rank alike, so the other
+    collectives still pair; the ``dt`` / B / C all-reduce stays)."""
+
+    d, real = model.cfg.d_model, ssm_lib.all_reduce_sum
+    ssm_lib.all_reduce_sum = lambda x, g: x if x.shape[-1] == d else real(x, g)
+    try:
+        return first_logits(model, tok, reqs)
+    finally:
+        ssm_lib.all_reduce_sum = real
+
+
+def skip_moe(model, tok, reqs):
+    """``first_logits`` of a rank that skips the MoE all-reduce in every
+    MoE layer."""
+
+    moes = [blk.moe for blk in model.layers if hasattr(blk, "moe")]
+    for m in moes:
+        m.tp = None
+    try:
+        return first_logits(model, tok, reqs)
+    finally:
+        for m in moes:
+            m.tp = model.group
+
+
+def per_token_collectives(cfg):
+    """The collectives of one decode token (or one prefill) of a rank,
+    from the layer kinds: 2 all-reduces a Mamba layer (dt / B / C, then
+    out_proj), 1 an attention layer, 1 an FFN (MLP or MoE), 1 the
+    embedding; 1 all-gather of the logits."""
+
+    return {"all_reduce": sum(2 if k == "mamba" else 1 for k in cfg.blocks) + cfg.num_layers + 1,
+            "all_gather": 1}
+
+
+def jamba_axis_prepare(model, tok, launches):
+    """(7d), on the one-rank Jamba before it is freed: the first prompt's
+    logits and routes, the staggered scheduler run (its ms a round warm,
+    from a second run through the same scheduler), the model teacher-forced
+    along its own chunks, and the digest of every rank's block of every
+    parameter -> what ``jamba_axis_phase`` holds the ranks to."""
+
+    t0 = time.perf_counter()
+    reqs = requests(np.random.default_rng(9), JAMBA_AXIS_ROBOTS)
+    logits, routes = jamba_first(model, tok, reqs)
+    run, sched = jamba_sched_run(model, tok, reqs, launches)
+    rounds0, t1 = sched.decode_rounds, time.perf_counter()
+    staggered(sched, reqs)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t1) * 1e3 / (sched.decode_rounds - rounds0)
+    del sched
+    gaps, forced = forced_routes(model, tok, reqs, run["chunks"])
+    t2 = time.perf_counter()
+    digests = block_digests(model, MODEL_AXIS)
+    log(f"  (7d) one rank: {len(run['chunks'])} chunks in {run['rounds']} rounds "
+        f"({run['mode']}, cold {run['ms_round']:.2f} ms a round, warm {warm_ms:.2f}), launches "
+        f"{run['launches']} (exact); teacher-forced routes; digests of {len(digests)} "
+        f"parameters x {MODEL_AXIS} blocks in {time.perf_counter() - t2:.1f} s; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return dict(reqs=reqs, logits=logits, routes=routes, run=run, warm_ms=warm_ms, gaps=gaps,
+                forced=forced, digests=digests, cfg=model.cfg,
+                weight_bytes=sum(p.nbytes for p in model.parameters()))
+
+
+def jamba_axis_rank(rank, backend, init, device, digests, chunks, routes1, reqs, queue):
+    """One rank of phase 7d, in a process of its own: joins the model axis,
+    builds Jamba at full width on ``JAMBA_LAYERS`` layers from phase 4's
+    seed, checks each parameter block's digest against the parent's (and
+    that a block with one element changed fails it), runs ``jamba_first``,
+    then the first prompt again and the two controls with the one rank's
+    routes (``routes1``, ``ForcedRoutes``), and ``jamba_sched_run`` over a
+    rank mesh, teacher-forces the one-rank ``chunks`` where its own differ,
+    and puts (rank, record or error) on ``queue``."""
+
+    try:
+        if backend == "gloo":
+            os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        else:
+            os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        group = dist.init_model_group(rank, MODEL_AXIS, backend=backend, init_method=init,
+                                      device=device)
+        dev = group.device
+        cfg = get_config(JAMBA).replace(num_layers=JAMBA_LAYERS)
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0), group=group)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        cut = 0
+        for name, p in model.named_parameters():
+            if digest(p) != digests[name][rank]:
+                raise AssertionError(f"rank {rank}: {name}'s digest is not its block's")
+            cut += tuple(p.shape) != global_shape(p)
+        control = model.layers[0].mamba.in_proj.detach().clone()
+        control.view(torch.int16).view(-1)[control.numel() // 3] += 1
+        if digest(control) == digests["layers.0.mamba.in_proj"][rank]:
+            raise AssertionError(f"rank {rank}: a block with one element changed passes its "
+                                 "digest")
+        del control
+        heads = {"paged": set(), "scan": set()}
+        paged_kernel, scan_kernel = kpa.paged_decode_attention, kms.mamba_scan
+
+        def paged(q, k_pages, *a, **kw):
+            heads["paged"].add((q.shape[1], k_pages.shape[2]))
+            return paged_kernel(q, k_pages, *a, **kw)
+
+        def scan(x, *a, **kw):
+            heads["scan"].add(x.shape[2])
+            return scan_kernel(x, *a, **kw)
+
+        kpa.paged_decode_attention, kms.mamba_scan = paged, scan
+        tok = EpisodeTokenizer(cfg.vocab_size)
+        logits, routes = jamba_first(model, tok, reqs)
+        with ForcedRoutes(routes1):
+            forced_logits = first_logits(model, tok, reqs)
+        controls = {}
+        for name, skip in (("Mamba out_proj", skip_mamba_out), ("MoE", skip_moe)):
+            with ForcedRoutes(routes1):
+                controls[name] = skip(model, tok, reqs)
+        counts = {n: 0 for n in _lib.KERNELS}
+        run = jamba_sched_run(model, tok, reqs, counts, make_rank_mesh(1, group))[0]
+        differ = any(not np.array_equal(run["chunks"][r], chunks[r]) for r in chunks)
+        forced = forced_routes(model, tok, reqs, chunks)[1] if differ else None
+        queue.put((rank, dict(
+            rank=rank, device=str(dev), build_s=build_s, cut=cut, n_params=len(digests),
+            logits=logits, forced_logits=forced_logits, routes=routes, controls=controls,
+            run=run, forced=forced,
+            heads={k: sorted(v) for k, v in heads.items()}, launches=counts,
+            weight_bytes=sum(p.nbytes for p in model.parameters()))))
+        dist.destroy_model_group(group)
+    except Exception:  # the rank's failure goes to the parent, which fails the phase
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def same_jamba_runs(a, b):
+    """Two ranks' records: the same logits, routes, controls, chunks and
+    counts."""
+
+    ra, rb = a["run"], b["run"]
+    return (np.array_equal(a["logits"], b["logits"])
+            and np.array_equal(a["forced_logits"], b["forced_logits"])
+            and len(a["routes"]) == len(b["routes"])
+            and all(np.array_equal(x[0], y[0]) for x, y in zip(a["routes"], b["routes"]))
+            and all(np.array_equal(a["controls"][n], b["controls"][n]) for n in a["controls"])
+            and ra["order"] == rb["order"]
+            and all(np.array_equal(ra["chunks"][r], rb["chunks"][r]) for r in ra["chunks"])
+            and all(ra[k] == rb[k] for k in ("launches", "collectives", "admits", "steps"))
+            and a["heads"] == b["heads"])
+
+
+def route_flip(one_forced, rank_forced, robot, step, n):
+    """At the first router call up to decode step ``step`` whose routed sets
+    for ``robot`` differ between the one-rank and the rank path (both
+    teacher-forced along the one-rank chunk), the largest one-rank router
+    gap over the tokens that differ; None where they all route alike.
+    Calls: the prefill's (``n`` robots x 14 prompt rows), then each step's
+    (one row a robot), a call a MoE layer."""
+
+    moe_layers = sum(1 for sets, _ in one_forced if sets.shape[0] == n * 14)
+    for c, ((sa, ga), (sb, _)) in enumerate(zip(one_forced, rank_forced)):
+        prefill = c < moe_layers
+        if not prefill and (c - moe_layers) // moe_layers >= step:
+            break
+        rows = slice(robot * 14, (robot + 1) * 14) if prefill else slice(robot, robot + 1)
+        differ = (sa[rows] != sb[rows]).any(-1)
+        if differ.any():
+            return float(ga[rows][differ].max())
+    return None
+
+
+def prefill_flips(one, rank):
+    """The first prefill's tokens that the rank routes otherwise than the
+    one rank, as (router call, one-rank router gap) pairs; a flip past
+    ``MARGIN_TOL`` fails the phase."""
+
+    flips = []
+    for c, ((sa, ga), (sb, _)) in enumerate(zip(one["routes"], rank["routes"])):
+        for t in np.flatnonzero((sa != sb).any(-1)):
+            if ga[t] > MARGIN_TOL:
+                raise AssertionError(f"(7d) first prefill: router call {c} routes token {t} "
+                                     f"otherwise than one rank at a gap of {ga[t]:.3g}")
+            flips.append((c, round(float(ga[t]), 5)))
+    return flips
+
+
+def hold_jamba_to_one_rank(one, rank):
+    """Rank 0's record against the one rank's: the harvest order and rounds
+    equal; each chunk equal, or differing first at a step where the one
+    rank's top-two gap is within ``MARGIN_TOL``, or past a routing near-tie
+    (``route_flip`` within it); the first prefill's tokens routed as the one
+    rank's, or otherwise only at a near-tie (``prefill_flips``), and its
+    logits with the one rank's routes within ``TP_LOGIT_TOL``, both
+    controls (with those routes) past it -> (chunks inside the margin,
+    chunks past a near-tie, the prefill's flips, the logits' max abs error
+    with the one rank's routes and with the rank's own, {control: (max abs
+    error, caught)})."""
+
+    run, run1 = rank["run"], one["run"]
+    if run["order"] != run1["order"] or run["rounds"] != run1["rounds"]:
+        raise AssertionError(f"(7d) harvest order {run['order']} / rounds {run['rounds']} vs one "
+                             f"rank {run1['order']} / {run1['rounds']}")
+    n = len(one["reqs"])
+    margin, flips = 0, []
+    for i, (r, _, _) in enumerate(one["reqs"]):
+        diff = np.flatnonzero(run["chunks"][r] != run1["chunks"][r])
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        if one["gaps"][i, j] <= MARGIN_TOL:
+            margin += 1
+            continue
+        flip = route_flip(one["forced"], rank["forced"], i, j, n)
+        if flip is None or flip > MARGIN_TOL:
+            raise AssertionError(f"(7d) robot {r}: chunk differs at step {j} where the top-two "
+                                 f"gap is {one['gaps'][i, j]:.3g} and the routes "
+                                 + ("agree" if flip is None else f"part at a gap of {flip:.3g}"))
+        flips.append(round(flip, 4))
+    prefill = prefill_flips(one, rank)
+    want = [torch.as_tensor(one["logits"])[None]]
+    own = compare([torch.as_tensor(rank["logits"])[None]], want, [TP_LOGIT_TOL])[0]
+    err, ok = compare([torch.as_tensor(rank["forced_logits"])[None]], want, [TP_LOGIT_TOL])
+    if not ok:
+        raise AssertionError(f"(7d) first prefill's logits with the one rank's routes: max abs "
+                             f"error {err:.4g} past 2^-5 of max |logit| "
+                             f"{np.abs(one['logits']).max():.4g}")
+    if not prefill and not np.array_equal(rank["logits"], rank["forced_logits"]):
+        raise AssertionError("(7d) the same routes forced moved the first prefill's logits")
+    controls = {}
+    for name, logits in rank["controls"].items():
+        c_err, c_ok = compare([torch.as_tensor(logits)[None]], want, [TP_LOGIT_TOL])
+        controls[name] = (c_err, not c_ok)
+        if c_ok:
+            raise AssertionError(f"(7d) a rank that skips the {name} all-reduce passes "
+                                 f"TP_LOGIT_TOL (max abs error {c_err:.4g})")
+    return margin, flips, prefill, err, own, controls
+
+
+def jamba_axis_phase(one, tok, launches):
+    """(7d) ``MODEL_AXIS`` tensor-parallel ranks of Jamba (4 layers at full
+    width: Mamba, MoE, attention), each its own process, held to the
+    one-rank model's runs (``jamba_axis_prepare``; that model is freed
+    first: the two do not fit on one card together)."""
+
+    backend, devices = axis_plan()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    log(f"  backend {backend}: {MODEL_AXIS} ranks on {devices}; the one-rank model freed "
+        f"({held / 2**30:.2f} GiB still allocated here)")
+    if held > 4 * 2**30:
+        raise AssertionError(f"(7d) {held / 2**30:.2f} GiB held before the ranks start")
+    t0 = time.perf_counter()
+    started = start_model_axis(backend, devices, one["digests"], one["run"]["chunks"],
+                               [sets for sets, _ in one["routes"]], one["reqs"],
+                               target=jamba_axis_rank,
+                               timeout_s=JAMBA_RANKS_TIMEOUT_S, what="7d")
+    ranks = join_model_axis(*started)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks[1:]:
+        if not same_jamba_runs(ranks[0], r):
+            raise AssertionError(f"(7d) rank {r['rank']}'s runs differ from rank 0's")
+    cfg = one["cfg"]
+    per_token = per_token_collectives(cfg)
+    heads = {"paged": [(cfg.num_heads // MODEL_AXIS, cfg.num_kv_heads // MODEL_AXIS)],
+             "scan": [ssm_lib.ssm_dims(cfg)[1] // MODEL_AXIS]}
+    for r in ranks:
+        run = r["run"]
+        want = {k: v * (run["admits"] + run["steps"]) for k, v in per_token.items()}
+        if run["collectives"] != want:
+            raise AssertionError(f"(7d) rank {r['rank']}: collectives {run['collectives']}, "
+                                 f"expected {want}")
+        if r["heads"] != heads:
+            raise AssertionError(f"(7d) rank {r['rank']}: kernels at heads {r['heads']}, "
+                                 f"expected {heads}")
+        for n in launches:
+            launches[n] += r["launches"][n]
+    margin, flips, prefill, err, own, controls = hold_jamba_to_one_rank(one, ranks[0])
+    run1 = one["run"]
+    for r in ranks:
+        run = r["run"]
+        log(f"  rank {r['rank']} on {r['device']}: built in {r['build_s']:.2f} s, {r['cut']} of "
+            f"{r['n_params']} parameters cut, every block's digest equal to the parent's (one "
+            f"element changed: caught); weights {r['weight_bytes'] / 2**30:.3f} GiB (one rank "
+            f"{one['weight_bytes'] / 2**30:.3f}), Mamba state {run['state_bytes'] / 2**20:.2f} "
+            f"MiB (one rank {run1['state_bytes'] / 2**20:.2f}), pool "
+            f"{run['pool_bytes'] / 2**20:.2f} MiB (one rank {run1['pool_bytes'] / 2**20:.2f}); "
+            f"scheduler {run['mode']}: {run['rounds']} rounds, {run['wall_s']:.2f} s, "
+            f"{run['ms_round']:.2f} ms a round (one rank, {run1['mode']}: cold "
+            f"{run1['ms_round']:.2f}, warm {one['warm_ms']:.2f}); collectives a decode token "
+            f"{per_token} (2 a Mamba layer, 1 an attention layer, 1 an FFN, 1 the embedding, "
+            f"+ the logits' gather), in all {run['collectives']} over {run['admits']} admissions "
+            f"and {run['steps']} steps (exact); kernels at heads {r['heads']}; launches "
+            f"{run['launches']} (exact)")
+    log(f"  ranks equal to each other (logits, routes, controls, chunks, counts); every MoE call "
+        f"of the first prefill routes alike on every rank ({len(one['routes'])} calls; against "
+        f"one rank {len(prefill)} tokens route otherwise, (call, router gap) {prefill}); "
+        f"against one rank: {len(run1['chunks'])} chunks, order and {run1['rounds']} rounds "
+        f"equal, {margin} inside the {MARGIN_TOL:g} margin, {len(flips)} past a routing "
+        f"near-tie {flips}; first prefill's logits with the one rank's routes max abs error "
+        f"{err:.4g} (limit 2^-5 of max |logit| {np.abs(one['logits']).max():.4g}; with its own "
+        f"routes {own:.4g}); a rank skipping an all-reduce (the one rank's routes): "
+        + ", ".join(f"{n} {e:.4g} ({'caught' if c else 'not caught'})"
+                    for n, (e, c) in controls.items())
+        + f"; the ranks took {spawn_s:.1f} s from spawn to join")
 
 
 def monitor_path(fleet, launches):
@@ -4713,7 +5207,8 @@ def main(argv) -> int:
         return 0
 
     launches = {n: 0 for n in _lib.KERNELS}
-    stacks = [("openvla-7b", get_config("openvla-7b"), openvla_scheduler, False),
+    stacks = [("openvla-7b", get_config("openvla-7b").replace(num_layers=OPENVLA_LAYERS),
+               openvla_scheduler, False),
               (JAMBA, get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), jamba_scheduler, False)]
     stacks += [(arch, get_config(arch).replace(num_layers=NEW_ARCH_LAYERS), dense_arch_scheduler,
                 True) for arch in NEW_ARCHS]

@@ -20,8 +20,9 @@ plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
 
 A tensor-parallel rank's model (``Model(group=...)``) takes its block of
-each flat array (``models.layers.block_of``), so the ranks' models put
-together hold the reference's weights.
+each flat array (``models.layers.block_of``; Mamba's ``in_proj`` its
+block of each half, x and z), so the ranks' models put together hold the
+reference's weights.
 
 ``reference_tensors`` is the inverse: the port's parameters, or any
 tensors keyed like them (gradients, AdamW moments), in the reference's flat

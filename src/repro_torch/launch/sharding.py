@@ -159,29 +159,45 @@ def shard_shape(mesh, shape: Sequence[int], pspec: Sequence[MeshAxes]) -> Tuple[
     return tuple(out)
 
 
-def local_index(shape: Sequence[int], pspec: Sequence[MeshAxes], mesh,
-                rank: int) -> Tuple[slice, ...]:
+def local_index(shape: Sequence[int], pspec: Sequence[MeshAxes], mesh, rank: int,
+                parts: Sequence[int] = ()) -> Tuple[object, ...]:
     """The index of model-axis rank ``rank``'s block of an array of
     ``shape`` laid out by ``pspec`` over ``mesh``: a dim that ``pspec``
     maps to ``"model"`` is cut into ``mesh.shape["model"]`` contiguous
     blocks and the rank keeps block ``rank``; every other dim is whole (a
     rank holds each of its data shards' blocks: they share its device).  A
-    dim mapped to ``"model"`` with other axes raises."""
+    dim mapped to ``"model"`` with other axes raises.
+
+    ``parts[i]`` (default 1): dim ``i`` is that many equal parts laid end
+    to end, each cut so (Mamba's ``in_proj``, x | z): its entry is the
+    list of the positions of the rank's block of every part, in order,
+    where one part gives a slice."""
 
     m = int(mesh.shape.get("model", 1))
+    parts = tuple(parts) + (1,) * (len(shape) - len(parts))
     out = []
-    for dim, entry in zip(shape, tuple(pspec) + (None,) * (len(shape) - len(pspec))):
+    for dim, entry, k in zip(shape, tuple(pspec) + (None,) * (len(shape) - len(pspec)), parts):
         axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
         if "model" not in axes or m == 1:
             out.append(slice(None))
             continue
         if axes != ("model",):
             raise ValueError(f"dim {dim} over {axes}: a rank holds a model-axis block only")
-        if dim % m:
-            raise ValueError(f"dim {dim} does not divide over the model axis ({m} ranks)")
-        n = dim // m
-        out.append(slice(rank * n, (rank + 1) * n))
+        if dim % (m * k):
+            raise ValueError(f"dim {dim} in {k} parts does not divide over the model axis "
+                             f"({m} ranks)")
+        n, part = dim // (m * k), dim // k
+        if k == 1:
+            out.append(slice(rank * n, (rank + 1) * n))
+        else:
+            out.append([j * part + rank * n + i for j in range(k) for i in range(n)])
     return tuple(out)
+
+
+def index_extent(dim: int, entry) -> int:
+    """The length of ``local_index``'s ``entry`` over a dim of ``dim``."""
+
+    return len(range(dim)[entry]) if isinstance(entry, slice) else len(entry)
 
 
 def local_slice(t, pspec: Sequence[MeshAxes], mesh, rank: int):

@@ -47,12 +47,15 @@ def global_shape(p: torch.Tensor):
     return block_of(p)[0]
 
 
-def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator, block=None) -> None:
     """Fill ``p`` with N(0, std^2) drawn in float32, then cast (as
     ``_normal``); a rank's block draws the global tensor and keeps its
-    block."""
+    block (``block``: the (global shape, index) that ``p`` holds, for a
+    view such as one expert of a stacked weight; default ``block_of(p)``).
+    An index entry is a slice, or a list of positions where a dim holds
+    its block of each of several parts (Mamba's fused ``in_proj``)."""
 
-    shape, index = block_of(p)
+    shape, index = block or block_of(p)
     draw = torch.randn(shape, generator=generator, device=p.device, dtype=torch.float32)
     p.copy_(draw[index].mul_(std))
 

@@ -47,15 +47,18 @@ own per-layer caches.
 tensor-parallel model (the reference's GSPMD placement over
 ``param_logical()``): every parameter holds the rank's block of its
 global tensor by the logical rules (``launch.sharding.local_index``;
-attention weights by whole heads), drawn from the global tensor in the
-one-rank model's order, so the M blocks put together are the one-rank
-weights bit for bit.  The MLP and the attention output sum their partial
-products over the ranks, the embedding looks up by vocab block and sums,
-and the logits gather their vocab blocks (``models/layers.py``,
-``models/attention.py``); the caches hold the rank's KV heads.  The
-dense attention stacks only: MoE, Mamba, xLSTM and encoder-decoder stacks,
-a head count that does not divide over the ranks and training raise
-``NotImplementedError`` (ROADMAP queue I).  ``param_logical`` and
+attention weights by whole heads, Mamba's ``in_proj`` by halves),
+drawn from the global tensor in the one-rank model's order, so the M
+blocks put together are the one-rank weights bit for bit.  The MLP, the
+MoE layer (every expert's ``d_ff`` block; all E experts on every rank),
+the attention output and Mamba's ``out_proj`` sum their partial products
+over the ranks, a Mamba layer its ``dt`` / B / C projections too; the
+embedding looks up by vocab block and sums, and the logits gather their
+vocab blocks (``models/layers.py``, ``models/attention.py``,
+``models/moe.py``, ``models/ssm.py``); the caches hold the rank's KV
+heads and Mamba heads and channels.  xLSTM and encoder-decoder stacks,
+attention or Mamba heads that do not divide over the ranks, and training
+raise ``NotImplementedError`` (ROADMAP queue I).  ``param_logical`` and
 ``abstract_params`` keep the global shapes.
 """
 
@@ -70,7 +73,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.dist import all_gather_cat
-from repro_torch.launch.sharding import local_index, logical_to_pspec
+from repro_torch.launch.sharding import index_extent, local_index, logical_to_pspec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -143,14 +146,13 @@ _TOP_AXES = {
 
 def check_model_axis(cfg: ModelConfig, ranks: int) -> None:
     """Refuse a stack that ``ranks`` tensor-parallel ranks cannot run yet:
-    experts, Mamba, xLSTM or an encoder, or heads that do not divide."""
+    xLSTM or an encoder, or attention or Mamba heads that do not divide."""
 
     blocks = set(cfg.blocks)
     why = []
-    if any(cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
-        why.append("MoE layers (ROADMAP queue I, item 1: expert over data, mlp over model)")
-    if "mamba" in blocks:
-        why.append("Mamba layers (ROADMAP queue I, item 2: Jamba's state and heads)")
+    nh = ssm_lib.ssm_dims(cfg)[1]
+    if "mamba" in blocks and nh % ranks:
+        why.append(f"{nh} Mamba heads (ROADMAP queue I, item 2: Mamba heads must divide)")
     if blocks & {"mlstm", "slstm"} or cfg.encoder_decoder:
         why.append("xLSTM or encoder-decoder layers (ROADMAP queue I, item 3)")
     if cfg.num_heads % ranks:
@@ -307,7 +309,8 @@ class Model(nn.Module):
 
     def _rank_pspec(self, name: str, shape, mesh):
         """The layout of parameter ``name`` (global ``shape``) over the rank
-        mesh: the logical rules, attention weights by whole heads."""
+        mesh: the logical rules, attention weights by whole heads (Mamba's
+        ``in_proj`` is cut by halves: ``_take_blocks``)."""
 
         cfg = self.cfg
         leaf = name.split(".", 2)[2] if name.startswith("layers.") else name
@@ -323,7 +326,7 @@ class Model(nn.Module):
         """Make every parameter at the shape of this rank's block (on the
         model's device, its global shape and index kept in ``tp_block``)
         and tell each module what of it the ranks share (``tp``, the
-        attention's heads)."""
+        attention's heads, the Mamba layer's heads and channels)."""
 
         from repro_torch.launch.mesh import make_rank_mesh
 
@@ -332,8 +335,10 @@ class Model(nn.Module):
         cut = set()
         for name, p in list(self.named_parameters()):
             shape = tuple(p.shape)
-            index = local_index(shape, self._rank_pspec(name, shape, mesh), mesh, g.rank)
-            local = _param(tuple(len(range(n)[ix]) for n, ix in zip(shape, index)), p.dtype,
+            # in_proj is x | z: a rank holds its block of each half
+            parts = (1, 2) if name.endswith("mamba.in_proj") else ()
+            index = local_index(shape, self._rank_pspec(name, shape, mesh), mesh, g.rank, parts)
+            local = _param(tuple(index_extent(n, ix) for n, ix in zip(shape, index)), p.dtype,
                            self.device)
             local.tp_block = (shape, index)
             if tuple(local.shape) != shape:
@@ -353,8 +358,15 @@ class Model(nn.Module):
         for i, blk in enumerate(self.layers):
             if f"layers.{i}.mlp.up.w" in cut:
                 blk.mlp.tp = g
-            a = blk.attn
-            a.n_heads, a.n_kv, a.kv_cols, a.tp = cfg.num_heads // m, self.kv_heads, kv_cols, g
+            if f"layers.{i}.moe.up" in cut:
+                blk.moe.tp = g
+            if hasattr(blk, "mamba"):
+                mb = blk.mamba
+                mb.d_in, mb.n_heads, mb.tp = mb.d_in // m, mb.n_heads // m, g
+            else:
+                a = blk.attn
+                a.n_heads, a.n_kv, a.kv_cols, a.tp = (cfg.num_heads // m, self.kv_heads, kv_cols,
+                                                      g)
 
     @property
     def graphs(self) -> bool:
@@ -598,7 +610,8 @@ class Model(nn.Module):
         at -1e30), keyed by ``STATE_NAMES[kind]``."""
 
         if kind == "mamba":
-            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device)
+            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device,
+                                            self.group.size if self.group else 1)
         init = xlstm_lib.init_mlstm_state if kind == "mlstm" else xlstm_lib.init_slstm_state
         return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, self.device)))
 

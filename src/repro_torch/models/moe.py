@@ -18,6 +18,14 @@ Two dispatches, as in the reference (``Model(moe_impl=...)``):
 Both read every expert's weights on every call: at decode the capacity
 path runs all E experts over ``cap >= 1`` slots each, most of them empty.
 Neither synchronises with the host, so both run inside a CUDA graph.
+
+On a tensor-parallel rank (``Model(group=...)``) each expert holds the
+rank's block of its ``mlp`` axis, the ``d_ff / M`` columns of ``up`` and
+``gate`` and the same rows of ``down``; the router is whole.  The
+``expert`` axis rides ``data``, whose shards share the rank's device, so
+every rank holds all E experts.  Every rank sees the same ``x`` and routes
+the same way; each dispatch ends in one all-reduce of its [B, S, D] output
+(``tp``), its partials in the model's dtype, as the dense MLP's.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _param, normal_
+from repro_torch.launch.dist import all_reduce_sum
+from repro_torch.models.layers import _param, block_of, global_shape, normal_
 
 # the dense mixture runs experts in groups whose [E_g, T, max(F, D)]
 # intermediate holds at most this many elements (all experts at once in
@@ -43,15 +52,18 @@ class MoE(nn.Module):
         self.up = _param((e, d, f), dtype, device)
         self.gate = _param((e, d, f), dtype, device)
         self.down = _param((e, f, d), dtype, device)
+        self.tp = None  # the ranks over the mlp axis (launch.dist.ModelGroup)
 
     def init(self, generator: torch.Generator) -> None:
-        d, f = self.up.shape[1:]
+        d, f = global_shape(self.up)[1:]
         normal_(self.router, d**-0.5, generator)
         for w, std in ((self.up, d**-0.5), (self.gate, d**-0.5), (self.down, f**-0.5)):
             # one expert at a time: a float32 draw of a whole [16, 8192, 24576]
-            # stack (Jamba's width) would be a 12.9 GB temporary
+            # stack (Jamba's width) would be a 12.9 GB temporary; a rank
+            # draws each expert's global [D, F] (or [F, D]) and keeps its block
+            shape, index = block_of(w)
             for e in range(w.shape[0]):
-                normal_(w[e], std, generator)
+                normal_(w[e], std, generator, block=(shape[1:], index[1:]))
 
 
 def router_probs(x, router_w, k: int):
@@ -89,7 +101,8 @@ def moe_apply_experts(x, combine, p: MoE):
     Each expert's output is the reference's, ``((silu(x Wg) * x Wu) *
     c_e) Wd`` in x's dtype; the sum over experts is taken over a group at
     once (float32 accumulation in a bf16 model) where the reference adds
-    one expert at a time."""
+    one expert at a time.  On a rank of ``p.tp`` the mixture of its
+    ``d_ff`` block is summed over the ranks."""
 
     b, s, d = x.shape
     e, _, f = p.up.shape
@@ -102,7 +115,7 @@ def moe_apply_experts(x, combine, p: MoE):
         sl = slice(e0, e0 + group)
         part = _down(_hidden(xt, p, sl) * cmb[sl], p, sl).sum(0)
         acc = part if acc is None else acc + part
-    return acc.reshape(b, s, d).to(x.dtype)
+    return all_reduce_sum(acc.reshape(b, s, d).to(x.dtype), p.tp)
 
 
 def moe_forward(x, p: MoE, cfg: ModelConfig):
@@ -139,7 +152,9 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     order in which the reference's scatter-add visits them), cast to x's
     dtype each, gathered rather than scattered so the sum is the same on
     every run.  The table of slots is built by a scatter whose repeated
-    writes land only in an overflow slot that is cut off."""
+    writes land only in an overflow slot that is cut off.  On a rank of
+    ``p.tp`` the k-way sum of its ``d_ff`` block is summed over the
+    ranks."""
 
     m = cfg.moe
     b, s, d = x.shape
@@ -177,4 +192,4 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
-    return out.reshape(b, s, d), aux
+    return all_reduce_sum(out.reshape(b, s, d), p.tp), aux

@@ -12,6 +12,19 @@ Prefill runs the chunked scan through ``kernels.ops.mamba_scan`` (on a CUDA
 tensor the hand-written kernel, on a CPU tensor ``kernels.ref
 .mamba_scan_ref``, the twin of the reference's ``ssd_chunked``); decode
 steps the recurrence one token at a time with ``ssd_step``.
+
+On a tensor-parallel rank (``Model(group=...)``, M ranks) a Mamba layer
+runs the rank's H / M heads, which are its d_in / M inner channels
+(``xh`` is ``xb`` reshaped): ``in_proj`` holds its block of each half,
+x and z; ``conv_w`` its channels; ``dt_bias``, ``a_log`` and ``d_skip``
+its heads; ``dt_proj``, ``bc_proj`` and ``out_proj`` their rows.  The
+projections of ``xb`` onto ``dt_proj`` and ``bc_proj`` are partial sums:
+they are taken in float32, concatenated and all-reduced once, then
+rounded to the model's dtype and back (what one rank's ``dense(...)
+.float()`` does), and the rank keeps its heads of ``dt`` and all of B and
+C.  The scan runs over the rank's heads, and ``out_proj``'s partial
+products take the layer's second all-reduce.  The state is the rank's:
+``h`` [B, H/M, P, N], ``conv`` [B, K-1, d_in/M].
 """
 
 from __future__ import annotations
@@ -24,7 +37,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _param, dense, normal_
+from repro_torch.launch.dist import all_reduce_sum
+from repro_torch.models.layers import _param, block_of, dense, global_shape, normal_
 
 HEAD_P = 64  # SSD head dim
 
@@ -43,7 +57,9 @@ def _head_p(d_in: int) -> int:
 
 class Mamba(nn.Module):
     """Parameters as ``init_mamba`` lays them out; ``dt_bias``, ``a_log``
-    and ``d_skip`` stay float32 in a bf16 model."""
+    and ``d_skip`` stay float32 in a bf16 model.  ``d_in`` and ``n_heads``
+    are the channels and heads this module runs (a rank's share of them
+    over ``tp``, the ranks of the model axis; all of them outside one)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -59,16 +75,17 @@ class Mamba(nn.Module):
         self.a_log = _param((nh,), f32, device)
         self.d_skip = _param((nh,), f32, device)
         self.out_proj = _param((d_in, d), dtype, device)
+        self.d_in, self.n_heads, self.tp = d_in, nh, None
 
     def init(self, generator: torch.Generator) -> None:
-        d, d_in = self.in_proj.shape[0], self.out_proj.shape[0]
+        d, d_in = global_shape(self.in_proj)[0], global_shape(self.out_proj)[0]
         normal_(self.in_proj, d**-0.5, generator)
         normal_(self.conv_w, 0.5, generator)
         normal_(self.dt_proj, d_in**-0.5, generator)
         normal_(self.bc_proj, d_in**-0.5, generator)
         self.dt_bias.zero_()
-        nh = self.a_log.shape[0]
-        self.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32)))
+        (nh,), index = block_of(self.a_log)  # a rank: its heads of the global rates
+        self.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32))[index])
         self.d_skip.fill_(1.0)
         normal_(self.out_proj, d_in**-0.5, generator)
 
@@ -89,11 +106,19 @@ def _causal_conv(x, w, carry=None):
 
 
 def _project_dt_bc(xb, p: Mamba, n: int):
-    """dt [.., H], bm / c [.., N], all float32."""
+    """dt [.., H], bm / c [.., N], all float32; on a rank of ``p.tp`` its
+    heads of dt, from the float32 partial products summed over the ranks
+    in one all-reduce and rounded to xb's dtype."""
 
-    dt = dense(xb, p.dt_proj).float()
-    bc = dense(xb, p.bc_proj).float()
-    return dt, bc[..., :n], bc[..., n:]
+    if p.tp is None:
+        dt = dense(xb, p.dt_proj).float()
+        bc = dense(xb, p.bc_proj).float()
+        return dt, bc[..., :n], bc[..., n:]
+    w = torch.cat([p.dt_proj, p.bc_proj], dim=1).float()
+    proj = all_reduce_sum(xb.float() @ w, p.tp).to(xb.dtype).float()
+    nh = global_shape(p.dt_proj)[1]
+    h0 = p.tp.rank * p.n_heads
+    return proj[..., h0:h0 + p.n_heads], proj[..., nh:nh + n], proj[..., nh + n:]
 
 
 def ssd_step(x, dt, a, bm, c, h):
@@ -108,7 +133,8 @@ def mamba_forward(x_res, p: Mamba, cfg: ModelConfig, state=None):
     """Full-sequence Mamba block.  x_res [B,S,D] -> (out [B,S,D], state
     ``{"h", "conv"}``); ``state`` continues a stream."""
 
-    d_in, nh, n = ssm_dims(cfg)
+    hp, n = _head_p(ssm_dims(cfg)[0]), ssm_dims(cfg)[2]
+    d_in, nh = p.d_in, p.n_heads  # this rank's
     b, s, _ = x_res.shape
     h = dense(x_res, p.in_proj)
     xb, z = h[..., :d_in], h[..., d_in:]
@@ -116,18 +142,19 @@ def mamba_forward(x_res, p: Mamba, cfg: ModelConfig, state=None):
     dt, bm, c = _project_dt_bc(xb, p, n)
     dt = F.softplus(dt + p.dt_bias)
     a = -torch.exp(p.a_log)
-    xh = xb.float().reshape(b, s, nh, _head_p(d_in))
+    xh = xb.float().reshape(b, s, nh, hp)
     y, h_t = ops.mamba_scan(xh, dt, a, bm.contiguous(), c.contiguous(),
                             h0=None if state is None else state["h"])
     y = y + p.d_skip[:, None] * xh
     y = y.reshape(b, s, d_in).to(x_res.dtype) * F.silu(z)
-    return dense(y, p.out_proj), {"h": h_t, "conv": conv_carry}
+    return all_reduce_sum(dense(y, p.out_proj), p.tp), {"h": h_t, "conv": conv_carry}
 
 
 def mamba_decode_step(x_res, p: Mamba, cfg: ModelConfig, state):
     """One-token decode.  x_res [B,1,D], state {h [B,H,P,N], conv [B,K-1,C]}."""
 
-    d_in, nh, n = ssm_dims(cfg)
+    hp, n = _head_p(ssm_dims(cfg)[0]), ssm_dims(cfg)[2]
+    d_in, nh = p.d_in, p.n_heads  # this rank's
     b = x_res.shape[0]
     h = dense(x_res, p.in_proj)
     xb, z = h[..., :d_in], h[..., d_in:]
@@ -135,17 +162,24 @@ def mamba_decode_step(x_res, p: Mamba, cfg: ModelConfig, state):
     dt, bm, c = _project_dt_bc(xb[:, 0], p, n)
     dt = F.softplus(dt + p.dt_bias)
     a = -torch.exp(p.a_log)
-    xh = xb.float().reshape(b, nh, _head_p(d_in))
+    xh = xb.float().reshape(b, nh, hp)
     y, h_t = ssd_step(xh, dt, a, bm, c, state["h"])
     y = y + p.d_skip[:, None] * xh
     y = y.reshape(b, 1, d_in).to(x_res.dtype) * F.silu(z)
-    return dense(y, p.out_proj), {"h": h_t, "conv": conv_carry}
+    return all_reduce_sum(dense(y, p.out_proj), p.tp), {"h": h_t, "conv": conv_carry}
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device="cuda"):
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device="cuda",
+                     ranks: int = 1):
+    """A zero state of one Mamba layer: ``h`` [B, H, P, N] float32 and
+    ``conv`` [B, K-1, d_in], a rank's H / ``ranks`` heads and d_in /
+    ``ranks`` channels of them over a model axis."""
+
     s = cfg.ssm or SSMConfig()
     d_in, nh, n = ssm_dims(cfg)
     return {
-        "h": torch.zeros((batch, nh, _head_p(d_in), n), dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, s.conv_width - 1, d_in), dtype=dtype, device=device),
+        "h": torch.zeros((batch, nh // ranks, _head_p(d_in), n), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, s.conv_width - 1, d_in // ranks), dtype=dtype,
+                            device=device),
     }

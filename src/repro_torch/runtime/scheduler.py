@@ -84,8 +84,10 @@ tensor-parallel model (``Model(group=...)``, the same group) runs the
 engine on every rank, SPMD: each rank makes the same admissions, rounds,
 reservations and harvests from the same requests, over its own heads and
 its page pool of its KV heads (page ids, the allocator and the data shards
-as above); every rank's results are the same, and rank 0's are the
-engine's.  Its data shards share the rank's device; a mesh whose model
+as above) and its rows of the Mamba state over its heads and channels
+(``Model.init_paged_cache``); every rank's results are the same, and rank
+0's are the engine's.  MoE stacks run either dispatch: every rank routes
+the same rows, idle ones included.  Its data shards share the rank's device; a mesh whose model
 axis is not the model's group, or whose data shards lie on distinct
 devices, is refused (ROADMAP queue F).  Decode rounds are CUDA graphs when
 the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one

@@ -392,8 +392,21 @@ def _scheduler(**kw):
 
 
 def _rank_model(arch):
-    return lambda st: Model(get_smoke_config(arch).replace(dtype="float32"), device="cpu",
-                            group=_rank_group())
+    return Model(get_smoke_config(arch).replace(dtype="float32"), device="cpu",
+                 group=_rank_group())
+
+
+def _rank_split_lane(arch):
+    """A split lane of a rank's model: not served over a model axis."""
+
+    return lambda st: PartitionExecutor(_rank_model(arch), 1)
+
+
+def _rank_training(arch):
+    """A rank's model asked for its loss: no backward over a model axis."""
+
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    return lambda st: _rank_model(arch).loss_fn({"tokens": tokens, "labels": tokens})
 
 
 def _rank_mesh_on_two_devices(st):
@@ -410,8 +423,8 @@ def _rank_mesh_on_two_devices(st):
 REFUSED = {
     "two devices": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
                     "F"),
-    "model axis on a MoE stack": (_rank_model("qwen3-moe-235b-a22b"), "I"),
-    "model axis on jamba-smoke": (_rank_model("jamba-1.5-large-398b"), "I"),
+    "model axis on a MoE stack": (_rank_split_lane("qwen3-moe-235b-a22b"), "I"),
+    "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "I"),
     "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
         2, 1, 1), ("pod", "data", "model"))), "F"),
     "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, "F"),

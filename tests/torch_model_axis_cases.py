@@ -5,11 +5,18 @@ only, so that neither imports the other's framework."""
 import numpy as np
 
 ENGINE_KW = dict(max_slots=8, num_pages=63, scan_rounds=2)
-# (name, arch, data, model, robots, seed): the engine over a model axis
+# every smoke stack at 2 layers (jamba-smoke's first two: mamba + MLP,
+# attn + MoE; the others have 2)
+SMOKE_LAYERS = 2
+# (name, arch, data, model, robots, seed, moe_impl): the engine over a
+# model axis
 TP_SCENARIOS = (
-    ("tp42", "openvla-7b", 4, 2, 6, 0),
-    ("sc24", "starcoder2-3b", 2, 4, 6, 1),
-    ("gm42", "gemma2-9b", 4, 2, 6, 2),
+    ("tp42", "openvla-7b", 4, 2, 6, 0, "dense"),
+    ("sc24", "starcoder2-3b", 2, 4, 6, 1, "dense"),
+    ("gm42", "gemma2-9b", 4, 2, 6, 2, "dense"),
+    ("jb42", "jamba-1.5-large-398b", 4, 2, 6, 4, "dense"),
+    ("qm24", "qwen3-moe-235b-a22b", 2, 4, 6, 5, "dense"),
+    ("pc42", "phi3.5-moe-42b-a6.6b", 4, 2, 6, 6, "capacity"),
 )
 # serve_fleet(trigger="rapid") on openvla-smoke over (data, model)
 TP_FLEET = dict(data=4, model=2, kw=dict(n_robots=8, max_steps=300, seed=3, scan_rounds=2,

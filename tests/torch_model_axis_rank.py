@@ -2,18 +2,25 @@
 ``tests/test_torch_model_axis.py``.  Imports torch and the port only.
 
     GLOO_SOCKET_IFNAME=lo PYTHONPATH=src \\
-        python tests/torch_model_axis_rank.py RANK WORLD STORE REF.npz OUT_DIR
+        python tests/torch_model_axis_rank.py RANK WORLD STORE PARAMS.npz OUT_DIR
 
 Joins a gloo group of ``WORLD`` CPU ranks over the file store ``STORE``,
 runs the cases of its world and writes ``OUT_DIR/rank<RANK>.npz``:
 
 * world 2: (a) the layers of a f32 openvla-smoke rank model built by
   ``Model.init`` (its parameter blocks, the MLP, prefill attention, a
-  paged decode step, ``embed_lookup`` and the logits on ``layer_inputs``);
-  the engine's ``tp42`` and ``gm42`` scenarios and the rapid fleet
-  (``TP_FLEET``) over a rank mesh, on the reference's weights from
-  ``REF.npz`` (``tests/torch_sharded_ref.py --model-axis``);
-* world 4: the ``sc24`` scenario.
+  paged decode step, ``embed_lookup`` and the logits on ``layer_inputs``),
+  then of a f32 jamba-smoke rank model built so (its blocks, the MoE layer
+  under both dispatches, a Mamba prefill and a Mamba step from a given
+  state on ``hybrid_inputs``), and the parameter blocks of qwen3-moe-smoke
+  and phi3.5-moe-smoke built so; the engine's ``tp42``, ``gm42``,
+  ``jb42`` and ``pc42`` scenarios and the rapid fleet (``TP_FLEET``) over
+  a rank mesh, on the weights in ``PARAMS.npz`` (the reference's layout,
+  ``params/<arch>/<key>``, which ``tests/torch_sharded_ref.py
+  --model-axis --params`` runs on too); on ``jb42``'s model the
+  collectives of its engine run, and the first prompt's logits with and
+  without the Mamba ``out_proj`` and the MoE all-reduces (``controls``);
+* world 4: the ``sc24`` and ``qm24`` scenarios.
 """
 
 import sys
@@ -28,16 +35,29 @@ from repro_torch.launch import dist
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.launch.serve import serve_fleet
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_lookup, mlp
 from repro_torch.models.model import Model
 from repro_torch.runtime.kv_cache import scatter_prompt_into_pool
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
-from torch_model_axis_cases import ENGINE_KW, TP_FLEET, TP_SCENARIOS, fleet_record, obs_pair
+from torch_model_axis_cases import (ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS, fleet_record,
+                                    obs_pair)
 
 F32 = dict(dtype="float32")
 # the paged step's plan: rows, page size, pages a row; its row lengths
 PAGED = dict(b=3, page=8, maxp=4)
 PAGED_LENS = (0, 5, 17)
+# the stacks whose rank models (a) builds by ``Model.init``: the first
+# runs the attention, MLP and vocab cases, the second the MoE and Mamba
+# ones; the MoE stacks only give their parameter blocks
+INIT_ARCHS = ("openvla-7b", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
+              "phi3.5-moe-42b-a6.6b")
+# a record's axis of the rank's block (Mamba heads of ``h``, channels of
+# ``conv``; KV heads of the attention's K/V and pool)
+BLOCK_AXIS = {"a/prefill_k": 2, "a/prefill_v": 2, "a/paged_kp": 2,
+              "a/mamba_prefill_h": 1, "a/mamba_prefill_conv": 2,
+              "a/mamba_step_h": 1, "a/mamba_step_conv": 2}
 
 
 def layer_inputs(cfg):
@@ -61,6 +81,38 @@ def layer_inputs(cfg):
     }
 
 
+def smoke(arch):
+    return get_smoke_config(arch).replace(num_layers=SMOKE_LAYERS, **F32)
+
+
+def hybrid_inputs(cfg):
+    """Case (a)'s numpy inputs for jamba-smoke (seeded): the MoE layer's x,
+    the Mamba prefill's x, the Mamba step's x and the state it starts
+    from (``h`` [B, H, P, N], ``conv`` [B, K-1, d_in])."""
+
+    rng = np.random.default_rng(12)
+    d, s = cfg.d_model, cfg.ssm
+    d_in, nh, n = s.expand * d, s.expand * d // 64, s.state_dim
+    return {
+        "moe_x": rng.normal(0, 1, (2, 5, d)).astype(np.float32),
+        "mamba_x": rng.normal(0, 1, (2, 14, d)).astype(np.float32),
+        "step_x": rng.normal(0, 1, (3, 1, d)).astype(np.float32),
+        "h": rng.normal(0, 1, (3, nh, 64, n)).astype(np.float32),
+        "conv": rng.normal(0, 1, (3, s.conv_width - 1, d_in)).astype(np.float32),
+    }
+
+
+def block(a, axis, rank, world):
+    """Rank ``rank``'s block of ``a`` along ``axis``, of ``world``."""
+
+    n = a.shape[axis] // world
+    return np.take(a, range(rank * n, (rank + 1) * n), axis=axis)
+
+
+def calls():
+    return np.asarray([dist.CALLS["all_reduce"], dist.CALLS["all_gather"]])
+
+
 def rank_kv(model, a):
     """The KV heads of a dense [B, S, KV, Dh] array that this rank's pool
     holds (``Model.kv_heads`` of them)."""
@@ -78,10 +130,11 @@ def rank_kv(model, a):
 def layers_case(group, out):
     """(a) on a rank of openvla-smoke built by ``Model.init``."""
 
-    cfg = get_smoke_config("openvla-7b").replace(**F32)
+    for arch in INIT_ARCHS:
+        for name, p in Model(smoke(arch), device="cpu", group=group).named_parameters():
+            out[f"a/param/{arch}/{name}"] = p.numpy()
+    cfg = smoke("openvla-7b")
     model = Model(cfg, device="cpu", group=group)
-    for name, p in model.named_parameters():
-        out[f"a/param/{name}"] = p.numpy()
     inp = layer_inputs(cfg)
     blk = model.layers[0]
     out["a/mlp"] = mlp(torch.as_tensor(inp["mlp_x"]), blk.mlp, cfg.mlp_activation).numpy()
@@ -108,14 +161,81 @@ def layers_case(group, out):
         x = embed_lookup(toks, model.embed.table, scale, model.embed.tp)
         out[f"a/embed_{int(scale)}"] = x.float().numpy()
     out["a/logits"] = model._logits(torch.as_tensor(inp["logits_x"])).numpy()
-    out["a/collectives"] = np.asarray([dist.CALLS["all_reduce"], dist.CALLS["all_gather"]])
+    out["a/collectives"] = calls()
 
 
-def rank_model(group, ref, arch):
+@torch.no_grad()
+def hybrid_layers_case(group, out):
+    """(a) on a rank of jamba-smoke built by ``Model.init``: layer 1's MoE
+    under both dispatches, layer 0's Mamba prefill and a step from the
+    rank's block of a given state; each case's collectives."""
+
+    cfg = smoke("jamba-1.5-large-398b")
+    model = Model(cfg, device="cpu", group=group)
+    inp = hybrid_inputs(cfg)
+    moe, mamba = model.layers[1].moe, model.layers[0].mamba
+    x = torch.as_tensor(inp["moe_x"])
+    for case, fn in (("moe", moe_lib.moe_forward), ("moe_capacity", moe_lib.moe_forward_capacity)):
+        c0 = calls()
+        o, aux = fn(x, moe, cfg)
+        out[f"a/{case}"], out[f"a/{case}_aux"] = o.numpy(), aux.numpy()
+        out[f"a/calls/{case}"] = calls() - c0
+    c0 = calls()
+    o, st = ssm_lib.mamba_forward(torch.as_tensor(inp["mamba_x"]), mamba, cfg)
+    out["a/mamba_prefill"] = o.numpy()
+    out["a/mamba_prefill_h"], out["a/mamba_prefill_conv"] = st["h"].numpy(), st["conv"].numpy()
+    out["a/calls/mamba_prefill"] = calls() - c0
+    r, m = group.rank, group.size
+    state = {"h": torch.as_tensor(block(inp["h"], 1, r, m)),
+             "conv": torch.as_tensor(block(inp["conv"], 2, r, m))}
+    c0 = calls()
+    o, st = ssm_lib.mamba_decode_step(torch.as_tensor(inp["step_x"]), mamba, cfg, state)
+    out["a/mamba_step"] = o.numpy()
+    out["a/mamba_step_h"], out["a/mamba_step_conv"] = st["h"].numpy(), st["conv"].numpy()
+    out["a/calls/mamba_step"] = calls() - c0
+
+
+def first_logits(model, tok, rng):
+    """The last position's logits of the first robot's prompt of a
+    scenario drawn from ``rng``."""
+
+    prompt = np.concatenate([tok.encode_state(q) for q in obs_pair(rng)], axis=1)
+    return model.prefill({"tokens": torch.as_tensor(prompt)})[0][0, -1].numpy()
+
+
+def skip_out_proj(model, tok, rng):
+    """``first_logits`` of a rank that skips the Mamba ``out_proj``
+    all-reduce in every Mamba layer (every rank alike, so the other
+    collectives still pair; its ``dt`` / B / C all-reduce stays)."""
+
+    d = model.cfg.d_model
+    real = ssm_lib.all_reduce_sum
+    ssm_lib.all_reduce_sum = lambda x, g: x if x.shape[-1] == d else real(x, g)
+    try:
+        return first_logits(model, tok, rng)
+    finally:
+        ssm_lib.all_reduce_sum = real
+
+
+def skip_moe(model, tok, rng):
+    """``first_logits`` of a rank that skips the MoE all-reduce in every
+    MoE layer."""
+
+    moes = [blk.moe for blk in model.layers if hasattr(blk, "moe")]
+    for p in moes:
+        p.tp = None
+    try:
+        return first_logits(model, tok, rng)
+    finally:
+        for p in moes:
+            p.tp = model.group
+
+
+def rank_model(group, ref, arch, moe_impl="dense"):
     """The f32 smoke stack ``arch`` as this rank, on the reference's
     weights."""
 
-    model = Model(get_smoke_config(arch).replace(**F32), device="cpu", group=group)
+    model = Model(smoke(arch), device="cpu", group=group, moe_impl=moe_impl)
     pre = f"params/{arch}/"
     load_reference_params(model, {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)})
     return model, EpisodeTokenizer(model.cfg.vocab_size)
@@ -134,15 +254,21 @@ class Recording(ContinuousBatchingScheduler):
         return seq
 
 
-def engine_case(group, ref, out, name, arch, data, n, seed):
-    """One of ``TP_SCENARIOS`` over a rank mesh of ``data`` shards."""
+def engine_case(group, ref, out, name, arch, data, n, seed, impl):
+    """One of ``TP_SCENARIOS`` over a rank mesh of ``data`` shards; on a
+    stack with Mamba layers also ``controls``."""
 
-    model, tok = rank_model(group, ref, arch)
+    model, tok = rank_model(group, ref, arch, impl)
     sched = Recording(model, tok, mesh=make_rank_mesh(data, group), **ENGINE_KW)
     rng = np.random.default_rng(seed)
     for r in range(n):
         sched.submit(r, *obs_pair(rng))
+    c0 = calls()
     results = sched.drain()
+    out[f"{name}/collectives"] = np.asarray([*(calls() - c0), len(sched.admit_ms),
+                                             sched.decode_rounds * sched.decode_block])
+    if model.n_mamba:
+        controls(model, tok, out, name, seed)
     st = sched.pool_stats()
     out[f"{name}/results"] = np.asarray([(r.robot_id, r.submitted_round, r.admitted_round,
                                           r.completed_round, int(r.kind == "split"))
@@ -158,24 +284,34 @@ def engine_case(group, ref, out, name, arch, data, n, seed):
     out[f"{name}/round_mode"] = np.frombuffer(sched.round_mode.encode(), np.uint8)
 
 
+def controls(model, tok, out, name, seed):
+    """The first robot's prompt's logits, then with the Mamba ``out_proj``
+    and with the MoE all-reduces skipped."""
+
+    for key, fn in (("logits", first_logits), ("skip_out_proj", skip_out_proj),
+                    ("skip_moe", skip_moe)):
+        out[f"{name}/{key}"] = fn(model, tok, np.random.default_rng(seed))
+
+
 def fleet_case(group, ref, out):
     model, tok = rank_model(group, ref, "openvla-7b")
     mesh = make_rank_mesh(TP_FLEET["data"], group)
     fleet_record(out, "fleet42", serve_fleet(model, tok, mesh=mesh, **TP_FLEET["kw"]))
 
 
-def main(rank, world, store, ref_path, out_dir):
+def main(rank, world, store, params_path, out_dir):
     torch.set_num_threads(1)
     group = dist.init_model_group(rank, world, backend="gloo", init_method=f"file://{store}",
                                   device="cpu")
-    with np.load(ref_path) as z:
+    with np.load(params_path) as z:
         ref = {k: z[k] for k in z.files if k.startswith("params/")}
     out = {}
     if world == 2:
         layers_case(group, out)
-    for name, arch, data, model_axis, n, seed in TP_SCENARIOS:
+        hybrid_layers_case(group, out)
+    for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
         if model_axis == world:
-            engine_case(group, ref, out, name, arch, data, n, seed)
+            engine_case(group, ref, out, name, arch, data, n, seed, impl)
     if TP_FLEET["model"] == world:
         fleet_case(group, ref, out)
     np.savez(f"{out_dir}/rank{rank}.npz", **out)

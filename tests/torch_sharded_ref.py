@@ -4,7 +4,8 @@
 Run in a process of its own (the device count is fixed when jax starts):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
-        PYTHONPATH=src python tests/torch_sharded_ref.py OUT.npz [--model-axis]
+        PYTHONPATH=src python tests/torch_sharded_ref.py OUT.npz \\
+        [--model-axis [--part engine|fleet] [--params IN.npz]]
 
 It runs the scenarios of ``tests/test_sharded.py`` on the f32 openvla-smoke
 stack (``ENGINE_KW``): cloud-only over an 8-way data mesh, a mixed fleet
@@ -18,27 +19,39 @@ their tokens, every reservation (robot, row, pages) in order, the final
 
 With ``--model-axis`` it runs the meshes with a ``model`` axis instead, for
 ``tests/test_torch_model_axis.py`` (``TP_SCENARIOS``): the engine on
-f32 openvla-smoke over (data 4, model 2), starcoder2-smoke over (2, 4)
-and gemma2-smoke over (4, 2), and ``serve_fleet(trigger="rapid")`` on
-openvla-smoke over (4, 2) (``TP_FLEET``), each stack's parameters under
-``params/<arch>/``.
+f32 openvla-smoke over (data 4, model 2), starcoder2-smoke over (2, 4),
+gemma2-smoke over (4, 2), jamba-smoke over (4, 2), qwen3-moe-smoke over
+(2, 4) and phi3.5-moe-smoke under the capacity dispatch over (4, 2), and
+``serve_fleet(trigger="rapid")`` on openvla-smoke over (4, 2)
+(``TP_FLEET``), each stack's parameters under ``params/<arch>/``.  Under
+the capacity dispatch idle rows route and take expert slots, so there the
+engine's paged attention is its CPU oracle with the output of an idle row
+(length 0) set to 0, as the Pallas kernel and the port give it (the
+oracle gives the mean of the values it gathers).  ``--part`` runs one
+part alone, ``engine`` (the scenarios) or ``fleet``, so that the parts can
+run side by side; ``--params`` takes the stacks' parameters from an npz
+keyed so (``params/<arch>/<key>``, e.g. the port's ``Model.init``
+weights) instead of drawing them, and then writes none.
 """
 
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
-from repro.checkpoint.npz import _flatten
+from repro.checkpoint.npz import _flatten, _path_str
 from repro.configs import get_smoke_config
 from repro.data.pipeline import EpisodeTokenizer
+from repro.kernels import ops as kops
 from repro.kernels.paged_attention import paged_decode_attention_sharded
 from repro.launch.mesh import make_test_mesh
 from repro.launch.serve import serve_fleet
 from repro.models.model import Model
 from repro.partition.executor import PartitionExecutor
 from repro.runtime import scheduler as sched_mod
-from torch_model_axis_cases import ENGINE_KW, TP_FLEET, TP_SCENARIOS, fleet_record, obs_pair
+from torch_model_axis_cases import (ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS, fleet_record,
+                                    obs_pair)
 
 # (name, robots, seed, data shards (0: no mesh), prefill on the last device,
 # split-lane cut (robots with an odd id go there; None: cloud only))
@@ -77,37 +90,76 @@ def record(out, name, sched, results):
                                           sched.allocator.num_pages], np.int64)
 
 
-def f32_stack(arch):
-    """The reference's f32 smoke stack ``arch`` -> (model, params, tokenizer)."""
+def f32_stack(arch, flat=None, **kw):
+    """The reference's f32 smoke stack ``arch`` -> (model, params,
+    tokenizer): its parameters drawn, or taken from ``flat`` (keyed as
+    ``_flatten`` keys them)."""
 
-    cfg = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32", **kw)
     model = Model(cfg)
-    return model, model.init(jax.random.PRNGKey(0)), EpisodeTokenizer(cfg.vocab_size)
+    if flat is None:
+        params = model.init(jax.random.PRNGKey(0))
+    else:
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, _: jnp.asarray(flat["/".join(_path_str(q) for q in path)]),
+            jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    return model, params, EpisodeTokenizer(cfg.vocab_size)
 
 
-def main_model_axis(path, devs, recording):
+def idle_zero(oracle):
+    """``oracle`` (the CPU paged attention) with idle rows' output 0."""
+
+    def paged(q, kp, vp, pt, lens, *, window=0, logit_cap=0.0):
+        out = oracle(q, kp, vp, pt, lens, window=window, logit_cap=logit_cap)
+        return jnp.where((jnp.asarray(lens) > 0)[:, None, None], out, 0).astype(out.dtype)
+
+    return paged
+
+
+def main_model_axis(path, devs, recording, part=None, params_path=None):
     out = {}
     stacks = {}
-    for name, arch, data, model_axis, n, seed in TP_SCENARIOS:
+    given = dict(np.load(params_path)) if params_path else None
+
+    def stack(arch):
         if arch not in stacks:
-            stacks[arch] = f32_stack(arch)
-            out.update({f"params/{arch}/{k}": np.asarray(v)
-                        for k, v in _flatten(stacks[arch][1]).items()})
-        model, params, tok = stacks[arch]
+            pre = f"params/{arch}/"
+            flat = None if given is None else {k[len(pre):]: v for k, v in given.items()
+                                               if k.startswith(pre)}
+            stacks[arch] = f32_stack(arch, flat, num_layers=SMOKE_LAYERS)
+            if given is None:
+                out.update({pre + k: np.asarray(v)
+                            for k, v in _flatten(stacks[arch][1]).items()})
+        return stacks[arch]
+
+    for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
+        if part not in (None, "engine"):
+            break
+        model, params, tok = stack(arch)
+        if impl != model.moe_impl:
+            model = Model(model.cfg, moe_impl=impl)
         mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
-        sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
-        rng = np.random.default_rng(seed)
-        for r in range(n):
-            sched.submit(r, *obs_pair(rng))
-        record(out, name, sched, sched.drain())
-    model, params, tok = stacks["openvla-7b"]
-    f = TP_FLEET
-    mesh = make_test_mesh(data=f["data"], model=f["model"], devices=devs[:f["data"] * f["model"]])
-    fleet_record(out, "fleet42", serve_fleet(model, params, tok, mesh=mesh, **f["kw"]))
+        oracle = kops.paged_decode_attention
+        if impl == "capacity":
+            kops.paged_decode_attention = idle_zero(oracle)
+        try:
+            sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
+            rng = np.random.default_rng(seed)
+            for r in range(n):
+                sched.submit(r, *obs_pair(rng))
+            record(out, name, sched, sched.drain())
+        finally:
+            kops.paged_decode_attention = oracle
+    if part in (None, "fleet"):
+        model, params, tok = stack("openvla-7b")
+        f = TP_FLEET
+        mesh = make_test_mesh(data=f["data"], model=f["model"],
+                              devices=devs[:f["data"] * f["model"]])
+        fleet_record(out, "fleet42", serve_fleet(model, params, tok, mesh=mesh, **f["kw"]))
     np.savez(path, **out)
 
 
-def main(path, model_axis=False):
+def main(path, model_axis=False, part=None, params_path=None):
     devs = jax.devices()
     assert len(devs) >= 8, "needs XLA_FLAGS=--xla_force_host_platform_device_count=8"
 
@@ -130,7 +182,7 @@ def main(path, model_axis=False):
 
     sched_mod._SplitLane.reserve = recording_lane_reserve
     if model_axis:
-        return main_model_axis(path, devs, Recording)
+        return main_model_axis(path, devs, Recording, part, params_path)
 
     cfg = get_smoke_config("openvla-7b").replace(dtype="float32", param_dtype="float32")
     model = Model(cfg)
@@ -159,4 +211,7 @@ def main(path, model_axis=False):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], model_axis="--model-axis" in sys.argv[2:])
+    args = sys.argv[2:]
+    opt = {k: args[args.index(f"--{k}") + 1] for k in ("part", "params") if f"--{k}" in args}
+    main(sys.argv[1], model_axis="--model-axis" in args, part=opt.get("part"),
+         params_path=opt.get("params"))
