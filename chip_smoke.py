@@ -20,7 +20,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
    and gemma2-9b's 4608-token prompt and 4664-token decode; and at
    seamless-m4t-medium's (H = KV = 16, D = 64): its decoder's prompt, its
    encoder over 300 frames (non-causal), decode at length 70 (dense and
-   paged) and its cross-attention decode over the 300 frames; the paged
+   paged) and its cross-attention decode over the 300 frames, the same
+   at phase 7e's rank (H = KV = 8; the round's 32 rows); the paged
    and flash kernels also at a model-axis rank's shape (phase 7c: H = KV =
    16, the round's 32 rows and the prompt's S = 14; phase 7d's Jamba: H =
    32, KV = 4), the Mamba scan at phase 7d's rank's 128 heads (S = 14) and
@@ -35,7 +36,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the two runs' chunks held to the greedy-margin rule; ``CloudPolicy``'s
    graphs against the same chunks run eagerly (tokens equal, cloud_ms of
    both); one profiled graph chunk a mode: openvla-7b cut to its first
-   ``OPENVLA_LAYERS`` = 16 layers, then
+   ``OPENVLA_LAYERS`` = 8 layers, then
    jamba-1.5-large-398b cut to its first 4 layers (mamba+MLP, mamba+MoE,
    mamba+MLP, attn+MoE; ~46 GB); then the five dense attention stacks of
    ``NEW_ARCHS`` at full width, depth cut to ``NEW_ARCH_LAYERS`` (gemma-7b,
@@ -192,6 +193,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
    decode token or a prefill); each rank's weight, Mamba-state and pool
    bytes and ms a round beside the one rank's; the ranks joined within
    ``JAMBA_RANKS_TIMEOUT_S``;
+7e. xLSTM and the encoder-decoder stack on the model axis, after
+   seamless-m4t-medium's phase 4: the one-rank xlstm-125m and
+   seamless-m4t-medium (full width and depth, phase 4's seed) record the
+   xLSTM's first prompt, a staggered scheduler run of ``XE_ROBOTS`` = 4
+   robots at R = 4 and seamless's prompt of 14 tokens and 300 stub frames
+   through ``prefill`` and an ``XE_STEPS`` = 16-token ``decode_chunk`` in
+   two modes (paged with the cross K/V cached, dense projecting them each
+   token), and the digest of every rank's block of every parameter; then
+   ``MODEL_AXIS`` = 2 ranks (as in 7c) build both stacks from the same
+   seed, their blocks' digests equal to the parent's, and run the same
+   and two controls (a rank that skips the sLSTM's h all-gather, one that
+   skips the cross-attention's ``wo`` all-reduce): the ranks equal to each
+   other, the xLSTM's chunks and seamless's tokens held to the one rank's
+   by the greedy-margin rule, the logits (over the real vocab; the padded
+   ids masked) within ``TP_LOGIT_TOL`` and both controls outside it,
+   launches exact (none for the xLSTM; flash, decode and paged at H = KV =
+   8), the collectives exact (26 and 38 a decode token); each rank's
+   weight, mLSTM and sLSTM state and cross-K/V bytes and ms a round or a
+   token beside the one rank's; the ranks joined within
+   ``XE_RANKS_TIMEOUT_S``;
 8. train (``repro_torch.launch.train``): (a) the flash backward kernel
    (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
    their plain versions at the training shapes (openvla-7b's B = 4, S =
@@ -306,8 +327,9 @@ from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
+from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
 from repro_torch.models.layers import block_of, global_shape  # noqa: E402
-from repro_torch.models.model import MOE_IMPLS, Model  # noqa: E402
+from repro_torch.models.model import MOE_IMPLS, STATE_NAMES, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
@@ -462,10 +484,11 @@ ENC_FRAMES = 300   # stub frame embeddings of a seamless prompt (a few seconds o
 # limit; at 8 layers, with phase 7d, a run took 1120.4 s of phases on a
 # slower machine
 FLEET_LAYERS = 4
-# openvla-7b's phases 4-5 (served, the scheduler) on its first 16 of 32
-# layers, for the same run (the figures at all 32 are in PERF.md, section
-# 5); phase 8 trains all 32
-OPENVLA_LAYERS = 16
+# openvla-7b's phases 4-5 (served, the scheduler) on its first 8 of 32
+# layers, for the same run (the figures at 16 and 32 are in PERF.md,
+# section 5; at 16, with phase 7e's 51.7 s, a run took 1002.9 s of phases
+# on a slow H100 80GB HBM3 at 700 W); phase 8 trains all 32
+OPENVLA_LAYERS = 8
 FLEET = 1024      # robots in the monitor's episode bank
 DISPATCH_CPU_ROBOTS = 8  # the dispatcher phase's robots run again on the CPU
 DISPATCH_WARMUP = 8      # its untimed ticks before the timed run of each mode
@@ -857,17 +880,20 @@ def arch_kernel_cases(rng):
     return [(name, label, dtype, case, False) for name, label, dtype, case in cases]
 
 
-def encdec_kernel_cases(rng):
+def encdec_kernel_cases(rng, ranks: int = 1):
     """The three attention kernels at seamless-m4t-medium's shapes (bf16,
-    H = KV = 16, D = 64), each also held to ROW_TOL: the decoder's prompt
-    (flash S = 14, causal), the encoder over ``ENC_FRAMES`` frames (flash,
-    non-causal), the decoder's self-attention decode at length 70 (dense;
-    paged at B = 1 and at the scheduler's 32 ragged rows) and a token's
-    cross-attention over the frames (decode, ``cache_len`` = S_enc, every
-    key valid)."""
+    H = KV = 16, D = 64; a model-axis rank's H = KV = 16 / ``ranks``),
+    each also held to ROW_TOL: the decoder's prompt (flash S = 14, causal),
+    the encoder over ``ENC_FRAMES`` frames (flash, non-causal), the
+    decoder's self-attention decode at length 70 (dense; paged at B = 1
+    and at the scheduler's 32 ragged rows) and a token's cross-attention
+    over the frames (decode, ``cache_len`` = S_enc, every key valid)."""
 
     bf = torch.bfloat16
     label, h, kv, d, _, _ = arch_shape(ENCDEC)
+    if ranks > 1:
+        h, kv = h // ranks, kv // ranks
+        label = f"{ENCDEC} model-axis rank M={ranks} H=KV={h} D={d}"
     c = dict(d=d, checked=True)
     cases = [
         ("flash_attention", f"{label} S=14 decoder prompt", flash_case(rng, bf, 14, h, kv, **c)),
@@ -881,6 +907,8 @@ def encdec_kernel_cases(rng):
         ("paged_attention", f"{label} scheduler rows=32 lens 0..70 (8 idle)",
          paged_case(rng, bf, scheduler_lens(rng), 16, h, kv, masked_library=True, **c)),
     ]
+    if ranks > 1:  # phase 7e's: the prompt, the encoder, decode, cross decode, the round
+        cases = [c for c in cases if "B=1" not in c[1]]
     return [(name, label, bf, case, False) for name, label, case in cases]
 
 
@@ -1014,7 +1042,8 @@ def kernel_cases(rng, fleet):
         # 5 s streams at 500 Hz: longer than one super-tile of 32 x 32 ticks
         ("rolling_stats", "N=256 T=2500 random", f32,
          stats_case(*random_streams(rng, 256, 2500)), False),
-    ] + arch_kernel_cases(rng) + encdec_kernel_cases(rng)
+    ] + arch_kernel_cases(rng) + encdec_kernel_cases(rng) + encdec_kernel_cases(
+        np.random.default_rng(31), ranks=MODEL_AXIS)  # phase 7e's rank, a generator of its own
 
 
 def compare(outs, wants, tols):
@@ -2182,24 +2211,28 @@ def encdec_batch(cfg, tok, rng, b, frames, device):
                                         dtype=torch.float32, device=device)}
 
 
-def encdec_chunk(model, batch, paged, floor, n_steps=56):
+def encdec_chunk(model, batch, paged, floor, n_steps=56, into=None):
     """``Model.prefill(extra=n_steps)`` (paged: ``extra=0``, then the dense
     cache scattered into pages as ``CloudPolicy(paged=True)`` lays them
     out) and ``decode_chunk(n_steps, token_floor=floor)`` -> (tokens
-    [B, n_steps], the next logits)."""
+    [B, n_steps], the next logits).  ``into`` (a dict, eager runs only):
+    gets the prefill's last logits, its collectives, the cross-K/V bytes
+    and the host clock when the decode starts."""
 
     b = batch["tokens"].shape[0]
+    logits, cache = model.prefill(batch, extra=0 if paged else n_steps)
+    if into is not None:
+        into.update(prefill=logits[0, -1].float().cpu().numpy(),
+                    prefill_calls=dict(dist.CALLS), t_decode=time.perf_counter(),
+                    xkv_bytes=sum(cache[k].nbytes for k in ("xk", "xv") if k in cache))
     if paged:
-        logits, dcache = model.prefill(batch, extra=0)
         page = 16
         maxp = -(-(14 + n_steps) // page)
         spec = PagedSpec(num_pages=b * maxp, page_size=page, max_pages_per_seq=maxp)
         i32 = dict(dtype=torch.int32, device=model.device)
         pt = torch.arange(b * maxp, **i32).reshape(b, maxp)
-        cache = model.cache_to_paged(dcache, model.init_paged_cache(b, spec), pt,
+        cache = model.cache_to_paged(cache, model.init_paged_cache(b, spec), pt,
                                      torch.full((b,), maxp * page, **i32))
-    else:
-        logits, cache = model.prefill(batch, extra=n_steps)
     toks, logits, _ = model.decode_chunk(logits, cache, n_steps, floor)
     return toks, logits
 
@@ -3833,10 +3866,10 @@ class ForcedRoutes:
         moe_lib.router_probs = self.fn
 
 
-def jamba_sched_run(model, tok, reqs, launches, mesh=None):
+def axis_sched_run(model, tok, reqs, launches, mesh=None):
     """``staggered`` over ``reqs`` (``max_slots=4``, R = 4) with exact
     launches and every collective counted -> (a picklable record, the
-    scheduler)."""
+    scheduler): phases 7d and 7e."""
 
     sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4, mesh=mesh,
                                         num_pages=len(reqs) * -(-(14 + 56) // 16))
@@ -3854,8 +3887,9 @@ def jamba_sched_run(model, tok, reqs, launches, mesh=None):
                 collectives=dict(dist.CALLS), admits=len(sched.admit_ms),
                 steps=sched.decode_rounds * sched.decode_block, rounds=sched.decode_rounds,
                 wall_s=wall, ms_round=wall * 1e3 / sched.decode_rounds, mode=sched.round_mode,
-                pool_bytes=sum(pc[k].nbytes for k in ("kp", "vp")),
-                state_bytes=sum(pc[k].nbytes for k in model.state_names)), sched
+                pool_bytes=sum(pc[k].nbytes for k in ("kp", "vp") if k in pc),
+                state_bytes=sum(pc[k].nbytes for k in model.state_names),
+                state={k: pc[k].nbytes for k in model.state_names}, rows=sched.rows), sched
 
 
 def forced_routes(model, tok, reqs, chunks):
@@ -3908,16 +3942,6 @@ def skip_moe(model, tok, reqs):
             m.tp = model.group
 
 
-def per_token_collectives(cfg):
-    """The collectives of one decode token (or one prefill) of a rank,
-    from the layer kinds: 2 all-reduces a Mamba layer (dt / B / C, then
-    out_proj), 1 an attention layer, 1 an FFN (MLP or MoE), 1 the
-    embedding; 1 all-gather of the logits."""
-
-    return {"all_reduce": sum(2 if k == "mamba" else 1 for k in cfg.blocks) + cfg.num_layers + 1,
-            "all_gather": 1}
-
-
 def jamba_axis_prepare(model, tok, launches):
     """(7d), on the one-rank Jamba before it is freed: the first prompt's
     logits and routes, the staggered scheduler run (its ms a round warm,
@@ -3928,7 +3952,7 @@ def jamba_axis_prepare(model, tok, launches):
     t0 = time.perf_counter()
     reqs = requests(np.random.default_rng(9), JAMBA_AXIS_ROBOTS)
     logits, routes = jamba_first(model, tok, reqs)
-    run, sched = jamba_sched_run(model, tok, reqs, launches)
+    run, sched = axis_sched_run(model, tok, reqs, launches)
     rounds0, t1 = sched.decode_rounds, time.perf_counter()
     staggered(sched, reqs)
     torch.cuda.synchronize()
@@ -3953,7 +3977,7 @@ def jamba_axis_rank(rank, backend, init, device, digests, chunks, routes1, reqs,
     seed, checks each parameter block's digest against the parent's (and
     that a block with one element changed fails it), runs ``jamba_first``,
     then the first prompt again and the two controls with the one rank's
-    routes (``routes1``, ``ForcedRoutes``), and ``jamba_sched_run`` over a
+    routes (``routes1``, ``ForcedRoutes``), and ``axis_sched_run`` over a
     rank mesh, teacher-forces the one-rank ``chunks`` where its own differ,
     and puts (rank, record or error) on ``queue``."""
 
@@ -4003,7 +4027,7 @@ def jamba_axis_rank(rank, backend, init, device, digests, chunks, routes1, reqs,
             with ForcedRoutes(routes1):
                 controls[name] = skip(model, tok, reqs)
         counts = {n: 0 for n in _lib.KERNELS}
-        run = jamba_sched_run(model, tok, reqs, counts, make_rank_mesh(1, group))[0]
+        run = axis_sched_run(model, tok, reqs, counts, make_rank_mesh(1, group))[0]
         differ = any(not np.array_equal(run["chunks"][r], chunks[r]) for r in chunks)
         forced = forced_routes(model, tok, reqs, chunks)[1] if differ else None
         queue.put((rank, dict(
@@ -4146,7 +4170,7 @@ def jamba_axis_phase(one, tok, launches):
         if not same_jamba_runs(ranks[0], r):
             raise AssertionError(f"(7d) rank {r['rank']}'s runs differ from rank 0's")
     cfg = one["cfg"]
-    per_token = per_token_collectives(cfg)
+    per_token = per_token_calls(cfg)
     heads = {"paged": [(cfg.num_heads // MODEL_AXIS, cfg.num_kv_heads // MODEL_AXIS)],
              "scan": [ssm_lib.ssm_dims(cfg)[1] // MODEL_AXIS]}
     for r in ranks:
@@ -4188,6 +4212,414 @@ def jamba_axis_phase(one, tok, launches):
         + ", ".join(f"{n} {e:.4g} ({'caught' if c else 'not caught'})"
                     for n, (e, c) in controls.items())
         + f"; the ranks took {spawn_s:.1f} s from spawn to join")
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: xLSTM and the encoder-decoder stack on the model axis
+# ---------------------------------------------------------------------------
+
+# phase 7e's own limit: its ranks started, built, checked, run and joined
+XE_RANKS_TIMEOUT_S = 180
+# the staggered scheduler run of xlstm-125m: 4 robots at R = 4 (phase 7d's)
+XE_ROBOTS = 4
+# seamless's decode chunk on the ranks: short, since a token makes 38 gloo
+# collectives (each ~2.8-5.3 ms through pinned host memory on one card)
+XE_STEPS = 16
+# seamless's modes over ranks (cross K/V cached, paged cache): paged with
+# the cross K/V cached, dense with them projected each token
+XE_MODES = ((True, True), (False, False))
+# the collectives of a decode token on a rank (``per_token_calls``)
+XE_TOKEN_CALLS = {XLSTM: 26, ENCDEC: 38}
+
+
+def per_token_calls(cfg, prompt: int = 1):
+    """The collectives of one decode token (``prompt`` = 1) or a prefill of
+    ``prompt`` tokens of a rank, from the layer kinds: a Mamba layer 2
+    all-reduces (dt / B / C, then out_proj), an attention layer 1, an
+    enc-dec decoder layer's cross-attention 1, an mLSTM layer 1 and 1
+    all-gather (its output; its xi), an sLSTM layer 1 and 1 a token (its
+    output; its h), an FFN (MLP or MoE) 1, the embedding 1, an encoder
+    layer 2 (a prefill's only); the logits' 1 all-gather: 26 a token at
+    xlstm-125m (13 + 13), 38 at seamless-m4t-medium (37 + 1)."""
+
+    kinds = list(cfg.blocks)
+    reduce = len(kinds) + kinds.count("mamba") + 1 + (cfg.num_layers if cfg.d_ff > 0 else 0)
+    if cfg.encoder_decoder:
+        reduce += kinds.count("attn") + (2 * cfg.num_encoder_layers if prompt > 1 else 0)
+    gather = 1 + kinds.count("mlstm") + prompt * kinds.count("slstm")
+    return {"all_reduce": reduce, "all_gather": gather}
+
+
+def skip_h_gather(model, tok, reqs):
+    """``first_logits`` of a rank whose sLSTM layers skip the h all-gather,
+    its own units standing in for every rank's (every rank alike, so the
+    other collectives still pair)."""
+
+    real = xlstm_lib._slstm_cell
+
+    def cell(w_rec, bias, units, carry, x_in, tp=None):
+        c, n, h, m = real(w_rec, bias, units, carry, x_in, None)
+        return c, n, h.repeat(1, tp.size) if tp is not None else h, m
+
+    xlstm_lib._slstm_cell = cell
+    try:
+        return first_logits(model, tok, reqs)
+    finally:
+        xlstm_lib._slstm_cell = real
+
+
+def skip_xattn_wo(model, batch):
+    """The prefill's last logits of a rank whose cross-attention skips its
+    ``wo`` all-reduce in every decoder layer."""
+
+    xattn = [blk.xattn for blk in model.layers]
+    for a in xattn:
+        a.tp = None
+    try:
+        return model.prefill(batch)[0][0, -1].float().cpu().numpy()
+    finally:
+        for a in xattn:
+            a.tp = model.group
+
+
+def encdec_axis_run(model, batch, paged, floor, launches):
+    """seamless's prefill and an ``XE_STEPS``-token chunk (``encdec_chunk``)
+    eagerly, launches exact and the collectives counted -> a picklable
+    record (prefill logits, tokens, calls of the prefill and of the chunk,
+    cross-K/V bytes, ms a decode token)."""
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dist.reset_calls()
+    rec = {}
+    toks, last = encdec_chunk(model, batch, paged, floor, XE_STEPS, into=rec)
+    toks = toks.cpu().numpy()
+    t1 = time.perf_counter()
+    counts = dict(ops.LAUNCHES)
+    want = encdec_launches(model, paged, XE_STEPS)
+    if counts != want:
+        raise AssertionError(f"(7e) {model.cfg.name} launches {counts}, expected {want}")
+    for n in launches:
+        launches[n] += counts[n]
+    calls = {k: dist.CALLS[k] - rec["prefill_calls"][k] for k in dist.CALLS}
+    if toks.shape != (1, XE_STEPS) or (toks < floor).any() or not torch.isfinite(last).all():
+        raise AssertionError(f"(7e) {model.cfg.name}: bad chunk {toks}")
+    return dict(prefill=rec["prefill"], tokens=toks[0], prefill_calls=rec["prefill_calls"],
+                calls=calls, xkv_bytes=rec["xkv_bytes"], launches=counts,
+                ms_token=(t1 - rec["t_decode"]) * 1e3 / XE_STEPS)
+
+
+def xe_batch(cfg, tok):
+    """Phase 7e's seamless prompt: 14 tokens and ``ENC_FRAMES`` stub frames
+    (numpy, seeded)."""
+
+    rng = np.random.default_rng(47)
+    return {"tokens": rng.integers(tok.state_base, tok.action_base, (1, 14)),
+            "frontend": rng.standard_normal((1, ENC_FRAMES, cfg.d_model)).astype(np.float32)}
+
+
+def xe_axis_prepare(launches):
+    """(7e), the one-rank runs: xlstm-125m and seamless-m4t-medium at full
+    width and depth from phase 4's seed, the xLSTM's first prompt and its
+    staggered scheduler run (warm too), seamless's prompt in ``XE_MODES``,
+    and the digest of every rank's block of every parameter -> (what the
+    ranks are held to, the two models)."""
+
+    t0 = time.perf_counter()
+    out = {"reqs": requests(np.random.default_rng(11), XE_ROBOTS)}
+    models = {}
+    for arch in (XLSTM, ENCDEC):
+        cfg = get_config(arch)
+        model = models[arch] = Model(cfg, device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(0))
+        out[arch] = dict(digests=block_digests(model, MODEL_AXIS), cfg=cfg,
+                         weight_bytes=sum(p.nbytes for p in model.parameters()))
+    # a block with one element changed must fail its digest
+    w = models[XLSTM].layers[1].slstm.w_in
+    index = block_of(Model(get_config(XLSTM), device="meta", group=dist.ModelGroup(
+        0, MODEL_AXIS, "gloo", torch.device("meta"), (torch.device("meta"),) * MODEL_AXIS))
+        .layers[1].slstm.w_in)[1]
+    control = w[index].clone()
+    control.view(torch.int16).view(-1)[control.numel() // 3] += 1
+    if digest(control) == out[XLSTM]["digests"]["layers.1.slstm.w_in"][0]:
+        raise AssertionError("(7e) a block with one element changed passes its digest")
+    model, tok = models[XLSTM], EpisodeTokenizer(get_config(XLSTM).vocab_size)
+    out["logits"] = first_logits(model, tok, out["reqs"])
+    run, sched = axis_sched_run(model, tok, out["reqs"], launches)
+    rounds0, t1 = sched.decode_rounds, time.perf_counter()
+    staggered(sched, out["reqs"])
+    torch.cuda.synchronize()
+    out["warm_ms"] = (time.perf_counter() - t1) * 1e3 / (sched.decode_rounds - rounds0)
+    out["run"] = run
+    del sched
+    model, etok = models[ENCDEC], EpisodeTokenizer(get_config(ENCDEC).vocab_size)
+    out["batch"] = xe_batch(model.cfg, etok)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in out["batch"].items()}
+    out["modes"] = {mode: encdec_axis_run(enc_twin(model, mode[0]), batch, mode[1],
+                                          etok.action_base, launches) for mode in XE_MODES}
+    log(f"  (7e) one rank: {XLSTM} {len(run['chunks'])} chunks in {run['rounds']} rounds "
+        f"({run['mode']}, cold {run['ms_round']:.2f} ms a round, warm {out['warm_ms']:.2f}); "
+        f"{ENCDEC} " + ", ".join(f"{enc_mode(*m)} {r['ms_token']:.2f} ms a token"
+                                 for m, r in out["modes"].items())
+        + f"; digests of both stacks' blocks; {time.perf_counter() - t0:.1f} s in all")
+    return out, models
+
+
+def xe_axis_rank(rank, backend, init, device, reqs, batch_np, queue):
+    """One rank of phase 7e, in a process of its own: joins the model axis,
+    builds xlstm-125m, then seamless-m4t-medium, at full width and depth
+    from phase 4's seed, sends every parameter block's digest, runs the
+    first prompt, its control and the staggered scheduler run on the
+    xLSTM over a rank mesh, and seamless's prompt in ``XE_MODES`` and its
+    control, recording the attention kernels' heads; puts (rank, record or
+    error) on ``queue``."""
+
+    try:
+        if backend == "gloo":
+            os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        else:
+            os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        group = dist.init_model_group(rank, MODEL_AXIS, backend=backend, init_method=init,
+                                      device=device)
+        dev = group.device
+        heads = {"flash": set(), "decode": set(), "paged": set()}
+        wrap = ((kfa, "flash_attention", "flash"), (kdec, "decode_attention", "decode"),
+                (kpa, "paged_decode_attention", "paged"))
+
+        def recorder(fn, name):
+            def call(q, k, *a, **kw):  # q [.., H, D], k [.., .., KV, D]
+                heads[name].add((q.shape[-2], k.shape[2]))
+                return fn(q, k, *a, **kw)
+            return call
+
+        for mod, attr, name in wrap:
+            setattr(mod, attr, recorder(getattr(mod, attr), name))
+        rec = dict(rank=rank, device=str(dev))
+        for arch in (XLSTM, ENCDEC):
+            cfg = get_config(arch)
+            t0 = time.perf_counter()
+            model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0),
+                          group=group)
+            torch.cuda.synchronize(dev)
+            tok = EpisodeTokenizer(cfg.vocab_size)
+            r = rec[arch] = dict(build_s=time.perf_counter() - t0,
+                                 digests={n: digest(p) for n, p in model.named_parameters()},
+                                 cut=sum(tuple(p.shape) != global_shape(p)
+                                         for p in model.parameters()),
+                                 weight_bytes=sum(p.nbytes for p in model.parameters()))
+            counts = {n: 0 for n in _lib.KERNELS}
+            if arch == XLSTM:
+                dist.reset_calls()
+                r["logits"] = first_logits(model, tok, reqs)
+                r["first_calls"] = dict(dist.CALLS)
+                r["control"] = skip_h_gather(model, tok, reqs)
+                r["run"] = axis_sched_run(model, tok, reqs, counts, make_rank_mesh(1, group))[0]
+            else:
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+                r["modes"] = {mode: encdec_axis_run(enc_twin(model, mode[0]), batch, mode[1],
+                                                    tok.action_base, counts)
+                              for mode in XE_MODES}
+                r["control"] = skip_xattn_wo(model, batch)
+            r["launches"] = counts
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["heads"] = {k: sorted(v) for k, v in heads.items()}
+        queue.put((rank, rec))
+        dist.destroy_model_group(group)
+    except Exception:  # the rank's failure goes to the parent, which fails the phase
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def same_xe_runs(a, b):
+    """Two ranks' records: the same logits, controls, chunks, tokens and
+    counts."""
+
+    xa, xb = a[XLSTM], b[XLSTM]
+    ea, eb = a[ENCDEC], b[ENCDEC]
+    ra, rb = xa["run"], xb["run"]
+    return (all(np.array_equal(xa[k], xb[k]) for k in ("logits", "control"))
+            and np.array_equal(ea["control"], eb["control"])
+            and ra["order"] == rb["order"]
+            and all(np.array_equal(ra["chunks"][r], rb["chunks"][r]) for r in ra["chunks"])
+            and all(ra[k] == rb[k] for k in ("launches", "collectives", "admits", "steps"))
+            and all(np.array_equal(ea["modes"][m][k], eb["modes"][m][k])
+                    for m in XE_MODES for k in ("prefill", "tokens"))
+            and all(ea["modes"][m][k] == eb["modes"][m][k]
+                    for m in XE_MODES for k in ("calls", "prefill_calls", "launches"))
+            and a["heads"] == b["heads"])
+
+
+def hold_logits(what, got, want, vocab):
+    """``got``'s first ``vocab`` logits within ``TP_LOGIT_TOL`` of
+    ``want``'s, and its padded ids masked (<= -1e8, after the vocab blocks
+    were gathered) -> the max abs error.  (The padded ids' -1e9 would set
+    the row's scale, so the tolerance reads the real vocab only.)"""
+
+    if not (got[vocab:] <= -1e8).all():
+        raise AssertionError(f"(7e) {what}: a padded id past {vocab} is not masked")
+    err, ok = compare([torch.as_tensor(got[:vocab])[None]], [torch.as_tensor(want[:vocab])[None]],
+                      [TP_LOGIT_TOL])
+    if not ok:
+        raise AssertionError(f"(7e) {what}: max abs error {err:.4g} past 2^-5 of max |logit| "
+                             f"{np.abs(want[:vocab]).max():.4g}")
+    return err
+
+
+def caught(what, got, want, vocab):
+    """A control's first ``vocab`` logits must miss ``TP_LOGIT_TOL`` -> its
+    max abs error."""
+
+    err, ok = compare([torch.as_tensor(got[:vocab])[None]], [torch.as_tensor(want[:vocab])[None]],
+                      [TP_LOGIT_TOL])
+    if ok:
+        raise AssertionError(f"(7e) a rank that skips {what} passes TP_LOGIT_TOL (max abs "
+                             f"error {err:.4g})")
+    return err
+
+
+def hold_xe_to_one_rank(one, models, rank):
+    """Rank 0's record against the one rank's: the xLSTM's harvest order
+    and rounds equal, each chunk equal or differing first where the one
+    rank's top-two gap is within ``MARGIN_TOL``; the first prompt's logits
+    and each seamless mode's prefill logits within ``TP_LOGIT_TOL``, its
+    tokens held by the greedy-margin rule; both controls outside it ->
+    (chunks inside the margin, seamless modes inside it, the logits' max
+    abs errors, the controls' max abs errors)."""
+
+    x, run, run1 = rank[XLSTM], rank[XLSTM]["run"], one["run"]
+    if run["order"] != run1["order"] or run["rounds"] != run1["rounds"]:
+        raise AssertionError(f"(7e) {XLSTM} harvest order {run['order']} / rounds "
+                             f"{run['rounds']} vs one rank {run1['order']} / {run1['rounds']}")
+    model, tok = models[XLSTM], EpisodeTokenizer(get_config(XLSTM).vocab_size)
+    margin = 0
+    for r, qd, tau in one["reqs"]:
+        diff = np.flatnonzero(run["chunks"][r] != run1["chunks"][r])
+        if diff.size:
+            obs = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)[0]
+            gap = top2_gap_tokens(model, tok, obs, run1["chunks"][r], int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"(7e) {XLSTM} robot {r}: chunk differs at step {diff[0]} "
+                                     f"where the top-two gap is {gap:.3g}")
+            margin += 1
+    xv, ev = get_config(XLSTM).vocab_size, get_config(ENCDEC).vocab_size
+    errs = {XLSTM: hold_logits(f"{XLSTM} first prompt's logits", x["logits"], one["logits"], xv)}
+    controls = {"the sLSTM's h all-gather": caught("the sLSTM's h all-gather", x["control"],
+                                                   one["logits"], xv)}
+    e, enc_near = rank[ENCDEC], 0
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in one["batch"].items()}
+    floor = EpisodeTokenizer(get_config(ENCDEC).vocab_size).action_base
+    for mode in XE_MODES:
+        got, want = e["modes"][mode], one["modes"][mode]
+        errs[enc_mode(*mode)] = hold_logits(f"{ENCDEC} {enc_mode(*mode)} prefill logits",
+                                            got["prefill"], want["prefill"], ev)
+        diff = np.flatnonzero(got["tokens"] != want["tokens"])
+        if diff.size:
+            gap = encdec_top2_gap(models[ENCDEC], batch, floor,
+                                  torch.as_tensor(want["tokens"][None], device="cuda"),
+                                  int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"(7e) {ENCDEC} {enc_mode(*mode)}: token {diff[0]} differs "
+                                     f"where the top-two gap is {gap:.3g}")
+            enc_near += 1
+    controls["the cross-attention's wo all-reduce"] = caught(
+        "the cross-attention's wo all-reduce", e["control"],
+        one["modes"][(False, False)]["prefill"], ev)
+    return margin, enc_near, errs, controls
+
+
+def xe_axis_phase(launches):
+    """(7e) ``MODEL_AXIS`` tensor-parallel ranks of xlstm-125m and
+    seamless-m4t-medium at full width and depth, each its own process,
+    held to the one-rank models' runs (``xe_axis_prepare``)."""
+
+    backend, devices = axis_plan()
+    one, models = xe_axis_prepare(launches)
+    log(f"  backend {backend}: {MODEL_AXIS} ranks on {devices}")
+    t0 = time.perf_counter()
+    started = start_model_axis(backend, devices, one["reqs"], one["batch"],
+                               target=xe_axis_rank, timeout_s=XE_RANKS_TIMEOUT_S, what="7e")
+    ranks = join_model_axis(*started)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks[1:]:
+        if not same_xe_runs(ranks[0], r):
+            raise AssertionError(f"(7e) rank {r['rank']}'s runs differ from rank 0's")
+    xcfg, ecfg = get_config(XLSTM), get_config(ENCDEC)
+    x_tok, x_pre = per_token_calls(xcfg), per_token_calls(xcfg, 14)
+    e_tok, e_pre = per_token_calls(ecfg), per_token_calls(ecfg, 14)
+    if [sum(x_tok.values()), sum(e_tok.values())] != list(XE_TOKEN_CALLS.values()):
+        raise AssertionError(f"(7e) collectives a token {x_tok} / {e_tok}, expected "
+                             f"{XE_TOKEN_CALLS}")
+    h = ecfg.num_heads // MODEL_AXIS
+    want_heads = {"flash": [(h, h)], "decode": [(h, h)], "paged": [(h, h)]}
+    for r in ranks:
+        for arch in (XLSTM, ENCDEC):
+            bad = [n for n, d in r[arch]["digests"].items()
+                   if d != one[arch]["digests"][n][r["rank"]]]
+            if bad or len(r[arch]["digests"]) != len(one[arch]["digests"]):
+                raise AssertionError(f"(7e) rank {r['rank']}: {arch} blocks {bad[:4]} are not "
+                                     "the parent's")
+        run = r[XLSTM]["run"]
+        want = {k: x_pre[k] * run["admits"] + x_tok[k] * run["steps"] for k in x_tok}
+        if run["collectives"] != want or r[XLSTM]["first_calls"] != x_pre:
+            raise AssertionError(f"(7e) rank {r['rank']}: {XLSTM} collectives "
+                                 f"{run['collectives']} (first prompt {r[XLSTM]['first_calls']}),"
+                                 f" expected {want} ({x_pre})")
+        if any(run["launches"].values()):
+            raise AssertionError(f"(7e) {XLSTM} launched {run['launches']}")
+        for mode, m in r[ENCDEC]["modes"].items():
+            want = {k: n * XE_STEPS for k, n in e_tok.items()}
+            if m["prefill_calls"] != e_pre or m["calls"] != want:
+                raise AssertionError(f"(7e) rank {r['rank']} {enc_mode(*mode)}: collectives "
+                                     f"{m['prefill_calls']} + {m['calls']}, expected {e_pre} + "
+                                     f"{want}")
+        if r["heads"] != want_heads:
+            raise AssertionError(f"(7e) rank {r['rank']}: kernels at (H, KV) {r['heads']}, "
+                                 f"expected {want_heads}")
+        for arch in (XLSTM, ENCDEC):
+            for n in launches:
+                launches[n] += r[arch]["launches"][n]
+    margin, enc_near, errs, controls = hold_xe_to_one_rank(one, models, ranks[0])
+    run1 = one["run"]
+    for r in ranks:
+        x, e, run = r[XLSTM], r[ENCDEC], r[XLSTM]["run"]
+        state = lambda rn, kind: sum(b for k, b in rn["state"].items()  # noqa: E731
+                                     if k in STATE_NAMES[kind])
+        log(f"  rank {r['rank']} on {r['device']}: {XLSTM} built in {x['build_s']:.2f} s, "
+            f"{x['cut']} of {len(x['digests'])} parameters cut, {ENCDEC} built in "
+            f"{e['build_s']:.2f} s, {e['cut']} of {len(e['digests'])} cut, every block's digest "
+            f"equal to the parent's; weights {x['weight_bytes'] / 2**20:.1f} MiB (one rank "
+            f"{one[XLSTM]['weight_bytes'] / 2**20:.1f}) and {e['weight_bytes'] / 2**30:.3f} GiB "
+            f"(one rank {one[ENCDEC]['weight_bytes'] / 2**30:.3f}); mLSTM state "
+            f"{state(run, 'mlstm') / 2**20:.3f} MiB (one rank {state(run1, 'mlstm') / 2**20:.3f}),"
+            f" sLSTM state {state(run, 'slstm') / 2**10:.1f} KiB (one rank "
+            f"{state(run1, 'slstm') / 2**10:.1f}) at {run['rows']} rows;"
+            f" cross K/V {e['modes'][(True, True)]['xkv_bytes'] / 2**20:.3f} MiB (one rank "
+            f"{one['modes'][(True, True)]['xkv_bytes'] / 2**20:.3f})")
+        log(f"    {XLSTM} scheduler {run['mode']}: {run['rounds']} rounds, {run['wall_s']:.2f} s, "
+            f"{run['ms_round']:.2f} ms a round (one rank, {run1['mode']}: cold "
+            f"{run1['ms_round']:.2f}, warm {one['warm_ms']:.2f}); collectives {run['collectives']}"
+            f" over {run['admits']} admissions and {run['steps']} steps (exact: {x_pre} a "
+            f"prefill, {x_tok} a token); no kernel launched")
+        log(f"    {ENCDEC}: " + "; ".join(
+            f"{enc_mode(*mode)} {m['ms_token']:.2f} ms a token (one rank "
+            f"{one['modes'][mode]['ms_token']:.2f}), launches {m['launches']} (exact)"
+            for mode, m in e["modes"].items())
+            + f"; collectives {e_pre} a prefill, {e_tok} a token (exact); kernels at (H, KV) "
+            f"{r['heads']}")
+    log(f"  ranks equal to each other; against one rank: {XLSTM} {len(run1['chunks'])} chunks, "
+        f"order and {run1['rounds']} rounds equal, {margin} inside the {MARGIN_TOL:g} margin; "
+        f"{ENCDEC} {len(XE_MODES)} modes' {XE_STEPS} tokens, {enc_near} inside the margin; "
+        "logits max abs error " + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + " (limit 2^-5 of max |logit|); a rank skipping "
+        + ", ".join(f"{k}: {v:.4g} (caught)" for k, v in controls.items())
+        + f"; the ranks took {spawn_s:.1f} s from spawn to join")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def monitor_path(fleet, launches):
@@ -5231,6 +5663,8 @@ def main(argv) -> int:
     phase(f"4. model ({ENCDEC})")
     encdec_card_vs_cpu()
     serve_encdec(get_config(ENCDEC), launches)
+    phase(f"7e. xLSTM and enc-dec on the model axis ({XLSTM}, {ENCDEC}, {MODEL_AXIS} ranks)")
+    xe_axis_phase(launches)
     phase("8. train")
     main_rows.update(train_phase(launches))
     phase("8b. dry run, roofline and examples")

@@ -20,9 +20,12 @@ plain MLP (starcoder2) no ``mlp/gate/w``, in either tree.  Nothing here
 imports JAX.
 
 A tensor-parallel rank's model (``Model(group=...)``) takes its block of
-each flat array (``models.layers.block_of``; Mamba's ``in_proj`` its
-block of each half, x and z), so the ranks' models put together hold the
-reference's weights.
+each flat array (``models.layers.block_of``; a fused parameter its block
+of each of its parts: Mamba's ``in_proj`` and the mLSTM's ``up_proj`` of
+x and z, the mLSTM's ``w_if`` / ``if_bias`` of the i and f gates, the
+sLSTM's ``w_in`` / ``w_rec`` / ``bias`` of its four gates and its ``up``
+of gate and val), so the ranks' models put together hold the reference's
+weights.
 
 ``reference_tensors`` is the inverse: the port's parameters, or any
 tensors keyed like them (gradients, AdamW moments), in the reference's flat

@@ -3,8 +3,8 @@
 a fleet: ``... --fleet 16 --trigger rapid --scan-rounds 4``, or either split
 between edge and cloud: ``... --partition auto|N [--network lan]``.
 
-Counterpart of ``repro/launch/serve.py`` without its mesh and prefill
-disaggregation (ROADMAP queue F).  Two serving modes:
+Counterpart of ``repro/launch/serve.py``; its data shards share one device
+and its prefill runs on the decode device (ROADMAP queue I, items 4-5).  Two serving modes:
 
   * ``serve_episode`` — one robot: the RAPID dispatcher monitors simulated
     robot kinematics tick by tick, and on each dispatch the cloud VLA

@@ -34,7 +34,10 @@ and ``n_kv`` KV heads, its own ``KV/M`` where KV divides over the M ranks,
 else the one KV head its query heads read (``kv_cols``: the columns of
 the whole ``wk`` / ``wv`` it projects, a contiguous block).  ``wo`` is cut
 by rows, and its partial products are summed over the ranks (``tp``).
-RoPE, windows and softcaps are per head and unchanged.
+RoPE, windows and softcaps are per head and unchanged.  The encoder's
+self-attention and the decoder's cross-attention are cut alike: the rank's
+heads of q, its KV heads of the K/V it projects from the encoder's output
+(which every rank holds whole), and one all-reduce of the output.
 """
 
 from __future__ import annotations
@@ -101,10 +104,17 @@ def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return ok
 
 
+def _kv_weights(p: Attention):
+    """``wk`` / ``wv``, or the columns of the one KV head the rank's query
+    heads read (``kv_cols``)."""
+
+    return (p.wk, p.wv) if p.kv_cols is None else (p.wk[:, p.kv_cols], p.wv[:, p.kv_cols])
+
+
 def _qkv(x, p: Attention, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd, nh, nkv = cfg.resolved_head_dim, p.n_heads, p.n_kv
-    wk, wv = (p.wk, p.wv) if p.kv_cols is None else (p.wk[:, p.kv_cols], p.wv[:, p.kv_cols])
+    wk, wv = _kv_weights(p)
     q = dense(x, p.wq).reshape(b, s, nh, hd)
     k = dense(x, wk).reshape(b, s, nkv, hd)
     v = dense(x, wv).reshape(b, s, nkv, hd)
@@ -232,21 +242,22 @@ def _project(x, w, heads: int, hd: int):
 
 def encoder_attention(x, p: Attention, cfg: ModelConfig):
     """The encoder's self-attention over x [B,S,D]: no RoPE, non-causal,
-    no window, through the flash kernel -> out [B,S,D]."""
+    no window, through the flash kernel -> out [B,S,D] (the rank's heads,
+    summed over ``p.tp``)."""
 
-    b, s, _ = x.shape
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = (_project(x, w, n, hd) for w, n in ((p.wq, nh), (p.wk, nkv), (p.wv, nkv)))
+    hd = cfg.resolved_head_dim
+    q = _project(x, p.wq, p.n_heads, hd)
+    k, v = (_project(x, w, p.n_kv, hd) for w in _kv_weights(p))
     out = _attend(q, k, v, causal=False, window=0, logit_cap=cfg.attn_logit_softcap)
-    return dense(out.reshape(b, s, -1), p.wo)
+    return _out(out, p)
 
 
 def cross_kv(enc_out, p: Attention, cfg: ModelConfig):
     """A cross-attention layer's K, V [B, S_enc, KV, Dh] over the encoder's
-    output (no RoPE)."""
+    output (no RoPE; the rank's KV heads)."""
 
-    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
-    return _project(enc_out, p.wk, nkv, hd), _project(enc_out, p.wv, nkv, hd)
+    hd = cfg.resolved_head_dim
+    return tuple(_project(enc_out, w, p.n_kv, hd) for w in _kv_weights(p))
 
 
 def cross_attention_forward(x, p: Attention, cfg: ModelConfig, enc_out):
@@ -255,11 +266,10 @@ def cross_attention_forward(x, p: Attention, cfg: ModelConfig, enc_out):
     probabilities and the value sum in float32) -> (out [B,S,D], k, v),
     the K/V for a cached decode."""
 
-    b, s, _ = x.shape
-    hd, nh = cfg.resolved_head_dim, cfg.num_heads
-    q = _project(x, p.wq, nh, hd)
+    hd = cfg.resolved_head_dim
+    q = _project(x, p.wq, p.n_heads, hd)
     k, v = cross_kv(enc_out, p, cfg)
-    g = nh // k.shape[2]
+    g = p.n_heads // k.shape[2]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           k.float().repeat_interleave(g, dim=2)) * hd**-0.5
     cap = cfg.attn_logit_softcap
@@ -267,7 +277,7 @@ def cross_attention_forward(x, p: Attention, cfg: ModelConfig, enc_out):
         logits = cap * torch.tanh(logits / cap)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float().repeat_interleave(g, dim=2))
-    return dense(out.to(q.dtype).reshape(b, s, -1), p.wo), k, v
+    return _out(out.to(q.dtype), p), k, v
 
 
 def cross_attention_cached(x, p: Attention, cfg: ModelConfig, xk, xv):
@@ -276,10 +286,10 @@ def cross_attention_cached(x, p: Attention, cfg: ModelConfig, xk, xv):
     -> out [B,1,D]."""
 
     b = x.shape[0]
-    q = dense(x, p.wq).reshape(b, cfg.num_heads, cfg.resolved_head_dim)
+    q = dense(x, p.wq).reshape(b, p.n_heads, cfg.resolved_head_dim)
     out = ops.decode_attention(q, xk.to(q.dtype), xv.to(q.dtype), cache_len=xk.shape[1],
                                logit_cap=cfg.attn_logit_softcap)
-    return dense(out.reshape(b, 1, -1), p.wo)
+    return _out(out[:, None], p)
 
 
 def cross_attention_decode(x, p: Attention, cfg: ModelConfig, enc_out):

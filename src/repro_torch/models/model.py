@@ -49,17 +49,24 @@ tensor-parallel model (the reference's GSPMD placement over
 global tensor by the logical rules (``launch.sharding.local_index``;
 attention weights by whole heads, Mamba's ``in_proj`` by halves),
 drawn from the global tensor in the one-rank model's order, so the M
-blocks put together are the one-rank weights bit for bit.  The MLP, the
-MoE layer (every expert's ``d_ff`` block; all E experts on every rank),
-the attention output and Mamba's ``out_proj`` sum their partial products
-over the ranks, a Mamba layer its ``dt`` / B / C projections too; the
-embedding looks up by vocab block and sums, and the logits gather their
-vocab blocks (``models/layers.py``, ``models/attention.py``,
-``models/moe.py``, ``models/ssm.py``); the caches hold the rank's KV
-heads and Mamba heads and channels.  xLSTM and encoder-decoder stacks,
-attention or Mamba heads that do not divide over the ranks, and training
-raise ``NotImplementedError`` (ROADMAP queue I).  ``param_logical`` and
-``abstract_params`` keep the global shapes.
+blocks put together are the one-rank weights bit for bit.  A fused
+parameter of equal parts laid end to end holds its block of each part
+(``_PARTS``: Mamba's and the mLSTM's x | z, the mLSTM's i | f gates, the
+sLSTM's four gates and its GLU's gate | val).  The MLP, the MoE layer
+(every expert's ``d_ff`` block; all E experts on every rank), the
+attention output (self, the encoder's and the cross-attention's), Mamba's
+and the mLSTM's ``out_proj`` and the sLSTM's ``down`` sum their partial
+products over the ranks, a Mamba layer its ``dt`` / B / C projections
+too; an mLSTM layer gathers its xi once, an sLSTM layer its h once a
+token; the embedding looks up by vocab block and sums, and the logits
+gather their vocab blocks (``models/layers.py``, ``models/attention.py``,
+``models/moe.py``, ``models/ssm.py``, ``models/xlstm.py``).  The caches
+hold the rank's KV heads (the cross K/V's too), Mamba heads and channels,
+mLSTM heads and sLSTM units (h whole); an enc-dec stack's ``enc_out`` is
+whole on every rank.  Heads, Mamba heads or sLSTM widths that do not
+divide over the ranks, and training, raise ``NotImplementedError``
+(ROADMAP queue I).  ``param_logical``, ``abstract_params`` and
+``cache_logical`` keep the reference's global layout.
 """
 
 from __future__ import annotations
@@ -71,7 +78,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, XLSTMConfig
 from repro_torch.launch.dist import all_gather_cat
 from repro_torch.launch.sharding import index_extent, local_index, logical_to_pspec
 from repro_torch.models import attention as attn
@@ -144,17 +151,30 @@ _TOP_AXES = {
 }
 
 
+# block parameters of equal parts laid end to end, each part cut over the
+# ranks (``launch.sharding.local_index``'s ``parts``, dim by dim)
+_PARTS = {"mamba.in_proj": (1, 2), "mlstm.up_proj": (1, 2), "mlstm.w_if": (1, 2),
+          "mlstm.if_bias": (2,), "slstm.w_in": (1, 4), "slstm.w_rec": (1, 4),
+          "slstm.bias": (4,), "slstm.up": (1, 2)}
+
+
 def check_model_axis(cfg: ModelConfig, ranks: int) -> None:
-    """Refuse a stack that ``ranks`` tensor-parallel ranks cannot run yet:
-    xLSTM or an encoder, or attention or Mamba heads that do not divide."""
+    """Refuse a stack that ``ranks`` tensor-parallel ranks cannot run:
+    attention heads (the decoder's, which are the encoder's, the
+    cross-attention's and the mLSTM's), Mamba heads, or the sLSTM's hidden
+    units or GLU width that do not divide over them."""
 
     blocks = set(cfg.blocks)
     why = []
     nh = ssm_lib.ssm_dims(cfg)[1]
     if "mamba" in blocks and nh % ranks:
         why.append(f"{nh} Mamba heads (ROADMAP queue I, item 2: Mamba heads must divide)")
-    if blocks & {"mlstm", "slstm"} or cfg.encoder_decoder:
-        why.append("xLSTM or encoder-decoder layers (ROADMAP queue I, item 3)")
+    if "slstm" in blocks:
+        d_up = int((cfg.xlstm or XLSTMConfig()).proj_factor_slstm * cfg.d_model)
+        for what, n in (("hidden units d_model", cfg.d_model), ("GLU width d_up", d_up)):
+            if n % ranks:
+                why.append(f"the sLSTM's {what} {n} (ROADMAP queue I, item 3: the sLSTM's "
+                           "widths must divide)")
     if cfg.num_heads % ranks:
         why.append(f"{cfg.num_heads} heads (ROADMAP queue I: heads must divide)")
     elif cfg.num_kv_heads % ranks and ranks % cfg.num_kv_heads:
@@ -182,6 +202,12 @@ def unit_period(specs: List[Tuple[str, bool, bool]]) -> int:
         if n % p == 0 and all(specs[i] == specs[i % p] for i in range(n)):
             return p
     return n
+
+
+def _is_cut(p) -> bool:
+    """Whether ``p`` holds a rank's block of a larger global tensor."""
+
+    return tuple(p.shape) != global_shape(p)
 
 
 class Block(nn.Module):
@@ -307,47 +333,56 @@ class Model(nn.Module):
         for m in (self.embed, *front, *self.layers, self.final_norm, *head, *enc):
             m.init(generator)
 
-    def _rank_pspec(self, name: str, shape, mesh):
+    def _rank_layout(self, name: str, shape, mesh):
         """The layout of parameter ``name`` (global ``shape``) over the rank
-        mesh: the logical rules, attention weights by whole heads (Mamba's
-        ``in_proj`` is cut by halves: ``_take_blocks``)."""
+        mesh -> (its ``PartitionSpec``, its parts along each dim): the
+        logical rules, attention and mLSTM weights by whole heads, the
+        sLSTM's bias by units, a fused parameter part by part (``_PARTS``)."""
 
         cfg = self.cfg
-        leaf = name.split(".", 2)[2] if name.startswith("layers.") else name
-        if leaf == "attn.wo":
-            return logical_to_pspec((cfg.num_heads, shape[1]), ("heads", "embed"), mesh)
-        if leaf in ("attn.wq", "attn.wk", "attn.wv"):
-            n, axis = (cfg.num_heads, "heads") if leaf == "attn.wq" else (cfg.num_kv_heads,
-                                                                          "kv_heads")
-            return logical_to_pspec((shape[0], n), ("embed", axis), mesh)
-        return logical_to_pspec(shape, _BLOCK_AXES.get(leaf) or _TOP_AXES[leaf], mesh)
+        leaf = name.split(".", 2)[2] if name.startswith(("layers.", "enc_layers.")) else name
+        kind, _, w = leaf.partition(".")
+        if kind in ("attn", "xattn"):
+            if w == "wo":
+                spec = logical_to_pspec((cfg.num_heads, shape[1]), ("heads", "embed"), mesh)
+            else:
+                n, axis = ((cfg.num_heads, "heads") if w == "wq"
+                           else (cfg.num_kv_heads, "kv_heads"))
+                spec = logical_to_pspec((shape[0], n), ("embed", axis), mesh)
+        elif leaf in ("mlstm.wq", "mlstm.wk", "mlstm.wv", "mlstm.w_if"):
+            # rows whole (xi is gathered), columns by the rank's heads
+            spec = logical_to_pspec((shape[0], cfg.num_heads), (None, "heads"), mesh)
+        elif leaf == "mlstm.if_bias":
+            spec = logical_to_pspec((cfg.num_heads,), ("heads",), mesh)
+        elif leaf == "slstm.bias":
+            spec = logical_to_pspec((cfg.d_model,), ("state",), mesh)
+        else:
+            spec = logical_to_pspec(shape, _BLOCK_AXES.get(leaf) or _TOP_AXES[leaf], mesh)
+        return spec, _PARTS.get(leaf, ())
 
     def _take_blocks(self) -> None:
         """Make every parameter at the shape of this rank's block (on the
         model's device, its global shape and index kept in ``tp_block``)
         and tell each module what of it the ranks share (``tp``, the
-        attention's heads, the Mamba layer's heads and channels)."""
+        attention's heads, the Mamba and mLSTM layers' heads and channels,
+        the sLSTM layer's units)."""
 
         from repro_torch.launch.mesh import make_rank_mesh
 
         g, cfg, hd = self.group, self.cfg, self.cfg.resolved_head_dim
         mesh = make_rank_mesh(1, g)
-        cut = set()
         for name, p in list(self.named_parameters()):
             shape = tuple(p.shape)
-            # in_proj is x | z: a rank holds its block of each half
-            parts = (1, 2) if name.endswith("mamba.in_proj") else ()
-            index = local_index(shape, self._rank_pspec(name, shape, mesh), mesh, g.rank, parts)
+            spec, parts = self._rank_layout(name, shape, mesh)
+            index = local_index(shape, spec, mesh, g.rank, parts)
             local = _param(tuple(index_extent(n, ix) for n, ix in zip(shape, index)), p.dtype,
                            self.device)
             local.tp_block = (shape, index)
-            if tuple(local.shape) != shape:
-                cut.add(name)
             owner, _, leaf = name.rpartition(".")
             setattr(self.get_submodule(owner), leaf, local)
-        if "embed.table" in cut:
+        if _is_cut(self.embed.table):
             self.embed.tp = g
-        if "lm_head.w" in cut:
+        if hasattr(self, "lm_head") and _is_cut(self.lm_head.w):
             self.lm_head.tp = g
         m = g.size
         if cfg.num_kv_heads % m == 0:
@@ -355,18 +390,21 @@ class Model(nn.Module):
         else:  # every KV head on every rank; a rank reads its query heads' one
             j = g.rank // (m // cfg.num_kv_heads)
             self.kv_heads, kv_cols = 1, slice(j * hd, (j + 1) * hd)
-        for i, blk in enumerate(self.layers):
-            if f"layers.{i}.mlp.up.w" in cut:
+        for blk in (*self.layers, *getattr(self, "enc_layers", ())):
+            if hasattr(blk, "mlp") and _is_cut(blk.mlp.up.w):
                 blk.mlp.tp = g
-            if f"layers.{i}.moe.up" in cut:
+            if hasattr(blk, "moe") and _is_cut(blk.moe.up):
                 blk.moe.tp = g
             if hasattr(blk, "mamba"):
                 mb = blk.mamba
                 mb.d_in, mb.n_heads, mb.tp = mb.d_in // m, mb.n_heads // m, g
-            else:
-                a = blk.attn
-                a.n_heads, a.n_kv, a.kv_cols, a.tp = (cfg.num_heads // m, self.kv_heads, kv_cols,
-                                                      g)
+            elif hasattr(blk, "mlstm"):
+                ml = blk.mlstm
+                ml.d_in, ml.nh, ml.tp = ml.d_in // m, ml.nh // m, g
+            elif hasattr(blk, "slstm"):
+                blk.slstm.units, blk.slstm.tp = cfg.d_model // m, g
+            for a in (getattr(blk, n) for n in ("attn", "xattn") if hasattr(blk, n)):
+                a.n_heads, a.n_kv, a.kv_cols, a.tp = cfg.num_heads // m, self.kv_heads, kv_cols, g
 
     @property
     def graphs(self) -> bool:
@@ -609,11 +647,11 @@ class Model(nn.Module):
         """A zero recurrent state of one layer of ``kind`` (its stabilizers
         at -1e30), keyed by ``STATE_NAMES[kind]``."""
 
+        ranks = self.group.size if self.group else 1
         if kind == "mamba":
-            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device,
-                                            self.group.size if self.group else 1)
+            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device, ranks)
         init = xlstm_lib.init_mlstm_state if kind == "mlstm" else xlstm_lib.init_slstm_state
-        return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, self.device)))
+        return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, self.device, ranks)))
 
     def _init_block_cache(self, i: int, batch: int, seq: int):
         """A zero per-layer dense cache of layer ``i``: ``{"k", "v"}``

@@ -17,6 +17,35 @@ stabilizers starting at -1e30 and clamped there, so that no ``-inf - -inf``
 
 State (tuples, as the reference's): mLSTM ``(C [B,H,Dh,Dh], n [B,H,Dh],
 m [B,H])``, sLSTM ``(c, n, h, m)`` each [B, D], all float32.
+
+On a tensor-parallel rank (``Model(group=...)``, M ranks, ``tp`` the
+group) each block runs its share and names the collectives it makes:
+
+* mLSTM: the rank's H / M heads, which are its d_in / M inner channels.
+  ``up_proj`` holds its block of each half (xi | z); its block of xi is
+  all-gathered once (every head's q, k, v and gates read all of xi);
+  ``wq`` / ``wk`` / ``wv`` hold the rank's heads' output columns,
+  ``w_if`` / ``if_bias`` the rank's heads of each gate (i | f); the chunked
+  and step recurrences run unchanged on H / M heads; ``out_proj`` holds
+  its rows and its partial products are all-reduced once.  One
+  all-gather and one all-reduce a call.  State: C [B, H/M, Dh, Dh], n
+  [B, H/M, Dh], m [B, H/M].
+* sLSTM: the rank's D / M hidden units.  ``w_in``, ``w_rec`` and ``bias``
+  hold the rank's units of each of the four gates (i, f, z, o); ``w_rec``'s
+  rows stay whole, since ``h_{t-1}`` is read whole.  Each step updates the
+  rank's c, n and m [B, D/M], then all-gathers h [B, D] in float32 (the
+  gather adds nothing, so it is exact): one all-gather a token, S in a
+  prefill of S tokens.  ``up`` holds its block of each half (gate | val),
+  ``down`` its rows, and the output takes one all-reduce.  State: c, n, m
+  [B, D/M] and h [B, D] whole.
+
+Both blocks' output partial products are taken in float32, summed over
+the ranks and rounded to the activations' dtype once (``_sum_over``), as
+one rank rounds its product once: summed in bf16, each partial and the sum
+would round again, and over xlstm-125m's 12 blocks that moved the first
+prompt's logits 0.1318 from the one rank's (past 2^-5 of their largest,
+4.156) where float32 partials leave 0.1016 (one H100, ``python3
+tools/model_axis_diag.py xlstm``).
 """
 
 from __future__ import annotations
@@ -26,7 +55,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
-from repro_torch.models.layers import ACTIVATIONS, dense, normal_
+from repro_torch.launch.dist import all_gather_cat, all_reduce_sum
+from repro_torch.models.layers import ACTIVATIONS, block_of, dense, global_shape, normal_
 
 M_FLOOR = -1e30  # the stabilizers' start and floor
 
@@ -51,13 +81,15 @@ def mlstm_dims(cfg: ModelConfig):
 
 class MLSTM(nn.Module):
     """mLSTM parameters under the reference's names (``up_proj``, ``wq``,
-    ``wk``, ``wv``, ``w_if``, ``if_bias``, ``out_proj``)."""
+    ``wk``, ``wv``, ``w_if``, ``if_bias``, ``out_proj``).  ``d_in`` and
+    ``nh`` are the channels and heads this module runs (a rank's share of
+    them over ``tp``, the ranks of the model axis; all of them outside
+    one)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d = cfg.d_model
         d_in, nh, _ = mlstm_dims(cfg)
-        self.nh = nh
         self.up_proj = _param((d, 2 * d_in), dtype, device)
         self.wq = _param((d_in, d_in), dtype, device)
         self.wk = _param((d_in, d_in), dtype, device)
@@ -65,12 +97,26 @@ class MLSTM(nn.Module):
         self.w_if = _param((d_in, 2 * nh), dtype, device)
         self.if_bias = _param((2 * nh,), torch.float32, device)
         self.out_proj = _param((d_in, d), dtype, device)
+        self.d_in, self.nh, self.tp = d_in, nh, None
 
     def init(self, generator: torch.Generator) -> None:
         for w in (self.up_proj, self.wq, self.wk, self.wv, self.w_if, self.out_proj):
-            normal_(w, w.shape[0] ** -0.5, generator)
-        # input gates 0, forget gates 3 (the reference's init)
-        self.if_bias.copy_(torch.cat([torch.zeros(self.nh), torch.full((self.nh,), 3.0)]))
+            normal_(w, global_shape(w)[0] ** -0.5, generator)
+        # input gates 0, forget gates 3 (the reference's init); a rank keeps
+        # its heads of each
+        (n2,), index = block_of(self.if_bias)
+        bias = torch.cat([torch.zeros(n2 // 2), torch.full((n2 // 2,), 3.0)])
+        self.if_bias.copy_(bias[index])
+
+
+def _sum_over(y, w, tp):
+    """``y @ w`` where ``w`` holds a rank's rows of a weight cut over the
+    ranks of ``tp``: the partial product in float32, summed over the ranks,
+    rounded to ``y``'s dtype once (outside a model axis, ``dense``)."""
+
+    if tp is None:
+        return dense(y, w)
+    return all_reduce_sum(y.float() @ w.float(), tp).to(y.dtype)
 
 
 def _mlstm_gates(xi, p: MLSTM, nh: int):
@@ -144,12 +190,13 @@ def mlstm_step(q, k, v, i_gate, logf, state):
 
 def mlstm_forward(x_res, p: MLSTM, cfg: ModelConfig, state=None, step: bool = False):
     """An mLSTM block's mixer over x [B,S,D] (``step``: one token, S = 1,
-    from ``state``) -> (out [B,S,D], new state)."""
+    from ``state``) -> (out [B,S,D], new state).  On a rank of ``p.tp``:
+    its heads, one all-gather of xi and one all-reduce of the output."""
 
-    d_in, nh, dh = mlstm_dims(cfg)
+    d_in, nh, dh = p.d_in, p.nh, mlstm_dims(cfg)[2]  # this rank's channels and heads
     b, s = x_res.shape[:2]
     h = dense(x_res, p.up_proj)
-    xi, z = h[..., :d_in], h[..., d_in:]
+    xi, z = all_gather_cat(h[..., :d_in], -1, p.tp), h[..., d_in:]
     q, k, v = (dense(xi, w).float() for w in (p.wq, p.wk, p.wv))
     i_gate, logf = _mlstm_gates(xi, p, nh)
     if step:
@@ -159,7 +206,7 @@ def mlstm_forward(x_res, p: MLSTM, cfg: ModelConfig, state=None, step: bool = Fa
         y, new_state = mlstm_chunked(q.reshape(b, s, nh, dh), k.reshape(b, s, nh, dh),
                                      v.reshape(b, s, nh, dh), i_gate, logf, state=state)
     y = y.reshape(b, s, d_in).to(x_res.dtype) * F.silu(z)
-    return dense(y, p.out_proj), new_state
+    return _sum_over(y, p.out_proj, p.tp), new_state
 
 
 def zero_mlstm_state(batch: int, nh: int, dh: int, device="cpu"):
@@ -170,9 +217,12 @@ def zero_mlstm_state(batch: int, nh: int, dh: int, device="cpu"):
             torch.full((batch, nh), M_FLOOR, **z))
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu", ranks: int = 1):
+    """A zero state of one mLSTM layer; a rank's H / ``ranks`` heads of it
+    over a model axis."""
+
     _, nh, dh = mlstm_dims(cfg)
-    return zero_mlstm_state(batch, nh, dh, device)
+    return zero_mlstm_state(batch, nh // ranks, dh, device)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +233,9 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu"):
 class SLSTM(nn.Module):
     """sLSTM parameters under the reference's names: the four gates' (i, f,
     z, o) input and recurrent weights ``w_in`` / ``w_rec``, their float32
-    ``bias``, and the GLU projections ``up`` / ``down``."""
+    ``bias``, and the GLU projections ``up`` / ``down``.  ``units`` are the
+    hidden units this module runs (a rank's D / M over ``tp``; all D
+    outside a model axis)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -194,20 +246,22 @@ class SLSTM(nn.Module):
         self.bias = _param((4 * d,), torch.float32, device)
         self.up = _param((d, 2 * d_up), dtype, device)
         self.down = _param((d_up, d), dtype, device)
+        self.units, self.tp = d, None
 
     def init(self, generator: torch.Generator) -> None:
         for w in (self.w_in, self.w_rec, self.up, self.down):
-            normal_(w, w.shape[0] ** -0.5, generator)
+            normal_(w, global_shape(w)[0] ** -0.5, generator)
         self.bias.zero_()
 
 
-def _slstm_cell(w_rec, bias, d: int, carry, x_in):
-    """One step.  ``x_in`` [B, 4D]: the input's gate pre-activations (x_t
-    @ w_in, float32); carry (c, n, h, m)."""
+def _slstm_cell(w_rec, bias, units: int, carry, x_in, tp=None):
+    """One step.  ``x_in`` [B, 4U]: the input's gate pre-activations (x_t
+    @ w_in, float32) of this rank's U units; carry (c, n, m [B, U], h
+    [B, D]).  The rank's new h [B, U] is all-gathered over ``tp``."""
 
     c, n, h, m = carry
     pre = x_in + h @ w_rec + bias
-    i_raw, f_raw, z_raw, o_raw = torch.split(pre, d, dim=-1)
+    i_raw, f_raw, z_raw, o_raw = torch.split(pre, units, dim=-1)
     logf = F.logsigmoid(f_raw)
     m_new = torch.maximum(logf + m, i_raw)
     i_st = torch.exp(i_raw - m_new)
@@ -215,33 +269,43 @@ def _slstm_cell(w_rec, bias, d: int, carry, x_in):
     c_new = f_st * c + i_st * torch.tanh(z_raw)
     n_new = f_st * n + i_st
     h_new = torch.sigmoid(o_raw) * c_new / torch.clamp(n_new, min=1.0)
-    return (c_new, n_new, h_new, m_new)
+    return (c_new, n_new, all_gather_cat(h_new, -1, tp), m_new)
 
 
 def slstm_forward(x_res, p: SLSTM, cfg: ModelConfig, state=None, step: bool = False):
     """An sLSTM block's mixer over x [B,S,D], token by token from ``state``
-    (None: zeros, m = -1e30) -> (out [B,S,D], new state)."""
+    (None: zeros, m = -1e30) -> (out [B,S,D], new state).  On a rank of
+    ``p.tp``: its units, one all-gather of h a token and one all-reduce of
+    the output."""
 
-    d = cfg.d_model
     b, s = x_res.shape[:2]
     if state is None:
-        state = init_slstm_state(cfg, b, x_res.device)
+        state = zero_slstm_state(b, p.units, cfg.d_model, x_res.device)
     # float32 gate matmuls on the upcast weights, cast once this call
     x_in = x_res.float() @ p.w_in.float()
     w_rec = p.w_rec.float()
     hs = []
     for t in range(1 if step else s):
-        state = _slstm_cell(w_rec, p.bias, d, state, x_in[:, t])
+        state = _slstm_cell(w_rec, p.bias, p.units, state, x_in[:, t], p.tp)
         hs.append(state[2])
     h_seq = torch.stack(hs, dim=1).to(x_res.dtype)
     up = dense(h_seq, p.up)
     d_up = p.down.shape[0]
     gate, val = up[..., :d_up], up[..., d_up:]
-    return dense(ACTIVATIONS["gelu"](gate) * val, p.down), state
+    return _sum_over(ACTIVATIONS["gelu"](gate) * val, p.down, p.tp), state
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu"):
+def zero_slstm_state(batch: int, units: int, d: int, device="cpu"):
+    """(c, n, h, m): c, n, m [batch, units] and h [batch, d] (whole: every
+    rank reads all of h), zeros, the stabilizer at -1e30."""
+
     z = dict(dtype=torch.float32, device=device)
-    d = cfg.d_model
-    return (torch.zeros((batch, d), **z), torch.zeros((batch, d), **z),
-            torch.zeros((batch, d), **z), torch.full((batch, d), M_FLOOR, **z))
+    return (torch.zeros((batch, units), **z), torch.zeros((batch, units), **z),
+            torch.zeros((batch, d), **z), torch.full((batch, units), M_FLOOR, **z))
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu", ranks: int = 1):
+    """A zero state of one sLSTM layer; a rank's D / ``ranks`` units of c, n
+    and m over a model axis (h whole)."""
+
+    return zero_slstm_state(batch, cfg.d_model // ranks, cfg.d_model, device)

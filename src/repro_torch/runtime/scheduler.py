@@ -77,20 +77,22 @@ shard a layer over that shard's block of rows
 lanes draw from the same shard-aware pool; their rounds are not
 row-sharded.  The shards share one device: a mesh over more than one
 distinct device, a ``pod`` axis above 1, or a mesh on another device than
-the model's raises ``NotImplementedError`` (ROADMAP queue F).
+the model's raises ``NotImplementedError`` (ROADMAP queue I, item 4: data
+shards on distinct devices).
 
 **Model axis.**  A rank mesh (``launch.mesh.make_rank_mesh``) over a
 tensor-parallel model (``Model(group=...)``, the same group) runs the
 engine on every rank, SPMD: each rank makes the same admissions, rounds,
 reservations and harvests from the same requests, over its own heads and
 its page pool of its KV heads (page ids, the allocator and the data shards
-as above) and its rows of the Mamba state over its heads and channels
-(``Model.init_paged_cache``); every rank's results are the same, and rank
-0's are the engine's.  MoE stacks run either dispatch: every rank routes
-the same rows, idle ones included.  Its data shards share the rank's device; a mesh whose model
+as above) and its rows of the recurrent state at the rank's sizes (Mamba
+heads and channels, mLSTM heads, sLSTM units; ``Model.init_paged_cache``);
+every rank's results are the same, and rank 0's are the engine's.  MoE
+stacks run either dispatch: every rank routes the same rows, idle ones
+included.  Its data shards share the rank's device; a mesh whose model
 axis is not the model's group, or whose data shards lie on distinct
-devices, is refused (ROADMAP queue F).  Decode rounds are CUDA graphs when
-the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one
+devices, is refused (ROADMAP queue I, item 4).  Decode rounds are CUDA
+graphs when the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one
 card) the collectives stage through the host and the rounds run eagerly
 (``round_mode`` says which, and the scheduler logs it).  Split lanes are
 not served over a model axis (ROADMAP queue I).
@@ -162,6 +164,11 @@ def _canon(device) -> torch.device:
     return d
 
 
+# the ROADMAP items that would lift the placement refusals
+_ITEM_4 = "(ROADMAP queue I, item 4: data shards on distinct devices)"
+_ITEM_5 = "(ROADMAP queue I, item 5: prefill on its own card)"
+
+
 def _check_placement(model, mesh, prefill_group) -> None:
     """Refuse what no machine of this repo can check: a ``pod`` axis, a
     ``model`` axis that is not the model's group, data shards on more than
@@ -172,14 +179,14 @@ def _check_placement(model, mesh, prefill_group) -> None:
         extra = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
         if extra:
             raise NotImplementedError(f"mesh axes {extra}: only the data and model axes shard "
-                                      "(ROADMAP queue F)")
+                                      + _ITEM_4)
         ranks = int(mesh.shape.get("model", 1))
         group = model.group
         if ranks != (group.size if group else 1) or (ranks > 1 and mesh.group is not group):
             raise NotImplementedError(
                 f"a mesh whose model axis ({ranks}) is not the model's group "
                 f"({group.size if group else 1} ranks): build the model with the mesh's group "
-                "(ROADMAP queue F)")
+                + _ITEM_4)
         col = mesh.devices.reshape(-1, ranks)[:, mesh.rank] if ranks > 1 else mesh.devices
         devs = []
         for d in (_canon(d) for d in np.asarray(col).reshape(-1)):
@@ -188,14 +195,13 @@ def _check_placement(model, mesh, prefill_group) -> None:
         if len(devs) > 1:
             raise NotImplementedError(
                 f"data shards over {len(devs)} distinct devices {[str(d) for d in devs]}: the "
-                "port shards over shards of one device only (ROADMAP queue F)")
+                "port shards over shards of one device only " + _ITEM_4)
         if devs[0] != dev:
-            raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} "
-                                      "(ROADMAP queue F)")
+            raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} " + _ITEM_4)
     if prefill_group and _canon(prefill_group[0]) != dev:
         raise NotImplementedError(f"prefill on {prefill_group[0]} apart from decode on {dev}: "
                                   "the port prefills on the decode device, on a stream of its "
-                                  "own (ROADMAP queue F)")
+                                  "own " + _ITEM_5)
 
 
 def _tensors(tree) -> List[torch.Tensor]:

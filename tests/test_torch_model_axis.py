@@ -67,7 +67,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro.models.model import Model as JaxModel  # noqa: E402
 from repro.runtime.kv_cache import scatter_prompt_into_pool as jax_scatter  # noqa: E402
 from repro_torch.checkpoint.bridge import load_reference_params, reference_tensors  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import EpisodeTokenizer  # noqa: E402
 from repro_torch.launch import dist  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_rank_mesh  # noqa: E402
@@ -414,13 +414,21 @@ def test_fleet_matches_reference_mesh(runs):
     assert bytes(rec["fleet42/trigger"]).decode() == "rapid" and rec["fleet42/cancelled"] > 0
 
 
-def per_token_collectives(cfg):
-    """[all-reduces, all-gathers] of one decode token (or one prefill) of
-    a rank of ``cfg``, from its layer kinds: 2 a Mamba layer (dt / B / C,
-    then out_proj), 1 an attention layer, 1 an FFN (MLP or MoE), 1 the
-    embedding; the logits' one gather."""
+def per_token_collectives(cfg, prompt: int = 1):
+    """[all-reduces, all-gathers] of one decode token (``prompt`` = 1) or a
+    prefill of ``prompt`` tokens of a rank of ``cfg``, from its layer
+    kinds: a Mamba layer 2 all-reduces (dt / B / C, then out_proj), an
+    attention layer 1, an enc-dec decoder layer's cross-attention 1, an
+    mLSTM layer 1 and 1 all-gather (its output; its xi), an sLSTM layer 1
+    and one all-gather a token (its output; its h), an FFN (MLP or MoE) 1,
+    the embedding 1, an encoder layer 2 (its attention and its MLP; a
+    prefill's only); the logits' one all-gather."""
 
-    return [sum(2 if kind == "mamba" else 1 for kind in cfg.blocks) + cfg.num_layers + 1, 1]
+    kinds = list(cfg.blocks)
+    reduce = len(kinds) + kinds.count("mamba") + 1 + (cfg.num_layers if cfg.d_ff > 0 else 0)
+    if cfg.encoder_decoder:
+        reduce += kinds.count("attn") + (2 * cfg.num_encoder_layers if prompt > 1 else 0)
+    return [reduce, 1 + kinds.count("mlstm") + prompt * kinds.count("slstm")]
 
 
 def test_jamba_collectives_per_token(runs):
@@ -479,14 +487,18 @@ def stub_group(rank, size):
     return dist.ModelGroup(rank, size, "gloo", CPU, (CPU,) * size)
 
 
-@pytest.mark.parametrize("arch,ranks,item", [
-    ("xlstm-125m", 2, "item 3"), ("seamless-m4t-medium", 2, "item 3"),
-    ("openvla-7b", 8, "heads"), ("starcoder2-3b", 3, "heads"),
+@pytest.mark.parametrize("arch,ranks,item,smoke_cfg", [
+    ("xlstm-125m", 3, "heads", False), ("seamless-m4t-medium", 3, "heads", False),
+    ("xlstm-125m", 4, "d_up 170", True),
+    ("openvla-7b", 8, "heads", True), ("starcoder2-3b", 3, "heads", True),
 ])
-def test_model_axis_refusals(arch, ranks, item):
-    """A stack the ranks cannot run yet raises, naming its ROADMAP queue."""
+def test_model_axis_refusals(arch, ranks, item, smoke_cfg):
+    """A stack the ranks cannot run raises before any collective, naming
+    its ROADMAP queue: heads that do not divide (xlstm-125m's 4 and
+    seamless-m4t-medium's 16 over 3 ranks), xlstm-smoke's sLSTM GLU width
+    (170) over 4 ranks."""
 
-    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cfg = (get_smoke_config(arch) if smoke_cfg else get_config(arch)).replace(dtype="float32")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue I.*{item}|{item}.*ROADMAP"):
         Model(cfg, device="cpu", group=stub_group(0, ranks))
 

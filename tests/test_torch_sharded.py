@@ -422,15 +422,15 @@ def _rank_mesh_on_two_devices(st):
 # what is refused -> (how to ask for it, the ROADMAP queue it names)
 REFUSED = {
     "two devices": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
-                    "F"),
+                    "I, item 4"),
     "model axis on a MoE stack": (_rank_split_lane("qwen3-moe-235b-a22b"), "I"),
     "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "I"),
     "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
-        2, 1, 1), ("pod", "data", "model"))), "F"),
-    "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, "F"),
+        2, 1, 1), ("pod", "data", "model"))), "I, item 4"),
+    "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, "I, item 4"),
     "mesh elsewhere": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["meta"] * 2)),
-                       "F"),
-    "prefill elsewhere": (_scheduler(prefill_group=lambda: [torch.device("meta")]), "F"),
+                       "I, item 4"),
+    "prefill elsewhere": (_scheduler(prefill_group=lambda: [torch.device("meta")]), "I, item 5"),
 }
 
 

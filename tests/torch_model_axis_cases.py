@@ -40,3 +40,49 @@ def fleet_record(out, name, res):
         v = res[k]
         out[f"{name}/{k}"] = (np.frombuffer(v.encode(), np.uint8) if isinstance(v, str)
                               else np.asarray(v))
+
+
+# the xLSTM and enc-dec stacks over a model axis: each stack's weights go
+# under ``params/<stack>/``, a stack being an arch and its config
+# overrides (f32 smoke, ``SMOKE_LAYERS``); "xlstm-wide" is xlstm-smoke at
+# widths that divide over 4 ranks (d_in 384, 4 mLSTM heads, d_up 256;
+# xlstm-smoke's d_up 170 and 2 heads do not)
+AXIS_STACKS = {
+    "xlstm-125m": ("xlstm-125m", {}),
+    "xlstm-wide": ("xlstm-125m", dict(d_model=192, num_heads=4, num_kv_heads=4)),
+    "seamless-m4t-medium": ("seamless-m4t-medium", {}),
+}
+# (name, stack, data, model, robots, seed): the engine on an xLSTM stack
+XLSTM_SCENARIOS = (
+    ("xl42", "xlstm-125m", 4, 2, 6, 7),
+    ("xw24", "xlstm-wide", 2, 4, 6, 8),
+)
+# (name, data, model): seamless-smoke's prefill + decode_chunk over a mesh,
+# in each of ``ENCDEC_MODES`` (cross K/V cached, paged cache)
+ENCDEC_MESHES = (("ed42", 4, 2), ("ed24", 2, 4))
+ENCDEC_MODES = tuple((cached, paged) for cached in (False, True) for paged in (False, True))
+# its batch: rows, prompt tokens, encoder frames, decode steps; page size
+ENCDEC_PLAN = dict(b=4, prompt=14, frames=24, steps=12, page=16, seed=13)
+
+
+def encdec_mode(cached, paged):
+    return f"{'cached' if cached else 'uncached'}_{'paged' if paged else 'dense'}"
+
+
+def encdec_batch(vocab, d_model):
+    """The seamless batch (numpy, seeded): prompt tokens and stub frames."""
+
+    p = ENCDEC_PLAN
+    rng = np.random.default_rng(p["seed"])
+    return {"tokens": rng.integers(0, vocab, (p["b"], p["prompt"])),
+            "frontend": rng.normal(0, 1, (p["b"], p["frames"], d_model)).astype(np.float32)}
+
+
+def encdec_pages():
+    """(pages a row, the page table [b, pages] (reversed ids), each row's
+    capacity) of the paged mode."""
+
+    p = ENCDEC_PLAN
+    maxp = -(-(p["prompt"] + p["steps"]) // p["page"])
+    pt = np.arange(p["b"] * maxp, dtype=np.int32).reshape(p["b"], maxp)[::-1].copy()
+    return maxp, pt, np.full((p["b"],), maxp * p["page"], np.int32)

@@ -2,10 +2,11 @@
 ``tests/test_torch_model_axis.py``.  Imports torch and the port only.
 
     GLOO_SOCKET_IFNAME=lo PYTHONPATH=src \\
-        python tests/torch_model_axis_rank.py RANK WORLD STORE PARAMS.npz OUT_DIR
+        python tests/torch_model_axis_rank.py RANK WORLD STORE PARAMS.npz OUT_DIR [PART]
 
 Joins a gloo group of ``WORLD`` CPU ranks over the file store ``STORE``,
-runs the cases of its world and writes ``OUT_DIR/rank<RANK>.npz``:
+runs the cases of its world and writes ``OUT_DIR/rank<RANK>.npz``.  PART
+``dense`` (the default; ``tests/test_torch_model_axis.py``):
 
 * world 2: (a) the layers of a f32 openvla-smoke rank model built by
   ``Model.init`` (its parameter blocks, the MLP, prefill attention, a
@@ -21,6 +22,22 @@ runs the cases of its world and writes ``OUT_DIR/rank<RANK>.npz``:
   collectives of its engine run, and the first prompt's logits with and
   without the Mamba ``out_proj`` and the MoE all-reduces (``controls``);
 * world 4: the ``sc24`` and ``qm24`` scenarios.
+
+PART ``xlstm_encdec`` (``tests/test_torch_model_axis_xlstm_encdec.py``):
+
+* world 2: (a) the parameter blocks of a f32 xlstm-smoke and a
+  seamless-smoke rank model built by ``Model.init``, and their layers on
+  ``xlstm_inputs`` / ``encdec_inputs``: an mLSTM block chunked and
+  stepped, an sLSTM block over a prompt and stepped, each from the rank's
+  block of a given state, the encoder's attention, the cross-attention
+  over a prompt (its K/V), cached and uncached, each case's collectives;
+  the engine's ``xl42`` scenario (``XLSTM_SCENARIOS``) with its
+  collectives, and the first prompt's logits with and without the sLSTM's
+  h all-gather; seamless-smoke's ``prefill`` + ``decode_chunk`` in the
+  four ``ENCDEC_MODES`` (``ed42``: logits, tokens, collectives), and the
+  prefill's logits without the cross-attention's ``wo`` all-reduce;
+* world 4: the blocks of xlstm-wide and seamless-smoke, the ``xw24``
+  scenario and ``ed24``'s four modes.
 """
 
 import sys
@@ -37,12 +54,15 @@ from repro_torch.launch.serve import serve_fleet
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import embed_lookup, mlp
 from repro_torch.models.model import Model
-from repro_torch.runtime.kv_cache import scatter_prompt_into_pool
+from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
-from torch_model_axis_cases import (ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS, fleet_record,
-                                    obs_pair)
+from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
+                                    ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS,
+                                    XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
+                                    fleet_record, obs_pair)
 
 F32 = dict(dtype="float32")
 # the paged step's plan: rows, page size, pages a row; its row lengths
@@ -54,10 +74,21 @@ PAGED_LENS = (0, 5, 17)
 INIT_ARCHS = ("openvla-7b", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
               "phi3.5-moe-42b-a6.6b")
 # a record's axis of the rank's block (Mamba heads of ``h``, channels of
-# ``conv``; KV heads of the attention's K/V and pool)
+# ``conv``; KV heads of the attention's K/V and pool; mLSTM heads of its
+# state; sLSTM units of c, n and m, whose h is whole; the cross K/V's heads)
 BLOCK_AXIS = {"a/prefill_k": 2, "a/prefill_v": 2, "a/paged_kp": 2,
               "a/mamba_prefill_h": 1, "a/mamba_prefill_conv": 2,
-              "a/mamba_step_h": 1, "a/mamba_step_conv": 2}
+              "a/mamba_step_h": 1, "a/mamba_step_conv": 2,
+              **{f"a/{case}_{n}": 1 for case in ("mlstm_chunk", "mlstm_step")
+                 for n in ("C", "n", "m")},
+              **{f"a/{case}_{n}": 1 for case in ("slstm_prefill", "slstm_step")
+                 for n in ("c", "n", "m")},
+              "a/cross_k": 2, "a/cross_v": 2}
+# the xLSTM and enc-dec stacks whose rank models (a) builds by
+# ``Model.init``, by world
+XE_INIT = {2: ("xlstm-125m", "seamless-m4t-medium"), 4: ("xlstm-wide", "seamless-m4t-medium")}
+# the sLSTM prompt's length (one all-gather a token)
+SLSTM_PROMPT = 9
 
 
 def layer_inputs(cfg):
@@ -99,6 +130,56 @@ def hybrid_inputs(cfg):
         "step_x": rng.normal(0, 1, (3, 1, d)).astype(np.float32),
         "h": rng.normal(0, 1, (3, nh, 64, n)).astype(np.float32),
         "conv": rng.normal(0, 1, (3, s.conv_width - 1, d_in)).astype(np.float32),
+    }
+
+
+def axis_smoke(key):
+    """The f32 smoke config of ``AXIS_STACKS[key]`` at ``SMOKE_LAYERS``."""
+
+    arch, kw = AXIS_STACKS[key]
+    return get_smoke_config(arch).replace(num_layers=SMOKE_LAYERS, **F32, **kw)
+
+
+def xlstm_inputs(cfg):
+    """Case (a)'s numpy inputs for xlstm-smoke (seeded): the mLSTM block's
+    prompt and step x and the state both start from (C [B, H, Dh, Dh], n
+    [B, H, Dh], m [B, H]); the sLSTM block's prompt and step x and its
+    state (c, n, h, m [B, D])."""
+
+    rng = np.random.default_rng(14)
+    d = cfg.d_model
+    d_in, nh, dh = xlstm_lib.mlstm_dims(cfg)
+    b = 2
+    return {
+        "mlstm_x": rng.normal(0, 1, (b, 16, d)).astype(np.float32),
+        "mlstm_step_x": rng.normal(0, 1, (b, 1, d)).astype(np.float32),
+        "mC": rng.normal(0, 0.5, (b, nh, dh, dh)).astype(np.float32),
+        "mn": rng.normal(0, 0.5, (b, nh, dh)).astype(np.float32),
+        "mm": rng.normal(0, 1, (b, nh)).astype(np.float32),
+        "slstm_x": rng.normal(0, 1, (b, SLSTM_PROMPT, d)).astype(np.float32),
+        "slstm_step_x": rng.normal(0, 1, (b, 1, d)).astype(np.float32),
+        "sc": rng.normal(0, 0.5, (b, d)).astype(np.float32),
+        "sn": np.abs(rng.normal(1, 0.5, (b, d))).astype(np.float32),
+        "sh": rng.normal(0, 0.5, (b, d)).astype(np.float32),
+        "sm": rng.normal(0, 1, (b, d)).astype(np.float32),
+    }
+
+
+def encdec_inputs(cfg):
+    """Case (a)'s numpy inputs for seamless-smoke (seeded): the encoder
+    attention's x, the cross-attention's prompt x, a token's x, the
+    encoder's output and a layer's cached K/V [B, S_enc, KV, Dh]."""
+
+    rng = np.random.default_rng(15)
+    d, hd, kv = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    frames = ENCDEC_PLAN["frames"]
+    return {
+        "enc_x": rng.normal(0, 1, (2, frames, d)).astype(np.float32),
+        "cross_x": rng.normal(0, 1, (2, 14, d)).astype(np.float32),
+        "token_x": rng.normal(0, 1, (2, 1, d)).astype(np.float32),
+        "enc_out": rng.normal(0, 1, (2, frames, d)).astype(np.float32),
+        "xk": rng.normal(0, 1, (2, frames, kv, hd)).astype(np.float32),
+        "xv": rng.normal(0, 1, (2, frames, kv, hd)).astype(np.float32),
     }
 
 
@@ -269,6 +350,14 @@ def engine_case(group, ref, out, name, arch, data, n, seed, impl):
                                              sched.decode_rounds * sched.decode_block])
     if model.n_mamba:
         controls(model, tok, out, name, seed)
+    record_engine(out, name, sched, results)
+    out[f"{name}/pool_shape"] = np.asarray(sched._pcache["kp"].shape)
+
+
+def record_engine(out, name, sched, results):
+    """The engine run's results, tokens, reservations, final pool,
+    counters and round mode."""
+
     st = sched.pool_stats()
     out[f"{name}/results"] = np.asarray([(r.robot_id, r.submitted_round, r.admitted_round,
                                           r.completed_round, int(r.kind == "split"))
@@ -280,7 +369,6 @@ def engine_case(group, ref, out, name, arch, data, n, seed, impl):
     out[f"{name}/counters"] = np.asarray([sched.round, sched.windows, sched.window_closes,
                                           sched.mixed_rounds, sched.peak_active, sched.rows,
                                           sched.allocator.num_pages])
-    out[f"{name}/pool_shape"] = np.asarray(sched._pcache["kp"].shape)
     out[f"{name}/round_mode"] = np.frombuffer(sched.round_mode.encode(), np.uint8)
 
 
@@ -299,24 +387,187 @@ def fleet_case(group, ref, out):
     fleet_record(out, "fleet42", serve_fleet(model, tok, mesh=mesh, **TP_FLEET["kw"]))
 
 
-def main(rank, world, store, params_path, out_dir):
+@torch.no_grad()
+def xlstm_layers_case(group, out):
+    """(a) on a rank of xlstm-smoke built by ``Model.init``: layer 0's
+    mLSTM chunked and stepped, layer 1's sLSTM over a prompt and stepped,
+    each from the rank's block of a given state; each case's collectives."""
+
+    cfg = axis_smoke("xlstm-125m")
+    model = Model(cfg, device="cpu", group=group)
+    inp = xlstm_inputs(cfg)
+    r, m = group.rank, group.size
+    ml, sl = model.layers[0].mlstm, model.layers[1].slstm
+    mstate = tuple(torch.as_tensor(block(inp[n], 1, r, m)) for n in ("mC", "mn", "mm"))
+    sstate = (*(torch.as_tensor(block(inp[n], 1, r, m)) for n in ("sc", "sn")),
+              torch.as_tensor(inp["sh"]), torch.as_tensor(block(inp["sm"], 1, r, m)))
+    for case, fn, p, x, state, names in (
+            ("mlstm_chunk", xlstm_lib.mlstm_forward, ml, "mlstm_x", mstate, "Cnm"),
+            ("mlstm_step", xlstm_lib.mlstm_forward, ml, "mlstm_step_x", mstate, "Cnm"),
+            ("slstm_prefill", xlstm_lib.slstm_forward, sl, "slstm_x", sstate, "cnhm"),
+            ("slstm_step", xlstm_lib.slstm_forward, sl, "slstm_step_x", sstate, "cnhm")):
+        c0 = calls()
+        o, st = fn(torch.as_tensor(inp[x]), p, cfg, state=state, step=case.endswith("step"))
+        out[f"a/calls/{case}"] = calls() - c0
+        out[f"a/{case}"] = o.numpy()
+        for n, t in zip(names, st):
+            out[f"a/{case}_{n}"] = t.numpy()
+
+
+@torch.no_grad()
+def encdec_layers_case(group, out):
+    """(a) on a rank of seamless-smoke built by ``Model.init``: encoder
+    layer 0's attention, decoder layer 0's cross-attention over a prompt
+    (and its K/V), decoder layer 1's cross-attention of a token over the
+    rank's KV heads of given K/V and projected from the encoder's output;
+    each case's collectives."""
+
+    cfg = axis_smoke("seamless-m4t-medium")
+    model = Model(cfg, device="cpu", group=group)
+    inp = {k: torch.as_tensor(v) for k, v in encdec_inputs(cfg).items()}
+    n = model.kv_heads
+    xk, xv = (inp[k][:, :, group.rank * n:(group.rank + 1) * n] for k in ("xk", "xv"))
+    xa0, xa1 = model.layers[0].xattn, model.layers[1].xattn
+    cases = (
+        ("encoder", lambda: attn.encoder_attention(inp["enc_x"], model.enc_layers[0].attn, cfg)),
+        ("cross", lambda: attn.cross_attention_forward(inp["cross_x"], xa0, cfg, inp["enc_out"])),
+        ("cross_cached", lambda: attn.cross_attention_cached(inp["token_x"], xa1, cfg, xk, xv)),
+        ("cross_uncached", lambda: attn.cross_attention_decode(inp["token_x"], xa1, cfg,
+                                                               inp["enc_out"])))
+    for case, fn in cases:
+        c0 = calls()
+        o = fn()
+        out[f"a/calls/{case}"] = calls() - c0
+        if case == "cross":
+            o, out["a/cross_k"], out["a/cross_v"] = o[0], o[1].numpy(), o[2].numpy()
+        out[f"a/{case}"] = o.numpy()
+
+
+def skip_h_gather(model, tok, rng):
+    """``first_logits`` of a rank whose sLSTM layers skip the h all-gather:
+    the rank's units stand in for every rank's (every rank alike, so the
+    other collectives still pair)."""
+
+    real = xlstm_lib._slstm_cell
+
+    def cell(w_rec, bias, units, carry, x_in, tp=None):
+        c, n, h, m = real(w_rec, bias, units, carry, x_in, None)
+        return c, n, h.repeat(1, tp.size) if tp is not None else h, m
+
+    xlstm_lib._slstm_cell = cell
+    try:
+        return first_logits(model, tok, rng)
+    finally:
+        xlstm_lib._slstm_cell = real
+
+
+def xlstm_engine_case(group, ref, out, name, key, data, n, seed):
+    """One of ``XLSTM_SCENARIOS`` over a rank mesh of ``data`` shards, its
+    collectives (prefill and decode apart) and the rank's state shapes;
+    on world 2 also the first prompt's logits with and without the h
+    all-gather."""
+
+    model = Model(axis_smoke(key), device="cpu", group=group)
+    pre = f"params/{key}/"
+    load_reference_params(model, {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)})
+    tok = EpisodeTokenizer(model.cfg.vocab_size)
+    sched = Recording(model, tok, mesh=make_rank_mesh(data, group), **ENGINE_KW)
+    rng = np.random.default_rng(seed)
+    for r in range(n):
+        sched.submit(r, *obs_pair(rng))
+    c0 = calls()
+    results = sched.drain()
+    out[f"{name}/collectives"] = np.asarray([*(calls() - c0), len(sched.admit_ms),
+                                             sched.decode_rounds * sched.decode_block])
+    record_engine(out, name, sched, results)
+    for st in ("mC", "sc", "sh"):
+        out[f"{name}/shape_{st}"] = np.asarray(sched._pcache[st].shape)
+    if group.size == 2:
+        for key, fn in (("logits", first_logits), ("skip_h_gather", skip_h_gather)):
+            out[f"{name}/{key}"] = fn(model, tok, np.random.default_rng(seed))
+
+
+@torch.no_grad()
+def encdec_case(group, ref, out, name):
+    """seamless-smoke on the reference's weights through ``prefill`` (+
+    ``cache_to_paged``) and ``decode_chunk`` in each of ``ENCDEC_MODES``:
+    the prefill's and the chunk's last logits, its tokens, the collectives
+    of the prefill and of the chunk; on world 2 the prefill's logits with
+    every cross-attention's ``wo`` all-reduce skipped."""
+
+    key = "seamless-m4t-medium"
+    cfg, p = axis_smoke(key), ENCDEC_PLAN
+    batch = {k: torch.as_tensor(v) for k, v in encdec_batch(cfg.vocab_size, cfg.d_model).items()}
+    maxp, pt, caps = encdec_pages()
+    spec = PagedSpec(num_pages=p["b"] * maxp, page_size=p["page"], max_pages_per_seq=maxp)
+    pre = f"params/{key}/"
+    model = load_reference_params(Model(cfg, device="cpu", group=group),
+                                  {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)})
+    for cached, paged in ENCDEC_MODES:
+        model.cache_cross_kv = cached
+        mode = f"{name}/{encdec_mode(cached, paged)}"
+        c0 = calls()
+        logits, cache = model.prefill(batch, extra=0 if paged else p["steps"])
+        c1 = calls()
+        if paged:
+            cache = model.cache_to_paged(cache, model.init_paged_cache(p["b"], spec), pt, caps)
+        toks, last, cache = model.decode_chunk(logits, cache, p["steps"], 0)
+        out[f"{mode}/calls"] = np.asarray([*(c1 - c0), *(calls() - c1)])
+        out[f"{mode}/prefill"], out[f"{mode}/tokens"] = logits.numpy(), toks.numpy()
+        out[f"{mode}/last"] = last.numpy()
+        out[f"{mode}/xk_shape"] = np.asarray(cache["xk"].shape if cached else ())
+        out[f"{mode}/enc_out_shape"] = np.asarray(cache["enc_out"].shape)
+    if group.size == 2:
+        model.cache_cross_kv = False
+        xattn = [blk.xattn for blk in model.layers]
+        for a in xattn:
+            a.tp = None
+        try:
+            out[f"{name}/skip_xattn_wo"] = model.prefill(batch)[0].numpy()
+        finally:
+            for a in xattn:
+                a.tp = group
+
+
+def xlstm_encdec_main(group, ref, out):
+    """PART ``xlstm_encdec``: the cases of this world."""
+
+    world = group.size
+    for key in XE_INIT[world]:
+        for name, p in Model(axis_smoke(key), device="cpu", group=group).named_parameters():
+            out[f"a/param/{key}/{name}"] = p.numpy()
+    if world == 2:
+        xlstm_layers_case(group, out)
+        encdec_layers_case(group, out)
+    for name, key, data, model_axis, n, seed in XLSTM_SCENARIOS:
+        if model_axis == world:
+            xlstm_engine_case(group, ref, out, name, key, data, n, seed)
+    for name, data, model_axis in ENCDEC_MESHES:
+        if model_axis == world:
+            encdec_case(group, ref, out, name)
+
+
+def main(rank, world, store, params_path, out_dir, part="dense"):
     torch.set_num_threads(1)
     group = dist.init_model_group(rank, world, backend="gloo", init_method=f"file://{store}",
                                   device="cpu")
     with np.load(params_path) as z:
         ref = {k: z[k] for k in z.files if k.startswith("params/")}
     out = {}
-    if world == 2:
-        layers_case(group, out)
-        hybrid_layers_case(group, out)
-    for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
-        if model_axis == world:
-            engine_case(group, ref, out, name, arch, data, n, seed, impl)
-    if TP_FLEET["model"] == world:
-        fleet_case(group, ref, out)
+    if part == "xlstm_encdec":
+        xlstm_encdec_main(group, ref, out)
+    else:
+        if world == 2:
+            layers_case(group, out)
+            hybrid_layers_case(group, out)
+        for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
+            if model_axis == world:
+                engine_case(group, ref, out, name, arch, data, n, seed, impl)
+        if TP_FLEET["model"] == world:
+            fleet_case(group, ref, out)
     np.savez(f"{out_dir}/rank{rank}.npz", **out)
     dist.destroy_model_group(group)
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:7])

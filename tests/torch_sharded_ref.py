@@ -18,7 +18,16 @@ their tokens, every reservation (robot, row, pages) in order, the final
 ``repro/checkpoint/npz.py``, so that the port runs on the same weights.
 
 With ``--model-axis`` it runs the meshes with a ``model`` axis instead, for
-``tests/test_torch_model_axis.py`` (``TP_SCENARIOS``): the engine on
+``tests/test_torch_model_axis.py`` (``TP_SCENARIOS``) and
+``tests/test_torch_model_axis_xlstm_encdec.py`` (``--part xlstm``: the
+engine on f32 xlstm-smoke over (data 4, model 2) and on its wide variant
+over (2, 4), ``XLSTM_SCENARIOS``; ``--part encdec``: f32 seamless-smoke's
+``prefill`` and ``decode_chunk`` jitted under ``sharding_rules`` of a (4,
+2) and a (2, 4) mesh, its parameters placed by ``param_logical``, in the
+four modes of ``ENCDEC_MODES``, dense or paged cache x cross K/V
+projected each token or cached; each stack's parameters under
+``params/<stack>/``, ``AXIS_STACKS``).  Without ``--part`` or with
+``--part engine|fleet``: the engine on
 f32 openvla-smoke over (data 4, model 2), starcoder2-smoke over (2, 4),
 gemma2-smoke over (4, 2), jamba-smoke over (4, 2), qwen3-moe-smoke over
 (2, 4) and phi3.5-moe-smoke under the capacity dispatch over (4, 2), and
@@ -28,8 +37,8 @@ the capacity dispatch idle rows route and take expert slots, so there the
 engine's paged attention is its CPU oracle with the output of an idle row
 (length 0) set to 0, as the Pallas kernel and the port give it (the
 oracle gives the mean of the values it gathers).  ``--part`` runs one
-part alone, ``engine`` (the scenarios) or ``fleet``, so that the parts can
-run side by side; ``--params`` takes the stacks' parameters from an npz
+part alone, ``engine`` (the scenarios), ``fleet``, ``xlstm`` or ``encdec``,
+so that the parts can run side by side; ``--params`` takes the stacks' parameters from an npz
 keyed so (``params/<arch>/<key>``, e.g. the port's ``Model.init``
 weights) instead of drawing them, and then writes none.
 """
@@ -47,11 +56,16 @@ from repro.kernels import ops as kops
 from repro.kernels.paged_attention import paged_decode_attention_sharded
 from repro.launch.mesh import make_test_mesh
 from repro.launch.serve import serve_fleet
+from repro.launch.sharding import named_sharding, sharding_rules
+from repro.models.layers import is_axes
 from repro.models.model import Model
 from repro.partition.executor import PartitionExecutor
 from repro.runtime import scheduler as sched_mod
-from torch_model_axis_cases import (ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS, fleet_record,
-                                    obs_pair)
+from repro.runtime.kv_cache import PagedSpec
+from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
+                                    ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS,
+                                    XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
+                                    fleet_record, obs_pair)
 
 # (name, robots, seed, data shards (0: no mesh), prefill on the last device,
 # split-lane cut (robots with an odd id go there; None: cloud only))
@@ -116,21 +130,78 @@ def idle_zero(oracle):
     return paged
 
 
+def xlstm_part(out, devs, recording, stack):
+    """``XLSTM_SCENARIOS``: the engine on an xLSTM stack over its mesh."""
+
+    for name, key, data, model_axis, n, seed in XLSTM_SCENARIOS:
+        model, params, tok = stack(key)
+        mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
+        sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
+        rng = np.random.default_rng(seed)
+        for r in range(n):
+            sched.submit(r, *obs_pair(rng))
+        record(out, name, sched, sched.drain())
+
+
+def encdec_part(out, devs, stack):
+    """seamless-smoke's ``prefill`` (+ ``cache_to_paged``) and
+    ``decode_chunk`` jitted under each mesh of ``ENCDEC_MESHES`` in each of
+    ``ENCDEC_MODES``: the prefill's logits, the chunk's tokens and its last
+    logits."""
+
+    base, params, _ = stack("seamless-m4t-medium")
+    cfg, p = base.cfg, ENCDEC_PLAN
+    batch = {k: jnp.asarray(v) for k, v in encdec_batch(cfg.vocab_size, cfg.d_model).items()}
+    maxp, pt, caps = encdec_pages()
+    spec = PagedSpec(num_pages=p["b"] * maxp, page_size=p["page"], max_pages_per_seq=maxp)
+    for name, data, model_axis in ENCDEC_MESHES:
+        mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
+        placed = jax.tree.map(
+            lambda ax, a: jax.device_put(a, named_sharding(mesh, a.shape, ax.names)),
+            base.param_logical(), params, is_leaf=is_axes)
+        for cached, paged in ENCDEC_MODES:
+            m = Model(cfg, cache_cross_kv=cached)
+            extra = 0 if paged else p["steps"]
+            with sharding_rules(mesh):
+                logits, cache = jax.jit(lambda pr, b, m=m, e=extra: m.prefill(pr, b, extra=e))(
+                    placed, batch)
+                if paged:
+                    cache = m.cache_to_paged(cache, m.init_paged_cache(p["b"], spec),
+                                             jnp.asarray(pt), jnp.asarray(caps))
+                toks, last, _ = jax.jit(lambda pr, lg, c, m=m: m.decode_chunk(
+                    pr, lg, c, p["steps"], 0))(placed, logits, cache)
+            key = f"{name}/{encdec_mode(cached, paged)}"
+            out[f"{key}/prefill"] = np.asarray(logits)
+            out[f"{key}/tokens"] = np.asarray(toks)
+            out[f"{key}/last"] = np.asarray(last)
+
+
 def main_model_axis(path, devs, recording, part=None, params_path=None):
     out = {}
     stacks = {}
     given = dict(np.load(params_path)) if params_path else None
 
-    def stack(arch):
-        if arch not in stacks:
-            pre = f"params/{arch}/"
+    def stack(key):
+        """``params/<key>/``'s f32 smoke stack: an arch, or an entry of
+        ``AXIS_STACKS`` (an arch and its config overrides)."""
+
+        if key not in stacks:
+            arch, kw = AXIS_STACKS.get(key, (key, {}))
+            pre = f"params/{key}/"
             flat = None if given is None else {k[len(pre):]: v for k, v in given.items()
                                                if k.startswith(pre)}
-            stacks[arch] = f32_stack(arch, flat, num_layers=SMOKE_LAYERS)
+            stacks[key] = f32_stack(arch, flat, num_layers=SMOKE_LAYERS, **kw)
             if given is None:
                 out.update({pre + k: np.asarray(v)
-                            for k, v in _flatten(stacks[arch][1]).items()})
-        return stacks[arch]
+                            for k, v in _flatten(stacks[key][1]).items()})
+        return stacks[key]
+
+    if part == "xlstm":
+        xlstm_part(out, devs, recording, stack)
+        return np.savez(path, **out)
+    if part == "encdec":
+        encdec_part(out, devs, stack)
+        return np.savez(path, **out)
 
     for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
         if part not in (None, "engine"):
