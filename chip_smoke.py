@@ -23,8 +23,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
    paged) and its cross-attention decode over the 300 frames, the same
    at phase 7e's rank (H = KV = 8; the round's 32 rows); the paged
    and flash kernels also at a model-axis rank's shape (phase 7c: H = KV =
-   16, the round's 32 rows and the prompt's S = 14; phase 7d's Jamba: H =
-   32, KV = 4), the Mamba scan at phase 7d's rank's 128 heads (S = 14) and
+   16, the round's 32 rows and the prompt's S = 14, and the decode kernel
+   at length 70 for its split runs; phase 7d's Jamba: H = 32, KV = 4),
+   the Mamba scan at phase 7d's rank's 128 heads (S = 14) and
    at Jamba's training shape with the chunk states (the forward of the
    training pair);
 4. model: for each served stack, its smoke size in float32 on the card
@@ -167,7 +168,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
    the collectives a decode token exact (2 all-reduces a layer, one for
    the embedding, one all-gather of the logits); each rank's weight and
    pool bytes and engine ms a round beside the one rank's, timed warm
-   after the ranks' join; the ranks joined within ``RANKS_TIMEOUT_S``;
+   after the ranks' join; then RAPID's split on the ranks: a staggered
+   scheduler run of 4 robots at R = 4, robots 1 and 3 on a pipelined lane
+   at ``AXIS_SPLIT_CUT`` = 2, and one ``PartitionedPolicy`` chunk at cut 2
+   (56 ping-pong tokens, eager under gloo), held to the one rank's same
+   runs: chunks by the greedy-margin rule, the lane's first prefill logits
+   and the first ping-pong token's within ``TP_LOGIT_TOL``, a rank whose
+   edge token embedding skips its all-reduce outside it, launches exact at
+   the rank's heads (flash, decode and paged at 16 heads and 16 KV heads),
+   the collectives exactly ``launch.dist``'s counts, the lane's buffers
+   freed; ms a mixed round and a ping-pong token and the suffix pools'
+   bytes beside the one rank's (warm, after the join); the ranks joined
+   within ``RANKS_TIMEOUT_S``;
 7d. MoE and Mamba layers on the model axis, after Jamba's phases 5 and 7:
    the one-rank Jamba (4 layers at full width) records the first prompt's
    logits and routes, a staggered scheduler run of ``JAMBA_AXIS_ROBOTS`` =
@@ -325,6 +337,7 @@ from repro_torch.launch.mesh import make_rank_mesh, make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
+from repro_torch.models import layers as layers_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
@@ -333,6 +346,7 @@ from repro_torch.models.model import MOE_IMPLS, STATE_NAMES, Model  # noqa: E402
 from repro_torch.obs import Observability, build_slo_report  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.partition import PartitionedPolicy, PartitionExecutor  # noqa: E402
+from repro_torch.partition import executor as executor_lib  # noqa: E402
 from repro_torch.robotics.episodes import (  # noqa: E402
     edge_policy_chunks,
     generate_episode,
@@ -948,6 +962,10 @@ def kernel_cases(rng, fleet):
          False),
         ("flash_attention", "model-axis rank M=2 S=14 H=KV=16 D=128", bf,
          flash_case(rank_rng, bf, 14, 16, 16), False),
+        # a rank's split: the edge prefix's dense caches and the ping-pong
+        # tokens of ``PartitionedPolicy`` (phase 7c's split runs)
+        ("decode_attention", "model-axis rank M=2 S=70 len=70 H=KV=16 D=128", bf,
+         decode_case(rank_rng, bf, 70, 16, 16, 70), False),
         # a rank of phase 7d's Jamba (M = 2): its attention layer's 32 heads
         # and 4 KV heads over the round's rows and the prompt, its Mamba
         # layers' 128 heads over the prompt; a generator of their own
@@ -1562,17 +1580,18 @@ def requests(rng, n):
              rng.normal(0, 0.5, (1, 7)).astype(np.float32)) for r in range(n)]
 
 
-def staggered(sched, reqs):
+def staggered(sched, reqs, split=()):
     """Three requests at once, then one every 2 rounds (joining mid-decode),
-    through ``submit`` and ``step`` -> the results in harvest order."""
+    through ``submit`` and ``step``, the robots in ``split`` to the split
+    lane -> the results in harvest order."""
 
     for req in reqs[:3]:
-        sched.submit(*req)
+        sched.submit(*req, partitioned=req[0] in split)
     results, nxt = [], 3
     while len(results) < len(reqs):
         results += sched.step()
         if nxt < len(reqs) and sched.round % 2 == 0:
-            sched.submit(*reqs[nxt])
+            sched.submit(*reqs[nxt], partitioned=reqs[nxt][0] in split)
             nxt += 1
     return results
 
@@ -2756,10 +2775,16 @@ class SplitLedger:
         dense decodes per edge attention layer of each lane, ``n`` paged
         decodes per attention layer from ``min(c_i)`` on (the tail runs
         once over the joined rows);
-      * a cloud window and a cloud admission: as ``sched_launches``."""
+      * a cloud window and a cloud admission: as ``sched_launches``.
+
+    On a rank's model it also counts the collectives those calls must make
+    (``calls``, from ``dist``'s counts: a cloud token's or an admission's,
+    a robot's edge prefill or token, a lane's suffix prefill or token, a
+    fused window token's ``lane_collectives``)."""
 
     def __init__(self, sched):
         self.want = {n: 0 for n in _lib.KERNELS}
+        self.calls = {"all_reduce": 0, "all_gather": 0}
         self.sched_ref = weakref.ref(sched)
         self.wrapped = {}  # id -> weak reference of each executor wrapped
         model, cls = sched.model, type(sched)
@@ -2767,6 +2792,7 @@ class SplitLedger:
 
         def counted_window(block, rounds):
             ledger().add("paged_attention", model.n_attn * block * rounds)
+            ledger().add_calls(dist.collectives(model.cfg), block * rounds)
             return cls._decode_window(ledger().sched_ref(), block, rounds)
 
         def counted_fused(lanes, block, rounds):
@@ -2776,6 +2802,8 @@ class SplitLedger:
                          n_steps * sum(n_kind(model, range(l.cut)) for l in lanes))
             ledger().add("paged_attention",
                          n_steps * n_kind(model, range(first, model.cfg.num_layers)))
+            ledger().add_calls(dist.lane_collectives(model.cfg, tuple(l.cut for l in lanes)),
+                               n_steps)
             return cls._split_fused_step(ledger().sched_ref(), lanes, block, rounds)
 
         def counted_admit():
@@ -2784,6 +2812,7 @@ class SplitLedger:
             cls._try_admit(s)
             ledger().add("flash_attention", model.n_attn * (len(s.admit_ms) - n0))
             ledger().add("mamba_scan", model.n_mamba * (len(s.admit_ms) - n0))
+            ledger().add_calls(dist.collectives(model.cfg, s.prompt_len), len(s.admit_ms) - n0)
 
         sched._decode_window, sched._split_fused_step = counted_window, counted_fused
         sched._try_admit = counted_admit
@@ -2791,6 +2820,19 @@ class SplitLedger:
 
     def add(self, name, n):
         self.want[name] += n
+
+    def add_calls(self, counts, times=1):
+        if self.sched_ref().model.group is not None:  # one rank makes none
+            for k, n in counts.items():
+                self.calls[k] += n * times
+
+    def side_calls(self, model, layers, prompt, embed):
+        """One edge (``embed``: its embedding's all-reduce) or suffix (the
+        logits' all-gather) pass over ``layers``."""
+
+        out = dist.layer_collectives(model.cfg, layers, prompt)
+        out["all_reduce" if embed else "all_gather"] += 1
+        self.add_calls(out)
 
     def wrap_lanes(self):
         """Count the lanes' executor calls (attach every lane first)."""
@@ -2808,19 +2850,23 @@ class SplitLedger:
             def prefill(*a, _n=edge, _x=exr):
                 ledger().add("flash_attention", _n[0])
                 ledger().add("mamba_scan", _n[1])
+                ledger().side_calls(_x().model, _x().edge_layers, np.shape(a[0])[1], True)
                 return cls.edge_prefill(_x(), *a)
 
             def suffix_prefill(*a, _n=cloud, _x=exr):
                 ledger().add("flash_attention", _n[0])
                 ledger().add("mamba_scan", _n[1])
+                ledger().side_calls(_x().model, _x().cloud_layers, a[0].shape[1], False)
                 return cls.suffix_prefill(_x(), *a)
 
             def edge_step(*a, _n=edge, _x=exr):
                 ledger().add("decode_attention", _n[0])
+                ledger().side_calls(_x().model, _x().edge_layers, 1, True)
                 return cls.edge_step(_x(), *a)
 
             def suffix_step(*a, _n=cloud, _x=exr):
                 ledger().add("paged_attention", _n[0])
+                ledger().side_calls(_x().model, _x().cloud_layers, 1, False)
                 return cls.suffix_step(_x(), *a)
 
             ex.edge_prefill, ex.suffix_prefill = prefill, suffix_prefill
@@ -3457,7 +3503,7 @@ def sharded_phase(model, tok, launches):
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS = 2      # ranks of phase 7c's model axis
-RANKS_TIMEOUT_S = 150  # the ranks' own limit: started, served and joined within it
+RANKS_TIMEOUT_S = 190  # the ranks' own limit: started, served and joined within it
 # the rapid fleet's ticks in phase 7c: the 8 bootstrap fetches, the first
 # trigger fires (ticks 190-200), the first cancels (ticks 214-216) and the
 # window after them: 24 offloads, 2 cancels, 40 decode rounds (a gloo round
@@ -3512,6 +3558,123 @@ def control_logits(model, tok, reqs, layers):
     finally:
         for a in attn:
             a.tp = model.group
+
+
+# phase 7c's split runs after its fleet: a staggered scheduler run of 4
+# robots at R = 4, robots 1 and 3 on a pipelined lane at this cut of the 4
+# layers, and one ``PartitionedPolicy`` chunk at it (56 ping-pong tokens)
+AXIS_SPLIT_CUT = 2
+AXIS_SPLIT_ROBOTS = (1, 3)
+
+
+def axis_split_run(model, tok, reqs, launches, mesh=None, sched=None):
+    """(7c) ``staggered`` over ``reqs`` (``max_slots=4``, R = 4) with the
+    robots of ``AXIS_SPLIT_ROBOTS`` on a pipelined lane at
+    ``AXIS_SPLIT_CUT`` (through ``sched`` when given: a warm run): chunks,
+    the lane's first prefill logits, launches exact (``SplitLedger``) and
+    the collectives with the ones they must be -> (a picklable record, the
+    scheduler)."""
+
+    if sched is None:
+        sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4, mesh=mesh,
+                                            num_pages=len(reqs) * -(-(14 + 56) // 16))
+        sched.attach_partition(PartitionExecutor(model, AXIS_SPLIT_CUT))
+    else:
+        sched.reset()
+    lane = sched._lanes[AXIS_SPLIT_CUT]
+    first = []
+
+    def flush(new):  # the lane's first prefill: its new rows' logits
+        type(lane).flush(lane, new)
+        if not first:
+            rows = torch.as_tensor([q.row for q in new], device=lane._logits.device)
+            first.append(lane._logits.index_select(0, rows).cpu().numpy())
+
+    lane.flush = flush
+    ledger = SplitLedger(sched)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dist.reset_calls()
+        t0 = time.perf_counter()
+        results = staggered(sched, reqs, split=AXIS_SPLIT_ROBOTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ledger.check("(7c) split run", launches)
+    finally:
+        ledger.release()
+        lane.__dict__.pop("flush", None)
+    spec, n_tail = sched.paged_spec, n_kind(model, range(AXIS_SPLIT_CUT, model.cfg.num_layers))
+    pool = (spec.num_pages + 1) * spec.page_size * int(np.prod(model._kv_shape()))
+    return dict(chunks={r.robot_id: np.asarray(r.tokens) for r in results},
+                order=[(r.robot_id, r.kind) for r in results], first_lane=first[0],
+                launches=counts, collectives=dict(dist.CALLS), want_calls=dict(ledger.calls),
+                rounds=sched.decode_rounds, mixed=sched.mixed_rounds, wall_s=wall,
+                ms_round=wall * 1e3 / sched.decode_rounds, mode=sched.round_mode,
+                suffix_pool_bytes=2 * n_tail * pool * model.dtype.itemsize,
+                lane_peak=lane.peak_bytes, lane_drops=lane.drops,
+                left=len(sched._suffix_pools) + int(lane.has_buffers)), sched
+
+
+def axis_policy_chunk(model, tok, reqs, launches, policy=None):
+    """(7c) one ``PartitionedPolicy`` chunk at ``AXIS_SPLIT_CUT`` on the
+    first request (``policy`` when given: a graph replay where the model
+    allows graphs, else eager): its tokens and ms, launches exact (a flash
+    launch a layer for the split prefill, a dense decode launch a layer a
+    ping-pong token) and the collectives -> (a picklable record, the
+    policy)."""
+
+    policy = policy or PartitionedPolicy(PartitionExecutor(model, AXIS_SPLIT_CUT), tok)
+    qd, tau = reqs[0][1:]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dist.reset_calls()
+    t0 = time.perf_counter()
+    toks = policy.chunk_tokens(qd, tau)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(ops.LAUNCHES)
+    want = {n: 0 for n in _lib.KERNELS}
+    want.update(flash_attention=model.n_attn, decode_attention=policy.n_steps * model.n_attn)
+    if counts != want:
+        raise AssertionError(f"(7c) policy chunk: launch counts {counts}, expected {want}")
+    for n in launches:
+        launches[n] += counts[n]
+    return dict(tokens=toks, ms=ms, graphs=len(policy._graphs), launches=counts,
+                collectives=dict(dist.CALLS)), policy
+
+
+def edge_embed_control(model, tok, reqs):
+    """The first request's first ping-pong token's logits through
+    ``PartitionExecutor`` at ``AXIS_SPLIT_CUT``, as served and (on a rank)
+    with the edge token embedding's all-reduce skipped on every rank: the
+    rank's vocab block looked up and not summed, the fault
+    ``TP_LOGIT_TOL`` must catch -> (logits, control logits or None)."""
+
+    ex = PartitionExecutor(model, AXIS_SPLIT_CUT)
+    qd, tau = reqs[0][1:]
+    prompt = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
+    logits, state = ex.split_prefill({"tokens": torch.as_tensor(prompt, device=model.device)}, 1)
+    token = logits[:, -1].argmax(-1, keepdim=True)
+    out = [ex.split_decode_step(token, state)[0][0, -1].float().cpu().numpy()]
+    if model.group is None:
+        return out[0], None
+
+    def unsummed(tokens, table, scale, tp):
+        real = layers_lib.all_reduce_sum
+        layers_lib.all_reduce_sum = lambda x, g: x
+        try:
+            return layers_lib.embed_lookup(tokens, table, scale, tp)
+        finally:
+            layers_lib.all_reduce_sum = real
+
+    real = executor_lib.embed_lookup
+    executor_lib.embed_lookup = unsummed
+    try:
+        out.append(ex.split_decode_step(token, state)[0][0, -1].float().cpu().numpy())
+    finally:
+        executor_lib.embed_lookup = real
+    return out[0], out[1]
 
 
 def axis_runs(model, tok, mesh, reqs, launches, sched=None):
@@ -3575,21 +3738,34 @@ def model_axis_rank(rank, backend, init, device, parent, reqs, queue):
                 raise AssertionError(f"rank {rank}: {name} is not its block of the parent's")
             cut += tuple(p.shape) != tuple(parent[name].shape)
         parent.clear()  # the parent's tensors, released as soon as checked
-        heads = set()
+        heads = {"flash": set(), "decode": set(), "paged": set()}
 
-        def paged(q, k_pages, *a, **kw):
-            heads.add((q.shape[1], k_pages.shape[2]))
-            return paged_kernel(q, k_pages, *a, **kw)
+        def recorder(fn, name):
+            def call(q, k, *a, **kw):  # q [.., H, D], k [.., .., KV, D]
+                heads[name].add((q.shape[-2], k.shape[2]))
+                return fn(q, k, *a, **kw)
+            return call
 
-        paged_kernel, kpa.paged_decode_attention = kpa.paged_decode_attention, paged
+        for mod, attr, name in ((kfa, "flash_attention", "flash"),
+                                (kdec, "decode_attention", "decode"),
+                                (kpa, "paged_decode_attention", "paged")):
+            setattr(mod, attr, recorder(getattr(mod, attr), name))
         tok = EpisodeTokenizer(cfg.vocab_size)
         counts = {n: 0 for n in _lib.KERNELS}
-        rec = axis_runs(model, tok, make_rank_mesh(1, group), reqs, counts)[0]
+        mesh = make_rank_mesh(1, group)
+        rec = axis_runs(model, tok, mesh, reqs, counts)[0]
         rec.update(rank=rank, device=str(dev), cut=cut, build_s=build_s, launches=counts,
-                   paged_heads=sorted(heads),
+                   paged_heads=sorted(heads["paged"]),
                    controls={n: control_logits(model, tok, reqs, layers) for n, layers in
                              (("every layer", range(model.n_attn)),
                               ("the last layer", [model.n_attn - 1]))})
+        for h in heads.values():
+            h.clear()
+        split = {n: 0 for n in _lib.KERNELS}
+        rec["split"] = axis_split_run(model, tok, reqs[:4], split, mesh)[0]
+        rec["policy"] = axis_policy_chunk(model, tok, reqs, split)[0]
+        rec["embed"], rec["embed_control"] = edge_embed_control(model, tok, reqs)
+        rec["split_heads"] = {k: sorted(v) for k, v in heads.items()}
         queue.put((rank, rec))
         dist.destroy_model_group(group)
     except Exception:  # the rank's failure goes to the parent, which fails the phase
@@ -3721,11 +3897,80 @@ def hold_axis_to_one_rank(model, tok, rank, one):
     return len(fleet_near), err, controls
 
 
+def same_split_runs(a, b):
+    """Two ranks' split records: the same chunks, order, logits and counts."""
+
+    sa, sb = a["split"], b["split"]
+    return (sa["order"] == sb["order"] and sa["collectives"] == sb["collectives"]
+            and all(np.array_equal(sa["chunks"][r], sb["chunks"][r]) for r in sa["chunks"])
+            and np.array_equal(sa["first_lane"], sb["first_lane"])
+            and np.array_equal(a["policy"]["tokens"], b["policy"]["tokens"])
+            and np.array_equal(a["embed"], b["embed"])
+            and np.array_equal(a["embed_control"], b["embed_control"]))
+
+
+def hold_split_to_one_rank(model, tok, reqs, rank, one):
+    """(7c) A rank's split runs against the one rank's: harvest order and
+    kinds equal, every chunk equal or differing only where the one-rank
+    top-two gap is within ``MARGIN_TOL`` (the policy's chunk too), the
+    lane's first prefill logits and the first ping-pong token's within
+    ``TP_LOGIT_TOL`` and the edge embedding control outside it; launches
+    at the rank's heads; collectives exactly ``dist``'s counts -> (chunks
+    inside the margin, the lane logits' and the ping-pong logits' max abs
+    errors, the control's)."""
+
+    s, s1 = rank["split"], one["split"]
+    if s["order"] != s1["order"] or s["rounds"] != s1["rounds"]:
+        raise AssertionError(f"(7c) split run order {s['order']} / {s['rounds']} rounds vs one "
+                             f"rank {s1['order']} / {s1['rounds']}")
+    obs_of = {r: np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)[0]
+              for r, qd, tau in reqs}
+    near = 0
+    pairs = [(r, s["chunks"][r], s1["chunks"][r]) for r in s1["chunks"]]
+    pairs.append((reqs[0][0], rank["policy"]["tokens"], one["policy"]["tokens"]))
+    for r, got, want in pairs:
+        diff = np.flatnonzero(np.asarray(got) != np.asarray(want))
+        if diff.size:
+            gap = top2_gap_tokens(model, tok, obs_of[r], np.asarray(want), int(diff[0]))
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"(7c) split robot {r}: chunk differs at step {diff[0]} "
+                                     f"where the top-two gap is {gap:.3g}")
+            near += 1
+    errs = []
+    for got, want, what in ((s["first_lane"], s1["first_lane"], "the lane's first prefill"),
+                            (rank["embed"][None], one["embed"][None], "the first ping-pong")):
+        err, ok = compare([torch.as_tensor(got)], [torch.as_tensor(want)], [TP_LOGIT_TOL])
+        if not ok:
+            raise AssertionError(f"(7c) {what} logits: max abs error {err:.4g} past 2^-5 of "
+                                 f"max |logit| {np.abs(want).max():.4g}")
+        errs.append(err)
+    c_err, c_ok = compare([torch.as_tensor(rank["embed_control"])[None]],
+                          [torch.as_tensor(one["embed"])[None]], [TP_LOGIT_TOL])
+    if c_ok:
+        raise AssertionError("(7c) an edge embedding without its all-reduce passes "
+                             f"TP_LOGIT_TOL (max abs error {c_err:.4g})")
+    kv = (model.cfg.num_heads // MODEL_AXIS, model.cfg.num_kv_heads // MODEL_AXIS)
+    if rank["split_heads"] != {"flash": [kv], "decode": [kv], "paged": [kv]}:
+        raise AssertionError(f"(7c) split launches at (H, KV) {rank['split_heads']}")
+    if s["collectives"] != s["want_calls"]:
+        raise AssertionError(f"(7c) split run collectives {s['collectives']}, expected "
+                             f"{s['want_calls']}")
+    pre, tok1 = dist.collectives(model.cfg, obs_of[0].shape[0]), dist.collectives(model.cfg)
+    want = {k: pre[k] + 56 * tok1[k] for k in pre}
+    if rank["policy"]["collectives"] != want:
+        raise AssertionError(f"(7c) policy chunk collectives {rank['policy']['collectives']}, "
+                             f"expected {want}")
+    if s["left"] or s["lane_drops"] < 1:
+        raise AssertionError(f"(7c) split lane: {s['left']} buffers left, {s['lane_drops']} drops")
+    return near, errs, c_err
+
+
 def model_axis_phase(model, tok, launches):
     """(7c) the mesh's model axis: ``MODEL_AXIS`` tensor-parallel ranks of
     ``model`` (each its own process, gloo on one card or NCCL one a card)
-    serve the rapid fleet on a rank mesh, held to the same run of the
-    one-rank ``model``."""
+    serve the rapid fleet on a rank mesh, then a staggered scheduler run
+    with a split lane and a ``PartitionedPolicy`` chunk, each held to the
+    same run of the one-rank ``model``."""
 
     backend, devices = axis_plan()
     log(f"  backend {backend}: {MODEL_AXIS} ranks on {devices} "
@@ -3738,14 +3983,20 @@ def model_axis_phase(model, tok, launches):
     # group); it is timed again, warm, once they are done
     started = start_model_axis(backend, devices, parent, reqs)
     one, one_sched = axis_runs(model, tok, None, reqs, launches)
+    one["split"], split_sched = axis_split_run(model, tok, reqs[:4], launches)
+    one["policy"], policy = axis_policy_chunk(model, tok, reqs, launches)
+    one["embed"] = edge_embed_control(model, tok, reqs)[0]
     ranks = join_model_axis(*started)
     spawn_s = time.perf_counter() - t0
-    warm = axis_runs(model, tok, None, reqs, {n: 0 for n in launches}, sched=one_sched)[0]
+    idle = {n: 0 for n in launches}
+    warm = axis_runs(model, tok, None, reqs, idle, sched=one_sched)[0]
+    warm_split = axis_split_run(model, tok, reqs[:4], idle, sched=split_sched)[0]
+    warm_policy = axis_policy_chunk(model, tok, reqs, idle, policy=policy)[0]
+    del split_sched, policy
     for r in ranks[1:]:
-        if not same_axis_runs(ranks[0], r):
+        if not same_axis_runs(ranks[0], r) or not same_split_runs(ranks[0], r):
             raise AssertionError(f"(7c) rank {r['rank']}'s runs differ from rank 0's")
-    n_layers = model.n_attn
-    per_token = {"all_reduce": 2 * n_layers + 1, "all_gather": 1}
+    per_token = dist.collectives(model.cfg)
     for r in ranks:
         f = r["fleet"]
         calls = f["admits"] + f["steps"]
@@ -3758,8 +4009,10 @@ def model_axis_phase(model, tok, launches):
             raise AssertionError(f"(7c) rank {r['rank']}: paged launches at (H, KV) "
                                  f"{r['paged_heads']}")
         for n in launches:
-            launches[n] += r["launches"][n]
+            launches[n] += r["launches"][n] + r["split"]["launches"][n] + \
+                r["policy"]["launches"][n]
     fleet_near, err, controls = hold_axis_to_one_rank(model, tok, ranks[0], one)
+    split_near, split_errs, embed_err = hold_split_to_one_rank(model, tok, reqs[:4], ranks[0], one)
     for r in ranks:
         f = r["fleet"]
         log(f"  rank {r['rank']} on {r['device']}: built in {r['build_s']:.2f} s, {r['cut']} of "
@@ -3782,6 +4035,29 @@ def model_axis_phase(model, tok, launches):
         "all-reduce: " + ", ".join(f"in {n} {e:.4g} ({'caught' if c else 'not caught'})"
                                    for n, (e, c) in controls.items())
         + f"; the ranks took {spawn_s:.1f} s from spawn to join")
+    card = card_line()
+    for r in ranks:
+        sp, pol = r["split"], r["policy"]
+        log(f"  (7c split) rank {r['rank']} [{card}]: staggered {len(sp['chunks'])} robots "
+            f"{sp['order']} ({len(AXIS_SPLIT_ROBOTS)} on a pipelined lane at cut "
+            f"{AXIS_SPLIT_CUT}), {sp['rounds']} rounds ({sp['mixed']} mixed), {sp['mode']}: "
+            f"{sp['ms_round']:.2f} ms a round (one rank, warm: {warm_split['ms_round']:.2f}; "
+            f"cold {one['split']['ms_round']:.2f}); suffix pools {sp['suffix_pool_bytes']} B "
+            f"(one rank {one['split']['suffix_pool_bytes']} B), lane buffers at most "
+            f"{sp['lane_peak']} B (one rank {one['split']['lane_peak']} B), freed "
+            f"{sp['lane_drops']} times; launches {sp['launches']} (exact); collectives "
+            f"{sp['collectives']} (exact, from dist's counts); PartitionedPolicy chunk at cut "
+            f"{AXIS_SPLIT_CUT}: {pol['ms']:.1f} ms, {pol['ms'] / 56:.2f} ms a ping-pong token "
+            f"(prefill included; {'graph' if pol['graphs'] else 'eager'}; one rank, warm "
+            f"{'graph replay' if warm_policy['graphs'] else 'eager'}: "
+            f"{warm_policy['ms']:.2f} ms, {warm_policy['ms'] / 56:.3f} ms a token; its first "
+            f"call: {one['policy']['ms']:.1f} ms), launches "
+            f"{pol['launches']} (exact), collectives {pol['collectives']} (exact)")
+    log(f"  (7c split) against one rank: order and rounds equal, {split_near} chunks inside "
+        f"the {MARGIN_TOL:g} margin; the lane's first prefill logits max abs error "
+        f"{split_errs[0]:.4g}, the first ping-pong token's {split_errs[1]:.4g} (limit 2^-5 of "
+        f"max |logit|); an edge embedding without its all-reduce {embed_err:.4g} (caught); "
+        f"flash, decode and paged launches at (H, KV) {ranks[0]['split_heads']['paged']}")
     if f1["cancelled"] < 1 or int(f1["offloads"].sum()) <= 8:
         raise AssertionError(f"(7c) the fleet's {AXIS_TICKS} ticks fired no trigger or cancel")
 
@@ -4170,7 +4446,7 @@ def jamba_axis_phase(one, tok, launches):
         if not same_jamba_runs(ranks[0], r):
             raise AssertionError(f"(7d) rank {r['rank']}'s runs differ from rank 0's")
     cfg = one["cfg"]
-    per_token = per_token_calls(cfg)
+    per_token = dist.collectives(cfg)
     heads = {"paged": [(cfg.num_heads // MODEL_AXIS, cfg.num_kv_heads // MODEL_AXIS)],
              "scan": [ssm_lib.ssm_dims(cfg)[1] // MODEL_AXIS]}
     for r in ranks:
@@ -4228,26 +4504,8 @@ XE_STEPS = 16
 # seamless's modes over ranks (cross K/V cached, paged cache): paged with
 # the cross K/V cached, dense with them projected each token
 XE_MODES = ((True, True), (False, False))
-# the collectives of a decode token on a rank (``per_token_calls``)
+# the collectives of a decode token on a rank (``dist.collectives``)
 XE_TOKEN_CALLS = {XLSTM: 26, ENCDEC: 38}
-
-
-def per_token_calls(cfg, prompt: int = 1):
-    """The collectives of one decode token (``prompt`` = 1) or a prefill of
-    ``prompt`` tokens of a rank, from the layer kinds: a Mamba layer 2
-    all-reduces (dt / B / C, then out_proj), an attention layer 1, an
-    enc-dec decoder layer's cross-attention 1, an mLSTM layer 1 and 1
-    all-gather (its output; its xi), an sLSTM layer 1 and 1 a token (its
-    output; its h), an FFN (MLP or MoE) 1, the embedding 1, an encoder
-    layer 2 (a prefill's only); the logits' 1 all-gather: 26 a token at
-    xlstm-125m (13 + 13), 38 at seamless-m4t-medium (37 + 1)."""
-
-    kinds = list(cfg.blocks)
-    reduce = len(kinds) + kinds.count("mamba") + 1 + (cfg.num_layers if cfg.d_ff > 0 else 0)
-    if cfg.encoder_decoder:
-        reduce += kinds.count("attn") + (2 * cfg.num_encoder_layers if prompt > 1 else 0)
-    gather = 1 + kinds.count("mlstm") + prompt * kinds.count("slstm")
-    return {"all_reduce": reduce, "all_gather": gather}
 
 
 def skip_h_gather(model, tok, reqs):
@@ -4548,8 +4806,8 @@ def xe_axis_phase(launches):
         if not same_xe_runs(ranks[0], r):
             raise AssertionError(f"(7e) rank {r['rank']}'s runs differ from rank 0's")
     xcfg, ecfg = get_config(XLSTM), get_config(ENCDEC)
-    x_tok, x_pre = per_token_calls(xcfg), per_token_calls(xcfg, 14)
-    e_tok, e_pre = per_token_calls(ecfg), per_token_calls(ecfg, 14)
+    x_tok, x_pre = dist.collectives(xcfg), dist.collectives(xcfg, 14)
+    e_tok, e_pre = dist.collectives(ecfg), dist.collectives(ecfg, 14)
     if [sum(x_tok.values()), sum(e_tok.values())] != list(XE_TOKEN_CALLS.values()):
         raise AssertionError(f"(7e) collectives a token {x_tok} / {e_tok}, expected "
                              f"{XE_TOKEN_CALLS}")

@@ -28,10 +28,24 @@ Where the reference's record differs, and why:
     prefill: parameters, the batch and the logits; decode: parameters,
     the cache, the tokens and the logits), without temporaries, as
     ``mem_counts`` says, so it is not the reference's quantity;
-  * ``xla_cost_flops`` / ``xla_cost_bytes`` (XLA's cost analysis) and
-    ``collective_breakdown`` (parsed from the compiled HLO) have no
-    counterpart and are left out; the collective term is None, since the
-    port runs no collective (a mesh's shards share one card);
+  * ``xla_cost_flops`` / ``xla_cost_bytes`` (XLA's cost analysis) have no
+    counterpart and are left out;
+  * the collective term counts what the port's ranks issue, where the
+    reference parses GSPMD's HLO: on the mesh's ``model`` axis of M ranks
+    each rank is a ``Model(group=...)`` whose collectives are explicit, so
+    ``collective_bytes`` is the result bytes of the collectives one rank
+    issues in the step (``launch.dist.collective_bytes``: one decode token,
+    or a prefill of ``seq_len`` tokens and an enc-dec stack's encoder,
+    over the device's data shard of ``global_batch``), and
+    ``collective_breakdown`` gives them by op in GB.  Under its ``act_seq``
+    / ``kv_seq`` rules (``RULE_OVERRIDES``) GSPMD may place collectives the
+    port does not run (its ranks hold whole sequences), so the two terms
+    are not the same quantity.  The term is modeled from the counts, not
+    measured.  It is None, with the reason in ``collective_note``, for a
+    stack whose widths do not divide over the model axis
+    (``check_model_axis``: starcoder2-3b's 24 heads and xlstm-125m's 4 over
+    16 ranks) and for ``train``, since the port runs no training over a
+    model axis (``Model.loss_fn`` refuses a rank);
   * ``layout_s``, the seconds the layout took, stands where ``compile_s``
     stood; the port's ``Model`` has no ``causal_skip``.
 """
@@ -55,9 +69,10 @@ from repro_torch.configs import (
     get_config,
     supports_shape,
 )
+from repro_torch.launch.dist import collective_bytes, collectives
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.sharding import make_rules, pspec_tree, shard_shape
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, check_model_axis
 from repro_torch.obs.clock import clock
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.roofline import HW_H100, roofline_from_compiled
@@ -73,6 +88,8 @@ RULE_OVERRIDES = {
 }
 
 MEM_COUNTS = "arguments+outputs-donated; no temporaries"
+TRAIN_NO_AXIS = ("train: the port runs no training over a model axis (Model.loss_fn refuses "
+                 "a rank), so its ranks issue no collective to count")
 META = torch.device("meta")
 
 
@@ -155,6 +172,31 @@ def input_specs(cfg: ModelConfig, shape: InputShape):
     return out, logical
 
 
+def collective_term(cfg: ModelConfig, shape: InputShape, mesh, rules):
+    """The result bytes of the collectives one rank of the mesh's ``model``
+    axis issues in the step, by op (``launch.dist.collective_bytes``) ->
+    (bytes by op, or None; what was counted, or why nothing was)."""
+
+    ranks = int(mesh.shape.get("model", 1))
+    if shape.kind == "train":
+        return None, TRAIN_NO_AXIS
+    try:
+        check_model_axis(cfg, ranks)
+    except NotImplementedError as e:
+        return None, str(e)
+    inputs, logical = input_specs(cfg, shape)
+    specs = lay_out(inputs, logical, mesh, rules)[0]
+    rows = shard_shape(mesh, inputs["tokens"].shape, specs["tokens"])[0]
+    prompt = 1 if shape.kind == "decode" else shape.seq_len
+    frontend = (cfg.num_modality_tokens if prompt > 1 and "frontend" in inputs
+                and not cfg.encoder_decoder else 0)
+    by_op = collective_bytes(cfg, rows, prompt, ranks, frontend=frontend)
+    n = collectives(cfg, prompt)
+    step = "one decode token" if prompt == 1 else f"a prefill of {prompt} tokens"
+    return by_op, (f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers "
+                   f"a rank issues for {step} of {rows} rows over {ranks} ranks")
+
+
 def model_flops_for(cfg: ModelConfig, shape: InputShape) -> float:
     n_active = cfg.param_counts()["active"]
     if shape.kind == "train":
@@ -192,13 +234,18 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
                                  rules)[1]
     mem_bytes = sum(parts.values())
     est = estimate(cfg, shape, optimized=opt)
+    coll, note = collective_term(cfg, shape, mesh, rules)
     terms = roofline_from_compiled(
         arch=arch, shape=shape_name, mesh_name=mesh_name, chips=chips, flops=est.flops,
-        bytes_accessed=est.hbm_bytes, collective_bytes=None, model_flops=est.flops_model,
-        mem_per_device_bytes=mem_bytes, hw=HW_H100,
+        bytes_accessed=est.hbm_bytes,
+        collective_bytes=None if coll is None else float(sum(coll.values())),
+        model_flops=est.flops_model, mem_per_device_bytes=mem_bytes, hw=HW_H100,
     )
     rec = terms.as_dict()
     rec.update(
+        collective_breakdown=None if coll is None else {
+            **{k: v / 1e9 for k, v in coll.items()}, "total": sum(coll.values()) / 1e9},
+        collective_note=note,
         layout_s=round(clock() - t0, 3),
         mem_counts=MEM_COUNTS,
         mem_parts_gb={k: v / 1e9 for k, v in parts.items()},
@@ -210,10 +257,12 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
         print(f"--- {arch} x {shape_name} x {mesh_name} ---")
         print("per device: " + " ".join(f"{k}={v / 1e9:.3f}GB" for k, v in parts.items())
               + f" ({MEM_COUNTS})")
+        coll_s = "None" if terms.collective_s is None else f"{terms.collective_s:.4f}s"
         print(f"roofline [{HW_H100.name}]: compute={terms.compute_s:.4f}s "
-              f"memory={terms.memory_s:.4f}s collective=not measured "
-              f"bottleneck={terms.bottleneck} useful={terms.useful_ratio:.3f} "
-              f"mem/dev={terms.mem_per_device_gb:.2f}GB")
+              f"memory={terms.memory_s:.4f}s collective={coll_s} (modeled from the ranks' "
+              f"counts, not measured) bottleneck={terms.bottleneck} "
+              f"useful={terms.useful_ratio:.3f} mem/dev={terms.mem_per_device_gb:.2f}GB")
+        print(f"collectives: {note}")
     return rec
 
 

@@ -285,7 +285,10 @@ def serve_fleet(
     (``make_rank_mesh``) over a tensor-parallel model's group runs the
     fleet on every rank (call ``serve_fleet`` on each, with the same
     arguments: the decision core and the engine run the same on every rank,
-    and every rank returns the same run);
+    and every rank returns the same run), the split robots included:
+    ``partition_executor`` is then an executor of the rank's model, and
+    each lane, heterogeneous cuts and expert-offload lanes too, serves its
+    robots' edge prefixes and cloud suffixes on every rank's blocks;
     ``prefill_group`` disaggregates the prompt prefill (a stream of its own
     on a CUDA model), its K/V merged at the next window boundary.
 

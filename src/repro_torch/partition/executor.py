@@ -37,8 +37,8 @@ are one path here, ``_edge_blocks``; the legs are priced by
 ``modeled_net_ms`` / ``record_chunk_bytes``, like the cut itself.
 
 ``PartitionedPolicy`` is a drop-in ``CloudPolicy``: same observation-in /
-action-chunk-out interface, its chunk a CUDA graph on a CUDA model, plus the
-modeled channel milliseconds of every call.
+action-chunk-out interface, its chunk a CUDA graph where the model allows
+one, plus the modeled channel milliseconds of every call.
 
 For fleet serving the executor exposes a batched cloud-suffix mode
 (``edge_prefill`` / ``edge_step`` / ``suffix_prefill`` / ``suffix_step``
@@ -46,6 +46,23 @@ and the fused window ``build_fleet_decode``): per-robot edge prefixes feed
 one ragged batch of cut activations into a paged suffix that shares the
 continuous-batching scheduler's page pool (``runtime/scheduler.py``'s
 split lanes).
+
+**A rank's split.**  Over a tensor-parallel rank's model
+(``Model(group=...)``) every rank runs both sides on its own blocks, SPMD:
+the edge token embedding sums the rank's vocab block over the ranks, as the
+model's own embedding does; the suffix pools hold the rank's KV heads
+(``Model._kv_shape``); the lane state and the edge rows are the rank's
+sizes (``Model._init_block_cache``).  A split changes where a layer runs,
+not how many collectives a token makes (``launch.dist``): a ping-pong token
+of ``PartitionedPolicy`` makes exactly the unsplit decode token's count
+(``dist.collectives``), and a fused window over L lanes makes, a token, L
+embedding all-reduces, each lane's edge layers' collectives, the shared
+tail's once and one all-gather of the logits (``dist.lane_collectives``).
+The cut activation is whole ``[B, d_model]`` on every rank once its layer's
+all-reduce is done, so the channel's bytes and milliseconds
+(``shipped_bytes``, ``record_chunk_bytes``, ``modeled_net_ms``) are the one
+rank's on every rank.  Under gloo, which stages the collectives through
+the host, ``PartitionedPolicy`` runs eagerly (``Model.graphs``).
 """
 
 from __future__ import annotations
@@ -80,9 +97,6 @@ class PartitionExecutor:
         cfg = model.cfg
         if cfg.encoder_decoder:
             raise NotImplementedError("split execution targets decoder-only stacks")
-        if model.group is not None:
-            raise NotImplementedError("split execution of a tensor-parallel rank's model "
-                                      "(ROADMAP queue I)")
         if not 0 <= cut_layer <= cfg.num_layers:
             raise ValueError(f"cut_layer {cut_layer} outside [0, {cfg.num_layers}]")
         self.model = model
@@ -134,7 +148,7 @@ class PartitionExecutor:
 
     def _embed_token(self, token):
         m = self.model
-        return embed_lookup(token, m.embed.table, m.embed_scale).to(m.dtype)
+        return embed_lookup(token, m.embed.table, m.embed_scale, m.embed.tp).to(m.dtype)
 
     def _edge_blocks(self, x, caches, positions=None, length=None, cut=None, offload=None):
         """The edge prefix over ``x`` (``positions``: a sequence; else one
@@ -252,10 +266,9 @@ class PartitionExecutor:
         """One attention layer's suffix K/V pools (+1 trash page each), two
         distinct buffers.  The scheduler owns them, keyed by model layer:
         every lane whose cut precedes the layer shares its pool (page ids
-        are global, one allocator)."""
+        are global, one allocator).  A rank's pools hold its KV heads."""
 
-        shape = (spec.num_pages + 1, spec.page_size, self.cfg.num_kv_heads,
-                 self.cfg.resolved_head_dim)
+        shape = (spec.num_pages + 1, spec.page_size) + self.model._kv_shape()
         z = dict(dtype=self.model.dtype, device=self.model.device)
         return {"kp": torch.zeros(shape, **z), "vp": torch.zeros(shape, **z)}
 
@@ -535,9 +548,10 @@ class PartitionExecutor:
 class PartitionedPolicy:
     """Drop-in ``CloudPolicy`` serving through a split model: the split
     prefill and the split decode chunk, replayed as one CUDA graph per
-    ``(B, prompt_len)`` on a CUDA model (eagerly on a CPU model, or through
-    ``eager_chunk``).  ``net_ms_log`` holds each call's modeled channel
-    milliseconds (the planner's channel model, not a measurement)."""
+    ``(B, prompt_len)`` where the model allows graphs (``Model.graphs``:
+    eagerly on a CPU model or a gloo group's, or through ``eager_chunk``).
+    ``net_ms_log`` holds each call's modeled channel milliseconds (the
+    planner's channel model, not a measurement)."""
 
     def __init__(self, executor: PartitionExecutor, tokenizer: EpisodeTokenizer,
                  chunk_len: int = 8, n_joints: int = 7):
@@ -562,10 +576,10 @@ class PartitionedPolicy:
 
     def chunk(self, tokens):
         """tokens [B, S] on the model's device -> (action tokens, the next
-        logits); on a CUDA model a graph replay (its outputs hold until the
-        next call)."""
+        logits); where the model allows graphs a replay (its outputs hold
+        until the next call)."""
 
-        if self.model.device.type != "cuda":
+        if not self.model.graphs:
             return self.eager_chunk(tokens)
         key = tuple(tokens.shape)
         entry = self._graphs.get(key)

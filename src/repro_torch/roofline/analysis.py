@@ -7,9 +7,15 @@
 
 The FLOPs and bytes are the analytic counts of ``roofline/costmodel.py``
 (``estimate``).  The reference reads its collective bytes from the HLO that
-GSPMD compiled; the port compiles no HLO and runs no collective (a mesh's
-shards share one card, ``launch/mesh.py``), so its dry run passes
-``collective_bytes=None`` and the collective term is not measured.
+GSPMD compiled; the port compiles no HLO, and its dry run passes the result
+bytes of the collectives one rank of the mesh's ``model`` axis issues, as
+counted from the layer kinds (``launch.dist.collective_bytes``: every
+collective of a rank is an explicit ``torch.distributed`` call).  The term
+is modeled from those counts, not measured, and divided as the reference
+divides it.  GSPMD may place collectives the port's ranks do not run (its
+``act_seq`` / ``kv_seq`` rules), so the two are not the same quantity.
+``collective_bytes=None`` (a stack the model axis refuses, or training)
+leaves the term None.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class RooflineTerms:
     """The reference's fields.  ``hlo_gflops`` / ``hlo_gbytes`` keep the
     reference's names for the counts the terms divide (here the cost
     model's, whole program, all devices); ``collective_gbytes`` and
-    ``collective_s`` are None where no collective was measured."""
+    ``collective_s`` are None where no collective was counted."""
 
     arch: str
     shape: str

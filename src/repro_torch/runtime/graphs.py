@@ -19,9 +19,9 @@ from repro_torch.obs.clock import clock
 
 def _counters():
     """What a replay runs without running Python, as counted: the kernel
-    launches and the collectives (an NCCL group's)."""
+    launches, the collectives (an NCCL group's) and their bytes."""
 
-    return _lib.LAUNCHES, dist.CALLS
+    return _lib.LAUNCHES, dist.CALLS, dist.BYTES
 
 
 class GraphedCall:
@@ -39,8 +39,8 @@ class GraphedCall:
     which a replay does not run: the counts that the capture added are
     taken back after it (a capture launches nothing) and added again at
     each replay, so the counts stay those of the kernels that ran
-    (``launches``).  The collectives' counts (``dist.CALLS``) are kept so
-    too (``collectives``).
+    (``launches``).  The collectives' counts and bytes (``dist.CALLS``,
+    ``dist.BYTES``) are kept so too (``collectives``, ``collective_bytes``).
     """
 
     def __init__(self, fn):
@@ -49,6 +49,7 @@ class GraphedCall:
         self.out = None
         self.launches = {}
         self.collectives = {}
+        self.collective_bytes = {}
         self.capture_s = 0.0
         self.replays = 0
 
@@ -59,7 +60,8 @@ class GraphedCall:
             return out
         self.graph.replay()
         self.replays += 1
-        for counter, added in zip(_counters(), (self.launches, self.collectives)):
+        for counter, added in zip(_counters(), (self.launches, self.collectives,
+                                                self.collective_bytes)):
             for name, n in added.items():
                 counter[name] += n
         return self.out
@@ -72,7 +74,7 @@ class GraphedCall:
         with torch.cuda.graph(graph):
             self.out = self.fn()
         self.capture_s = clock() - t0
-        self.launches, self.collectives = (
+        self.launches, self.collectives, self.collective_bytes = (
             {k: n - b[k] for k, n in c.items() if n != b[k]} for c, b in zip(counters, before))
         for c, b in zip(counters, before):
             c.update(b)

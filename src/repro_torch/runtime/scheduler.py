@@ -47,8 +47,9 @@ runs as one function over every active pipelined lane
 (``PartitionExecutor.build_fleet_decode``): lanes join a progressively
 concatenated row batch at their cut, so each tail layer runs once over the
 combined rows, its attention through one scheduler-owned pool per model
-layer.  A window is ``R`` fused rounds of ``block`` tokens, each on a CUDA
-model a replay of one CUDA graph per ``(lanes, block, rows per lane)``.  A
+layer.  A window is ``R`` fused rounds of ``block`` tokens, each, as a
+decode round, a replay of one CUDA graph per ``(lanes, block, rows per
+lane)`` where the model allows graphs.  A
 lane's row buffers are allocated at an admission into the empty lane (the
 shared suffix pools with the first lane's) and freed when its last
 sequence leaves, by completion or cancel, together with the fused graphs
@@ -94,8 +95,14 @@ axis is not the model's group, or whose data shards lie on distinct
 devices, is refused (ROADMAP queue I, item 4).  Decode rounds are CUDA
 graphs when the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one
 card) the collectives stage through the host and the rounds run eagerly
-(``round_mode`` says which, and the scheduler logs it).  Split lanes are
-not served over a model axis (ROADMAP queue I).
+(``round_mode`` says which, and the scheduler logs it).  Split lanes run
+over the model axis too (``attach_partition`` with an executor of the
+rank's model): every rank makes the same lane admissions, reservations,
+flushes, rounds and harvests, its suffix pools hold its KV heads, its lane
+state and edge rows the rank's sizes, and an emptied lane frees its
+buffers on every rank; the fused split rounds follow the decode rounds
+(graphs under NCCL, eager under gloo), and a serial lane's host ping-pong
+runs the same on every rank.
 
 **Disaggregated prefill.**  ``prefill_group=[device]`` pipelines admission
 over two boundaries (the reference's ``_dispatch_prefill`` and
@@ -413,8 +420,6 @@ class ContinuousBatchingScheduler:
         decodes the lane in the fused window; ``pipelined=False`` keeps the
         per-token host ping-pong."""
 
-        if self.model.group is not None:
-            raise NotImplementedError("split lanes over a model axis (ROADMAP queue I)")
         key = executor.lane_key
         if key in self._lanes:
             raise ValueError(f"lane {key} already attached")
@@ -893,8 +898,9 @@ class ContinuousBatchingScheduler:
                           rounds: int) -> Dict[object, torch.Tensor]:
         """Dispatch one fused window of ``rounds`` rounds of ``block`` tokens
         over every active pipelined lane: ``rounds`` fused rounds issued
-        back to back, on a CUDA model replays of the round's graph for
-        ``(lane keys, block, rows per lane)``, captured on first use (a
+        back to back, where the model allows graphs (``Model.graphs``)
+        replays of the round's graph for ``(lane keys, block, rows per
+        lane)``, captured on first use (a
         round, not the window, so that the captures a freed lane forces
         stay small) -> tokens [R_i, rounds * block] by lane key, on the
         device until the lanes' ``harvest``."""
@@ -907,7 +913,7 @@ class ContinuousBatchingScheduler:
                 offloads=tuple(l.expert_offload for l in lanes))
         t0 = clock() if self.obs is not None else 0.0
         call = None
-        if self.model.device.type == "cuda":
+        if self.model.graphs:
             gkey = (keys, block, tuple(l.rows for l in lanes))
             call = self._fleet_graphs.get(gkey)
             if call is None:

@@ -43,7 +43,7 @@ from repro.models.model import Model as JaxModel  # noqa: E402
 from repro.runtime import engine as jeng  # noqa: E402
 from repro_torch.checkpoint.bridge import reference_tensors  # noqa: E402
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_smoke_config  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dist, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.sharding import make_rules  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -194,13 +194,16 @@ def test_dryrun_records_and_cache(tmp_path, capsys):
     first = dryrun.main(argv)
     assert set(first) == _expected_keys(arch)
     fields = set(RooflineTerms.__dataclass_fields__) | {
-        "layout_s", "mem_counts", "mem_parts_gb", "hw", "variant", "status"}
+        "layout_s", "mem_counts", "mem_parts_gb", "hw", "variant", "status",
+        "collective_breakdown", "collective_note"}
     for key, rec in first.items():
         if key.endswith("|skip"):
             assert rec["status"] == "skip"
             continue
         assert set(rec) == fields and rec["status"] == "ok" and rec["hw"] == HW_H100.name
-        assert rec["collective_s"] is None and rec["mem_counts"] == dryrun.MEM_COUNTS
+        # gemma-7b's 16 heads divide over the 16 ranks: only training has no term
+        train = key.split("|")[1] == "train_4k"
+        assert (rec["collective_s"] is None) == train and rec["mem_counts"] == dryrun.MEM_COUNTS
         assert math.isclose(rec["mem_per_device_gb"], sum(rec["mem_parts_gb"].values()))
         assert rec["compute_s"] == rec["hlo_gflops"] * 1e9 / (rec["chips"] * HW_H100.peak_flops)
     capsys.readouterr()
@@ -208,6 +211,54 @@ def test_dryrun_records_and_cache(tmp_path, capsys):
     assert capsys.readouterr().out.count("cached: ") == len(first) - 1 == 6
     opt = dryrun.main(argv + ["--variant", "optimized"])
     assert set(opt) == _expected_keys(arch) | _expected_keys(arch, "optimized")
+
+
+@pytest.mark.parametrize("arch,shape_name,multi_pod", [
+    ("openvla-7b", "decode_32k", False), ("openvla-7b", "prefill_32k", True),
+    ("jamba-1.5-large-398b", "decode_32k", False), ("jamba-1.5-large-398b", "long_500k", True),
+    ("seamless-m4t-medium", "prefill_32k", False), ("phi-3-vision-4.2b", "prefill_32k", False),
+    ("qwen3-moe-235b-a22b", "decode_32k", True),
+])
+def test_dryrun_collective_term_from_the_ranks_counts(arch, shape_name, multi_pod):
+    """Prefill and decode records carry the term of the collectives one of
+    the 16 ranks issues: ``dist.collective_bytes`` over the device's data
+    shard of the batch (the batch over ``data``, or ``pod`` x ``data``;
+    long_500k's batch of 1 stays whole), a prefill's ``seq_len`` tokens
+    (a VLM's patch positions not looked up, seamless's encoder over the
+    frames), by op in GB, the term on ``HW_H100``'s links as the reference
+    divides it."""
+
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    rec = dryrun.run_combo(arch, shape_name, multi_pod, verbose=False)
+    rows = 1 if shape.global_batch == 1 else shape.global_batch // (32 if multi_pod else 16)
+    prompt = 1 if shape.kind == "decode" else shape.seq_len
+    vlm = cfg.modality in ("vision", "audio") and not cfg.encoder_decoder
+    front = cfg.num_modality_tokens if vlm and prompt > 1 else 0
+    want = dist.collective_bytes(cfg, rows, prompt, 16, frontend=front)
+    total = sum(want.values())
+    assert rec["collective_breakdown"] == {**{k: v / 1e9 for k, v in want.items()},
+                                           "total": total / 1e9}
+    assert rec["collective_gbytes"] == total / 1e9
+    assert rec["collective_s"] == total / (rec["chips"] * HW_H100.ici_bw)
+    n = dist.collectives(cfg, prompt)
+    assert rec["collective_note"].startswith(
+        f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers")
+    assert f"of {rows} rows over 16 ranks" in rec["collective_note"]
+
+
+@pytest.mark.parametrize("arch,shape_name,words", [
+    ("starcoder2-3b", "decode_32k", "24 heads"), ("xlstm-125m", "prefill_32k", "4 heads"),
+    ("xlstm-125m", "long_500k", "4 heads"), ("gemma2-9b", "train_4k", "no training over a model"),
+    ("openvla-7b", "train_4k", "no training over a model"),
+])
+def test_dryrun_collective_term_none_with_its_reason(arch, shape_name, words):
+    """The two stacks whose heads do not divide over the 16 ranks, and
+    every ``train`` record, leave the term None with the refusal's words."""
+
+    rec = dryrun.run_combo(arch, shape_name, False, verbose=False)
+    assert rec["collective_s"] is None and rec["collective_gbytes"] is None
+    assert rec["collective_breakdown"] is None and words in rec["collective_note"]
+    assert rec["bottleneck"] in ("compute", "memory")
 
 
 def test_model_flops_for_is_estimates_useful_count():

@@ -416,19 +416,10 @@ def test_fleet_matches_reference_mesh(runs):
 
 def per_token_collectives(cfg, prompt: int = 1):
     """[all-reduces, all-gathers] of one decode token (``prompt`` = 1) or a
-    prefill of ``prompt`` tokens of a rank of ``cfg``, from its layer
-    kinds: a Mamba layer 2 all-reduces (dt / B / C, then out_proj), an
-    attention layer 1, an enc-dec decoder layer's cross-attention 1, an
-    mLSTM layer 1 and 1 all-gather (its output; its xi), an sLSTM layer 1
-    and one all-gather a token (its output; its h), an FFN (MLP or MoE) 1,
-    the embedding 1, an encoder layer 2 (its attention and its MLP; a
-    prefill's only); the logits' one all-gather."""
+    prefill of ``prompt`` tokens of a rank of ``cfg``, from its layer kinds
+    (``launch.dist.collectives``)."""
 
-    kinds = list(cfg.blocks)
-    reduce = len(kinds) + kinds.count("mamba") + 1 + (cfg.num_layers if cfg.d_ff > 0 else 0)
-    if cfg.encoder_decoder:
-        reduce += kinds.count("attn") + (2 * cfg.num_encoder_layers if prompt > 1 else 0)
-    return [reduce, 1 + kinds.count("mlstm") + prompt * kinds.count("slstm")]
+    return list(dist.collectives(cfg, prompt).values())
 
 
 def test_jamba_collectives_per_token(runs):
@@ -580,18 +571,22 @@ def test_collectives_per_token_from_layer_kinds(monkeypatch, impl):
 
 
 def test_rank_model_refuses_training_and_split_lanes():
+    """A rank's model refuses training; its split lanes attach (they are
+    served over the model axis), the suffix pool at the rank's KV heads."""
+
     model = Model(get_smoke_config("openvla-7b").replace(dtype="float32"), device="cpu",
                   group=stub_group(1, 2))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "labels": torch.zeros((1, 4), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="ROADMAP queue I"):
         model.loss_fn(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue I"):
-        PartitionExecutor(model, 1)
     sched = ContinuousBatchingScheduler(model, EpisodeTokenizer(model.cfg.vocab_size),
                                         mesh=make_rank_mesh(1, model.group))
     assert not model.graphs and sched.round_mode == "eager, 2 ranks over gloo"
     assert sched._vdim == 1024 and sched._pcache["kp"].shape[-2] == 2
+    ex = PartitionExecutor(model, 1)
+    sched.attach_partition(ex)
+    assert sched._lanes[1].ex is ex and ex.init_layer_pool(sched.paged_spec)["kp"].shape[-2] == 2
 
 
 def test_rank_mesh_and_local_slice():

@@ -396,12 +396,6 @@ def _rank_model(arch):
                  group=_rank_group())
 
 
-def _rank_split_lane(arch):
-    """A split lane of a rank's model: not served over a model axis."""
-
-    return lambda st: PartitionExecutor(_rank_model(arch), 1)
-
-
 def _rank_training(arch):
     """A rank's model asked for its loss: no backward over a model axis."""
 
@@ -423,7 +417,7 @@ def _rank_mesh_on_two_devices(st):
 REFUSED = {
     "two devices": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
                     "I, item 4"),
-    "model axis on a MoE stack": (_rank_split_lane("qwen3-moe-235b-a22b"), "I"),
+    "model axis on a MoE stack": (_rank_training("qwen3-moe-235b-a22b"), "I"),
     "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "I"),
     "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
         2, 1, 1), ("pod", "data", "model"))), "I, item 4"),

@@ -86,3 +86,55 @@ def encdec_pages():
     maxp = -(-(p["prompt"] + p["steps"]) // p["page"])
     pt = np.arange(p["b"] * maxp, dtype=np.int32).reshape(p["b"], maxp)[::-1].copy()
     return maxp, pt, np.full((p["b"],), maxp * p["page"], np.int32)
+
+
+# the split lanes over a model axis: (name, arch, data, model, lane keys,
+# pipelined, robots, seed); the odd robots split, lane by lane in turn
+# (``split_key``), on f32 smoke stacks at ``SMOKE_LAYERS``, ``ENGINE_KW``;
+# a lane key is a cut or (cut, expert_offload); xlstm-smoke's d_up of 170
+# does not divide over 4 ranks, so sl42 stays at (4, 2)
+SPLIT_SCENARIOS = (
+    ("sp42", "openvla-7b", 4, 2, (1,), True, 6, 30),
+    ("sp24", "openvla-7b", 2, 4, (1,), True, 6, 31),
+    ("ss42", "openvla-7b", 4, 2, (1,), False, 6, 32),
+    ("sh24", "openvla-7b", 2, 4, (0, 1), True, 6, 33),
+    ("sx24", "qwen3-moe-235b-a22b", 2, 4, ((1, (0,)),), True, 6, 34),
+    ("sj42", "jamba-1.5-large-398b", 4, 2, (1,), True, 6, 35),
+    ("sl42", "xlstm-125m", 4, 2, (1,), True, 6, 36),
+)
+# the rapid fleet with split robots over (data, model): ``TP_FLEET``'s
+# settings, these robots at this cut
+SPLIT_FLEET = dict(split_robots=[1, 3, 5, 7], cut=1)
+# the executor cases of one rank against the reference executor on one
+# device: (arch, cut, worlds); each runs two robots' prompts through
+# ``split_prefill`` and two ``split_decode_step`` tokens, and the same
+# robots through the suffix path (``edge_prefill``, ``suffix_prefill``,
+# ``edge_step``, ``suffix_step``) over a rank's pools and lane state
+# (xlstm-smoke's widths do not divide over 4 ranks)
+EXEC_CASES = (("openvla-7b", 1, (2, 4)), ("jamba-1.5-large-398b", 0, (2, 4)),
+              ("xlstm-125m", 0, (2,)))
+EXEC_PLAN = dict(b=2, prompt=14, steps=2, page=8, maxp=4, seed=40)
+# one ``PartitionedPolicy`` chunk: (arch, cut, seed of its observation)
+POLICY_CASE = ("openvla-7b", 1, 41)
+
+
+def split_key(robot, lanes):
+    """The lane key of ``robot`` (None: cloud-only, an even robot)."""
+
+    return None if robot % 2 == 0 else lanes[(robot // 2) % len(lanes)]
+
+
+def lane_cut(key):
+    """(cut, expert_offload) of a lane key."""
+
+    return (key, ()) if isinstance(key, int) else (key[0], tuple(key[1]))
+
+
+def exec_inputs(vocab):
+    """The executor cases' numpy inputs (seeded): prompts [b, prompt] and the
+    decode tokens [steps, b, 1]."""
+
+    p = EXEC_PLAN
+    rng = np.random.default_rng(p["seed"])
+    return (rng.integers(0, vocab, (p["b"], p["prompt"])),
+            rng.integers(0, vocab, (p["steps"], p["b"], 1)))

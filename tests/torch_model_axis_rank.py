@@ -38,7 +38,25 @@ PART ``xlstm_encdec`` (``tests/test_torch_model_axis_xlstm_encdec.py``):
   prefill's logits without the cross-attention's ``wo`` all-reduce;
 * world 4: the blocks of xlstm-wide and seamless-smoke, the ``xw24``
   scenario and ``ed24``'s four modes.
+
+PART ``split`` (``tests/test_torch_model_axis_split.py``):
+
+* both worlds: the ``SPLIT_SCENARIOS`` of their model axis (the engine with
+  split lanes over a rank mesh: results, tokens, every reservation, cloud
+  and lane, the first lane prefill's logits, the lanes' buffers after the
+  drain), the executor cases (``EXEC_CASES``: ``split_prefill`` and
+  ``split_decode_step``, and the suffix path over the rank's pools and lane
+  state, with their shapes), one ``PartitionedPolicy`` chunk
+  (``POLICY_CASE``), the collectives of a ping-pong token and of a fused
+  window token over 1 and 2 lanes, and the channel's figures of a rank's
+  executor;
+* world 2 also: the rapid fleet with split robots (``SPLIT_FLEET``), the
+  split decode step's logits with the edge embedding's all-reduce skipped
+  (the control), and ``dist.BYTES`` after a prefill and a decode token of
+  openvla-, jamba-, xlstm- and seamless-smoke.
 """
+
+import json
 
 import sys
 
@@ -56,13 +74,19 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import embed_lookup, mlp
+from repro_torch.models import layers as layers_lib
 from repro_torch.models.model import Model
+from repro_torch.obs import Observability
+from repro_torch.partition import PartitionExecutor, PartitionedPolicy
+from repro_torch.partition import executor as executor_lib
+from repro_torch.runtime import scheduler as sched_lib
 from repro_torch.runtime.kv_cache import PagedSpec, scatter_prompt_into_pool
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
 from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
-                                    ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS,
+                                    ENGINE_KW, EXEC_CASES, EXEC_PLAN, POLICY_CASE, SMOKE_LAYERS,
+                                    SPLIT_FLEET, SPLIT_SCENARIOS, TP_FLEET, TP_SCENARIOS,
                                     XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
-                                    fleet_record, obs_pair)
+                                    exec_inputs, fleet_record, lane_cut, obs_pair, split_key)
 
 F32 = dict(dtype="float32")
 # the paged step's plan: rows, page size, pages a row; its row lengths
@@ -547,6 +571,252 @@ def xlstm_encdec_main(group, ref, out):
             encdec_case(group, ref, out, name)
 
 
+# ---------------------------------------------------------------------------
+# PART split: the split lanes on a rank's model
+# ---------------------------------------------------------------------------
+
+# the stacks whose prefill and decode token ``bytes_case`` counts
+BYTES_ARCHS = ("openvla-7b", "jamba-1.5-large-398b", "xlstm-125m", "seamless-m4t-medium")
+
+
+def record_lanes():
+    """Every lane reservation into its scheduler's ``reserved`` (where it
+    keeps one), after the cloud ones as they come; a scheduler's first
+    lane flush's logits of its new rows into its ``first_lane``."""
+
+    reserve, flush = sched_lib._SplitLane.reserve, sched_lib._SplitLane.flush
+
+    def recording_reserve(self, req):
+        seq = reserve(self, req)
+        if hasattr(self.sched, "reserved"):
+            self.sched.reserved.append([req.robot_id, seq.row, *seq.pages])
+        return seq
+
+    def recording_flush(self, new):
+        flush(self, new)
+        if getattr(self.sched, "first_lane", ()) is None:
+            self.sched.first_lane = np.stack([self._logits[s.row].numpy() for s in new])
+
+    sched_lib._SplitLane.reserve = recording_reserve
+    sched_lib._SplitLane.flush = recording_flush
+
+
+def split_engine_case(group, ref, out, name, arch, data, keys, pipelined, n, seed):
+    """One of ``SPLIT_SCENARIOS`` over a rank mesh of ``data`` shards: the
+    engine's records, the first lane prefill's logits, each lane's
+    [drops, buffers held, peak bytes] and the scheduler's pools and fused
+    graphs left after the drain, a suffix pool's shape."""
+
+    model, tok = rank_model(group, ref, arch)
+    sched = Recording(model, tok, mesh=make_rank_mesh(data, group), **ENGINE_KW)
+    sched.first_lane = None
+    exs = []
+    for key in keys:
+        cut, off = lane_cut(key)
+        exs.append(PartitionExecutor(model, cut, expert_offload=off))
+        sched.attach_partition(exs[-1], pipelined=pipelined)
+    rng = np.random.default_rng(seed)
+    for r in range(n):
+        key = split_key(r, keys)
+        sched.submit(r, *obs_pair(rng), partitioned=key is not None, cut=key)
+    results = sched.drain()
+    record_engine(out, name, sched, results)
+    out[f"{name}/first_lane"] = sched.first_lane
+    out[f"{name}/lanes"] = np.asarray([[lane.drops, int(lane.has_buffers), lane.peak_bytes]
+                                       for lane in (sched._lanes[k] for k in keys)])
+    out[f"{name}/left"] = np.asarray([len(sched._suffix_pools), len(sched._fleet_graphs)])
+    out[f"{name}/pool_shape"] = np.asarray(exs[0].init_layer_pool(sched.paged_spec)["kp"].shape)
+
+
+def state_shapes(states):
+    """{layer/name: shape} of per-layer caches."""
+
+    return {f"{i}/{k}": tuple(t.shape) for i, c in states.items() for k, t in c.items()}
+
+
+@torch.no_grad()
+def exec_case(group, ref, out, arch, cut):
+    """``EXEC_CASES``' (arch, cut) on this rank: ``split_prefill`` and the
+    ``split_decode_step`` tokens (the first one's collectives), then the
+    same robots through the suffix path over the rank's pools
+    (``init_layer_pool``) and lane state (``init_lane_state``); the pool's,
+    the lane state's and the full edge's (``init_edge_rows``) shapes."""
+
+    model, _ = rank_model(group, ref, arch)
+    ex = PartitionExecutor(model, cut)
+    prompts, steps = exec_inputs(model.cfg.vocab_size)
+    p, key = EXEC_PLAN, f"exec/{arch}/{cut}"
+    logits, state = ex.split_prefill({"tokens": torch.as_tensor(prompts)}, extra=len(steps))
+    got = [logits[:, -1]]
+    for i, token in enumerate(steps):
+        c0 = calls()
+        logits, state = ex.split_decode_step(torch.as_tensor(token), state)
+        if i == 0:
+            out[f"{key}/pingpong_calls"] = calls() - c0
+        got.append(logits[:, -1])
+    out[f"{key}/split"] = torch.stack(got).numpy()
+
+    b, s = prompts.shape
+    spec = PagedSpec(num_pages=b * p["maxp"], page_size=p["page"], max_pages_per_seq=p["maxp"])
+    pools = {i: ex.init_layer_pool(spec) for i in ex.cloud_layers if model.specs[i][0] == "attn"}
+    lane = ex.init_lane_state(spec, b)
+    layers = [pools[i] if i in pools else lane[i] for i in ex.cloud_layers]
+    xs, edges = zip(*(ex.edge_prefill(prompts[r:r + 1], len(steps)) for r in range(b)))
+    i32 = dict(dtype=torch.int32)
+    pt = torch.arange(b * p["maxp"], **i32).reshape(b, p["maxp"])
+    lens = torch.full((b,), s, **i32)
+    caps = torch.full((b,), p["maxp"] * p["page"], **i32)
+    _, lg = ex.suffix_prefill(torch.cat(xs), layers, pt, np.arange(b), lens, caps)
+    got = [lg]
+    for token in steps:
+        x = torch.cat([ex.edge_step(int(token[r, 0]), edges[r], s + len(got) - 1)[0]
+                       for r in range(b)])
+        lg, _ = ex.suffix_step(x, layers, pt, lens, caps)
+        got.append(lg)
+        lens = lens + 1
+    out[f"{key}/suffix"] = torch.stack(got).numpy()
+    shapes = {f"pool/{i}/kp": tuple(c["kp"].shape) for i, c in pools.items()}
+    shapes.update({f"lane/{k}": v for k, v in state_shapes(lane).items()})
+    edge = ex.with_cut(model.cfg.num_layers).init_edge_rows(b, s)
+    shapes.update({f"edge/{k}": v for k, v in state_shapes(edge).items()})
+    out[f"{key}/shapes"] = np.frombuffer(json.dumps(shapes).encode(), np.uint8)
+
+
+def fused_calls(model, cuts, rows=2):
+    """The collectives of one token of a fused split round over lanes at
+    ``cuts`` (``build_fleet_decode``), on zero buffers (capacity 0: every
+    write to the trash page)."""
+
+    base = PartitionExecutor(model, cuts[0])
+    spec = PagedSpec(num_pages=4, page_size=8, max_pages_per_seq=2)
+    fn = base.build_fleet_decode(tuple(cuts), 1, 0)
+    pools = {i: base.init_layer_pool(spec) for i in range(cuts[0], model.cfg.num_layers)
+             if model.specs[i][0] == "attn"}
+    i32 = dict(dtype=torch.int32, device=model.device)
+    lanes = [{"logits": torch.zeros((rows, model.vocab_padded), device=model.device),
+              "edge": base.with_cut(c).init_edge_rows(rows, 16),
+              "state": base.with_cut(c).init_lane_state(spec, rows),
+              "lens": torch.ones((rows,), **i32)} for c in cuts]
+    pts = [torch.zeros((rows, 2), **i32) for _ in cuts]
+    caps = [torch.zeros((rows,), **i32) for _ in cuts]
+    c0 = calls()
+    fn(pools, lanes, pts, caps)
+    return calls() - c0
+
+
+def policy_case(group, ref, out):
+    """``POLICY_CASE``'s chunk through ``PartitionedPolicy`` on this rank
+    (eager under gloo): its prefill's logits, tokens and collectives, then
+    its actions and modeled channel ms."""
+
+    arch, cut, seed = POLICY_CASE
+    model, tok = rank_model(group, ref, arch)
+    policy = PartitionedPolicy(PartitionExecutor(model, cut), tok)
+    qd, tau = obs_pair(np.random.default_rng(seed))
+    obs = torch.as_tensor(np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1))
+    out["policy/prefill"] = policy.executor.split_prefill({"tokens": obs}, 0)[0][:, -1].numpy()
+    c0 = calls()
+    toks, _ = policy.chunk(obs)
+    out["policy/calls"] = calls() - c0
+    out["policy/tokens"] = toks.numpy()
+    out["policy/actions"] = policy(qd, tau)
+    out["policy/net_ms"] = np.asarray(policy.net_ms_log)
+    out["policy/graphs"] = np.asarray(len(policy._graphs))
+
+
+def channel_case(group, ref, out):
+    """The channel's figures of a rank's executor: ``shipped_bytes`` of the
+    split forward, ``modeled_net_ms`` and ``record_chunk_bytes``' counters,
+    at openvla-smoke's cut 1 and qwen3-moe-smoke's expert-offload lane."""
+
+    for arch, cut, off in (("openvla-7b", 1, ()), ("qwen3-moe-235b-a22b", 1, (0,))):
+        model, _ = rank_model(group, ref, arch)
+        ex = PartitionExecutor(model, cut, expert_offload=off)
+        ex.forward({"tokens": torch.as_tensor(exec_inputs(model.cfg.vocab_size)[0])})
+        ex.obs = Observability()
+        ex.record_chunk_bytes(14, 56)
+        fig = {"shipped": ex.shipped_bytes, "net": ex.modeled_net_ms(14, 56),
+               "bytes": {k: v for k, v in ex.obs.metrics.to_json().items()
+                         if k.startswith("channel.")}}
+        out[f"channel/{arch}"] = np.frombuffer(json.dumps(fig).encode(), np.uint8)
+
+
+@torch.no_grad()
+def control_case(group, ref, out):
+    """Openvla-smoke's executor case with the edge token embedding's
+    all-reduce skipped on every rank: the rank's vocab block looked up and
+    not summed, as ``_embed_token`` did before it passed the tp."""
+
+    def unsummed(tokens, table, scale, tp):
+        real = layers_lib.all_reduce_sum
+        layers_lib.all_reduce_sum = lambda x, g: x
+        try:
+            return layers_lib.embed_lookup(tokens, table, scale, tp)
+        finally:
+            layers_lib.all_reduce_sum = real
+
+    arch, cut, _ = EXEC_CASES[0]
+    real = executor_lib.embed_lookup
+    executor_lib.embed_lookup = unsummed
+    try:
+        sub = {}
+        exec_case(group, ref, sub, arch, cut)
+    finally:
+        executor_lib.embed_lookup = real
+    out["control/no_embed_sum"] = sub[f"exec/{arch}/{cut}/split"]
+
+
+@torch.no_grad()
+def bytes_case(group, out):
+    """``dist.CALLS`` and ``dist.BYTES`` after a prefill and after one decode
+    token of ``BYTES_ARCHS``' f32 smoke rank models (``Model.init``; 2 rows
+    of 14 tokens, seamless's batch of ``encdec_batch``)."""
+
+    for arch in BYTES_ARCHS:
+        cfg = axis_smoke(arch) if arch in AXIS_STACKS else smoke(arch)
+        model = Model(cfg, device="cpu", group=group)
+        if cfg.encoder_decoder:
+            batch = {k: torch.as_tensor(v)
+                     for k, v in encdec_batch(cfg.vocab_size, cfg.d_model).items()}
+        else:
+            batch = {"tokens": torch.as_tensor(exec_inputs(cfg.vocab_size)[0])}
+        rec = []
+        for step in range(2):
+            c0, b0 = calls(), np.asarray(list(dist.BYTES.values()))
+            if step == 0:
+                logits, cache = model.prefill(batch, extra=1)
+            else:
+                model.decode_step(logits[:, -1].argmax(-1, keepdim=True), cache)
+            rec.append([*(calls() - c0), *(np.asarray(list(dist.BYTES.values())) - b0)])
+        out[f"bytes/{arch}"] = np.asarray(rec)
+
+
+def split_main(group, ref, out):
+    """PART ``split``: the cases of this world."""
+
+    record_lanes()
+    world = group.size
+    for name, arch, data, model_axis, keys, pipelined, n, seed in SPLIT_SCENARIOS:
+        if model_axis == world:
+            split_engine_case(group, ref, out, name, arch, data, keys, pipelined, n, seed)
+    for arch, cut, worlds in EXEC_CASES:
+        if world in worlds:
+            exec_case(group, ref, out, arch, cut)
+    policy_case(group, ref, out)
+    channel_case(group, ref, out)
+    model, _ = rank_model(group, ref, "openvla-7b")
+    for cuts in ((1,), (0, 1)):
+        out[f"fused_calls/{'_'.join(map(str, cuts))}"] = fused_calls(model, cuts)
+    if world == 2:
+        control_case(group, ref, out)
+        bytes_case(group, out)
+        model, tok = rank_model(group, ref, "openvla-7b")
+        fleet_record(out, "spfleet", serve_fleet(
+            model, tok, mesh=make_rank_mesh(TP_FLEET["data"], group),
+            partition_executor=PartitionExecutor(model, SPLIT_FLEET["cut"]),
+            split_robots=SPLIT_FLEET["split_robots"], **TP_FLEET["kw"]))
+
+
 def main(rank, world, store, params_path, out_dir, part="dense"):
     torch.set_num_threads(1)
     group = dist.init_model_group(rank, world, backend="gloo", init_method=f"file://{store}",
@@ -556,6 +826,8 @@ def main(rank, world, store, params_path, out_dir, part="dense"):
     out = {}
     if part == "xlstm_encdec":
         xlstm_encdec_main(group, ref, out)
+    elif part == "split":
+        split_main(group, ref, out)
     else:
         if world == 2:
             layers_case(group, out)

@@ -32,12 +32,27 @@ f32 openvla-smoke over (data 4, model 2), starcoder2-smoke over (2, 4),
 gemma2-smoke over (4, 2), jamba-smoke over (4, 2), qwen3-moe-smoke over
 (2, 4) and phi3.5-moe-smoke under the capacity dispatch over (4, 2), and
 ``serve_fleet(trigger="rapid")`` on openvla-smoke over (4, 2)
-(``TP_FLEET``), each stack's parameters under ``params/<arch>/``.  Under
+(``TP_FLEET``), each stack's parameters under ``params/<arch>/``.
+``--part split`` (``tests/test_torch_model_axis_split.py``): the engine with
+split lanes over the (4, 2) meshes of ``SPLIT_SCENARIOS`` (pipelined and
+serial lanes on openvla-smoke, jamba- and xlstm-smoke), the first lane
+prefill's logits of each, the reference executor's ``split_prefill`` /
+``split_decode_step`` logits on one device (``EXEC_CASES``) and one
+``PartitionedPolicy`` chunk (``POLICY_CASE``); ``--part split24``: the
+(2, 4) meshes (a pipelined lane, heterogeneous lanes and qwen3-moe's
+expert-offload lane);
+``--part split_fleet``: ``serve_fleet(trigger="rapid")`` over (4, 2) with
+the robots of ``SPLIT_FLEET`` split.  Both hand ``_SplitLane.flush`` a
+writable copy of the lane's logits: under jax 0.9 ``harvest`` leaves them
+read-only and ``flush`` writes into them, so the pipelined lane fails on
+its second admission otherwise (a fault of the reference, which stays as
+it is).  Under
 the capacity dispatch idle rows route and take expert slots, so there the
 engine's paged attention is its CPU oracle with the output of an idle row
 (length 0) set to 0, as the Pallas kernel and the port give it (the
 oracle gives the mean of the values it gathers).  ``--part`` runs one
-part alone, ``engine`` (the scenarios), ``fleet``, ``xlstm`` or ``encdec``,
+part alone, ``engine`` (the scenarios), ``fleet``, ``xlstm``, ``encdec``,
+``split``, ``split24`` or ``split_fleet``,
 so that the parts can run side by side; ``--params`` takes the stacks' parameters from an npz
 keyed so (``params/<arch>/<key>``, e.g. the port's ``Model.init``
 weights) instead of drawing them, and then writes none.
@@ -59,13 +74,14 @@ from repro.launch.serve import serve_fleet
 from repro.launch.sharding import named_sharding, sharding_rules
 from repro.models.layers import is_axes
 from repro.models.model import Model
-from repro.partition.executor import PartitionExecutor
+from repro.partition.executor import PartitionExecutor, PartitionedPolicy
 from repro.runtime import scheduler as sched_mod
 from repro.runtime.kv_cache import PagedSpec
 from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
-                                    ENGINE_KW, SMOKE_LAYERS, TP_FLEET, TP_SCENARIOS,
+                                    ENGINE_KW, EXEC_CASES, POLICY_CASE, SMOKE_LAYERS,
+                                    SPLIT_FLEET, SPLIT_SCENARIOS, TP_FLEET, TP_SCENARIOS,
                                     XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
-                                    fleet_record, obs_pair)
+                                    exec_inputs, fleet_record, lane_cut, obs_pair, split_key)
 
 # (name, robots, seed, data shards (0: no mesh), prefill on the last device,
 # split-lane cut (robots with an odd id go there; None: cloud only))
@@ -176,6 +192,73 @@ def encdec_part(out, devs, stack):
             out[f"{key}/last"] = np.asarray(last)
 
 
+def writable_flush():
+    """``_SplitLane.flush`` handed a writable copy of the lane's logits (jax
+    0.9's ``harvest`` leaves them read-only, and ``flush`` writes into
+    them); the scheduler's first flush records its new rows' logits
+    (``first_lane``)."""
+
+    flush = sched_mod._SplitLane.flush
+
+    def patched(self, new):
+        if self._logits is not None and not self._logits.flags.writeable:
+            self._logits = np.array(self._logits)
+        flush(self, new)
+        if getattr(self.sched, "first_lane", ()) is None:
+            self.sched.first_lane = np.stack([np.asarray(self._logits[s.row]) for s in new])
+
+    sched_mod._SplitLane.flush = patched
+
+
+def split_part(out, devs, recording, stack, axis):
+    """``SPLIT_SCENARIOS`` over a model axis of ``axis``: the engine with
+    split lanes over its mesh; with ``axis`` 2 also the executor's split
+    forward on one device (``EXEC_CASES``) and one ``PartitionedPolicy``
+    chunk (``POLICY_CASE``)."""
+
+    for name, arch, data, model_axis, keys, pipelined, n, seed in SPLIT_SCENARIOS:
+        if model_axis != axis:
+            continue
+        model, params, tok = stack(arch)
+        mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
+        sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
+        sched.first_lane = None
+        for key in keys:
+            cut, off = lane_cut(key)
+            sched.attach_partition(PartitionExecutor(model, params, cut, expert_offload=off),
+                                   pipelined=pipelined)
+        rng = np.random.default_rng(seed)
+        for r in range(n):
+            key = split_key(r, keys)
+            sched.submit(r, *obs_pair(rng), partitioned=key is not None, cut=key)
+        record(out, name, sched, sched.drain())
+        out[f"{name}/first_lane"] = sched.first_lane
+    if axis != 2:
+        return
+    for arch, cut, _ in EXEC_CASES:
+        model, params, _ = stack(arch)
+        ex = PartitionExecutor(model, params, cut)
+        prompts, steps = exec_inputs(model.cfg.vocab_size)
+        logits, state = ex.split_prefill(ex.split_params, {"tokens": jnp.asarray(prompts)},
+                                         extra=len(steps))
+        got = [np.asarray(logits)[:, -1]]
+        for token in steps:
+            logits, state = ex.split_decode_step(ex.split_params, jnp.asarray(token), state)
+            got.append(np.asarray(logits)[:, -1])
+        out[f"exec/{arch}/{cut}"] = np.stack(got)
+    arch, cut, seed = POLICY_CASE
+    model, params, tok = stack(arch)
+    policy = PartitionedPolicy(PartitionExecutor(model, params, cut), tok)
+    qd, tau = obs_pair(np.random.default_rng(seed))
+    obs = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
+    sp = policy.executor.split_params
+    logits, state = policy._prefill(sp, {"tokens": jnp.asarray(obs)})
+    out["policy/prefill"] = np.asarray(logits)[:, -1]
+    out["policy/tokens"] = np.asarray(policy._decode_chunk(sp, logits, state))
+    out["policy/actions"] = policy(qd, tau)
+    out["policy/net_ms"] = np.asarray(policy.net_ms_log)
+
+
 def main_model_axis(path, devs, recording, part=None, params_path=None):
     out = {}
     stacks = {}
@@ -201,6 +284,20 @@ def main_model_axis(path, devs, recording, part=None, params_path=None):
         return np.savez(path, **out)
     if part == "encdec":
         encdec_part(out, devs, stack)
+        return np.savez(path, **out)
+    if part in ("split", "split24", "split_fleet"):
+        writable_flush()
+    if part in ("split", "split24"):
+        split_part(out, devs, recording, stack, 4 if part == "split24" else 2)
+        return np.savez(path, **out)
+    if part == "split_fleet":
+        model, params, tok = stack("openvla-7b")
+        f, sf = TP_FLEET, SPLIT_FLEET
+        mesh = make_test_mesh(data=f["data"], model=f["model"],
+                              devices=devs[:f["data"] * f["model"]])
+        fleet_record(out, "spfleet", serve_fleet(
+            model, params, tok, mesh=mesh, partition_executor=PartitionExecutor(
+                model, params, sf["cut"]), split_robots=sf["split_robots"], **f["kw"]))
         return np.savez(path, **out)
 
     for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
@@ -248,7 +345,8 @@ def main(path, model_axis=False, part=None, params_path=None):
 
     def recording_lane_reserve(self, req):
         seq = lane_reserve(self, req)
-        self.sched.reserved.append([req.robot_id, seq.row, *seq.pages])
+        if hasattr(self.sched, "reserved"):  # (``serve_fleet``'s scheduler keeps none)
+            self.sched.reserved.append([req.robot_id, seq.row, *seq.pages])
         return seq
 
     sched_mod._SplitLane.reserve = recording_lane_reserve
