@@ -225,6 +225,30 @@ Phases, in order; any failure exits nonzero and prints no result line:
    weight, mLSTM and sLSTM state and cross-K/V bytes and ms a round or a
    token beside the one rank's; the ranks joined within
    ``XE_RANKS_TIMEOUT_S``;
+7f. data shards and the prefill as ranks of their own (``launch.dist``
+   ``init_rank_grid``, ``make_rank_mesh`` over a ``RankGrid``), after 7c
+   on the same 4-layer model: ``DATA_RANKS`` = 2 data ranks and a prefill
+   rank, each a process of its own, gloo on card 0; every rank builds
+   openvla-7b from the phase-6 seed (every parameter equal to the
+   parent's); (a) the rapid fleet of 7c (8 robots x ``AXIS_TICKS``) on the
+   two data ranks, each decoding its block of the rows (its paged launches
+   over 4 rows, the rounds CUDA graphs: no data-axis collective inside
+   them), (b) the same with the prefill rank, which prefills each
+   boundary's admissions and hands their K/V and logits to the decode
+   ranks at the next; each held to one process's same run over a
+   one-device ``(data 2)`` mesh (without and with ``prefill_group``):
+   chunks, order, actions, offloads, cancels, reservations and
+   ``PoolStats`` equal, launches exact, the data axis's collectives
+   exactly ``launch.dist``'s counts, each handoff's bytes the reckoning's
+   (n x 917,504 B of K/V plus n x 2 x ``vocab_padded`` B of logits at the
+   bucket n); ms a round beside one process's; (c) phi3.5-moe at
+   ``PHI35_DATA_LAYERS`` = 2 layers with its 16 experts spread over the two
+   data ranks (8 a rank: 1,258,291,200 B a layer against 2,516,582,400 for
+   one process, every block the parent's slice), 4 robots staggered at R
+   = 4, held to one process with every expert as 7d holds Jamba (chunks by
+   the greedy-margin rule and routing near-ties, the first prompt's logits
+   with the one process's routes within ``TP_LOGIT_TOL``), a rank that
+   skips the MoE's data-axis sum caught, the collectives exact;
 8. train (``repro_torch.launch.train``): (a) the flash backward kernel
    (``csrc/flash_attention_bwd.cu``) and the forward's log-sum-exp against
    their plain versions at the training shapes (openvla-7b's B = 4, S =
@@ -934,6 +958,7 @@ def kernel_cases(rng, fleet):
     wins = dict(window_acc=tcfg.window_acc, window_tau=tcfg.window_tau,
                 sigma_floor_acc=tcfg.sigma_floor_acc, sigma_floor_tau=tcfg.sigma_floor_tau)
     rank_rng, jamba_rng = np.random.default_rng(29), np.random.default_rng(30)
+    data_rng = np.random.default_rng(31)
     return [
         # (kernel, label, dtype, case, main-path shape?)
         ("flash_attention", "S=14 H=KV=32 D=128", bf, flash_case(rng, bf, 14, 32, 32), True),
@@ -976,6 +1001,17 @@ def kernel_cases(rng, fleet):
          flash_case(jamba_rng, bf, 14, 32, 4), False),
         ("mamba_scan", "Jamba model-axis rank M=2 B=1 S=14 H=128 P=64 N=16", f32,
          mamba_case(jamba_rng, 1, 14, 128, 64, 16, 256), False),
+        # phase 7f's ranks: a data rank's block of the fleet's 8 rows (4, one
+        # idle) and of phi3.5-moe's 4 (2; H = 32, KV = 8), the prefill
+        # rank's batch of 8 prompts; a generator of their own
+        ("paged_attention", "data rank D=2 rows=4 lens 0..70 (1 idle) H=KV=32", bf,
+         paged_case(data_rng, bf, scheduler_lens(data_rng, rows=4, idle=1), 16, 32, 32,
+                    masked_library=True), False),
+        ("paged_attention", "phi3.5-moe data rank D=2 rows=2 lens 1..70 H=32 KV=8", bf,
+         paged_case(data_rng, bf, scheduler_lens(data_rng, rows=2, idle=0), 16, 32, 8,
+                    masked_library=True), False),
+        ("flash_attention", "prefill rank B=8 S=14 H=KV=32 D=128", bf,
+         flash_case(data_rng, bf, 14, 32, 32, b=8), False),
         ("paged_attention", "B=1 len=70 page 16 identity", bf,
          paged_case(rng, bf, [70], 16, 32, 32, identity=True), False),
         ("paged_attention", "B=1 len=70 page 16 identity", f32,
@@ -1600,12 +1636,13 @@ def sched_launches(model, sched, admits: int, rounds: int):
     """The launches a scheduler run must count: one flash (per attention
     layer) and one Mamba scan (per Mamba layer) per admission prefill, one
     paged decode per attention layer per decoded token of every round, per
-    data shard of its mesh."""
+    data shard of its mesh that this process holds (one on a data rank, none
+    on a prefill rank)."""
 
     return {
         "flash_attention": model.n_attn * admits,
         "decode_attention": 0,
-        "paged_attention": model.n_attn * rounds * sched.decode_block * sched.data_shards,
+        "paged_attention": model.n_attn * rounds * sched.decode_block * sched.local_shards,
         "mamba_scan": model.n_mamba * admits,
         "rolling_stats": 0,
         "flash_attention_bwd": 0,
@@ -1823,6 +1860,9 @@ def openvla_scheduler(model, tok, launches, policy):
     sharded_phase(cut, tok, launches)
     phase(f"7c. model axis ({cfg.name}, {FLEET_LAYERS} layers, {MODEL_AXIS} ranks)")
     model_axis_phase(cut, tok, launches)
+    phase(f"7f. data and prefill ranks ({cfg.name}, {FLEET_LAYERS} layers; {PHI35}, "
+          f"{PHI35_DATA_LAYERS} layers; {DATA_RANKS} data ranks + a prefill rank)")
+    data_axis_phase(cut, tok, launches)
     del cut
     gc.collect()
     torch.cuda.empty_cache()
@@ -3776,9 +3816,9 @@ def model_axis_rank(rank, backend, init, device, parent, reqs, queue):
 
 def start_model_axis(backend, devices, *args, target=model_axis_rank,
                      timeout_s=RANKS_TIMEOUT_S, what="7c"):
-    """Start ``MODEL_AXIS`` ranks of ``target(rank, backend, init, device,
-    *args, queue)`` (``torch.multiprocessing``, spawned) -> what
-    ``join_model_axis`` waits on, ``timeout_s`` from now."""
+    """Start a rank of ``target(rank, backend, init, device, *args,
+    queue)`` on each of ``devices`` (``torch.multiprocessing``, spawned)
+    -> what ``join_model_axis`` waits on, ``timeout_s`` from now."""
 
     import torch.multiprocessing as mp
 
@@ -3787,7 +3827,7 @@ def start_model_axis(backend, devices, *args, target=model_axis_rank,
     init = f"tcp://127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=target, args=(m, backend, init, devices[m], *args, q),
                          daemon=True)
-             for m in range(MODEL_AXIS)]
+             for m in range(len(devices))]
     for p in procs:
         p.start()
     return procs, q, (time.perf_counter() + timeout_s, timeout_s, what)
@@ -3801,22 +3841,21 @@ def join_model_axis(procs, q, limit):
     import queue as queue_mod
 
     deadline, timeout_s, what = limit
+    n = len(procs)
     recs, errors, heard = {}, [], set()
     try:
-        while len(heard) < MODEL_AXIS:
+        while len(heard) < n:
             try:
                 rank, rec = q.get(timeout=1.0)
             except queue_mod.Empty:
                 # a rank that exited has put its record before it did
-                gone = [m for m in range(MODEL_AXIS)
-                        if m not in heard and procs[m].exitcode is not None]
+                gone = [m for m in range(n) if m not in heard and procs[m].exitcode is not None]
                 if gone and q.empty():
                     raise AssertionError(f"({what}) ranks {gone} exited "
                                          f"({[procs[m].exitcode for m in gone]}) with no record")
                 if time.perf_counter() > deadline:
-                    raise AssertionError(f"({what}) ranks "
-                                         f"{sorted(set(range(MODEL_AXIS)) - heard)} not done in "
-                                         f"{timeout_s} s") from None
+                    raise AssertionError(f"({what}) ranks {sorted(set(range(n)) - heard)} not "
+                                         f"done in {timeout_s} s") from None
                 continue
             heard.add(rank)
             if isinstance(rec, str):
@@ -3835,7 +3874,7 @@ def join_model_axis(procs, q, limit):
                 p.kill()
                 p.join()
         torch.cuda.ipc_collect()
-    return [recs[m] for m in range(MODEL_AXIS)]
+    return [recs[m] for m in range(n)]
 
 
 def same_axis_runs(a, b):
@@ -4063,6 +4102,402 @@ def model_axis_phase(model, tok, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 7f: data shards and the prefill on ranks of their own
+# ---------------------------------------------------------------------------
+
+DATA_RANKS = 2  # phase 7f's data ranks; with its prefill rank, 3 processes on card 0 (gloo)
+# its ranks' own limit: started, built, checked, run and joined within it
+DATA_RANKS_TIMEOUT_S = 240
+# (c): phi3.5-moe at half phase 4's depth, 4 robots staggered at R = 4
+PHI35_DATA_LAYERS = PHI35_LAYERS // 2
+DATA_MOE_ROBOTS = 4
+PHI35 = "phi3.5-moe-42b-a6.6b"
+
+
+class GridScheduler(RecordingScheduler):
+    """``RecordingScheduler`` that also keeps every reservation (robot,
+    row, pages), each handoff's (prompts, broadcast bytes) and the
+    harvests (windows whose cloud tokens were gathered)."""
+
+    def __init__(self, *a, **kw):
+        self.reserved, self.handoffs, self.harvests = [], [], 0
+        super().__init__(*a, **kw)
+
+    def _reserve(self, req):
+        seq = super()._reserve(req)
+        self.reserved.append((req.robot_id, seq.row, tuple(seq.pages)))
+        return seq
+
+    def _handoff_payload(self, n_new, payload):
+        b0 = dist.DATA_BYTES["broadcast"]
+        out = super()._handoff_payload(n_new, payload)
+        self.handoffs.append((n_new, dist.DATA_BYTES["broadcast"] - b0))
+        return out
+
+    def _window_tokens(self, w):
+        self.harvests += 1
+        return super()._window_tokens(w)
+
+
+def want_data_calls(cfg, sched, admits, impl="dense"):
+    """The data axis's collectives a run of ``sched`` must have made, from
+    ``launch.dist``'s counts: each admission prefill's and decode token's
+    MoE exchanges, a gather a harvest over the data ranks (and a broadcast
+    to a prefill rank), a broadcast a handoff, a gather a row buffer a
+    doubling of the rows."""
+
+    data, prefill = sched._nranks, int(sched._handoff is not None)
+    pre = dist.data_collectives(cfg, data, sharded=False, moe_impl=impl)
+    tok = dist.data_collectives(cfg, data, sharded=True, moe_impl=impl)
+    steps = sched.decode_rounds * sched.decode_block
+    if sched.is_prefill_rank:
+        steps, data = 0, 1
+    rows0 = sched.data_shards * -(-sched.max_slots // sched.data_shards)
+    grows = int(np.log2(sched.rows // rows0))
+    return {"all_reduce": admits * pre["all_reduce"] + steps * tok["all_reduce"],
+            "all_gather": admits * pre["all_gather"] + steps * tok["all_gather"]
+            + sched.harvests * (data > 1) + grows * (4 + len(sched.model.state_names)) * (data > 1),
+            "broadcast": sched.harvests * prefill + len(sched.handoffs)}
+
+
+def data_fleet_run(model, tok, mesh, prefill_group, launches):
+    """(7f a, b) ``serve_fleet(trigger="rapid")`` on 8 robots x
+    ``AXIS_TICKS`` (7c's) through a ``GridScheduler``: exact launches, the
+    data axis's collectives against their counts -> a picklable record."""
+
+    serve_mod.ContinuousBatchingScheduler = GridScheduler
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dist.reset_calls()
+        t0 = time.perf_counter()
+        fl = serve_fleet(model, tok, mesh=mesh, prefill_group=prefill_group, n_robots=8,
+                         max_steps=AXIS_TICKS, max_slots=8, scan_rounds=4, trigger="rapid",
+                         verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve_mod.ContinuousBatchingScheduler = ContinuousBatchingScheduler
+    fs = fl["sched"]
+    counts = check_sched_counts(model, fs, 0, 0, launches)
+    calls = dict(dist.DATA_CALLS)
+    want = want_data_calls(model.cfg, fs, len(fs.admit_ms))
+    if fs._nranks > 1 or fs._handoff is not None:
+        if calls != want:
+            raise AssertionError(f"(7f) data-axis collectives {calls}, expected {want}")
+    st = fs.pool_stats()
+    return dict(actions=fl["actions"], offloads=fl["offloads"], cancelled=fl["cancelled"],
+                service_rounds=fl["service_rounds"], decode_rounds=fl["decode_rounds"],
+                record=[(r, o, np.asarray(t)) for r, o, t in fs.record],
+                reserved=fs.reserved, pool=(st.pages_in_use, st.high_water, st.shard_in_use,
+                                            st.shard_high_water),
+                handoffs=fs.handoffs, harvests=fs.harvests, launches=counts, data_calls=calls,
+                data_bytes=dict(dist.DATA_BYTES), mode=fs.round_mode, wall_s=wall,
+                admits=len(fs.admit_ms), rows=fs.rows, local_rows=fs._local_rows,
+                ms_round=fl["engine_s"] * 1e3 / fs.decode_rounds,
+                pool_bytes=0 if fs._pcache is None else
+                sum(fs._pcache[k].nbytes for k in ("kp", "vp")))
+
+
+def hold_fleet_to_one(f, f1, what):
+    """A rank's fleet against one process's: rounds, offloads, cancels,
+    chunk order and every chunk, actions, reservations and ``PoolStats``
+    equal."""
+
+    for k in ("service_rounds", "cancelled", "decode_rounds", "reserved", "pool"):
+        if f[k] != f1[k]:
+            raise AssertionError(f"(7f {what}) {k}: {f[k]} vs one process {f1[k]}")
+    if [(r, o.tolist(), t.tolist()) for r, o, t in f["record"]] != \
+            [(r, o.tolist(), t.tolist()) for r, o, t in f1["record"]]:
+        raise AssertionError(f"(7f {what}) chunks or their order differ from one process's")
+    for k in ("actions", "offloads"):
+        if not np.array_equal(f[k], f1[k]):
+            raise AssertionError(f"(7f {what}) {k} differ from one process's")
+
+
+# (7f c) the MoE layer's input: a 14-token prompt's rows [1, 14, D] (seeded)
+MOE_X_SEED = 12
+
+
+def moe_layer_out(model, skip_sum=False):
+    """Layer 0's MoE over ``MOE_X_SEED``'s rows, every row replicated over
+    the data ranks (an admission prefill's case) -> float32 on the host;
+    ``skip_sum``: a data rank that skips the data-axis sum of its experts'
+    mixture (every rank alike, so the other collectives still pair), the
+    fault the hold must catch."""
+
+    x = np.random.default_rng(MOE_X_SEED).normal(0, 1, (1, 14, model.cfg.d_model))
+    x = torch.as_tensor(x, dtype=model.dtype, device=model.device)
+    real = moe_lib._finish
+
+    def finish(out, p, gathered, dtype):
+        return moe_lib.all_reduce_sum(out.to(dtype), p.tp)
+
+    if skip_sum:
+        moe_lib._finish = finish
+    try:
+        return moe_lib.moe_forward(x, model.layers[0].moe, model.cfg)[0].float().cpu().numpy()
+    finally:
+        moe_lib._finish = real
+
+
+def expert_layer_bytes(model):
+    """The bytes of layer 0's experts (up, gate and down) on this rank."""
+
+    moe = model.layers[0].moe
+    return sum(t.nbytes for t in (moe.up, moe.gate, moe.down))
+
+
+def data_moe_prepare(launches, dev):
+    """(7f c) the one-process phi3.5-moe at ``PHI35_DATA_LAYERS`` (phase 4's
+    seed), all experts: the first prompt's logits and routes, the
+    staggered run, itself teacher-forced along its chunks -> what the data
+    ranks are held to, and its parameters (shared with them)."""
+
+    t0 = time.perf_counter()
+    cfg = get_config(PHI35).replace(num_layers=PHI35_DATA_LAYERS)
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    reqs = requests(np.random.default_rng(11), DATA_MOE_ROBOTS)
+    logits, routes = jamba_first(model, tok, reqs)
+    run = axis_sched_run(model, tok, reqs, launches)[0]
+    gaps, forced = forced_routes(model, tok, reqs, run["chunks"])
+    log(f"  (7f c) one process: {PHI35} at {PHI35_DATA_LAYERS} layers, "
+        f"{cfg.moe.num_experts} experts ({expert_layer_bytes(model)} B a layer), built and run "
+        f"in {time.perf_counter() - t0:.1f} s: {len(run['chunks'])} chunks in {run['rounds']} "
+        f"rounds ({run['mode']}, {run['ms_round']:.2f} ms a round), launches {run['launches']} "
+        "(exact)")
+    one = dict(reqs=reqs, logits=logits, routes=routes, run=run, gaps=gaps, forced=forced,
+               cfg=cfg, expert_bytes=expert_layer_bytes(model), moe_out=moe_layer_out(model))
+    return one, model, tok
+
+
+def data_axis_rank(rank, backend, init, device, parent, moe_parent, moe_one, queue):
+    """One rank of phase 7f, in a process of its own: joins a world of
+    ``DATA_RANKS`` data ranks and a prefill rank, builds openvla-7b at full
+    width on ``FLEET_LAYERS`` layers from the phase-6 model's seed (every
+    parameter equal to the parent's, shared from the parent's card), runs
+    (a) the rapid fleet on the data ranks alone and (b) on the data ranks
+    with the prefill rank, then (c, the data ranks) phi3.5-moe with its
+    experts spread over them: each parameter its block of the parent's
+    one-process model, the first prompt (its own routes, then the one
+    process's; the control without the data-axis sum) and the staggered
+    run; puts (rank, record or error) on ``queue``."""
+
+    try:
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        full = dist.init_rank_grid(rank, data=DATA_RANKS, prefill=1, backend=backend,
+                                   init_method=init, device=device)
+        alone = dist.rank_grid(DATA_RANKS)
+        dev = full.device
+        cfg = get_config("openvla-7b").replace(num_layers=FLEET_LAYERS)
+        t0 = time.perf_counter()
+        groups = {} if full.is_prefill else dict(data_group=full.data_group)
+        model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0), **groups)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        for name, p in model.named_parameters():
+            if not torch.equal(p, parent[name].to(dev)):
+                raise AssertionError(f"rank {rank}: {name} is not the parent's")
+        parent.clear()
+        tok = EpisodeTokenizer(cfg.vocab_size)
+        rec = dict(rank=rank, device=str(dev), build_s=build_s, prefill=full.is_prefill)
+        rows = set()  # the rows of each paged launch (a CUDA graph's at its capture)
+        paged_kernel = kpa.paged_decode_attention
+
+        def paged(q, *a, **kw):
+            rows.add(q.shape[0])
+            return paged_kernel(q, *a, **kw)
+
+        kpa.paged_decode_attention = paged
+        counts = {n: 0 for n in _lib.KERNELS}
+        if alone is not None:
+            rec["a"] = data_fleet_run(model, tok, make_rank_mesh(DATA_RANKS, alone), None,
+                                      counts)
+        rec["b"] = data_fleet_run(model, tok, make_rank_mesh(DATA_RANKS, full), full.handoff,
+                                  counts)
+        rec["launches"] = counts
+        rec["weight_bytes"] = sum(p.nbytes for p in model.parameters())
+        rec["paged_rows"] = sorted(rows)
+        del model
+        torch.cuda.empty_cache()
+        if alone is not None:
+            rows.clear()
+            rec["c"] = data_moe_rank(alone, moe_parent, moe_one, dev)
+            rec["c"]["paged_rows"] = sorted(rows)
+        moe_parent.clear()
+        queue.put((rank, rec))
+        dist.destroy_rank_grid(full)
+    except Exception:  # the rank's failure goes to the parent, which fails the phase
+        import traceback
+
+        queue.put((rank, traceback.format_exc()))
+
+
+def data_moe_rank(grid, moe_parent, one, dev):
+    """(7f c) on a data rank: phi3.5-moe from the same seed with the experts
+    spread over the data ranks, every block its slice of the parent's,
+    then ``jamba_first``, the first prompt and the control with the one
+    process's routes, the staggered run over the rank mesh and, where its
+    chunks differ, its routes teacher-forced along the one process's."""
+
+    cfg = one["cfg"]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0),
+                  data_group=grid.data_group)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    split = 0
+    for name, p in model.named_parameters():
+        _, index = block_of(p)
+        if not torch.equal(p, moe_parent[name][index].to(dev)):
+            raise AssertionError(f"(7f c) data rank {grid.d}: {name} is not its block of the "
+                                 "parent's")
+        split += tuple(p.shape) != global_shape(p)
+    moe_parent.clear()
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    reqs = one["reqs"]
+    logits, routes = jamba_first(model, tok, reqs)
+    routes1 = [sets for sets, _ in one["routes"]]
+    with ForcedRoutes(routes1):
+        forced_logits = first_logits(model, tok, reqs)
+    moe_out, moe_control = moe_layer_out(model), moe_layer_out(model, skip_sum=True)
+    counts = {n: 0 for n in _lib.KERNELS}
+    run = axis_sched_run(model, tok, reqs, counts, make_rank_mesh(DATA_RANKS, grid))[0]
+    chunks = one["run"]["chunks"]
+    differ = any(not np.array_equal(run["chunks"][r], chunks[r]) for r in chunks)
+    forced = forced_routes(model, tok, reqs, chunks)[1] if differ else None
+    return dict(build_s=build_s, split=split, expert_bytes=expert_layer_bytes(model),
+                weight_bytes=sum(p.nbytes for p in model.parameters()), logits=logits,
+                forced_logits=forced_logits, routes=routes, controls={}, run=run,
+                forced=forced, launches=counts, moe_out=moe_out, moe_control=moe_control)
+
+
+def data_axis_phase(model, tok, launches):
+    """(7f) data shards and the prefill as ranks: ``DATA_RANKS`` data ranks
+    and a prefill rank of ``model`` (each its own process, gloo on card 0)
+    serve the rapid fleet without and with the prefill rank, held to one
+    process's same runs over a one-device ``(data 2)`` mesh; then
+    phi3.5-moe with its experts spread over the data ranks, held to one
+    process with every expert."""
+
+    backend, devices = "gloo", [str(model.device)] * (DATA_RANKS + 1)
+    log(f"  backend {backend}: {DATA_RANKS} data ranks and a prefill rank on {devices} "
+        "(collectives staged through pinned host memory)")
+    moe_one, moe_model, _ = data_moe_prepare(launches, model.device)
+    parent = {n: p.detach() for n, p in model.named_parameters()}
+    moe_parent = {n: p.detach() for n, p in moe_model.named_parameters()}
+    t0 = time.perf_counter()
+    started = start_model_axis(backend, devices, parent, moe_parent, moe_one,
+                               target=data_axis_rank, timeout_s=DATA_RANKS_TIMEOUT_S, what="7f")
+    mesh = make_test_mesh(data=DATA_RANKS, devices=[model.device] * DATA_RANKS)
+    one_a = data_fleet_run(model, tok, mesh, None, launches)
+    one_b = data_fleet_run(model, tok, mesh, [model.device], launches)
+    ranks = join_model_axis(*started)
+    spawn_s = time.perf_counter() - t0
+    del moe_parent, moe_model
+    torch.cuda.empty_cache()
+    data_ranks, prefill_rank = ranks[:DATA_RANKS], ranks[DATA_RANKS]
+    for r in ranks:
+        for n in launches:
+            launches[n] += r["launches"][n] + (r["c"]["launches"][n] if "c" in r else 0)
+    # (a) and (b): every rank's fleet equal to one process's
+    for r in data_ranks:
+        hold_fleet_to_one(r["a"], one_a, "a")
+        if r["paged_rows"] != [r["a"]["local_rows"]] or r["a"]["local_rows"] * DATA_RANKS != \
+                one_a["rows"]:
+            raise AssertionError(f"(7f) rank {r['rank']}: paged launches over rows "
+                                 f"{r['paged_rows']}, its block of {one_a['rows']} rows")
+    for r in ranks:
+        hold_fleet_to_one(r["b"], one_b, "b")
+        # a dense stack's round makes no data-axis collective: graphs under gloo
+        for part in ("a", "b"):
+            if part in r and model.graphs and not r[part]["mode"].startswith("cuda graphs"):
+                raise AssertionError(f"(7f {part}) rank {r['rank']}: rounds {r[part]['mode']}")
+    cfg = model.cfg
+    for n, nbytes in prefill_rank["b"]["handoffs"]:
+        want = dist.handoff_bytes(cfg, 1 << (n - 1).bit_length(), 14)
+        if nbytes != want:
+            raise AssertionError(f"(7f b) a handoff of {n} prompts: {nbytes} B, reckoned {want}")
+    card = card_line()
+    for r in ranks:
+        for part in ("a", "b"):
+            if part not in r:
+                continue
+            f, f1 = r[part], (one_a if part == "a" else one_b)
+            log(f"  (7f {part}) rank {r['rank']}{' (prefill)' if r['prefill'] else ''} "
+                f"[{card}]: {f['mode']}; {f['decode_rounds']} rounds, {f['wall_s']:.2f} s, "
+                f"engine ms a round {f['ms_round']:.2f} (one process {f1['ms_round']:.2f}, "
+                f"{f1['mode']}); rows {f['local_rows']} of {f['rows']}, pool "
+                f"{f['pool_bytes'] / 2**20:.1f} MiB (one process "
+                f"{f1['pool_bytes'] / 2**20:.1f}); {f['harvests']} harvests, "
+                f"{len(f['handoffs'])} handoffs; data-axis collectives {f['data_calls']} "
+                f"(exact), bytes {f['data_bytes']}; launches {f['launches']} (exact)")
+    hand = prefill_rank["b"]["handoffs"]
+    log(f"  (7f) ranks equal to one process: (a) {len(one_a['record'])} chunks, "
+        f"{one_a['cancelled']} cancels, offloads {int(one_a['offloads'].sum())}, reservations "
+        f"and PoolStats {one_a['pool']} equal; (b) admissions one window later, "
+        f"{len(one_b['record'])} chunks equal; handoffs (prompts, bytes) {hand} equal to "
+        f"n x 917,504 B of K/V + n x {2 * model.vocab_padded} B of logits at the bucket n; "
+        f"the ranks took {spawn_s:.1f} s from spawn to join, weights a rank "
+        f"{data_ranks[0]['weight_bytes'] / 2**30:.3f} GiB")
+    # (c) the experts over the data ranks
+    one = moe_one
+    want_bytes = one["expert_bytes"] // DATA_RANKS
+    per_token = dist.data_collectives(one["cfg"], DATA_RANKS, sharded=True)
+    for r in data_ranks:
+        c = r["c"]
+        if c["expert_bytes"] != want_bytes:
+            raise AssertionError(f"(7f c) rank {r['rank']}: {c['expert_bytes']} B of experts a "
+                                 f"layer, expected {want_bytes}")
+        if c["run"]["data_calls"] != c["run"]["want_data"]:
+            raise AssertionError(f"(7f c) rank {r['rank']}: data-axis collectives "
+                                 f"{c['run']['data_calls']}, expected {c['run']['want_data']}")
+        if any(c["run"]["collectives"].values()):
+            raise AssertionError(f"(7f c) model-axis collectives {c['run']['collectives']}")
+        if c["paged_rows"] != [4 // DATA_RANKS]:
+            raise AssertionError(f"(7f c) rank {r['rank']}: paged launches over rows "
+                                 f"{c['paged_rows']}, its block of 4")
+    # every data rank's runs alike (not the control: each rank's partial
+    # mixture stands for the whole there)
+    a, b = ({**r["c"], "heads": 0} for r in data_ranks)
+    if not same_jamba_runs(a, b) or not np.array_equal(a["moe_out"], b["moe_out"]):
+        raise AssertionError("(7f c) the data ranks' runs differ")
+    margin, flips, prefill, err, own, _ = hold_jamba_to_one_rank(
+        one, a, what="7f c", vocab=one["cfg"].vocab_size)
+    want = [torch.as_tensor(one["moe_out"])]
+    moe_err, moe_ok = compare([torch.as_tensor(a["moe_out"])], want, [TP_LOGIT_TOL])
+    if not moe_ok:
+        raise AssertionError(f"(7f c) the MoE layer's output: max abs error {moe_err:.4g} past "
+                             "2^-5 of each row's largest |output|")
+    controls = {}
+    for r in data_ranks:
+        c_err, c_ok = compare([torch.as_tensor(r["c"]["moe_control"])], want, [TP_LOGIT_TOL])
+        controls[f"rank {r['rank']}"] = (c_err, not c_ok)
+        if c_ok:
+            raise AssertionError(f"(7f c) rank {r['rank']} without the data-axis sum passes "
+                                 f"TP_LOGIT_TOL (max abs error {c_err:.4g})")
+    c = a
+    log(f"  (7f c) {PHI35} at {PHI35_DATA_LAYERS} layers on {DATA_RANKS} data ranks [{card}]: "
+        f"{c['split']} parameters split, every block equal to the parent's; experts "
+        f"{c['expert_bytes']} B a layer a rank (one process {one['expert_bytes']}), weights "
+        f"{c['weight_bytes'] / 2**30:.3f} GiB; {c['run']['mode']}: {c['run']['rounds']} rounds, "
+        f"{c['run']['ms_round']:.2f} ms a round (one process {one['run']['ms_round']:.2f}); "
+        f"data-axis collectives {c['run']['data_calls']} (exact: {per_token} a decode token); "
+        f"against one process: order and rounds equal, {margin} chunks inside the "
+        f"{MARGIN_TOL:g} margin, {len(flips)} past a routing near-tie {flips}; the first "
+        f"prefill's tokens routed otherwise {prefill}; its logits with the one process's routes "
+        f"max abs error {err:.4g} (own routes {own:.4g}; limit 2^-5 of max |logit| "
+        f"{np.abs(one['logits'][:one['cfg'].vocab_size]).max():.4g}, the real vocab); layer "
+        f"0's MoE over 14 replicated rows max abs "
+        f"error {moe_err:.4g} (limit 2^-5 of each row's largest |output|, max "
+        f"{np.abs(one['moe_out']).max():.4g}); without the data-axis sum: "
+        + ", ".join(f"{n} {e:.4g} ({'caught' if k else 'not caught'})"
+                    for n, (e, k) in controls.items()))
+
+
+# ---------------------------------------------------------------------------
 # phase 7d: MoE and Mamba layers on the model axis (Jamba)
 # ---------------------------------------------------------------------------
 
@@ -4144,11 +4579,12 @@ class ForcedRoutes:
 
 def axis_sched_run(model, tok, reqs, launches, mesh=None):
     """``staggered`` over ``reqs`` (``max_slots=4``, R = 4) with exact
-    launches and every collective counted -> (a picklable record, the
-    scheduler): phases 7d and 7e."""
+    launches and every collective counted, the data axis's beside the
+    ones ``launch.dist`` counts for the run (``want_data_calls``) -> (a
+    picklable record, the scheduler): phases 7d, 7e and 7f."""
 
-    sched = ContinuousBatchingScheduler(model, tok, max_slots=4, scan_rounds=4, mesh=mesh,
-                                        num_pages=len(reqs) * -(-(14 + 56) // 16))
+    sched = GridScheduler(model, tok, max_slots=4, scan_rounds=4, mesh=mesh,
+                          num_pages=len(reqs) * -(-(14 + 56) // 16))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     dist.reset_calls()
@@ -4160,7 +4596,9 @@ def axis_sched_run(model, tok, reqs, launches, mesh=None):
     pc = sched._pcache
     return dict(chunks={r.robot_id: np.asarray(r.tokens) for r in results},
                 order=[r.robot_id for r in results], launches=counts,
-                collectives=dict(dist.CALLS), admits=len(sched.admit_ms),
+                collectives=dict(dist.CALLS), data_calls=dict(dist.DATA_CALLS),
+                want_data=want_data_calls(model.cfg, sched, len(sched.admit_ms)),
+                admits=len(sched.admit_ms),
                 steps=sched.decode_rounds * sched.decode_block, rounds=sched.decode_rounds,
                 wall_s=wall, ms_round=wall * 1e3 / sched.decode_rounds, mode=sched.round_mode,
                 pool_bytes=sum(pc[k].nbytes for k in ("kp", "vp") if k in pc),
@@ -4355,7 +4793,7 @@ def route_flip(one_forced, rank_forced, robot, step, n):
     return None
 
 
-def prefill_flips(one, rank):
+def prefill_flips(one, rank, what="7d"):
     """The first prefill's tokens that the rank routes otherwise than the
     one rank, as (router call, one-rank router gap) pairs; a flip past
     ``MARGIN_TOL`` fails the phase."""
@@ -4364,13 +4802,13 @@ def prefill_flips(one, rank):
     for c, ((sa, ga), (sb, _)) in enumerate(zip(one["routes"], rank["routes"])):
         for t in np.flatnonzero((sa != sb).any(-1)):
             if ga[t] > MARGIN_TOL:
-                raise AssertionError(f"(7d) first prefill: router call {c} routes token {t} "
+                raise AssertionError(f"({what}) first prefill: router call {c} routes token {t} "
                                      f"otherwise than one rank at a gap of {ga[t]:.3g}")
             flips.append((c, round(float(ga[t]), 5)))
     return flips
 
 
-def hold_jamba_to_one_rank(one, rank):
+def hold_jamba_to_one_rank(one, rank, what="7d", vocab=None):
     """Rank 0's record against the one rank's: the harvest order and rounds
     equal; each chunk equal, or differing first at a step where the one
     rank's top-two gap is within ``MARGIN_TOL``, or past a routing near-tie
@@ -4384,8 +4822,8 @@ def hold_jamba_to_one_rank(one, rank):
 
     run, run1 = rank["run"], one["run"]
     if run["order"] != run1["order"] or run["rounds"] != run1["rounds"]:
-        raise AssertionError(f"(7d) harvest order {run['order']} / rounds {run['rounds']} vs one "
-                             f"rank {run1['order']} / {run1['rounds']}")
+        raise AssertionError(f"({what}) harvest order {run['order']} / rounds {run['rounds']} vs "
+                             f"one rank {run1['order']} / {run1['rounds']}")
     n = len(one["reqs"])
     margin, flips = 0, []
     for i, (r, _, _) in enumerate(one["reqs"]):
@@ -4398,26 +4836,29 @@ def hold_jamba_to_one_rank(one, rank):
             continue
         flip = route_flip(one["forced"], rank["forced"], i, j, n)
         if flip is None or flip > MARGIN_TOL:
-            raise AssertionError(f"(7d) robot {r}: chunk differs at step {j} where the top-two "
-                                 f"gap is {one['gaps'][i, j]:.3g} and the routes "
+            raise AssertionError(f"({what}) robot {r}: chunk differs at step {j} where the "
+                                 f"top-two gap is {one['gaps'][i, j]:.3g} and the routes "
                                  + ("agree" if flip is None else f"part at a gap of {flip:.3g}"))
         flips.append(round(flip, 4))
-    prefill = prefill_flips(one, rank)
-    want = [torch.as_tensor(one["logits"])[None]]
-    own = compare([torch.as_tensor(rank["logits"])[None]], want, [TP_LOGIT_TOL])[0]
-    err, ok = compare([torch.as_tensor(rank["forced_logits"])[None]], want, [TP_LOGIT_TOL])
+    prefill = prefill_flips(one, rank, what)
+    # over the real vocab (``vocab``): a padded id's -1e9 would set the
+    # row's scale
+    want = [torch.as_tensor(one["logits"][:vocab])[None]]
+    own = compare([torch.as_tensor(rank["logits"][:vocab])[None]], want, [TP_LOGIT_TOL])[0]
+    err, ok = compare([torch.as_tensor(rank["forced_logits"][:vocab])[None]], want,
+                      [TP_LOGIT_TOL])
     if not ok:
-        raise AssertionError(f"(7d) first prefill's logits with the one rank's routes: max abs "
+        raise AssertionError(f"({what}) first prefill's logits with the one rank's routes: max abs "
                              f"error {err:.4g} past 2^-5 of max |logit| "
-                             f"{np.abs(one['logits']).max():.4g}")
+                             f"{np.abs(one['logits'][:vocab]).max():.4g}")
     if not prefill and not np.array_equal(rank["logits"], rank["forced_logits"]):
-        raise AssertionError("(7d) the same routes forced moved the first prefill's logits")
+        raise AssertionError(f"({what}) the same routes forced moved the first prefill's logits")
     controls = {}
     for name, logits in rank["controls"].items():
-        c_err, c_ok = compare([torch.as_tensor(logits)[None]], want, [TP_LOGIT_TOL])
+        c_err, c_ok = compare([torch.as_tensor(logits[:vocab])[None]], want, [TP_LOGIT_TOL])
         controls[name] = (c_err, not c_ok)
         if c_ok:
-            raise AssertionError(f"(7d) a rank that skips the {name} all-reduce passes "
+            raise AssertionError(f"({what}) a rank that skips the {name} all-reduce passes "
                                  f"TP_LOGIT_TOL (max abs error {c_err:.4g})")
     return margin, flips, prefill, err, own, controls
 

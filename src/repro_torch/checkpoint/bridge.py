@@ -25,7 +25,8 @@ of each of its parts: Mamba's ``in_proj`` and the mLSTM's ``up_proj`` of
 x and z, the mLSTM's ``w_if`` / ``if_bias`` of the i and f gates, the
 sLSTM's ``w_in`` / ``w_rec`` / ``bias`` of its four gates and its ``up``
 of gate and val), so the ranks' models put together hold the reference's
-weights.
+weights; a data rank's MoE layers (``Model(data_group=...)``) take their
+block of the ``[E, ...]`` expert arrays the same way.
 
 ``reference_tensors`` is the inverse: the port's parameters, or any
 tensors keyed like them (gradients, AdamW moments), in the reference's flat

@@ -61,7 +61,9 @@ def paged_decode_attention_sharded(q, k_pages, v_pages, page_table, cache_lens, 
                                    window: int = 0, logit_cap: float = 0.0):
     """Rows sharded over the mesh's ``data`` axis (the reference's
     ``shard_map`` of ``kernels/paged_attention.py:162``): the B rows split
-    into ``data`` contiguous blocks, each through ``ops.paged_decode_attention``
+    into the ``mesh.local_shards`` contiguous blocks this process holds
+    (every data shard in one process; one, its own rows, on a data rank,
+    ``launch.dist.RankGrid``), each through ``ops.paged_decode_attention``
     (one launch of the kernel a block on CUDA, the plain version on the
     CPU) against the whole pool with its global page ids; the blocks'
     outputs concatenate.  Decode attention is per-row math, so on the CPU
@@ -71,7 +73,7 @@ def paged_decode_attention_sharded(q, k_pages, v_pages, page_table, cache_lens, 
 
     from repro_torch.kernels import ops
 
-    n = int(mesh.shape["data"])
+    n = mesh.local_shards
     b = q.shape[0]
     if b % n:
         raise ValueError(f"{b} rows do not divide over a data axis of {n}")

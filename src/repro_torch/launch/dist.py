@@ -1,6 +1,7 @@
-"""The mesh's ``model`` axis as ``torch.distributed`` ranks (the torch
-counterpart of the reference's multi-device runtime, where GSPMD places
-the reductions of a tensor-parallel layer).
+"""The mesh's ``model`` and ``data`` axes as ``torch.distributed`` ranks
+(the torch counterpart of the reference's multi-device runtime, where
+GSPMD places the reductions of a tensor-parallel layer and the exchanges
+of an expert-parallel one).
 
 One process per model shard.  ``init_model_group`` joins the process group
 of the ``model`` axis; the backend is the caller's choice, ``"nccl"`` (one
@@ -16,10 +17,24 @@ lies on a card, here and nowhere else.  Staging syncs the host with the
 card, so a gloo group's rounds run eagerly (``ModelGroup.graphs``): only an
 NCCL group's collectives can be captured in a CUDA graph.
 
-``CALLS`` counts the collectives by name, one for each call that reaches
-``torch.distributed``, and ``BYTES`` their result bytes (an all-reduce's
-tensor, an all-gather's concatenation; ``runtime.graphs.GraphedCall`` keeps
-both right across graph replays, as it keeps the kernel launches).
+``CALLS`` counts the model axis's collectives by name, one for each call
+that reaches ``torch.distributed``, and ``BYTES`` their result bytes (an
+all-reduce's tensor, an all-gather's concatenation, a broadcast's tensor);
+``DATA_CALLS`` / ``DATA_BYTES`` count the data axis's and the prefill
+handoff's so (``runtime.graphs.GraphedCall`` keeps all four right across
+graph replays, as it keeps the kernel launches).
+
+**The rank grid.**  ``init_rank_grid`` (or ``rank_grid`` inside a world
+that is already up) lays ``D * M + P`` ranks out as a (data, model) grid
+plus ``P`` prefill ranks: rank ``(d, m)`` is world rank ``d * M + m``, the
+prefill ranks come last (as ``launch.mesh.split_device_groups`` puts the
+prefill on the last devices).  Each grid rank joins its model group (its
+row; the ``ModelGroup`` of a tensor-parallel ``Model``), its data group
+(its column: the engine's rows and the experts spread over it) and, with
+a prefill rank, the handoff group of every rank of the grid, over which
+the prefill rank hands its K/V and logits to the decode ranks and the
+decode ranks hand each window's tokens back.  A prefill rank is in no
+model or data group.  A group of one makes every collective the identity.
 
 ``collectives`` and ``collective_bytes`` give what a rank issues for one
 decode token or one prefill from the layer kinds alone: the count that
@@ -30,24 +45,30 @@ does for every stack of ``configs`` over 2, 4 and 16 ranks.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 BACKENDS = ("nccl", "gloo")
-# collectives issued, by name (the counterpart of ``kernels._lib.LAUNCHES``)
+# the model axis's collectives issued, by name (the counterpart of
+# ``kernels._lib.LAUNCHES``), and their result bytes
 CALLS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
-# their result bytes, by name
 BYTES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+# the data axis's and the prefill handoff's
+DATA_CALLS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+DATA_BYTES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 
 
 @dataclass(frozen=True, eq=False)
 class ModelGroup:
-    """The ranks of the ``model`` axis, as one rank sees them: its own
-    ``rank`` of ``size``, the ``backend``, its ``device`` and every rank's
-    device (``devices[m]``), and the ``torch.distributed`` process group
-    (``pg``; None for a group of one)."""
+    """The ranks of one axis, as one rank sees them: its own ``rank`` of
+    ``size``, the ``backend``, its ``device`` and every rank's device
+    (``devices[m]``), the ``torch.distributed`` process group (``pg``;
+    None for a group of one) and the ``axis`` it spans (``"model"``,
+    ``"data"`` or ``"handoff"``), which decides where its collectives are
+    counted."""
 
     rank: int
     size: int
@@ -55,6 +76,7 @@ class ModelGroup:
     device: torch.device
     devices: Tuple[torch.device, ...]
     pg: object = None
+    axis: str = "model"
 
     @property
     def graphs(self) -> bool:
@@ -74,22 +96,12 @@ def init_model_group(rank: int, world: int, *, backend: str, init_method: Option
     own (``device="cuda:<i>"``, made current here); gloo ranks on one host
     want ``GLOO_SOCKET_IFNAME=lo`` in their environment."""
 
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError(f"an NCCL rank needs a CUDA device, not {device}")
-    if not 0 <= rank < world:
-        raise ValueError(f"rank {rank} of a world of {world}")
     if world == 1:
+        device = _rank_device(rank, world, backend, device)
         return ModelGroup(0, 1, backend, device, (device,))
     import torch.distributed as dist
 
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    device = _join(rank, world, backend, init_method, device)
     names = [None] * world
     dist.all_gather_object(names, str(device))
     return ModelGroup(rank, world, backend, device, tuple(torch.device(n) for n in names),
@@ -103,6 +115,146 @@ def destroy_model_group(group: Optional[ModelGroup]) -> None:
         import torch.distributed as dist
 
         dist.destroy_process_group()
+
+
+@dataclass(frozen=True, eq=False)
+class RankGrid:
+    """This process's place on a grid of ``data`` x ``model`` ranks plus
+    ``prefill`` prefill ranks (``rank_grid``): its world ``rank``, every
+    grid rank's device (``devices``, by grid rank), and its groups: the
+    model group (its row), the data group (its column) and the handoff
+    group (every grid rank, the prefill rank last; None without a prefill
+    rank).  A prefill rank has no model or data group."""
+
+    data: int
+    model: int
+    prefill: int
+    rank: int
+    backend: str
+    device: torch.device
+    devices: Tuple[torch.device, ...]
+    model_group: Optional[ModelGroup]
+    data_group: Optional[ModelGroup]
+    handoff: Optional[ModelGroup]
+
+    @property
+    def is_prefill(self) -> bool:
+        return self.rank >= self.data * self.model
+
+    @property
+    def d(self) -> int:
+        """This rank's place on the data axis (0 on a prefill rank)."""
+
+        return 0 if self.is_prefill else self.rank // self.model
+
+    @property
+    def m(self) -> int:
+        """This rank's place on the model axis (0 on a prefill rank)."""
+
+        return 0 if self.is_prefill else self.rank % self.model
+
+
+def rank_grid(data: int, model: int = 1, prefill: int = 0) -> Optional[RankGrid]:
+    """Lay a grid of ``data`` x ``model`` ranks and ``prefill`` (0 or 1)
+    prefill ranks over the first ``data * model + prefill`` world ranks of
+    the default process group, which must be up (every process of the
+    world calls this, in the same order: each group is a
+    ``torch.distributed.new_group``) -> this process's ``RankGrid``, or
+    None for a process outside the grid."""
+
+    import torch.distributed as dist
+
+    if data < 1 or model < 1 or prefill not in (0, 1):
+        raise ValueError(f"a grid of data {data}, model {model}, prefill {prefill}: data and "
+                         "model at least 1, prefill 0 or 1")
+    n = data * model + prefill
+    world, r = dist.get_world_size(), dist.get_rank()
+    if n > world:
+        raise ValueError(f"a grid of {n} ranks in a world of {world}")
+    backend = dist.get_backend()
+    names = [None] * world
+    dist.all_gather_object(names, str(_DEVICE or "cpu"))
+    devices = tuple(torch.device(x) for x in names[:n])
+
+    def group(members, axis):
+        # every process makes every group, in the same order
+        pg = dist.new_group(members) if len(members) > 1 else None
+        if r not in members:
+            return None
+        return ModelGroup(members.index(r), len(members), backend, devices[r],
+                          tuple(devices[i] for i in members), pg, axis)
+
+    rows = [group([d * model + m for m in range(model)], "model") for d in range(data)]
+    cols = [group([d * model + m for d in range(data)], "data") for m in range(model)]
+    handoff = group(list(range(n)), "handoff") if prefill else None
+    if r >= n:
+        return None
+    return RankGrid(data, model, prefill, r, backend, devices[r], devices,
+                    next((g for g in rows if g), None), next((g for g in cols if g), None),
+                    handoff)
+
+
+# this process's device, as ``init_model_group`` / ``init_rank_grid`` set it
+_DEVICE: Optional[torch.device] = None
+
+
+def init_rank_grid(rank: int, *, data: int, model: int = 1, prefill: int = 0, backend: str,
+                   init_method: Optional[str] = None, device="cuda") -> RankGrid:
+    """Join a world of ``data * model + prefill`` ranks as ``rank`` on
+    ``device`` (``torch.distributed.init_process_group``, as
+    ``init_model_group``) and lay the grid over it (``rank_grid``).  Gloo
+    ranks may share a card (or the CPU); NCCL wants a card a rank."""
+
+    world = data * model + prefill
+    _join(rank, world, backend, init_method, device)
+    return rank_grid(data, model, prefill)
+
+
+def _rank_device(rank, world, backend, device) -> torch.device:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"an NCCL rank needs a CUDA device, not {device}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a world of {world}")
+    return device
+
+
+def _join(rank, world, backend, init_method, device) -> torch.device:
+    """``init_process_group`` as ``rank`` of ``world`` on ``device`` (made
+    current on a card) -> the device, kept for ``rank_grid``."""
+
+    global _DEVICE
+    import torch.distributed as dist
+
+    device = _rank_device(rank, world, backend, device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    _DEVICE = device
+    return device
+
+
+def destroy_rank_grid(grid: Optional[RankGrid]) -> None:
+    """Leave the world the grid lies in."""
+
+    import torch.distributed as dist
+
+    if grid is not None and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _counts(group: ModelGroup):
+    return (CALLS, BYTES) if group.axis == "model" else (DATA_CALLS, DATA_BYTES)
+
+
+def _count(group: ModelGroup, name: str, nbytes: int) -> None:
+    calls, sizes = _counts(group)
+    calls[name] += 1
+    sizes[name] += int(nbytes)
 
 
 def _staged(x: torch.Tensor, group: ModelGroup) -> bool:
@@ -124,8 +276,7 @@ def all_reduce_sum(x: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor
         return x
     import torch.distributed as dist
 
-    CALLS["all_reduce"] += 1
-    BYTES["all_reduce"] += x.numel() * x.element_size()
+    _count(group, "all_reduce", x.numel() * x.element_size())
     if _staged(x, group):
         h = _pinned(x)
         dist.all_reduce(h, group=group.pg)
@@ -143,17 +294,46 @@ def all_gather_cat(x: torch.Tensor, dim: int, group: Optional[ModelGroup]) -> to
         return x
     import torch.distributed as dist
 
-    CALLS["all_gather"] += 1
-    BYTES["all_gather"] += x.numel() * x.element_size() * group.size
+    _count(group, "all_gather", x.numel() * x.element_size() * group.size)
     src = _pinned(x) if _staged(x, group) else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(group.size)]
     dist.all_gather(parts, src, group=group.pg)
     return torch.cat(parts, dim).to(x.device)
 
 
+def reduce_rows(x: torch.Tensor, group: Optional[ModelGroup]) -> torch.Tensor:
+    """The reduce-scatter of rows: the sum of ``x`` [B, ...] over the
+    group's ranks, this rank's block of ``B / size`` rows of it (an
+    all-reduce, then the rank's slice)."""
+
+    if group is None or group.size == 1:
+        return x
+    n = x.shape[0] // group.size
+    return all_reduce_sum(x, group).narrow(0, group.rank * n, n)
+
+
+def broadcast(x: torch.Tensor, src: int, group: Optional[ModelGroup]) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank: the others pass a buffer
+    of its shape and dtype -> the tensor on ``x``'s device."""
+
+    if group is None or group.size == 1:
+        return x
+    import torch.distributed as dist
+
+    _count(group, "broadcast", x.numel() * x.element_size())
+    if _staged(x, group):
+        h = _pinned(x)
+        dist.broadcast(h, dist.get_global_rank(group.pg, src), group=group.pg)
+        return h.to(x.device)
+    x = x.contiguous()
+    dist.broadcast(x, dist.get_global_rank(group.pg, src), group=group.pg)
+    return x
+
+
 def reset_calls() -> None:
-    for name in CALLS:
-        CALLS[name] = BYTES[name] = 0
+    for counts in (CALLS, BYTES, DATA_CALLS, DATA_BYTES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -256,3 +436,72 @@ def collective_bytes(cfg, rows: int, prompt: int = 1, ranks: int = 2, *,
         frames = prompt if frames is None else frames
         reduce += 2 * cfg.num_encoder_layers * rows * frames * d * it
     return {"all_reduce": int(reduce), "all_gather": int(gather)}
+
+
+# ---------------------------------------------------------------------------
+# the data axis's and the handoff's collectives
+# ---------------------------------------------------------------------------
+
+
+def experts_split(cfg, data: int) -> bool:
+    """Whether ``cfg``'s experts spread over ``data`` data ranks (the
+    ``"expert": ("data",)`` rule: E divides over them)."""
+
+    return cfg.moe is not None and data > 1 and cfg.moe.num_experts % data == 0
+
+
+def _moe_layers(cfg) -> int:
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)) if cfg.d_ff > 0 else 0
+
+
+def data_collectives(cfg, data: int, *, sharded: bool, moe_impl: str = "dense"
+                     ) -> Dict[str, int]:
+    """The data-axis collectives of one call of ``cfg``'s stack (a decode
+    token, or a prefill) on a data rank of ``data``: an MoE layer whose
+    rows are sharded over the data ranks (``sharded``: a decode round)
+    gathers its rows and reduce-scatters its mixture where the experts
+    spread over the ranks, and gathers its rows under the capacity
+    dispatch where they do not; an MoE layer over replicated rows (a
+    prefill, a split lane) all-reduces its mixture where the experts
+    spread.  Every other layer makes none."""
+
+    n, split = _moe_layers(cfg), experts_split(cfg, data)
+    gather = n * sharded * (split or moe_impl == "capacity")
+    return {"all_reduce": n * split, "all_gather": gather, "broadcast": 0}
+
+
+def data_collective_bytes(cfg, rows: int, prompt: int, data: int, *, sharded: bool,
+                          moe_impl: str = "dense") -> Dict[str, int]:
+    """The result bytes of ``data_collectives`` over ``rows`` rows of
+    ``prompt`` tokens a data rank sees: a gather's concatenation of every
+    rank's rows in the model's dtype, a reduction's float32 partials of
+    every row it sums (the gathered rows, or the replicated ones)."""
+
+    calls = data_collectives(cfg, data, sharded=sharded, moe_impl=moe_impl)
+    it = getattr(torch, cfg.dtype).itemsize
+    seen = rows * prompt * cfg.d_model * (data if sharded else 1)
+    return {"all_reduce": calls["all_reduce"] * seen * 4,
+            "all_gather": calls["all_gather"] * seen * it, "broadcast": 0}
+
+
+def harvest_bytes(rows: int, steps: int, data: int, prefill: int) -> Dict[str, int]:
+    """The result bytes of one window's harvest over ``rows`` rows of
+    ``steps`` tokens (int64): the data ranks' gather of their blocks, then,
+    with a prefill rank, the broadcast of every row's tokens to it."""
+
+    every = rows * steps * 8
+    return {"all_reduce": 0, "all_gather": every if data > 1 else 0,
+            "broadcast": every if prefill else 0}
+
+
+def handoff_bytes(cfg, batch: int, prompt: int) -> int:
+    """The bytes a prefill rank hands to the decode ranks for a prefill of
+    ``batch`` prompts of ``prompt`` tokens (``Model.handoff_layout``: the
+    last logits and the dense cache, each in its dtype): for openvla-7b
+    cut to 4 layers, ``batch`` x 917,504 B of K/V at 14 tokens plus
+    ``batch`` x 2 x ``vocab_padded`` B of bf16 logits."""
+
+    from repro_torch.models.model import Model
+
+    layout = Model(cfg, device="meta").handoff_layout(batch, prompt)
+    return sum(math.prod(shape) * dtype.itemsize for _, shape, dtype in layout)

@@ -40,8 +40,14 @@ Where the reference's record differs, and why:
     ``collective_breakdown`` gives them by op in GB.  Under its ``act_seq``
     / ``kv_seq`` rules (``RULE_OVERRIDES``) GSPMD may place collectives the
     port does not run (its ranks hold whole sequences), so the two terms
-    are not the same quantity.  The term is modeled from the counts, not
-    measured.  It is None, with the reason in ``collective_note``, for a
+    are not the same quantity.  An MoE stack's term adds its experts'
+    exchanges over the ``data`` axis of D ranks (``data_all_gather`` /
+    ``data_all_reduce``, ``launch.dist.data_collective_bytes``: where the
+    batch shards over data, each MoE layer gathers its rows and
+    reduce-scatters its float32 mixture over the D ranks; where it does not,
+    it all-reduces the mixture; each where the experts spread over data or
+    the capacity dispatch needs every row).  The term is modeled from the
+    counts, not measured.  It is None, with the reason in ``collective_note``, for a
     stack whose widths do not divide over the model axis
     (``check_model_axis``: starcoder2-3b's 24 heads and xlstm-125m's 4 over
     16 ranks) and for ``train``, since the port runs no training over a
@@ -69,7 +75,8 @@ from repro_torch.configs import (
     get_config,
     supports_shape,
 )
-from repro_torch.launch.dist import collective_bytes, collectives
+from repro_torch.launch.dist import (collective_bytes, collectives, data_collective_bytes,
+                                     data_collectives)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.sharding import make_rules, pspec_tree, shard_shape
 from repro_torch.models.model import Model, check_model_axis
@@ -172,10 +179,12 @@ def input_specs(cfg: ModelConfig, shape: InputShape):
     return out, logical
 
 
-def collective_term(cfg: ModelConfig, shape: InputShape, mesh, rules):
-    """The result bytes of the collectives one rank of the mesh's ``model``
-    axis issues in the step, by op (``launch.dist.collective_bytes``) ->
-    (bytes by op, or None; what was counted, or why nothing was)."""
+def collective_term(cfg: ModelConfig, shape: InputShape, mesh, rules, moe_impl: str = "dense"):
+    """The result bytes of the collectives one rank of the mesh issues in
+    the step, by op: the ``model`` axis's (``launch.dist.collective_bytes``)
+    and an MoE stack's experts' over the ``data`` axis
+    (``data_collective_bytes``, as ``data_all_gather`` / ``data_all_reduce``)
+    -> (bytes by op, or None; what was counted, or why nothing was)."""
 
     ranks = int(mesh.shape.get("model", 1))
     if shape.kind == "train":
@@ -193,8 +202,18 @@ def collective_term(cfg: ModelConfig, shape: InputShape, mesh, rules):
     by_op = collective_bytes(cfg, rows, prompt, ranks, frontend=frontend)
     n = collectives(cfg, prompt)
     step = "one decode token" if prompt == 1 else f"a prefill of {prompt} tokens"
-    return by_op, (f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers "
-                   f"a rank issues for {step} of {rows} rows over {ranks} ranks")
+    note = (f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers "
+            f"a rank issues for {step} of {rows} rows over {ranks} ranks")
+    data = int(mesh.shape.get("data", 1))
+    sharded = rows < shape.global_batch
+    nd = data_collectives(cfg, data, sharded=sharded, moe_impl=moe_impl)
+    if nd["all_reduce"] or nd["all_gather"]:
+        db = data_collective_bytes(cfg, rows, prompt, data, sharded=sharded, moe_impl=moe_impl)
+        by_op.update({f"data_{k}": v for k, v in db.items() if k != "broadcast"})
+        note += (f"; its experts over {data} data ranks, the rows "
+                 f"{'sharded' if sharded else 'replicated'}: {nd['all_gather']} all-gathers "
+                 f"and {nd['all_reduce']} all-reduces")
+    return by_op, note
 
 
 def model_flops_for(cfg: ModelConfig, shape: InputShape) -> float:
@@ -234,7 +253,7 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
                                  rules)[1]
     mem_bytes = sum(parts.values())
     est = estimate(cfg, shape, optimized=opt)
-    coll, note = collective_term(cfg, shape, mesh, rules)
+    coll, note = collective_term(cfg, shape, mesh, rules, model.moe_impl)
     terms = roofline_from_compiled(
         arch=arch, shape=shape_name, mesh_name=mesh_name, chips=chips, flops=est.flops,
         bytes_accessed=est.hbm_bytes,

@@ -11,8 +11,11 @@ CPU (the tests) or on one card (``chip_smoke.py``).
 A rank mesh (``make_rank_mesh``) is one rank's view of a mesh whose
 ``model`` axis is a ``torch.distributed`` group (``launch/dist.py``): it
 holds the group and its own rank, and column ``m`` of its devices is rank
-``m``'s device, once a data shard.  A mesh of one process has no group
-and rank 0.
+``m``'s device, once a data shard.  Over a rank grid
+(``launch.dist.RankGrid``) the ``data`` axis is ranks too: row ``d``,
+column ``m`` is rank ``(d, m)``'s own device, and the mesh holds the grid
+and the rank's data group; a prefill rank's mesh holds the grid alone.  A
+mesh of one process has no group and rank 0.
 """
 
 from __future__ import annotations
@@ -27,9 +30,14 @@ class Mesh:
     """``devices``: an ndarray of ``torch.device`` shaped like the mesh;
     ``axis_names``: one name per axis; ``shape``: ``{axis: size}``;
     ``group``: the ``model`` axis's ranks (``launch.dist.ModelGroup``; None
-    in one process), and ``rank``, this process's place on it."""
+    in one process), and ``rank``, this process's place on it;
+    ``data_group``: the ``data`` axis's ranks where they are processes
+    (None where the data shards share this process's device), and
+    ``grid``, the ``launch.dist.RankGrid`` the mesh lies on (None in one
+    process)."""
 
-    def __init__(self, devices, axis_names: Sequence[str], group=None):
+    def __init__(self, devices, axis_names: Sequence[str], group=None, data_group=None,
+                 grid=None):
         flat = [torch.device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
         shape = np.asarray(devices, dtype=object).shape
         if len(shape) != len(axis_names):
@@ -41,10 +49,31 @@ class Mesh:
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
         self.group = group
+        self.data_group = data_group if data_group is not None and data_group.size > 1 else None
+        self.grid = grid
 
     @property
     def rank(self) -> int:
         return self.group.rank if self.group is not None else 0
+
+    @property
+    def data_rank(self) -> int:
+        """This process's place on the data axis (0 in one process)."""
+
+        return self.data_group.rank if self.data_group is not None else 0
+
+    @property
+    def local_shards(self) -> int:
+        """The data shards this process holds: every one in one process, 1
+        where the data axis is ranks."""
+
+        return 1 if self.data_group is not None else int(self.shape.get("data", 1))
+
+    @property
+    def prefill_rank(self) -> bool:
+        """Whether this process is the grid's prefill rank."""
+
+        return self.grid is not None and self.grid.is_prefill
 
     @property
     def distinct_devices(self) -> List[torch.device]:
@@ -110,14 +139,28 @@ def make_test_mesh(*, data: int, model: int = 1, devices: Optional[Sequence] = N
 
 
 def make_rank_mesh(data: int, group) -> Mesh:
-    """A (data, model) mesh whose ``model`` axis is ``group``'s ranks
-    (``launch.dist.ModelGroup``): column ``m`` is rank ``m``'s device,
+    """A (data, model) mesh whose ``model`` axis is ranks.  ``group`` a
+    ``launch.dist.ModelGroup``: column ``m`` is rank ``m``'s device,
     repeated ``data`` times (the data shards of one device, as
-    ``make_test_mesh`` repeats a device); the mesh keeps the group and this
-    process's rank."""
+    ``make_test_mesh`` repeats a device).  ``group`` a
+    ``launch.dist.RankGrid`` of ``data`` data ranks: row ``d``, column
+    ``m`` is rank ``(d, m)``'s device, and the mesh holds the grid, the
+    rank's model group and its data group (a prefill rank's: neither).
+    The mesh keeps the group and this process's rank."""
 
     if data < 1:
         raise ValueError(f"data={data}: at least 1")
+    from repro_torch.launch.dist import RankGrid
+
+    if isinstance(group, RankGrid):
+        if data != group.data:
+            raise ValueError(f"data={data} on a grid of {group.data} data ranks")
+        n = group.data * group.model
+        devs = np.empty(n, dtype=object)
+        devs[:] = [torch.device(d) for d in group.devices[:n]]
+        mg = group.model_group if group.model_group is not None and group.model > 1 else None
+        return Mesh(devs.reshape(group.data, group.model), ("data", "model"), group=mg,
+                    data_group=group.data_group, grid=group)
     devs = np.empty((data, group.size), dtype=object)
     for m, d in enumerate(group.devices):
         devs[:, m] = [torch.device(d)] * data

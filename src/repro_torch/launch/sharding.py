@@ -14,7 +14,9 @@ The port runs eagerly, not under GSPMD: ``shard(x, *axes)`` returns ``x``
 itself.  The ``sharding_rules`` context makes a mesh active
 (``active_mesh``): the paged decode attention reads it and splits its rows
 over the ``data`` axis (``kernels.paged_attention.
-paged_decode_attention_sharded``); ``no_sharding`` suspends it.
+paged_decode_attention_sharded``), and where that axis is ranks the MoE
+layers read from it that the rows they see are the rank's block
+(``rows_group``); ``no_sharding`` suspends it.
 """
 
 from __future__ import annotations
@@ -111,6 +113,14 @@ def active_mesh():
     return _CTX.mesh
 
 
+def rows_group():
+    """The data ranks whose blocks of rows the calls inside see (the
+    active mesh's ``data_group``: a scheduler's decode round over data
+    ranks), or None where every rank sees every row."""
+
+    return getattr(_CTX.mesh, "data_group", None)
+
+
 def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
     return math.prod(mesh.shape[a] for a in axes) if axes else 1
 
@@ -164,33 +174,40 @@ def local_index(shape: Sequence[int], pspec: Sequence[MeshAxes], mesh, rank: int
     """The index of model-axis rank ``rank``'s block of an array of
     ``shape`` laid out by ``pspec`` over ``mesh``: a dim that ``pspec``
     maps to ``"model"`` is cut into ``mesh.shape["model"]`` contiguous
-    blocks and the rank keeps block ``rank``; every other dim is whole (a
-    rank holds each of its data shards' blocks: they share its device).  A
-    dim mapped to ``"model"`` with other axes raises.
+    blocks and the rank keeps block ``rank``; a dim mapped to ``"data"``
+    is cut so, block ``mesh.data_rank``, where the data axis is ranks
+    (``mesh.data_group``); every other dim is whole (a rank holds each of
+    its data shards' blocks where they share its device).  A dim mapped to
+    more than one axis raises.
 
     ``parts[i]`` (default 1): dim ``i`` is that many equal parts laid end
     to end, each cut so (Mamba's ``in_proj``, x | z): its entry is the
     list of the positions of the rank's block of every part, in order,
     where one part gives a slice."""
 
-    m = int(mesh.shape.get("model", 1))
+    ranks = {"model": (int(mesh.shape.get("model", 1)), rank)}
+    if getattr(mesh, "data_group", None) is not None:
+        ranks["data"] = (int(mesh.shape["data"]), mesh.data_rank)
     parts = tuple(parts) + (1,) * (len(shape) - len(parts))
     out = []
     for dim, entry, k in zip(shape, tuple(pspec) + (None,) * (len(shape) - len(pspec)), parts):
         axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
-        if "model" not in axes or m == 1:
+        cut = [a for a in axes if a in ranks and ranks[a][0] > 1]
+        if not cut:
             out.append(slice(None))
             continue
-        if axes != ("model",):
-            raise ValueError(f"dim {dim} over {axes}: a rank holds a model-axis block only")
+        if len(axes) > 1:
+            raise ValueError(f"dim {dim} over {axes}: a rank holds a model-axis block only (or a "
+                             "data-axis one where the data axis is ranks)")
+        m, r = ranks[cut[0]]
         if dim % (m * k):
-            raise ValueError(f"dim {dim} in {k} parts does not divide over the model axis "
+            raise ValueError(f"dim {dim} in {k} parts does not divide over the {cut[0]} axis "
                              f"({m} ranks)")
         n, part = dim // (m * k), dim // k
         if k == 1:
-            out.append(slice(rank * n, (rank + 1) * n))
+            out.append(slice(r * n, (r + 1) * n))
         else:
-            out.append([j * part + rank * n + i for j in range(k) for i in range(n)])
+            out.append([j * part + r * n + i for j in range(k) for i in range(n)])
     return tuple(out)
 
 

@@ -67,6 +67,14 @@ whole on every rank.  Heads, Mamba heads or sLSTM widths that do not
 divide over the ranks, and training, raise ``NotImplementedError``
 (ROADMAP queue I).  ``param_logical``, ``abstract_params`` and
 ``cache_logical`` keep the reference's global layout.
+
+**The data axis.**  ``Model(data_group=d)`` with a data group of D > 1
+ranks (``launch.dist.RankGrid``): the MoE layers hold the rank's block of
+the ``expert`` axis (E / D experts, where E divides over D, by the
+``"expert": ("data",)`` rule; all E otherwise), drawn in the one-rank
+order, and exchange their tokens over the data ranks
+(``models/moe.py``).  Every other parameter is the model group's block,
+whole over data.
 """
 
 from __future__ import annotations
@@ -145,6 +153,10 @@ _STATE_AXES = {
     "mm": (None, "batch", None),
     **{name: (None, "batch", "state") for name in ("sc", "sn", "sh", "sm")},
 }
+# the axis of each recurrent state tensor [L_kind, B, ...] that a rank of
+# the model axis holds a block of (Mamba heads and channels, mLSTM heads,
+# sLSTM units; the sLSTM's h is whole)
+_STATE_BLOCK = {"h": 2, "conv": 3, "mC": 2, "mn": 2, "mm": 2, "sc": 2, "sn": 2, "sm": 2}
 _TOP_AXES = {
     "embed.table": ("vocab", "embed"), "mod_proj.w": ("embed", "embed"),
     "final_norm.scale": (None,), "enc_norm.scale": (None,), "lm_head.w": ("embed", "vocab"),
@@ -250,7 +262,8 @@ class Block(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
-                 moe_impl: str = "dense", cache_cross_kv: bool = False, group=None):
+                 moe_impl: str = "dense", cache_cross_kv: bool = False, group=None,
+                 data_group=None):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
         (default: a generator on ``device`` seeded with 0).  On
         ``device="meta"`` the model is abstract (the reference's
@@ -276,7 +289,11 @@ class Model(nn.Module):
         ``group`` (a ``launch.dist.ModelGroup`` of M > 1 ranks): this model
         is the group's rank ``group.rank`` of a tensor-parallel model (see
         the module's docstring); every rank builds it with the same
-        ``generator`` seed and calls its entry points in the same order."""
+        ``generator`` seed and calls its entry points in the same order.
+        ``data_group`` (a ``ModelGroup`` of the data axis, D > 1 ranks): the
+        MoE layers spread their experts over it (see the module's
+        docstring); a stack without MoE layers holds the same blocks on
+        every data rank."""
 
         super().__init__()
         if moe_impl not in MOE_IMPLS:
@@ -287,6 +304,7 @@ class Model(nn.Module):
         self.cache_cross_kv = cache_cross_kv
         self.device = torch.device(device)
         self.group = group if group is not None and group.size > 1 else None
+        self.data_group = data_group if data_group is not None and data_group.size > 1 else None
         if self.group is not None:
             check_model_axis(cfg, self.group.size)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -302,7 +320,8 @@ class Model(nn.Module):
                                  if self.n_kind[kind] for name in names)
         # a rank's modules are laid out on the meta device at their global
         # shapes, then each parameter is made at its block's shape
-        dt, dev = self.dtype, torch.device("meta") if self.group else self.device
+        cut = self.group is not None or (self.data_group is not None and cfg.moe is not None)
+        dt, dev = self.dtype, torch.device("meta") if cut else self.device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, dev)
         if cfg.modality in ("vision", "audio") and not cfg.encoder_decoder:
             # stub frontend projector (precomputed patch embeddings -> d_model)
@@ -318,7 +337,7 @@ class Model(nn.Module):
             self.enc_norm = Norm(cfg.d_model, dt, dev)
         self.embed_scale = embed_scale(cfg.d_model) if cfg.scale_embeddings else 0.0
         self.kv_heads = cfg.num_kv_heads
-        if self.group is not None:
+        if cut:
             self._take_blocks()
         if self.device.type == "meta":
             return  # an abstract model: shapes and dtypes, nothing drawn
@@ -367,19 +386,28 @@ class Model(nn.Module):
         attention's heads, the Mamba and mLSTM layers' heads and channels,
         the sLSTM layer's units)."""
 
-        from repro_torch.launch.mesh import make_rank_mesh
+        from repro_torch.launch.mesh import Mesh
 
         g, cfg, hd = self.group, self.cfg, self.cfg.resolved_head_dim
-        mesh = make_rank_mesh(1, g)
+        dg = self.data_group
+        m, nd = (g.size if g else 1), (dg.size if dg else 1)
+        devs = np.empty(nd * m, dtype=object)
+        devs[:] = [self.device] * devs.size
+        mesh = Mesh(devs.reshape(nd, m), ("data", "model"), group=g, data_group=dg)
         for name, p in list(self.named_parameters()):
             shape = tuple(p.shape)
             spec, parts = self._rank_layout(name, shape, mesh)
-            index = local_index(shape, spec, mesh, g.rank, parts)
+            index = local_index(shape, spec, mesh, g.rank if g else 0, parts)
             local = _param(tuple(index_extent(n, ix) for n, ix in zip(shape, index)), p.dtype,
                            self.device)
             local.tp_block = (shape, index)
             owner, _, leaf = name.rpartition(".")
             setattr(self.get_submodule(owner), leaf, local)
+        for blk in self.layers:
+            if hasattr(blk, "moe"):
+                blk.moe.dp = dg
+        if g is None:
+            return
         if _is_cut(self.embed.table):
             self.embed.tp = g
         if hasattr(self, "lm_head") and _is_cut(self.lm_head.w):
@@ -393,7 +421,7 @@ class Model(nn.Module):
         for blk in (*self.layers, *getattr(self, "enc_layers", ())):
             if hasattr(blk, "mlp") and _is_cut(blk.mlp.up.w):
                 blk.mlp.tp = g
-            if hasattr(blk, "moe") and _is_cut(blk.moe.up):
+            if hasattr(blk, "moe") and blk.moe.up.shape[2] < global_shape(blk.moe.up)[2]:
                 blk.moe.tp = g
             if hasattr(blk, "mamba"):
                 mb = blk.mamba
@@ -409,10 +437,17 @@ class Model(nn.Module):
     @property
     def graphs(self) -> bool:
         """Whether this model's calls may be captured as CUDA graphs: on a
-        card, unless its group stages collectives through the host (gloo),
-        whose rounds then run eagerly."""
+        card, unless a group whose collectives a decode round makes stages
+        them through the host (gloo), whose rounds then run eagerly: the
+        model group, and the data group of a stack whose MoE layers
+        exchange rows over it (experts spread over the data ranks, or the
+        capacity dispatch)."""
 
-        return self.device.type == "cuda" and (self.group is None or self.group.graphs)
+        data = self.data_group is not None and any(
+            blk.moe.split or self.moe_impl == "capacity"
+            for blk in self.layers if hasattr(blk, "moe"))
+        return (self.device.type == "cuda" and (self.group is None or self.group.graphs)
+                and (not data or self.data_group.graphs))
 
     @property
     def vocab_padded(self) -> int:
@@ -643,15 +678,17 @@ class Model(nn.Module):
     def _block_step(self, i: int, x, cache, length, paged=None):
         return self._block_ffn(i, self._block_mix_step(i, x, cache, length, paged))
 
-    def _init_state(self, kind: str, batch: int):
+    def _init_state(self, kind: str, batch: int, whole: bool = False):
         """A zero recurrent state of one layer of ``kind`` (its stabilizers
-        at -1e30), keyed by ``STATE_NAMES[kind]``."""
+        at -1e30), keyed by ``STATE_NAMES[kind]``: the rank's blocks, or
+        (``whole``) the one-rank model's state on the meta device."""
 
-        ranks = self.group.size if self.group else 1
+        ranks, dev = (1, torch.device("meta")) if whole else (
+            self.group.size if self.group else 1, self.device)
         if kind == "mamba":
-            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, self.device, ranks)
+            return ssm_lib.init_mamba_state(self.cfg, batch, self.dtype, dev, ranks)
         init = xlstm_lib.init_mlstm_state if kind == "mlstm" else xlstm_lib.init_slstm_state
-        return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, self.device, ranks)))
+        return dict(zip(STATE_NAMES[kind], init(self.cfg, batch, dev, ranks)))
 
     def _init_block_cache(self, i: int, batch: int, seq: int):
         """A zero per-layer dense cache of layer ``i``: ``{"k", "v"}``
@@ -796,9 +833,9 @@ class Model(nn.Module):
         reference returns it."""
 
         cfg = self.cfg
-        if self.group is not None:
-            raise NotImplementedError("training over a model axis: the backward's collectives "
-                                      "are not written (ROADMAP queue I)")
+        if self.group is not None or self.data_group is not None:
+            raise NotImplementedError("training over a model or data axis of ranks: the "
+                                      "backward's collectives are not written (ROADMAP queue I)")
         enc_out = self._enc_out(batch)
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -888,6 +925,44 @@ class Model(nn.Module):
                 for name, t in self._init_state(kind, batch).items():
                     out[name] = t.expand((n,) + t.shape).clone()
         return out
+
+    def handoff_layout(self, batch: int, seq: int
+                       ) -> List[Tuple[str, Tuple[int, ...], torch.dtype]]:
+        """What a prefill of ``batch`` prompts of ``seq`` tokens on the
+        one-rank model hands to the decode ranks, in order: its last logits
+        ``[batch, vocab_padded]`` and its dense cache (``k`` / ``v``
+        ``[La, batch, seq, KV, Dh]``, the recurrent state under
+        ``state_names``), each (name, shape, dtype), whatever this model's
+        rank (``runtime.scheduler``'s prefill rank)."""
+
+        kv = (self.n_attn, batch, seq, self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+        out = [("logits", (batch, self.vocab_padded), self.dtype)]
+        if self.n_attn:
+            out += [("k", kv, self.dtype), ("v", kv, self.dtype)]
+        for kind in STATE_NAMES:
+            if self.n_kind[kind]:
+                out += [(name, (self.n_kind[kind],) + tuple(t.shape), t.dtype)
+                        for name, t in self._init_state(kind, batch, whole=True).items()]
+        return out
+
+    def rank_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of tensor ``name`` of ``handoff_layout`` (the
+        one-rank model's): its KV heads of ``k`` / ``v`` and its heads,
+        channels or units of the recurrent state (``_STATE_BLOCK``); the
+        logits and the sLSTM's h are whole on every rank."""
+
+        g = self.group
+        if g is None or name not in ("k", "v", *_STATE_BLOCK):
+            return t
+        if name in ("k", "v"):
+            a = next(blk.attn for blk in self.layers if hasattr(blk, "attn"))
+            if a.kv_cols is not None:  # every rank one KV head
+                j = a.kv_cols.start // self.cfg.resolved_head_dim
+                return t[:, :, :, j:j + 1]
+            return t.narrow(3, g.rank * self.kv_heads, self.kv_heads)
+        axis = _STATE_BLOCK[name]
+        n = t.shape[axis] // g.size
+        return t.narrow(axis, g.rank * n, n)
 
     def init_cache(self, batch: int, seq: int):
         """Dense decode cache of ``seq`` slots per row (``windowed_cache``:

@@ -21,11 +21,31 @@ Neither synchronises with the host, so both run inside a CUDA graph.
 
 On a tensor-parallel rank (``Model(group=...)``) each expert holds the
 rank's block of its ``mlp`` axis, the ``d_ff / M`` columns of ``up`` and
-``gate`` and the same rows of ``down``; the router is whole.  The
-``expert`` axis rides ``data``, whose shards share the rank's device, so
-every rank holds all E experts.  Every rank sees the same ``x`` and routes
-the same way; each dispatch ends in one all-reduce of its [B, S, D] output
-(``tp``), its partials in the model's dtype, as the dense MLP's.
+``gate`` and the same rows of ``down``; the router is whole.  Every rank
+sees the same ``x`` and routes the same way; each dispatch ends in one
+all-reduce of its [B, S, D] output (``tp``), its partials in the model's
+dtype, as the dense MLP's.
+
+**Experts over the data axis.**  The ``expert`` axis rides ``data``
+(the reference's ``"expert": ("data",)`` rule).  Where the data axis is
+ranks (``Model(data_group=...)``, ``dp``) and E divides over them, data
+rank ``d`` holds experts ``[d E / D, (d + 1) E / D)``; else the rule drops
+and every data rank holds all E.  A layer runs in one of two cases:
+
+- rows sharded over data (a scheduler's decode round: the active mesh's
+  ``rows_group``): x is gathered over the data ranks, every token routed
+  (the same float32 router on every rank), the rank's experts run on
+  their tokens, and the mixture is reduce-scattered back to the rank's
+  rows; where the experts do not split the dense dispatch stays on the
+  rank's rows, and the capacity dispatch gathers x all the same;
+- rows replicated over data (an admission prefill, a split lane): the
+  rank's experts run on the tokens, and the mixture is all-reduced over
+  the data ranks.
+
+The partials of split experts are float32, summed over the data ranks
+and rounded once; the model axis's all-reduce follows.  The capacity
+dispatch takes ``cap`` and its slot table from the global [B*S] token
+order, so the tokens dropped are those of one device.
 """
 
 from __future__ import annotations
@@ -35,7 +55,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.dist import all_reduce_sum
+from repro_torch.launch.dist import all_gather_cat, all_reduce_sum, reduce_rows
+from repro_torch.launch.sharding import rows_group
 from repro_torch.models.layers import _param, block_of, global_shape, normal_
 
 # the dense mixture runs experts in groups whose [E_g, T, max(F, D)]
@@ -53,17 +74,35 @@ class MoE(nn.Module):
         self.gate = _param((e, d, f), dtype, device)
         self.down = _param((e, f, d), dtype, device)
         self.tp = None  # the ranks over the mlp axis (launch.dist.ModelGroup)
+        self.dp = None  # the ranks over the data axis, where they are processes
+
+    @property
+    def experts(self) -> slice:
+        """The global experts this rank holds (``[e0, e0 + E_local)``)."""
+
+        return block_of(self.up)[1][0]
+
+    @property
+    def split(self) -> bool:
+        """Whether the experts are spread over the data ranks."""
+
+        return self.up.shape[0] < global_shape(self.up)[0]
 
     def init(self, generator: torch.Generator) -> None:
         d, f = global_shape(self.up)[1:]
         normal_(self.router, d**-0.5, generator)
+        mine = range(global_shape(self.up)[0])[self.experts]
         for w, std in ((self.up, d**-0.5), (self.gate, d**-0.5), (self.down, f**-0.5)):
             # one expert at a time: a float32 draw of a whole [16, 8192, 24576]
             # stack (Jamba's width) would be a 12.9 GB temporary; a rank
-            # draws each expert's global [D, F] (or [F, D]) and keeps its block
+            # draws every global expert's [D, F] (or [F, D]) and keeps its
+            # experts' blocks
             shape, index = block_of(w)
-            for e in range(w.shape[0]):
-                normal_(w[e], std, generator, block=(shape[1:], index[1:]))
+            for e in range(shape[0]):
+                if e in mine:
+                    normal_(w[e - mine.start], std, generator, block=(shape[1:], index[1:]))
+                else:
+                    torch.randn(shape[1:], generator=generator, device=w.device)
 
 
 def router_probs(x, router_w, k: int):
@@ -95,34 +134,66 @@ def _down(h, p: MoE, sl: slice):
     return torch.bmm(h, p.down[sl].to(h.dtype))
 
 
-def moe_apply_experts(x, combine, p: MoE):
+def _gathered(x, p: MoE, capacity: bool):
+    """``x`` [B, S, D] gathered over the data ranks where a decode round
+    shards its rows over them and the layer needs every row (experts spread
+    over the ranks, or the capacity dispatch's global token order) ->
+    (x or the gathered rows, whether it gathered)."""
+
+    if p.dp is None or rows_group() is not p.dp or not (p.split or capacity):
+        return x, False
+    return all_gather_cat(x, 0, p.dp), True
+
+
+def _finish(out, p: MoE, gathered: bool, dtype):
+    """A mixture of the rank's experts over the rows it saw -> the rank's
+    rows of the whole mixture in ``dtype``: float32 partials of split
+    experts summed over the data ranks (reduce-scattered back to the rank's
+    rows where they were gathered) and rounded once, then the model axis's
+    sum."""
+
+    if p.split:
+        out = (reduce_rows(out, p.dp) if gathered else all_reduce_sum(out, p.dp)).to(dtype)
+    elif gathered:
+        n = out.shape[0] // p.dp.size
+        out = out.narrow(0, p.dp.rank * n, n)
+    return all_reduce_sum(out, p.tp)
+
+
+def moe_apply_experts(x, combine, p: MoE, gathered: bool = False):
     """x [B,S,D], combine [B,S,E] -> the experts' mixture [B,S,D].
 
     Each expert's output is the reference's, ``((silu(x Wg) * x Wu) *
     c_e) Wd`` in x's dtype; the sum over experts is taken over a group at
     once (float32 accumulation in a bf16 model) where the reference adds
     one expert at a time.  On a rank of ``p.tp`` the mixture of its
-    ``d_ff`` block is summed over the ranks."""
+    ``d_ff`` block is summed over the ranks; with the experts spread over
+    the data ranks (``p.dp``) the rank's experts' float32 mixture is summed
+    over those (``gathered``: x holds every data rank's rows, and the
+    result is this rank's)."""
 
     b, s, d = x.shape
     e, _, f = p.up.shape
     t = b * s
     xt = x.reshape(1, t, d)
-    cmb = combine.reshape(t, e).T.to(x.dtype)[..., None]  # [E, T, 1]
+    cmb = combine.reshape(t, -1)[:, p.experts].T.to(x.dtype)[..., None]  # [E, T, 1]
     group = max(1, min(e, GROUP_ELEMS // max(t * max(f, d), 1)))
     acc = None
     for e0 in range(0, e, group):
         sl = slice(e0, e0 + group)
-        part = _down(_hidden(xt, p, sl) * cmb[sl], p, sl).sum(0)
+        h = _down(_hidden(xt, p, sl) * cmb[sl], p, sl)
+        part = h.sum(0, dtype=torch.float32) if p.split else h.sum(0)
         acc = part if acc is None else acc + part
-    return all_reduce_sum(acc.reshape(b, s, d).to(x.dtype), p.tp)
+    out = acc.reshape(b, s, d)
+    return _finish(out if p.split else out.to(x.dtype), p, gathered, x.dtype)
 
 
 def moe_forward(x, p: MoE, cfg: ModelConfig):
     """x [B,S,D] -> (out [B,S,D], aux loss): route, then the dense mixture."""
 
-    combine, aux = router_probs(x, p.router, cfg.moe.num_experts_per_tok)
-    return moe_apply_experts(x, combine, p), aux
+    xa, gathered = _gathered(x, p, capacity=False)
+    combine, aux = router_probs(xa, p.router, cfg.moe.num_experts_per_tok)
+    return moe_apply_experts(xa, combine, p, gathered), aux
 
 
 def capacity_slots(selected, cap: int):
@@ -157,6 +228,8 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     ranks."""
 
     m = cfg.moe
+    dtype = x.dtype
+    x, gathered = _gathered(x, p, capacity=True)
     b, s, d = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
     cf = capacity_factor or m.capacity_factor
@@ -175,11 +248,11 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     tokens = torch.arange(1, t + 1, device=dev)[:, None].expand(t, e)
     table = torch.zeros(overflow + 1, dtype=torch.long, device=dev)
     table.scatter_(0, slot.reshape(-1), tokens.reshape(-1))
-    fill = table[:overflow].view(e, cap)
+    fill = table[:overflow].view(e, cap)[p.experts]               # the rank's experts
     vmask = (fill > 0)[..., None].to(x.dtype)
-    xg = xt[(fill - 1).clamp(min=0)] * vmask                     # [E, cap, D]
+    xg = xt[(fill - 1).clamp(min=0)] * vmask                     # [E_local, cap, D]
     every = slice(None)
-    oe = _down(_hidden(xg, p, every), p, every)                 # [E, cap, D]
+    oe = _down(_hidden(xg, p, every), p, every)                 # [E_local, cap, D]
 
     # each token's selected experts in ascending order: topk over e - expert
     # (0 where unselected) lists the selected ones smallest index first
@@ -187,9 +260,13 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     kept = keep.gather(1, order)
     where = torch.where(kept, slot.gather(1, order), overflow)
     w = torch.where(kept, flat.gather(1, order), 0.0)
-    rows = torch.cat([oe.reshape(overflow, d), oe.new_zeros(1, d)])
-    parts = (rows[where].float() * w[..., None]).to(x.dtype)    # [T, k, D]
+    rows = oe.new_zeros(overflow + 1, d)                         # other ranks' experts: 0
+    mine = p.experts
+    rows[(mine.start or 0) * cap:(mine.start or 0) * cap + oe.shape[0] * cap] = oe.reshape(-1, d)
+    parts = rows[where].float() * w[..., None]                   # [T, k, D]
+    if not p.split:
+        parts = parts.to(x.dtype)
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
-    return all_reduce_sum(out.reshape(b, s, d), p.tp), aux
+    return _finish(out.reshape(b, s, d), p, gathered, dtype), aux

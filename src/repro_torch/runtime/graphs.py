@@ -19,9 +19,10 @@ from repro_torch.obs.clock import clock
 
 def _counters():
     """What a replay runs without running Python, as counted: the kernel
-    launches, the collectives (an NCCL group's) and their bytes."""
+    launches, the collectives (an NCCL group's) and their bytes, the model
+    axis's and the data axis's."""
 
-    return _lib.LAUNCHES, dist.CALLS, dist.BYTES
+    return _lib.LAUNCHES, dist.CALLS, dist.BYTES, dist.DATA_CALLS, dist.DATA_BYTES
 
 
 class GraphedCall:
@@ -40,7 +41,9 @@ class GraphedCall:
     taken back after it (a capture launches nothing) and added again at
     each replay, so the counts stay those of the kernels that ran
     (``launches``).  The collectives' counts and bytes (``dist.CALLS``,
-    ``dist.BYTES``) are kept so too (``collectives``, ``collective_bytes``).
+    ``dist.BYTES``; the data axis's ``dist.DATA_CALLS``, ``DATA_BYTES``)
+    are kept so too (``collectives``, ``collective_bytes``,
+    ``data_collectives``, ``data_collective_bytes``).
     """
 
     def __init__(self, fn):
@@ -50,6 +53,8 @@ class GraphedCall:
         self.launches = {}
         self.collectives = {}
         self.collective_bytes = {}
+        self.data_collectives = {}
+        self.data_collective_bytes = {}
         self.capture_s = 0.0
         self.replays = 0
 
@@ -60,8 +65,7 @@ class GraphedCall:
             return out
         self.graph.replay()
         self.replays += 1
-        for counter, added in zip(_counters(), (self.launches, self.collectives,
-                                                self.collective_bytes)):
+        for counter, added in zip(_counters(), self._added()):
             for name, n in added.items():
                 counter[name] += n
         return self.out
@@ -74,11 +78,16 @@ class GraphedCall:
         with torch.cuda.graph(graph):
             self.out = self.fn()
         self.capture_s = clock() - t0
-        self.launches, self.collectives, self.collective_bytes = (
-            {k: n - b[k] for k, n in c.items() if n != b[k]} for c, b in zip(counters, before))
+        (self.launches, self.collectives, self.collective_bytes, self.data_collectives,
+         self.data_collective_bytes) = ({k: n - b[k] for k, n in c.items() if n != b[k]}
+                                        for c, b in zip(counters, before))
         for c, b in zip(counters, before):
             c.update(b)
         self.graph = graph
+
+    def _added(self):
+        return (self.launches, self.collectives, self.collective_bytes, self.data_collectives,
+                self.data_collective_bytes)
 
 
 def owner_call(owner, name: str, *args):

@@ -76,10 +76,29 @@ under ``sharding_rules(mesh)``, so its paged attention launches once a
 shard a layer over that shard's block of rows
 (``kernels.paged_attention.paged_decode_attention_sharded``).  The split
 lanes draw from the same shard-aware pool; their rounds are not
-row-sharded.  The shards share one device: a mesh over more than one
-distinct device, a ``pod`` axis above 1, or a mesh on another device than
-the model's raises ``NotImplementedError`` (ROADMAP queue I, item 4: data
-shards on distinct devices).
+row-sharded.  In one process the shards share one device: a mesh over
+more than one distinct device, or on another device than the model's,
+raises ``NotImplementedError`` naming the ranks that serve it, and a
+``pod`` axis above 1 names its ROADMAP item (queue I, item 8).
+
+**Data ranks.**  Over a rank grid's mesh (``launch.dist.RankGrid``,
+``make_rank_mesh``) each data shard is a rank of its own, SPMD: every rank
+makes the same admissions, reservations, rounds, cancels and harvests
+from the same requests (the allocator, ``PoolStats`` and every
+reservation are the one process's).  Data rank ``d`` holds and decodes
+rows ``[d R / D, (d + 1) R / D)`` (logits, page table, lengths,
+capacities, recurrent state), its paged attention one launch a layer over
+them, and a pool of every global page id, of which it writes and reads its
+own rows' pages (a row's pages come from the least-loaded shard, so they
+need not lie in its rank's block of ids).  The admission prefill runs
+whole on every data rank, each merging its own rows; a window's tokens are
+gathered over the data ranks at its close, one collective a window, so
+every rank harvests every row; doubling the rows gathers each row buffer
+once and each rank keeps its block of the doubled rows.  Split lanes run
+whole on every data rank.  A decode round of a dense stack makes no
+data-axis collective, so it stays a CUDA graph under gloo; an MoE stack's
+round exchanges its rows over the data ranks and follows the group's
+backend (``Model.graphs``, ``round_mode``).
 
 **Model axis.**  A rank mesh (``launch.mesh.make_rank_mesh``) over a
 tensor-parallel model (``Model(group=...)``, the same group) runs the
@@ -90,9 +109,9 @@ as above) and its rows of the recurrent state at the rank's sizes (Mamba
 heads and channels, mLSTM heads, sLSTM units; ``Model.init_paged_cache``);
 every rank's results are the same, and rank 0's are the engine's.  MoE
 stacks run either dispatch: every rank routes the same rows, idle ones
-included.  Its data shards share the rank's device; a mesh whose model
-axis is not the model's group, or whose data shards lie on distinct
-devices, is refused (ROADMAP queue I, item 4).  Decode rounds are CUDA
+included.  A mesh whose model axis is not the model's group is refused;
+its data shards share the rank's device, or are ranks of a grid (above).
+Decode rounds are CUDA
 graphs when the group's backend is NCCL; under gloo (CPU ranks, or ranks sharing one
 card) the collectives stage through the host and the rounds run eagerly
 (``round_mode`` says which, and the scheduler logs it).  Split lanes run
@@ -118,8 +137,19 @@ the device runs it beside the window's graph replays on the current stream
 while the host issues it; the merge waits on its event, and its outputs
 are recorded on the current stream before they are dropped.  On the CPU
 both phases run in order, so admissions land one window later as on the
-card.  The prefill device must be the model's (``NotImplementedError``
-otherwise).
+card.  In one process the prefill device must be the model's
+(``NotImplementedError`` otherwise, naming the prefill rank).
+
+**The prefill rank.**  ``prefill_group=grid.handoff`` over a grid with a
+prefill rank: that rank holds the whole model (no model or data group)
+and no rows or pool, runs the same host logic, prefills each boundary's
+admitted batch, and at the next boundary broadcasts its last logits and
+dense cache (``Model.handoff_layout``, one byte buffer) over the handoff
+group; each decode rank takes its KV heads and state blocks
+(``Model.rank_block``) and its rows, and merges them as above.  Each
+window's tokens go from decode rank 0 to the prefill rank after the data
+ranks' gather.  Split lanes beside a prefill rank are refused (ROADMAP
+queue I, item 12).
 
 An encoder-decoder stack is refused, as the reference refuses it: a
 request carries observation tokens only, no encoder frames.
@@ -137,6 +167,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import EpisodeTokenizer
+from repro_torch.launch.dist import ModelGroup, all_gather_cat, broadcast
 from repro_torch.launch.sharding import (logical_to_pspec, no_sharding, shard_shape,
                                          sharding_rules)
 from repro_torch.models.model import Model
@@ -171,44 +202,65 @@ def _canon(device) -> torch.device:
     return d
 
 
-# the ROADMAP items that would lift the placement refusals
-_ITEM_4 = "(ROADMAP queue I, item 4: data shards on distinct devices)"
-_ITEM_5 = "(ROADMAP queue I, item 5: prefill on its own card)"
+# where the refused placements go
+_RANKS = ("serve distinct devices as ranks (launch.dist.init_rank_grid, "
+          "launch.mesh.make_rank_mesh)")
+_POD = "(ROADMAP queue I, item 8: the pod axis)"
+_PREFILL_RANK = ("a prefill device of its own is a prefill rank (launch.dist.init_rank_grid("
+                 "prefill=1), prefill_group=RankGrid.handoff)")
 
 
 def _check_placement(model, mesh, prefill_group) -> None:
-    """Refuse what no machine of this repo can check: a ``pod`` axis, a
-    ``model`` axis that is not the model's group, data shards on more than
-    one distinct device, a mesh or prefill device other than the model's."""
+    """Refuse what the engine does not run: a ``pod`` axis, a ``model``
+    axis that is not the model's group, a one-process mesh over more than
+    one distinct device or on another device than the model's (distinct
+    devices are ranks), a prefill device other than the model's in one
+    process (it is a prefill rank), and a grid's rank whose model or
+    prefill group is not the grid's."""
 
     dev = _canon(model.device)
+    grid = getattr(mesh, "grid", None)
     if mesh is not None:
         extra = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
         if extra:
             raise NotImplementedError(f"mesh axes {extra}: only the data and model axes shard "
-                                      + _ITEM_4)
+                                      + _POD)
         ranks = int(mesh.shape.get("model", 1))
         group = model.group
-        if ranks != (group.size if group else 1) or (ranks > 1 and mesh.group is not group):
+        if mesh.prefill_rank:
+            if group is not None or model.data_group is not None:
+                raise ValueError("a prefill rank holds the whole model: build it with no model "
+                                 "or data group")
+        elif ranks != (group.size if group else 1) or (ranks > 1 and mesh.group is not group):
             raise NotImplementedError(
                 f"a mesh whose model axis ({ranks}) is not the model's group "
                 f"({group.size if group else 1} ranks): build the model with the mesh's group "
-                + _ITEM_4)
-        col = mesh.devices.reshape(-1, ranks)[:, mesh.rank] if ranks > 1 else mesh.devices
-        devs = []
-        for d in (_canon(d) for d in np.asarray(col).reshape(-1)):
-            if d not in devs:
-                devs.append(d)
-        if len(devs) > 1:
-            raise NotImplementedError(
-                f"data shards over {len(devs)} distinct devices {[str(d) for d in devs]}: the "
-                "port shards over shards of one device only " + _ITEM_4)
-        if devs[0] != dev:
-            raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} " + _ITEM_4)
-    if prefill_group and _canon(prefill_group[0]) != dev:
-        raise NotImplementedError(f"prefill on {prefill_group[0]} apart from decode on {dev}: "
-                                  "the port prefills on the decode device, on a stream of its "
-                                  "own " + _ITEM_5)
+                "(launch.mesh.make_rank_mesh)")
+        elif grid is None:
+            col = mesh.devices.reshape(-1, ranks)[:, mesh.rank] if ranks > 1 else mesh.devices
+            devs = []
+            for d in (_canon(d) for d in np.asarray(col).reshape(-1)):
+                if d not in devs:
+                    devs.append(d)
+            if len(devs) > 1:
+                raise NotImplementedError(
+                    f"data shards over {len(devs)} distinct devices {[str(d) for d in devs]} in "
+                    "one process: " + _RANKS)
+            if devs[0] != dev:
+                raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} in one "
+                                          "process: " + _RANKS)
+        elif model.cfg.moe is not None and model.data_group is not mesh.data_group:
+            raise ValueError("a data rank's MoE stack spreads its experts over the grid's data "
+                             "group: build the model with data_group=RankGrid.data_group")
+    if isinstance(prefill_group, ModelGroup):
+        if grid is None or prefill_group is not grid.handoff:
+            raise ValueError("a handoff group serves the grid it belongs to: pass its rank mesh "
+                             "(launch.mesh.make_rank_mesh) and prefill_group=RankGrid.handoff")
+    elif grid is not None and grid.prefill:
+        raise ValueError("a grid with a prefill rank serves with prefill_group=RankGrid.handoff")
+    elif prefill_group and _canon(prefill_group[0]) != dev:
+        raise NotImplementedError(f"prefill on {prefill_group[0]} apart from decode on {dev} in "
+                                  "one process: " + _PREFILL_RANK)
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -289,7 +341,8 @@ class _ScanWindow:
 
     steps_left: int
     n_steps: int                            # tokens decoded per row
-    toks: Optional[torch.Tensor] = None     # cloud tokens [rows, n_steps]
+    cloud: bool = False                     # cloud rows decoded (on some rank)
+    toks: Optional[torch.Tensor] = None     # this rank's cloud tokens [rows, n_steps]
     seqs: List[_Sequence] = field(default_factory=list)
     lane_toks: Dict[object, torch.Tensor] = field(default_factory=dict)  # by lane key
     lane_seqs: Dict[object, list] = field(default_factory=dict)
@@ -327,11 +380,27 @@ class ContinuousBatchingScheduler:
                      model.group.size, self.round_mode)
         self.mesh = mesh
         self.data_shards = int(mesh.shape["data"]) if mesh is not None else 1
-        # disaggregated prefill: its stream (CUDA), and the dispatched
-        # prefills awaiting their merge: (sequences, logits, cache, event)
-        self.prefill_device = torch.device(prefill_group[0]) if prefill_group else None
+        # data ranks: this rank's block of the rows (one block in one process)
+        self._dgroup = mesh.data_group if mesh is not None else None
+        self._nranks = self._dgroup.size if self._dgroup is not None else 1
+        self._drank = self._dgroup.rank if self._dgroup is not None else 0
+        # disaggregated prefill: a prefill rank's handoff group, or the
+        # stream (CUDA) of a prefill in this process; the dispatched
+        # prefills awaiting their merge: (sequences, logits, cache, event),
+        # over ranks (sequences, the prefill rank's payload, None, None)
+        self._handoff = prefill_group if isinstance(prefill_group, ModelGroup) else None
+        self.is_prefill_rank = mesh is not None and mesh.prefill_rank
+        if self._handoff is not None:
+            self.prefill_device = torch.device(self._handoff.devices[-1])
+            self.round_mode += (" (the prefill rank)" if self.is_prefill_rank
+                                else f"; prefill on rank {self._handoff.size - 1}")
+        else:
+            self.prefill_device = torch.device(prefill_group[0]) if prefill_group else None
+        if self._nranks > 1:
+            self.round_mode += f"; rows over {self._nranks} data ranks"
         self._prefill_stream = None
-        if self.prefill_device is not None and model.device.type == "cuda":
+        if (self._handoff is None and self.prefill_device is not None
+                and model.device.type == "cuda"):
             self._prefill_stream = torch.cuda.Stream(device=model.device)
         self._pending_admit: List[tuple] = []
         self.tok = tokenizer
@@ -398,12 +467,17 @@ class ContinuousBatchingScheduler:
         self._fused_offset = torch.zeros((), dtype=torch.int32, device=model.device)
 
         # live batch state: logits rows + the paged cache (shared pools,
-        # per-row page table / length / capacity; zeros mean inactive)
+        # per-row page table / length / capacity; zeros mean inactive); a
+        # data rank holds its block of the rows and a pool of every global
+        # page id, of which it writes and reads its rows' pages; a prefill
+        # rank holds none
         self.rows = rows0
         self._vdim = model.vocab_padded  # the logits' width, head tied or not
-        self._logits = torch.zeros((self.rows, self._vdim), dtype=model.dtype,
-                                   device=model.device)
-        self._pcache = model.init_paged_cache(self.rows, self.paged_spec)
+        self._logits = self._pcache = None
+        if not self.is_prefill_rank:
+            self._logits = torch.zeros((self._local_rows, self._vdim), dtype=model.dtype,
+                                       device=model.device)
+            self._pcache = model.init_paged_cache(self._local_rows, self.paged_spec)
 
     # ------------------------------------------------------------------
     # request interface
@@ -420,6 +494,9 @@ class ContinuousBatchingScheduler:
         decodes the lane in the fused window; ``pipelined=False`` keeps the
         per-token host ping-pong."""
 
+        if self._handoff is not None:
+            raise NotImplementedError("split lanes beside a prefill rank (ROADMAP queue I, item "
+                                      "12: split lanes with a prefill rank)")
         key = executor.lane_key
         if key in self._lanes:
             raise ValueError(f"lane {key} already attached")
@@ -606,9 +683,10 @@ class ContinuousBatchingScheduler:
         self.allocator.reclaim_all()
         self._window = None
         self._pending_admit = []
-        self._logits.zero_()
-        self._pcache["len"].zero_()
-        self._pcache["cap"].zero_()
+        if self._pcache is not None:
+            self._logits.zero_()
+            self._pcache["len"].zero_()
+            self._pcache["cap"].zero_()
         for lane in self._lanes.values():
             lane.reset()
         self.round = 0
@@ -638,22 +716,50 @@ class ContinuousBatchingScheduler:
             depth -= self.max_slots
         return blk
 
+    @property
+    def local_shards(self) -> int:
+        """The data shards whose rows this process decodes: every one in
+        one process, its own on a data rank, none on a prefill rank."""
+
+        return 0 if self.is_prefill_rank else self.data_shards // self._nranks
+
+    @property
+    def _local_rows(self) -> int:
+        """The rows this rank holds: its block of ``rows / data ranks``."""
+
+        return self.rows // self._nranks
+
+    def _own(self, row: int) -> Optional[int]:
+        """Global row ``row``'s index in this rank's block, or None where
+        another data rank (or no rank: the prefill rank) holds it."""
+
+        if self.is_prefill_rank:
+            return None
+        d, i = divmod(row, self._local_rows)
+        return i if d == self._drank else None
+
     def _grow_rows(self) -> None:
         """Double the row buffers (the page pools are shared and do not
-        grow); the graphs of the old row count go with the old buffers."""
+        grow); the graphs of the old row count go with the old buffers.
+        Over data ranks the blocks move: each rank gathers every rank's
+        block, pads the rows and keeps its block of the doubled rows."""
 
         old, new = self.rows, self.rows * 2
+        n = new // self._nranks
 
         def grow(t, dim=0):
+            t = all_gather_cat(t, dim, self._dgroup)
             pad = list(t.shape)
             pad[dim] = new - old
-            return torch.cat([t, t.new_zeros(pad)], dim)
+            return torch.cat([t, t.new_zeros(pad)], dim).narrow(dim, self._drank * n,
+                                                                n).contiguous()
 
-        self._logits = grow(self._logits)
-        for name in ("len", "pt", "cap"):
-            self._pcache[name] = grow(self._pcache[name])
-        for name in self.model.state_names:
-            self._pcache[name] = grow(self._pcache[name], 1)
+        if self._pcache is not None:
+            self._logits = grow(self._logits)
+            for name in ("len", "pt", "cap"):
+                self._pcache[name] = grow(self._pcache[name])
+            for name in self.model.state_names:
+                self._pcache[name] = grow(self._pcache[name], 1)
         self._graphs.clear()
         self._free_rows.extend(range(old, new))
         self.rows = new
@@ -722,25 +828,46 @@ class ContinuousBatchingScheduler:
                 seq.pending = True
             return new
         t0 = clock()
-        n = _bucket(len(new))
-        obs = np.zeros((n, self.prompt_len), np.int64)
+        logits, dcache = self.model.prefill({"tokens": self._prompts(new)}, extra=0)
+        self._merge_rows(new, logits[:, -1], dcache)
+        self.admit_ms.append((clock() - t0) * 1e3)
+        return []
+
+    def _prompts(self, new: List[_Sequence]) -> torch.Tensor:
+        """The admitted prompts as one batch of ``_bucket(n)`` rows (the
+        padding rows' prompts 0)."""
+
+        obs = np.zeros((_bucket(len(new)), self.prompt_len), np.int64)
+        for i, seq in enumerate(new):
+            obs[i] = seq.request.obs
+        return torch.as_tensor(obs, device=self.model.device)
+
+    def _merge_rows(self, new: List[_Sequence], last, dcache) -> None:
+        """Merge a prefill of ``new``'s prompts (its last logits [n, V] and
+        dense cache) into this rank's rows and pool: a row another data rank
+        holds, a padding row, and a sequence released (cancelled) since it
+        was admitted take an out-of-range row and length 0, so their prompt
+        K/V goes to the trash page, never to pages reserved again since."""
+
+        n, local = last.shape[0], self._local_rows
         pt_new = np.zeros((n, self.pages_per_req), np.int32)
-        row_idx = np.full((n,), self.rows, np.int64)  # padding rows: dropped
+        row_idx = np.full((n,), local, np.int64)  # dropped
         lens = np.zeros((n,), np.int32)
         caps = np.zeros((n,), np.int32)
         for i, seq in enumerate(new):
-            obs[i] = seq.request.obs
+            loc = self._own(seq.row)
+            if seq.dead or self._seqs.get(seq.row) is not seq or loc is None:
+                continue
             pt_new[i] = seq.pages
-            row_idx[i] = seq.row
+            row_idx[i] = loc
             lens[i] = self.prompt_len
             caps[i] = self.cap_tokens
-        dev = self.model.device
-        logits, dcache = self.model.prefill({"tokens": torch.as_tensor(obs, device=dev)}, extra=0)
         self.model.merge_prefill_into_paged(dcache, self._pcache, pt_new, row_idx, lens, caps)
-        rows = torch.as_tensor(row_idx[: len(new)], device=dev)
-        self._logits.index_copy_(0, rows, logits[: len(new), -1])
-        self.admit_ms.append((clock() - t0) * 1e3)
-        return []
+        keep = np.flatnonzero(row_idx < local)
+        if keep.size:
+            dev = self.model.device
+            self._logits.index_copy_(0, torch.as_tensor(row_idx[keep], device=dev),
+                                     last.index_select(0, torch.as_tensor(keep, device=dev)))
 
     def _release(self, seq: _Sequence) -> None:
         """Return pages and row; zero the row's capacity (in place) so the
@@ -749,7 +876,9 @@ class ContinuousBatchingScheduler:
         self.allocator.free(seq.pages)
         del self._seqs[seq.row]
         self._free_rows.append(seq.row)
-        self._pcache["cap"][seq.row] = 0
+        loc = self._own(seq.row)
+        if loc is not None:
+            self._pcache["cap"][loc] = 0
 
     # ------------------------------------------------------------------
     # prefill/decode disaggregation (``prefill_group``)
@@ -759,20 +888,23 @@ class ContinuousBatchingScheduler:
         """Phase 1, at this boundary, after the window is issued: the
         ``pending`` admissions' batched prefill is issued (on a CUDA model
         on the prefill stream, so that the device runs it beside the
-        window's rounds while the host issues it); their rows keep
+        window's rounds while the host issues it; over ranks on the prefill
+        rank alone, beside the decode ranks' window); their rows keep
         capacity 0 until the next boundary merges it."""
 
         t0 = clock()
-        n = _bucket(len(new))
-        obs = np.zeros((n, self.prompt_len), np.int64)
-        for i, seq in enumerate(new):
-            obs[i] = seq.request.obs
+        if self._handoff is not None:
+            payload = None
+            if self.is_prefill_rank:
+                logits, dcache = self.model.prefill({"tokens": self._prompts(new)}, extra=0)
+                payload = self._pack(logits[:, -1], dcache)
+                self.admit_ms.append((clock() - t0) * 1e3)
+            self._pending_admit.append((new, payload, None, None))
+            return
         stream, done = self._prefill_stream, None
-        dev = self.model.device
         with no_sharding(), (torch.cuda.stream(stream) if stream is not None
                              else contextlib.nullcontext()):
-            logits, dcache = self.model.prefill({"tokens": torch.as_tensor(obs, device=dev)},
-                                                extra=0)
+            logits, dcache = self.model.prefill({"tokens": self._prompts(new)}, extra=0)
             if stream is not None:
                 done = torch.cuda.Event()
                 done.record(stream)
@@ -781,43 +913,71 @@ class ContinuousBatchingScheduler:
 
     def _merge_pending(self) -> None:
         """Phase 2, at the next boundary: the current stream waits for the
-        prefill, then its K/V and last logits merge into the live pool and
-        rows.  Sequences released while pending (cancelled) take an
-        out-of-range row and length 0: their prompt K/V goes to the trash
-        page, never to pages reserved again since."""
+        prefill (over ranks: the prefill rank hands its last logits and
+        dense cache to the decode ranks, one broadcast over the handoff
+        group, and each takes its KV heads and state blocks), then its K/V
+        and last logits merge into the live pool and rows.  Sequences
+        released while pending (cancelled) take an out-of-range row and
+        length 0: their prompt K/V goes to the trash page, never to pages
+        reserved again since."""
 
         pending, self._pending_admit = self._pending_admit, []
         dev = self.model.device
         for new, logits, dcache, done in pending:
             t0 = clock()
-            if done is not None:
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(done)
-                # made on the prefill stream, read here: the allocator must
-                # not hand their blocks out before this stream is past them
-                for t in [logits, *_tensors(dcache)]:
-                    t.record_stream(cur)
-            n = logits.shape[0]
-            pt_new = np.zeros((n, self.pages_per_req), np.int32)
-            row_idx = np.full((n,), self.rows, np.int64)  # released, padding: dropped
-            lens = np.zeros((n,), np.int32)
-            caps = np.zeros((n,), np.int32)
-            for i, seq in enumerate(new):
-                if seq.dead or self._seqs.get(seq.row) is not seq:
-                    continue
-                pt_new[i] = seq.pages
-                row_idx[i] = seq.row
-                lens[i] = self.prompt_len
-                caps[i] = self.cap_tokens
-                seq.pending = False
-            self.model.merge_prefill_into_paged(dcache, self._pcache, pt_new, row_idx, lens,
-                                                caps)
-            keep = np.flatnonzero(row_idx < self.rows)
-            if keep.size:
-                src = torch.as_tensor(keep, device=dev)
-                self._logits.index_copy_(0, torch.as_tensor(row_idx[keep], device=dev),
-                                         logits.index_select(0, src)[:, -1])
+            for seq in new:
+                if not seq.dead and self._seqs.get(seq.row) is seq:
+                    seq.pending = False
+            if self._handoff is not None:
+                last, dcache = self._unpack(self._handoff_payload(len(new), logits),
+                                            _bucket(len(new)))
+            else:
+                last = logits[:, -1]
+                if done is not None:
+                    cur = torch.cuda.current_stream(dev)
+                    cur.wait_event(done)
+                    # made on the prefill stream, read here: the allocator must
+                    # not hand their blocks out before this stream is past them
+                    for t in [logits, *_tensors(dcache)]:
+                        t.record_stream(cur)
+            if last is not None:
+                self._merge_rows(new, last, dcache)
             self.merge_ms.append((clock() - t0) * 1e3)
+
+    # the prefill rank's handoff: its last logits and dense cache as one
+    # byte buffer (``Model.handoff_layout``), one broadcast a boundary
+
+    def _pack(self, last, dcache) -> torch.Tensor:
+        parts = {"logits": last, **dcache}
+        return torch.cat([parts[name].to(dtype).contiguous().view(torch.uint8).reshape(-1)
+                          for name, _, dtype in self.model.handoff_layout(last.shape[0],
+                                                                          self.prompt_len)])
+
+    def _handoff_payload(self, n_new: int, payload) -> torch.Tensor:
+        """The prefill rank's ``payload`` of ``n_new`` admissions on every
+        rank of the handoff group (a decode rank passes None and receives
+        it into a buffer of the layout's bytes)."""
+
+        if payload is None:
+            layout = self.model.handoff_layout(_bucket(n_new), self.prompt_len)
+            nbytes = sum(int(np.prod(shape)) * dtype.itemsize for _, shape, dtype in layout)
+            payload = torch.empty((nbytes,), dtype=torch.uint8, device=self.model.device)
+        return broadcast(payload, self._handoff.size - 1, self._handoff)
+
+    def _unpack(self, buf: torch.Tensor, n: int):
+        """A decode rank's (last logits, dense cache) of the handoff bytes
+        of ``n`` prompts: its KV heads and its blocks of the recurrent
+        state of the whole model's cache (``Model.rank_block``); (None,
+        None) on the prefill rank."""
+
+        if self.is_prefill_rank:
+            return None, None
+        out, at = {}, 0
+        for name, shape, dtype in self.model.handoff_layout(n, self.prompt_len):
+            size = int(np.prod(shape)) * dtype.itemsize
+            out[name] = self.model.rank_block(name, buf[at:at + size].view(dtype).reshape(shape))
+            at += size
+        return out.pop("logits"), out
 
     def _ctx(self):
         """The mesh's rules around a decode round (nothing without a mesh)."""
@@ -863,10 +1023,10 @@ class ContinuousBatchingScheduler:
         return toks
 
     def _decode_window(self, block: int, rounds: int) -> torch.Tensor:
-        """``rounds`` decode rounds issued back to back -> tokens
-        [rows, rounds * block]; nothing waits for the device."""
+        """``rounds`` decode rounds issued back to back -> tokens of this
+        rank's rows [rows, rounds * block]; nothing waits for the device."""
 
-        toks = torch.empty((self.rows, rounds * block), dtype=torch.long,
+        toks = torch.empty((self._local_rows, rounds * block), dtype=torch.long,
                            device=self.model.device)
         for r in range(rounds):
             toks[:, r * block:(r + 1) * block].copy_(self._decode_round(block))
@@ -998,7 +1158,7 @@ class ContinuousBatchingScheduler:
         tr = self.obs.trace
         if tr is not None:
             name = f"window {self.windows}"
-            if w.toks is not None:
+            if w.cloud:
                 tr.complete("lane cloud", name, w.t_open, t_end,
                             {"rows": len(w.seqs), "rounds": self.scan_rounds})
             for key, seqs in w.lane_seqs.items():
@@ -1068,7 +1228,9 @@ class ContinuousBatchingScheduler:
         if self.obs is not None:
             w.t_open = clock()
         if n_cloud:
-            w.toks = self._decode_window(block, rounds)
+            w.cloud = True
+            if not self.is_prefill_rank:
+                w.toks = self._decode_window(block, rounds)
             # pending (disaggregated) rows decode into the trash page this
             # window; they are merged, and harvested, later
             w.seqs = [s for s in self._seqs.values() if not s.pending]
@@ -1097,8 +1259,8 @@ class ContinuousBatchingScheduler:
         w, self._window = self._window, None
         self.window_closes += 1
         done: List[ChunkResult] = []
-        if w.toks is not None:
-            toks = w.toks.cpu().numpy()
+        if w.cloud:
+            toks = self._window_tokens(w)
             for seq in w.seqs:
                 if seq.dead:
                     continue
@@ -1129,6 +1291,22 @@ class ContinuousBatchingScheduler:
         if self.obs is not None:
             self._obs_window_close(w, done)
         return done
+
+    def _window_tokens(self, w: _ScanWindow) -> np.ndarray:
+        """Every row's tokens of the window on the host [rows, n_steps]: a
+        data rank's block gathered over the data ranks (one collective a
+        window), then handed from decode rank 0 to the prefill rank, so that
+        every rank harvests the same."""
+
+        toks = w.toks
+        if not self.is_prefill_rank:
+            toks = all_gather_cat(toks, 0, self._dgroup)
+        if self._handoff is not None:
+            if toks is None:
+                toks = torch.empty((self.rows, w.n_steps), dtype=torch.long,
+                                   device=self.model.device)
+            toks = broadcast(toks, 0, self._handoff)
+        return toks.cpu().numpy()
 
     def drain(self, max_rounds: int = 10_000) -> List[ChunkResult]:
         """Run rounds until queue and batch are empty; return all results."""

@@ -235,6 +235,10 @@ def test_dryrun_collective_term_from_the_ranks_counts(arch, shape_name, multi_po
     vlm = cfg.modality in ("vision", "audio") and not cfg.encoder_decoder
     front = cfg.num_modality_tokens if vlm and prompt > 1 else 0
     want = dist.collective_bytes(cfg, rows, prompt, 16, frontend=front)
+    sharded = rows < shape.global_batch
+    if cfg.moe is not None:  # the experts over the 16 data ranks
+        want.update({f"data_{k}": v for k, v in dist.data_collective_bytes(
+            cfg, rows, prompt, 16, sharded=sharded).items() if k != "broadcast"})
     total = sum(want.values())
     assert rec["collective_breakdown"] == {**{k: v / 1e9 for k, v in want.items()},
                                            "total": total / 1e9}
@@ -244,6 +248,38 @@ def test_dryrun_collective_term_from_the_ranks_counts(arch, shape_name, multi_po
     assert rec["collective_note"].startswith(
         f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers")
     assert f"of {rows} rows over 16 ranks" in rec["collective_note"]
+    nd = dist.data_collectives(cfg, 16, sharded=sharded)
+    assert (f"its experts over 16 data ranks, the rows {'sharded' if sharded else 'replicated'}: "
+            f"{nd['all_gather']} all-gathers and {nd['all_reduce']} all-reduces"
+            in rec["collective_note"]) == (cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch,shape_name,variant", [
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "baseline"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "optimized"),
+    ("jamba-1.5-large-398b", "long_500k", "baseline"),
+])
+def test_dryrun_collective_term_counts_the_experts_over_data(arch, shape_name, variant):
+    """An MoE stack's term adds its experts' exchanges over the 16 data
+    ranks: with the batch sharded over data, a gather of the rows and a
+    float32 reduce-scatter of the mixture an MoE layer (both dispatches:
+    16 experts divide over 16 ranks); long_500k's batch of 1 stays whole,
+    so an all-reduce alone."""
+
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    rec = dryrun.run_combo(arch, shape_name, False, verbose=False, variant=variant)
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    rows = max(shape.global_batch // 16, 1)
+    prompt = 1 if shape.kind == "decode" else shape.seq_len
+    d = cfg.d_model
+    br = rec["collective_breakdown"]
+    if shape.global_batch > 1:
+        assert br["data_all_gather"] == layers * 16 * rows * d * 2 / 1e9
+        assert br["data_all_reduce"] == layers * 16 * rows * d * 4 / 1e9
+    else:
+        assert br["data_all_gather"] == 0
+        assert br["data_all_reduce"] == layers * rows * prompt * d * 4 / 1e9
+    assert dist.experts_split(cfg, 16)
 
 
 @pytest.mark.parametrize("arch,shape_name,words", [

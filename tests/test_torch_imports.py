@@ -81,3 +81,25 @@ def test_the_scan_covers_the_moe_configs():
     mods = set(_modules())
     assert {"repro_torch.configs.qwen3_moe", "repro_torch.configs.phi35_moe",
             "repro_torch.models.moe"} <= mods
+
+
+# the rank scripts and the scenarios both sides run: torch (or numpy) only
+RANK_SCRIPTS = ("torch_model_axis_cases", "torch_model_axis_rank", "torch_data_axis_rank")
+
+
+@pytest.mark.parametrize("name", RANK_SCRIPTS)
+def test_rank_scripts_load_no_jax_and_no_reference(name):
+    """The port's rank scripts (``tests/torch_*_rank.py``) and the scenario
+    file they share with the reference's recorder import neither JAX nor
+    the reference, in source or when a fresh interpreter loads them."""
+
+    path = ROOT / "tests" / f"{name}.py"
+    assert not {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")}
+    code = (f"import importlib, json, sys\nimportlib.import_module({name!r})\n"
+            "print(json.dumps(sorted(m for m in sys.modules\n"
+            "                        if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -413,25 +413,32 @@ def _rank_mesh_on_two_devices(st):
     return ContinuousBatchingScheduler(model, st.tok, mesh=mesh)
 
 
-# what is refused -> (how to ask for it, the ROADMAP queue it names)
+# what is refused -> (how to ask for it, the route or ROADMAP item its
+# message names)
+RANKS = r"serve distinct devices as ranks \(launch.dist.init_rank_grid, launch.mesh.make_rank_mesh"
 REFUSED = {
     "two devices": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["cpu", "meta"])),
-                    "I, item 4"),
-    "model axis on a MoE stack": (_rank_training("qwen3-moe-235b-a22b"), "I"),
-    "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "I"),
+                    RANKS),
+    "model axis on a MoE stack": (_rank_training("qwen3-moe-235b-a22b"), "ROADMAP queue I"),
+    "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "ROADMAP queue I"),
     "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
-        2, 1, 1), ("pod", "data", "model"))), "I, item 4"),
-    "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, "I, item 4"),
+        2, 1, 1), ("pod", "data", "model"))), r"ROADMAP queue I, item 8: the pod axis"),
+    "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, RANKS),
     "mesh elsewhere": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["meta"] * 2)),
-                       "I, item 4"),
-    "prefill elsewhere": (_scheduler(prefill_group=lambda: [torch.device("meta")]), "I, item 5"),
+                       RANKS),
+    "prefill elsewhere": (_scheduler(prefill_group=lambda: [torch.device("meta")]),
+                          r"is a prefill rank \(launch.dist.init_rank_grid\(prefill=1\)"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_refuses_what_cannot_be_checked(st, what):
-    ask, queue = REFUSED[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
+    """A one-process mesh over distinct devices or on another device, and a
+    prefill device of its own in one process, name the ranks that serve
+    them; a ``pod`` axis and training over ranks name their ROADMAP item."""
+
+    ask, words = REFUSED[what]
+    with pytest.raises(NotImplementedError, match=words):
         ask(st)
 
 

@@ -5,6 +5,15 @@ only, so that neither imports the other's framework."""
 import numpy as np
 
 ENGINE_KW = dict(max_slots=8, num_pages=63, scan_rounds=2)
+# the data-shard scenarios of ``tests/test_sharded.py`` on f32 openvla-smoke:
+# (name, robots, seed, data shards (0: no mesh), prefill on the last
+# device, split-lane cut (robots with an odd id go there; None: cloud only))
+SCENARIOS = (
+    ("cloud8", 6, 0, 8, False, None),
+    ("mixed8", 6, 21, 8, False, 1),
+    ("disagg", 6, 5, 0, True, None),
+    ("combo7", 6, 9, 7, True, None),
+)
 # every smoke stack at 2 layers (jamba-smoke's first two: mamba + MLP,
 # attn + MoE; the others have 2)
 SMOKE_LAYERS = 2

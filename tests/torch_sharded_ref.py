@@ -53,9 +53,13 @@ engine's paged attention is its CPU oracle with the output of an idle row
 oracle gives the mean of the values it gathers).  ``--part`` runs one
 part alone, ``engine`` (the scenarios), ``fleet``, ``xlstm``, ``encdec``,
 ``split``, ``split24`` or ``split_fleet``,
-so that the parts can run side by side; ``--params`` takes the stacks' parameters from an npz
+so that the parts can run side by side (``--part a,b`` runs several, one after
+another); ``--only NAME,...`` runs those scenarios of ``TP_SCENARIOS`` and
+``SPLIT_SCENARIOS`` alone (and no executor or policy case);
+``--params`` takes the stacks' parameters from an npz
 keyed so (``params/<arch>/<key>``, e.g. the port's ``Model.init``
-weights) instead of drawing them, and then writes none.
+weights) instead of drawing them, and then writes none (without
+``--model-axis``: openvla-smoke's, ``params/openvla-7b/<key>``).
 """
 
 import sys
@@ -78,19 +82,11 @@ from repro.partition.executor import PartitionExecutor, PartitionedPolicy
 from repro.runtime import scheduler as sched_mod
 from repro.runtime.kv_cache import PagedSpec
 from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
-                                    ENGINE_KW, EXEC_CASES, POLICY_CASE, SMOKE_LAYERS,
+                                    ENGINE_KW, EXEC_CASES, POLICY_CASE, SCENARIOS, SMOKE_LAYERS,
                                     SPLIT_FLEET, SPLIT_SCENARIOS, TP_FLEET, TP_SCENARIOS,
                                     XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
                                     exec_inputs, fleet_record, lane_cut, obs_pair, split_key)
 
-# (name, robots, seed, data shards (0: no mesh), prefill on the last device,
-# split-lane cut (robots with an odd id go there; None: cloud only))
-SCENARIOS = (
-    ("cloud8", 6, 0, 8, False, None),
-    ("mixed8", 6, 21, 8, False, 1),
-    ("disagg", 6, 5, 0, True, None),
-    ("combo7", 6, 9, 7, True, None),
-)
 WRAPPER = dict(b=8, h=8, kv=2, d=64, page=16, pool=24, maxp=4, seed=7)
 
 
@@ -210,14 +206,14 @@ def writable_flush():
     sched_mod._SplitLane.flush = patched
 
 
-def split_part(out, devs, recording, stack, axis):
+def split_part(out, devs, recording, stack, axis, only=None):
     """``SPLIT_SCENARIOS`` over a model axis of ``axis``: the engine with
     split lanes over its mesh; with ``axis`` 2 also the executor's split
     forward on one device (``EXEC_CASES``) and one ``PartitionedPolicy``
     chunk (``POLICY_CASE``)."""
 
     for name, arch, data, model_axis, keys, pipelined, n, seed in SPLIT_SCENARIOS:
-        if model_axis != axis:
+        if model_axis != axis or (only and name not in only):
             continue
         model, params, tok = stack(arch)
         mesh = make_test_mesh(data=data, model=model_axis, devices=devs[:data * model_axis])
@@ -233,7 +229,7 @@ def split_part(out, devs, recording, stack, axis):
             sched.submit(r, *obs_pair(rng), partitioned=key is not None, cut=key)
         record(out, name, sched, sched.drain())
         out[f"{name}/first_lane"] = sched.first_lane
-    if axis != 2:
+    if axis != 2 or only:
         return
     for arch, cut, _ in EXEC_CASES:
         model, params, _ = stack(arch)
@@ -259,7 +255,7 @@ def split_part(out, devs, recording, stack, axis):
     out["policy/net_ms"] = np.asarray(policy.net_ms_log)
 
 
-def main_model_axis(path, devs, recording, part=None, params_path=None):
+def main_model_axis(path, devs, recording, part=None, params_path=None, only=None):
     out = {}
     stacks = {}
     given = dict(np.load(params_path)) if params_path else None
@@ -279,17 +275,22 @@ def main_model_axis(path, devs, recording, part=None, params_path=None):
                             for k, v in _flatten(stacks[key][1]).items()})
         return stacks[key]
 
+    for one in (part.split(",") if part else [None]):
+        model_axis_part(out, devs, recording, stack, one, only)
+    np.savez(path, **out)
+
+
+def model_axis_part(out, devs, recording, stack, part, only):
+    """``--part``'s runs into ``out`` (None: engine and fleet)."""
+
     if part == "xlstm":
-        xlstm_part(out, devs, recording, stack)
-        return np.savez(path, **out)
+        return xlstm_part(out, devs, recording, stack)
     if part == "encdec":
-        encdec_part(out, devs, stack)
-        return np.savez(path, **out)
+        return encdec_part(out, devs, stack)
     if part in ("split", "split24", "split_fleet"):
         writable_flush()
     if part in ("split", "split24"):
-        split_part(out, devs, recording, stack, 4 if part == "split24" else 2)
-        return np.savez(path, **out)
+        return split_part(out, devs, recording, stack, 4 if part == "split24" else 2, only)
     if part == "split_fleet":
         model, params, tok = stack("openvla-7b")
         f, sf = TP_FLEET, SPLIT_FLEET
@@ -298,11 +299,13 @@ def main_model_axis(path, devs, recording, part=None, params_path=None):
         fleet_record(out, "spfleet", serve_fleet(
             model, params, tok, mesh=mesh, partition_executor=PartitionExecutor(
                 model, params, sf["cut"]), split_robots=sf["split_robots"], **f["kw"]))
-        return np.savez(path, **out)
+        return
 
     for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
         if part not in (None, "engine"):
             break
+        if only and name not in only:
+            continue
         model, params, tok = stack(arch)
         if impl != model.moe_impl:
             model = Model(model.cfg, moe_impl=impl)
@@ -324,10 +327,9 @@ def main_model_axis(path, devs, recording, part=None, params_path=None):
         mesh = make_test_mesh(data=f["data"], model=f["model"],
                               devices=devs[:f["data"] * f["model"]])
         fleet_record(out, "fleet42", serve_fleet(model, params, tok, mesh=mesh, **f["kw"]))
-    np.savez(path, **out)
 
 
-def main(path, model_axis=False, part=None, params_path=None):
+def main(path, model_axis=False, part=None, params_path=None, only=None):
     devs = jax.devices()
     assert len(devs) >= 8, "needs XLA_FLAGS=--xla_force_host_platform_device_count=8"
 
@@ -351,13 +353,17 @@ def main(path, model_axis=False, part=None, params_path=None):
 
     sched_mod._SplitLane.reserve = recording_lane_reserve
     if model_axis:
-        return main_model_axis(path, devs, Recording, part, params_path)
+        return main_model_axis(path, devs, Recording, part, params_path, only)
 
-    cfg = get_smoke_config("openvla-7b").replace(dtype="float32", param_dtype="float32")
-    model = Model(cfg)
-    params = model.init(jax.random.PRNGKey(0))
-    tok = EpisodeTokenizer(cfg.vocab_size)
-    out = {f"params/{k}": np.asarray(v) for k, v in _flatten(params).items()}
+    if params_path:
+        pre = "params/openvla-7b/"
+        with np.load(params_path) as z:
+            flat = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
+        model, params, tok = f32_stack("openvla-7b", flat)
+        out = {}
+    else:
+        model, params, tok = f32_stack("openvla-7b")
+        out = {f"params/{k}": np.asarray(v) for k, v in _flatten(params).items()}
 
     for name, n, seed, data, disagg, cut in SCENARIOS:
         mesh = make_test_mesh(data=data, devices=devs[:data]) if data else None
@@ -381,6 +387,8 @@ def main(path, model_axis=False, part=None, params_path=None):
 
 if __name__ == "__main__":
     args = sys.argv[2:]
-    opt = {k: args[args.index(f"--{k}") + 1] for k in ("part", "params") if f"--{k}" in args}
+    opt = {k: args[args.index(f"--{k}") + 1] for k in ("part", "params", "only")
+           if f"--{k}" in args}
     main(sys.argv[1], model_axis="--model-axis" in args, part=opt.get("part"),
-         params_path=opt.get("params"))
+         params_path=opt.get("params"),
+         only=set(opt["only"].split(",")) if "only" in opt else None)
