@@ -357,7 +357,7 @@ from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels import rolling_stats as krs  # noqa: E402
 from repro_torch.launch import dist, dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
-from repro_torch.launch.mesh import make_rank_mesh, make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_rank_mesh, make_test_mesh  # noqa: E402
 from repro_torch.launch.serve import CloudPolicy, serve_episode, serve_fleet  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import make_train_step, trainable_params  # noqa: E402
@@ -1284,11 +1284,13 @@ def ring_on_card(gpu, cpu):
         raise AssertionError(f"{cfg.name} ring cache differs on the card: {worst}")
 
 
-def top2_gap_at(model, tok, qd, tau, toks, step):
+def top2_gap_at(model, tok, qd, tau, toks, step, obs=None):
     """Dense path, teacher-forced with ``toks``: the top-two logit gap over
-    the action bins at decode step ``step``."""
+    the action bins at decode step ``step`` (``obs``: the prompt's tokens
+    [1, 14] in place of ``qd`` / ``tau``)."""
 
-    obs = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
+    if obs is None:
+        obs = np.concatenate([tok.encode_state(qd), tok.encode_state(tau)], axis=1)
     logits, cache = model.prefill({"tokens": torch.as_tensor(obs, device="cuda")}, extra=step + 1)
     for j in range(step):
         nxt = torch.as_tensor(toks[:, j : j + 1], device="cuda")
@@ -2815,7 +2817,9 @@ class SplitLedger:
         dense decodes per edge attention layer of each lane, ``n`` paged
         decodes per attention layer from ``min(c_i)`` on (the tail runs
         once over the joined rows);
-      * a cloud window and a cloud admission: as ``sched_launches``.
+      * a cloud window and a cloud admission (in ``_try_admit``, or a
+        disaggregated one's in ``_dispatch_prefill``): as
+        ``sched_launches``.
 
     On a rank's model it also counts the collectives those calls must make
     (``calls``, from ``dist``'s counts: a cloud token's or an admission's,
@@ -2831,7 +2835,8 @@ class SplitLedger:
         ledger = weakref.ref(self)
 
         def counted_window(block, rounds):
-            ledger().add("paged_attention", model.n_attn * block * rounds)
+            s = ledger().sched_ref()
+            ledger().add("paged_attention", model.n_attn * block * rounds * s.local_shards)
             ledger().add_calls(dist.collectives(model.cfg), block * rounds)
             return cls._decode_window(ledger().sched_ref(), block, rounds)
 
@@ -2846,16 +2851,24 @@ class SplitLedger:
                                n_steps)
             return cls._split_fused_step(ledger().sched_ref(), lanes, block, rounds)
 
-        def counted_admit():
-            s = ledger().sched_ref()
-            n0 = len(s.admit_ms)
-            cls._try_admit(s)
-            ledger().add("flash_attention", model.n_attn * (len(s.admit_ms) - n0))
-            ledger().add("mamba_scan", model.n_mamba * (len(s.admit_ms) - n0))
-            ledger().add_calls(dist.collectives(model.cfg, s.prompt_len), len(s.admit_ms) - n0)
+        def counted(fn):
+            def admit(*a):
+                s = ledger().sched_ref()
+                n0 = len(s.admit_ms)
+                out = fn(s, *a)
+                ledger().add("flash_attention", model.n_attn * (len(s.admit_ms) - n0))
+                ledger().add("mamba_scan", model.n_mamba * (len(s.admit_ms) - n0))
+                ledger().add_calls(dist.collectives(model.cfg, s.prompt_len),
+                                   len(s.admit_ms) - n0)
+                return out
+
+            return admit
 
         sched._decode_window, sched._split_fused_step = counted_window, counted_fused
-        sched._try_admit = counted_admit
+        # an admission prefills in ``_try_admit``, or, disaggregated, in
+        # ``_dispatch_prefill`` (on the prefill rank over ranks)
+        sched._try_admit = counted(cls._try_admit)
+        sched._dispatch_prefill = counted(cls._dispatch_prefill)
         self.wrap_lanes()
 
     def add(self, name, n):
@@ -2917,8 +2930,9 @@ class SplitLedger:
 
         for obj in [self.sched_ref()] + [r() for r in self.wrapped.values()]:
             if obj is not None:
-                for name in ("_decode_window", "_split_fused_step", "_try_admit", "edge_prefill",
-                             "suffix_prefill", "edge_step", "suffix_step"):
+                for name in ("_decode_window", "_split_fused_step", "_try_admit",
+                             "_dispatch_prefill", "edge_prefill", "suffix_prefill", "edge_step",
+                             "suffix_step"):
                     obj.__dict__.pop(name, None)
 
     def check(self, what, launches):
@@ -4112,6 +4126,15 @@ DATA_RANKS_TIMEOUT_S = 240
 PHI35_DATA_LAYERS = PHI35_LAYERS // 2
 DATA_MOE_ROBOTS = 4
 PHI35 = "phi3.5-moe-42b-a6.6b"
+# (d) the rapid fleet with these robots split at this cut, pipelined (the CPU
+# tests' ``SPLIT_FLEET``), on the data ranks beside the prefill rank
+SPLIT_FLEET_ROBOTS = (1, 3, 5, 7)
+SPLIT_FLEET_CUT = 1
+# (e) the cloud-only staggered run on a pod grid of POD_RANKS pods of one data
+# rank each: its robots and their observations' seed
+POD_RANKS = 2
+POD_ROBOTS = 6
+POD_SEED = 13
 
 
 class GridScheduler(RecordingScheduler):
@@ -4134,29 +4157,35 @@ class GridScheduler(RecordingScheduler):
         self.handoffs.append((n_new, dist.DATA_BYTES["broadcast"] - b0))
         return out
 
-    def _window_tokens(self, w):
+    def _window_tokens(self, parts, n_steps):
         self.harvests += 1
-        return super()._window_tokens(w)
+        return super()._window_tokens(parts, n_steps)
 
 
-def want_data_calls(cfg, sched, admits, impl="dense"):
-    """The data axis's collectives a run of ``sched`` must have made, from
-    ``launch.dist``'s counts: each admission prefill's and decode token's
-    MoE exchanges, a gather a harvest over the data ranks (and a broadcast
-    to a prefill rank), a broadcast a handoff, a gather a row buffer a
-    doubling of the rows."""
+def want_data_calls(cfg, sched, admits, impl="dense", lane_gathers=0):
+    """The data axis's and batch group's collectives a run of ``sched``
+    must have made, from ``launch.dist``'s counts: each admission prefill's
+    and decode token's MoE exchanges over the data ranks, a gather a
+    harvest over the ranks the rows are blocked over (and a broadcast to a
+    prefill rank), a broadcast a handoff; a doubling of the rows, the
+    gathers of the buffers it re-cuts (``sched.grow_gathers``;
+    ``sched.page_moves`` of them moved rows and their pages); and
+    ``lane_gathers``, those its lanes' doublings counted."""
 
-    data, prefill = sched._nranks, int(sched._handoff is not None)
+    batch, prefill = sched._nranks, int(sched._handoff is not None)
+    data = sched.data_shards if sched._bgroup is not None else 1
     pre = dist.data_collectives(cfg, data, sharded=False, moe_impl=impl)
     tok = dist.data_collectives(cfg, data, sharded=True, moe_impl=impl)
     steps = sched.decode_rounds * sched.decode_block
     if sched.is_prefill_rank:
-        steps, data = 0, 1
+        steps, data, batch = 0, 1, 1
     rows0 = sched.data_shards * -(-sched.max_slots // sched.data_shards)
     grows = int(np.log2(sched.rows // rows0))
+    rows = (grows * sched.grow_gathers()
+            + sched.page_moves * (sched.grow_gathers(True) - sched.grow_gathers()))
     return {"all_reduce": admits * pre["all_reduce"] + steps * tok["all_reduce"],
             "all_gather": admits * pre["all_gather"] + steps * tok["all_gather"]
-            + sched.harvests * (data > 1) + grows * (4 + len(sched.model.state_names)) * (data > 1),
+            + (sched.harvests + rows + lane_gathers) * (batch > 1),
             "broadcast": sched.harvests * prefill + len(sched.handoffs)}
 
 
@@ -4199,6 +4228,121 @@ def data_fleet_run(model, tok, mesh, prefill_group, launches):
                 sum(fs._pcache[k].nbytes for k in ("kp", "vp")))
 
 
+def data_split_run(model, tok, mesh, prefill_group, launches):
+    """(7f d) ``serve_fleet(trigger="rapid")`` on 8 robots x
+    ``AXIS_TICKS`` with ``SPLIT_FLEET_ROBOTS`` on a pipelined lane at
+    ``SPLIT_FLEET_CUT``, through a ``GridScheduler`` over ``mesh`` beside
+    ``prefill_group``: launches exact (``SplitLedger``), the data axis's
+    collectives against their counts, the lane's rows, block and buffer
+    bytes, the fused rounds' device ms (CUDA events around each fused
+    window) -> a picklable record."""
+
+    sched = GridScheduler(model, tok, max_slots=8, scan_rounds=4, mesh=mesh,
+                          prefill_group=prefill_group)
+    ex = PartitionExecutor(model, SPLIT_FLEET_CUT)
+    sched.attach_partition(ex)
+    lane = sched._lanes[SPLIT_FLEET_CUT]
+    grows, windows = [], []
+
+    def grow():  # the gathers each doubling counts
+        moves = lane.page_moves
+        type(lane)._grow_rows(lane)
+        grows.append(lane.grow_gathers(lane.page_moves > moves))
+
+    lane._grow_rows = grow
+    ledger = SplitLedger(sched)
+    fused = sched._split_fused_step  # the ledger's
+
+    def timed(lanes, block, rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fused(lanes, block, rounds)
+        end.record()
+        windows.append((start, end, rounds))
+        return out
+
+    sched._split_fused_step = timed
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dist.reset_calls()
+        t0 = time.perf_counter()
+        fl = serve_fleet(model, tok, n_robots=8, max_steps=AXIS_TICKS, scan_rounds=4,
+                         trigger="rapid", verbose=False, partition_executor=ex,
+                         split_robots=list(SPLIT_FLEET_ROBOTS), sched=sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ledger.check("(7f d) split fleet", launches)
+    finally:
+        ledger.release()
+        lane.__dict__.pop("_grow_rows", None)
+    calls = dict(dist.DATA_CALLS)
+    want = want_data_calls(model.cfg, sched, len(sched.admit_ms), lane_gathers=sum(grows))
+    if calls != want:
+        raise AssertionError(f"(7f d) data-axis collectives {calls}, expected {want}")
+    st = sched.pool_stats()
+    split = sum(r in SPLIT_FLEET_ROBOTS for r, _, _ in sched.record)
+    fused_rounds = sum(r for _, _, r in windows)
+    return dict(actions=fl["actions"], offloads=fl["offloads"], cancelled=fl["cancelled"],
+                service_rounds=fl["service_rounds"], decode_rounds=fl["decode_rounds"],
+                record=[(r, o, np.asarray(t)) for r, o, t in sched.record],
+                reserved=sched.reserved, pool=(st.pages_in_use, st.high_water, st.shard_in_use,
+                                               st.shard_high_water),
+                handoffs=sched.handoffs, harvests=sched.harvests, launches=counts,
+                data_calls=calls, data_bytes=dict(dist.DATA_BYTES), mode=sched.round_mode,
+                wall_s=wall, mixed=sched.mixed_rounds, split_chunks=split,
+                cloud_chunks=len(sched.record) - split, fused_rounds=fused_rounds,
+                fused_ms=sum(a.elapsed_time(b) for a, b, _ in windows) / max(fused_rounds, 1),
+                lane=(lane.rows, lane.block, lane.peak_bytes, lane.drops),
+                lane_grows=len(grows), page_moves=(sched.page_moves, lane.page_moves),
+                local_rows=sched._local_rows, rows=sched.rows)
+
+
+def hold_split_fleet_to_one(model, tok, f, f1):
+    """(7f d) a rank's split fleet against one process's: rounds, cancels,
+    reservations, ``PoolStats``, chunk order and prompts, actions and
+    offloads equal; each chunk's tokens equal or, past the first
+    difference, inside ``MARGIN_TOL`` -> the chunks that were not bit for
+    bit equal."""
+
+    for k in ("service_rounds", "cancelled", "decode_rounds", "reserved", "pool", "mixed"):
+        if f[k] != f1[k]:
+            raise AssertionError(f"(7f d) {k}: {f[k]} vs one process {f1[k]}")
+    order = [[(r, o.tolist()) for r, o, _ in x["record"]] for x in (f, f1)]
+    if order[0] != order[1]:
+        raise AssertionError("(7f d) chunk order or prompts differ from one process's")
+    differ = 0
+    for (r, o, t), (_, _, t1) in zip(f["record"], f1["record"]):
+        diff = np.flatnonzero(t != t1)
+        if diff.size:
+            differ += 1
+            gap = top2_gap_at(model, tok, None, None, t1[None], int(diff[0]), obs=o[None])
+            if gap > MARGIN_TOL:
+                raise AssertionError(f"(7f d) robot {r}: a token differs at step {diff[0]} where "
+                                     f"the top-two gap is {gap:.3g}")
+    for k in ("actions", "offloads"):
+        if not np.array_equal(f[k], f1[k]):
+            raise AssertionError(f"(7f d) {k} differ from one process's")
+    return differ
+
+
+def pod_sched_run(model, tok, mesh, launches):
+    """(7f e) the cloud-only staggered run (``axis_sched_run``) of
+    ``POD_ROBOTS`` robots over ``mesh`` (a pod grid's, or a one-device pod
+    mesh's) -> a picklable record with its reservations and pool."""
+
+    reqs = requests(np.random.default_rng(POD_SEED), POD_ROBOTS)
+    run, sched = axis_sched_run(model, tok, reqs, launches, mesh)
+    st = sched.pool_stats()
+    run.update(reserved=sched.reserved, pool=(st.pages_in_use, st.high_water),
+               harvests=sched.harvests, local_rows=sched._local_rows,
+               page_moves=sched.page_moves)
+    if run["data_calls"] != run["want_data"]:
+        raise AssertionError(f"(7f e) batch-group collectives {run['data_calls']}, expected "
+                             f"{run['want_data']}")
+    return run
+
+
 def hold_fleet_to_one(f, f1, what):
     """A rank's fleet against one process's: rounds, offloads, cancels,
     chunk order and every chunk, actions, reservations and ``PoolStats``
@@ -4230,7 +4374,7 @@ def moe_layer_out(model, skip_sum=False):
     x = torch.as_tensor(x, dtype=model.dtype, device=model.device)
     real = moe_lib._finish
 
-    def finish(out, p, gathered, dtype):
+    def finish(out, p, rows, dtype):
         return moe_lib.all_reduce_sum(out.to(dtype), p.tp)
 
     if skip_sum:
@@ -4277,12 +4421,15 @@ def data_axis_rank(rank, backend, init, device, parent, moe_parent, moe_one, que
     ``DATA_RANKS`` data ranks and a prefill rank, builds openvla-7b at full
     width on ``FLEET_LAYERS`` layers from the phase-6 model's seed (every
     parameter equal to the parent's, shared from the parent's card), runs
-    (a) the rapid fleet on the data ranks alone and (b) on the data ranks
-    with the prefill rank, then (c, the data ranks) phi3.5-moe with its
-    experts spread over them: each parameter its block of the parent's
-    one-process model, the first prompt (its own routes, then the one
-    process's; the control without the data-axis sum) and the staggered
-    run; puts (rank, record or error) on ``queue``."""
+    (a) the rapid fleet on the data ranks alone, (b) on the data ranks
+    with the prefill rank, (d) the same with ``SPLIT_FLEET_ROBOTS`` on a
+    pipelined split lane, each data rank holding its block of the lane's
+    rows, and (e, the first ``POD_RANKS`` ranks) the cloud-only scheduler
+    on a grid of ``POD_RANKS`` pods; then (c, the data ranks) phi3.5-moe
+    with its experts spread over them: each parameter its block of the
+    parent's one-process model, the first prompt (its own routes, then the
+    one process's; the control without the data-axis sum) and the
+    staggered run; puts (rank, record or error) on ``queue``."""
 
     try:
         os.environ["GLOO_SOCKET_IFNAME"] = "lo"
@@ -4317,9 +4464,21 @@ def data_axis_rank(rank, backend, init, device, parent, moe_parent, moe_one, que
                                       counts)
         rec["b"] = data_fleet_run(model, tok, make_rank_mesh(DATA_RANKS, full), full.handoff,
                                   counts)
+        rec["paged_rows"] = sorted(rows)
+        rows.clear()
+        t0 = time.perf_counter()
+        rec["d"] = data_split_run(model, tok, make_rank_mesh(DATA_RANKS, full), full.handoff,
+                                  counts)
+        rec["d"].update(paged_rows=sorted(rows), phase_s=time.perf_counter() - t0)
+        rows.clear()
+        t0 = time.perf_counter()
+        pod = dist.rank_grid(1, 1, 0, pod=POD_RANKS)  # every process of the world lays it
+        if pod is not None:
+            rec["e"] = pod_sched_run(model, tok, make_rank_mesh(1, pod), counts)
+            rec["e"].update(paged_rows=sorted(rows), phase_s=time.perf_counter() - t0,
+                            place=(pod.p, pod.d))
         rec["launches"] = counts
         rec["weight_bytes"] = sum(p.nbytes for p in model.parameters())
-        rec["paged_rows"] = sorted(rows)
         del model
         torch.cuda.empty_cache()
         if alone is not None:
@@ -4374,6 +4533,73 @@ def data_moe_rank(grid, moe_parent, one, dev):
                 forced=forced, launches=counts, moe_out=moe_out, moe_control=moe_control)
 
 
+def split_fleet_checks(model, tok, ranks, one_d, one_e, card):
+    """(7f d) every rank's split fleet held to one process's (the lane's
+    block of rows and its bytes, the handoffs' bytes, the collectives
+    exact), (e) the pod grid's ranks held to one process's pod mesh; both
+    printed."""
+
+    cfg = model.cfg
+    rows1, block1, peak1, _ = one_d["lane"]
+    bitwise = 0
+    for r in ranks:
+        d = r["d"]
+        differ = hold_split_fleet_to_one(model, tok, d, one_d)
+        bitwise += differ == 0
+        rows, block, peak, drops = d["lane"]
+        if r["prefill"]:
+            if peak or d["fused_rounds"] or d["paged_rows"]:
+                raise AssertionError(f"(7f d) the prefill rank ran lane work: {d['lane']}, "
+                                     f"{d['fused_rounds']} fused rounds")
+        elif (rows, block) != (rows1, -(-rows1 // DATA_RANKS)) or peak * rows1 != peak1 * block:
+            raise AssertionError(f"(7f d) rank {r['rank']}: lane rows {rows}, block {block}, "
+                                 f"{peak} B against one process's {rows1} rows, {peak1} B")
+        elif max(d["paged_rows"]) > max(d["local_rows"], block):
+            raise AssertionError(f"(7f d) rank {r['rank']}: paged launches over rows "
+                                 f"{d['paged_rows']}, past its blocks")
+        for n, nbytes in d["handoffs"]:
+            if nbytes != dist.handoff_bytes(cfg, 1 << (n - 1).bit_length(), 14):
+                raise AssertionError(f"(7f d) a handoff of {n} prompts: {nbytes} B")
+        toks = 56 / d["wall_s"]
+        log(f"  (7f d) rank {r['rank']}{' (prefill)' if r['prefill'] else ''} [{card}]: "
+            f"{d['mode']}; lane at cut {SPLIT_FLEET_CUT}: rows {rows}, this rank's block {block}, "
+            f"buffers {peak} B (one process: {rows1} rows, {peak1} B), freed {drops} times; "
+            f"{d['fused_rounds']} fused rounds, {d['fused_ms']:.4f} ms a fused split round "
+            f"(device, CUDA events; one process {one_d['fused_ms']:.4f}); {d['split_chunks']} "
+            f"split and {d['cloud_chunks']} cloud chunks in {d['wall_s']:.2f} s: split "
+            f"{d['split_chunks'] * toks:.1f}, cloud {d['cloud_chunks'] * toks:.1f} action "
+            f"tokens/s (one process {one_d['split_chunks'] * 56 / one_d['wall_s']:.1f} / "
+            f"{one_d['cloud_chunks'] * 56 / one_d['wall_s']:.1f}); {d['mixed']} mixed rounds; "
+            f"{d['harvests']} harvests, data-axis collectives {d['data_calls']} (exact), bytes "
+            f"{d['data_bytes']}; handoffs (prompts, bytes) {d['handoffs']} (exact); chunks bit for "
+            f"bit equal to one process's: {differ == 0} ({differ} inside the margin); launches "
+            f"{d['launches']} (exact); {d['phase_s']:.1f} s")
+    log(f"  (7f d) ranks equal to one process: {len(one_d['record'])} chunks "
+        f"({one_d['split_chunks']} split), {one_d['cancelled']} cancels, offloads "
+        f"{int(one_d['offloads'].sum())}, reservations and PoolStats {one_d['pool']}; "
+        f"{bitwise} of {len(ranks)} ranks bit for bit; one process {one_d['mode']}")
+    pods = [r for r in ranks if "e" in r]
+    if len(pods) != POD_RANKS:
+        raise AssertionError(f"(7f e) {len(pods)} ranks on the pod grid, expected {POD_RANKS}")
+    for r in pods:
+        e = r["e"]
+        for k in ("order", "reserved", "pool", "rounds", "rows"):
+            if e[k] != one_e[k]:
+                raise AssertionError(f"(7f e) rank {r['rank']}: {k} {e[k]} vs {one_e[k]}")
+        if any(not np.array_equal(e["chunks"][k], one_e["chunks"][k]) for k in one_e["chunks"]):
+            raise AssertionError(f"(7f e) rank {r['rank']}: chunks differ from one process's")
+        if e["local_rows"] != -(-e["rows"] // POD_RANKS) or max(e["paged_rows"]) != e["local_rows"]:
+            raise AssertionError(f"(7f e) rank {r['rank']}: paged rows {e['paged_rows']}, its "
+                                 f"block of {e['rows']}")
+        log(f"  (7f e) pod {e['place'][0]} rank {r['rank']} [{card}]: {e['mode']}; rows "
+            f"{e['local_rows']} of {e['rows']} ({e['page_moves']} doublings moved rows and their "
+            f"pages); {len(e['order'])} chunks, {e['rounds']} rounds "
+            f"in {e['wall_s']:.2f} s, {e['ms_round']:.2f} ms a round (one process "
+            f"{one_e['ms_round']:.2f}, {one_e['mode']}); chunks, order, reservations and pool "
+            f"equal bit for bit; batch-group collectives {e['data_calls']} (exact); launches "
+            f"{e['launches']} (exact); {e['phase_s']:.1f} s")
+
+
 def data_axis_phase(model, tok, launches):
     """(7f) data shards and the prefill as ranks: ``DATA_RANKS`` data ranks
     and a prefill rank of ``model`` (each its own process, gloo on card 0)
@@ -4394,6 +4620,10 @@ def data_axis_phase(model, tok, launches):
     mesh = make_test_mesh(data=DATA_RANKS, devices=[model.device] * DATA_RANKS)
     one_a = data_fleet_run(model, tok, mesh, None, launches)
     one_b = data_fleet_run(model, tok, mesh, [model.device], launches)
+    one_d = data_split_run(model, tok, mesh, [model.device], launches)
+    pod_mesh = Mesh(np.asarray([model.device] * POD_RANKS, dtype=object).reshape(POD_RANKS, 1, 1),
+                    ("pod", "data", "model"))
+    one_e = pod_sched_run(model, tok, pod_mesh, launches)
     ranks = join_model_axis(*started)
     spawn_s = time.perf_counter() - t0
     del moe_parent, moe_model
@@ -4434,6 +4664,7 @@ def data_axis_phase(model, tok, launches):
                 f"{f1['pool_bytes'] / 2**20:.1f}); {f['harvests']} harvests, "
                 f"{len(f['handoffs'])} handoffs; data-axis collectives {f['data_calls']} "
                 f"(exact), bytes {f['data_bytes']}; launches {f['launches']} (exact)")
+    split_fleet_checks(model, tok, ranks, one_d, one_e, card)
     hand = prefill_rank["b"]["handoffs"]
     log(f"  (7f) ranks equal to one process: (a) {len(one_a['record'])} chunks, "
         f"{one_a['cancelled']} cancels, offloads {int(one_a['offloads'].sum())}, reservations "

@@ -25,22 +25,35 @@ handoff's so (``runtime.graphs.GraphedCall`` keeps all four right across
 graph replays, as it keeps the kernel launches).
 
 **The rank grid.**  ``init_rank_grid`` (or ``rank_grid`` inside a world
-that is already up) lays ``D * M + P`` ranks out as a (data, model) grid
-plus ``P`` prefill ranks: rank ``(d, m)`` is world rank ``d * M + m``, the
-prefill ranks come last (as ``launch.mesh.split_device_groups`` puts the
-prefill on the last devices).  Each grid rank joins its model group (its
-row; the ``ModelGroup`` of a tensor-parallel ``Model``), its data group
-(its column: the engine's rows and the experts spread over it) and, with
-a prefill rank, the handoff group of every rank of the grid, over which
-the prefill rank hands its K/V and logits to the decode ranks and the
-decode ranks hand each window's tokens back.  A prefill rank is in no
-model or data group.  A group of one makes every collective the identity.
+that is already up) lays ``P * D * M + F`` ranks out as a (pod, data,
+model) grid plus ``F`` prefill ranks: rank ``(p, d, m)`` is world rank
+``(p * D + d) * M + m``, the prefill ranks come last (as
+``launch.mesh.split_device_groups`` puts the prefill on the last devices).
+Each grid rank joins its model group (the ``ModelGroup`` of a
+tensor-parallel ``Model``), its data group (the data ranks of its pod and
+model column: the experts spread over it), its batch group (every (pod,
+data) rank of its model column: the engine's rows are blocked over it;
+the data group itself where ``P`` is 1, so that a (data, model) grid keeps
+its groups) and, with a prefill rank, the handoff group of every rank of
+the grid, over which the prefill rank hands its K/V and logits to the
+decode ranks and the decode ranks hand each window's tokens back.  A
+prefill rank is in no model, data or batch group.  A group of one makes
+every collective the identity; the batch group's collectives count with
+the data axis's.
 
 ``collectives`` and ``collective_bytes`` give what a rank issues for one
 decode token or one prefill from the layer kinds alone: the count that
 ``CALLS`` and ``BYTES`` must show, and the dry run's collective term.  They
 hold where the rank model cuts every vocab, MLP and expert block, as it
-does for every stack of ``configs`` over 2, 4 and 16 ranks.
+does for every stack of ``configs`` over 2, 4 and 16 ranks.  The data
+axis's and the batch group's count so: an MoE layer's exchanges
+(``moe_calls`` / ``moe_call_bytes``; a stack's, ``data_collectives``; a
+fused split round's over the lanes' blocks, ``lane_data_collectives``),
+a window's one gather of every block of the cloud rows and the lanes
+(``harvest_bytes``) and the prefill rank's handoff (``handoff_bytes``).
+A row doubling gathers each buffer it re-cuts, and the pages (and a
+serial lane's edge caches) of the rows that change rank: the scheduler
+and each lane count those from their own buffers (``grow_gathers``).
 """
 
 from __future__ import annotations
@@ -119,12 +132,16 @@ def destroy_model_group(group: Optional[ModelGroup]) -> None:
 
 @dataclass(frozen=True, eq=False)
 class RankGrid:
-    """This process's place on a grid of ``data`` x ``model`` ranks plus
-    ``prefill`` prefill ranks (``rank_grid``): its world ``rank``, every
-    grid rank's device (``devices``, by grid rank), and its groups: the
-    model group (its row), the data group (its column) and the handoff
-    group (every grid rank, the prefill rank last; None without a prefill
-    rank).  A prefill rank has no model or data group."""
+    """This process's place on a grid of ``pod`` x ``data`` x ``model``
+    ranks plus ``prefill`` prefill ranks (``rank_grid``): its world
+    ``rank``, every grid rank's device (``devices``, by grid rank), and its
+    groups: the model group (its ``(pod, data)`` place), the data group
+    (the data ranks of its own pod and model column: the experts spread
+    over it), the handoff group (every grid rank, the prefill rank last;
+    None without a prefill rank) and the batch group (every ``(pod,
+    data)`` rank of its model column, in that order: the rows are blocked
+    over it; the data group itself where ``pod`` is 1).  A prefill rank
+    has no model, data or batch group."""
 
     data: int
     model: int
@@ -136,16 +153,40 @@ class RankGrid:
     model_group: Optional[ModelGroup]
     data_group: Optional[ModelGroup]
     handoff: Optional[ModelGroup]
+    pod: int = 1
+    batch_group: Optional[ModelGroup] = None
+
+    def __post_init__(self):
+        if self.pod == 1:
+            object.__setattr__(self, "batch_group", self.data_group)
+
+    @property
+    def decode_ranks(self) -> int:
+        """The grid's ranks without the prefill rank: ``pod * data * model``."""
+
+        return self.pod * self.data * self.model
 
     @property
     def is_prefill(self) -> bool:
-        return self.rank >= self.data * self.model
+        return self.rank >= self.decode_ranks
+
+    @property
+    def blocks(self) -> int:
+        """The blocks the rows are cut into: one a ``(pod, data)`` rank."""
+
+        return self.pod * self.data
+
+    @property
+    def p(self) -> int:
+        """This rank's place on the pod axis (0 on a prefill rank)."""
+
+        return 0 if self.is_prefill else self.rank // (self.data * self.model)
 
     @property
     def d(self) -> int:
         """This rank's place on the data axis (0 on a prefill rank)."""
 
-        return 0 if self.is_prefill else self.rank // self.model
+        return 0 if self.is_prefill else self.rank // self.model % self.data
 
     @property
     def m(self) -> int:
@@ -154,20 +195,22 @@ class RankGrid:
         return 0 if self.is_prefill else self.rank % self.model
 
 
-def rank_grid(data: int, model: int = 1, prefill: int = 0) -> Optional[RankGrid]:
-    """Lay a grid of ``data`` x ``model`` ranks and ``prefill`` (0 or 1)
-    prefill ranks over the first ``data * model + prefill`` world ranks of
-    the default process group, which must be up (every process of the
-    world calls this, in the same order: each group is a
-    ``torch.distributed.new_group``) -> this process's ``RankGrid``, or
-    None for a process outside the grid."""
+def rank_grid(data: int, model: int = 1, prefill: int = 0, pod: int = 1) -> Optional[RankGrid]:
+    """Lay a grid of ``pod`` x ``data`` x ``model`` ranks and ``prefill``
+    (0 or 1) prefill ranks over the first ``pod * data * model + prefill``
+    world ranks of the default process group, which must be up (every
+    process of the world calls this, in the same order: each group is a
+    ``torch.distributed.new_group``): rank ``(p, d, m)`` is world rank
+    ``(p * data + d) * model + m``, the prefill rank last -> this
+    process's ``RankGrid``, or None for a process outside the grid.  A grid
+    with ``pod`` 1 makes exactly the groups of a (data, model) grid."""
 
     import torch.distributed as dist
 
-    if data < 1 or model < 1 or prefill not in (0, 1):
-        raise ValueError(f"a grid of data {data}, model {model}, prefill {prefill}: data and "
-                         "model at least 1, prefill 0 or 1")
-    n = data * model + prefill
+    if data < 1 or model < 1 or pod < 1 or prefill not in (0, 1):
+        raise ValueError(f"a grid of pod {pod}, data {data}, model {model}, prefill {prefill}: "
+                         "pod, data and model at least 1, prefill 0 or 1")
+    n = pod * data * model + prefill
     world, r = dist.get_world_size(), dist.get_rank()
     if n > world:
         raise ValueError(f"a grid of {n} ranks in a world of {world}")
@@ -184,30 +227,37 @@ def rank_grid(data: int, model: int = 1, prefill: int = 0) -> Optional[RankGrid]
         return ModelGroup(members.index(r), len(members), backend, devices[r],
                           tuple(devices[i] for i in members), pg, axis)
 
-    rows = [group([d * model + m for m in range(model)], "model") for d in range(data)]
-    cols = [group([d * model + m for d in range(data)], "data") for m in range(model)]
+    def at(p, d, m):
+        return (p * data + d) * model + m
+
+    rows = [group([at(p, d, m) for m in range(model)], "model")
+            for p in range(pod) for d in range(data)]
+    cols = [group([at(p, d, m) for d in range(data)], "data")
+            for p in range(pod) for m in range(model)]
+    batch = ([group([at(p, d, m) for p in range(pod) for d in range(data)], "batch")
+              for m in range(model)] if pod > 1 else [])
     handoff = group(list(range(n)), "handoff") if prefill else None
     if r >= n:
         return None
     return RankGrid(data, model, prefill, r, backend, devices[r], devices,
                     next((g for g in rows if g), None), next((g for g in cols if g), None),
-                    handoff)
+                    handoff, pod, next((g for g in batch if g), None))
 
 
 # this process's device, as ``init_model_group`` / ``init_rank_grid`` set it
 _DEVICE: Optional[torch.device] = None
 
 
-def init_rank_grid(rank: int, *, data: int, model: int = 1, prefill: int = 0, backend: str,
-                   init_method: Optional[str] = None, device="cuda") -> RankGrid:
-    """Join a world of ``data * model + prefill`` ranks as ``rank`` on
+def init_rank_grid(rank: int, *, data: int, model: int = 1, prefill: int = 0, pod: int = 1,
+                   backend: str, init_method: Optional[str] = None, device="cuda") -> RankGrid:
+    """Join a world of ``pod * data * model + prefill`` ranks as ``rank`` on
     ``device`` (``torch.distributed.init_process_group``, as
     ``init_model_group``) and lay the grid over it (``rank_grid``).  Gloo
     ranks may share a card (or the CPU); NCCL wants a card a rank."""
 
-    world = data * model + prefill
+    world = pod * data * model + prefill
     _join(rank, world, backend, init_method, device)
-    return rank_grid(data, model, prefill)
+    return rank_grid(data, model, prefill, pod)
 
 
 def _rank_device(rank, world, backend, device) -> torch.device:
@@ -376,11 +426,13 @@ def collectives(cfg, prompt: int = 1) -> Dict[str, int]:
 
 
 def lane_collectives(cfg, cuts: Tuple[int, ...]) -> Dict[str, int]:
-    """The collectives of one token of a fused split round over lanes at
-    ``cuts`` (``PartitionExecutor.build_fleet_decode``): each
+    """The model axis's collectives of one token of a fused split round
+    over lanes at ``cuts`` (``PartitionExecutor.build_fleet_decode``): each
     lane's embedding all-reduce and edge layers, the shared tail from the
     shallowest cut once, the logits' one all-gather.  One lane makes the
-    unsplit decode token's count (``collectives``)."""
+    unsplit decode token's count (``collectives``).  Where the lanes' rows
+    are blocked over data ranks, their MoE layers' exchanges over the data
+    axis are ``lane_data_collectives``'."""
 
     out = layer_collectives(cfg, range(min(cuts), cfg.num_layers))
     for cut in cuts:
@@ -450,44 +502,118 @@ def experts_split(cfg, data: int) -> bool:
     return cfg.moe is not None and data > 1 and cfg.moe.num_experts % data == 0
 
 
-def _moe_layers(cfg) -> int:
-    return sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers)) if cfg.d_ff > 0 else 0
+def _moe_in(cfg, layers: Iterable[int]) -> list:
+    return [i for i in layers if cfg.d_ff > 0 and cfg.is_moe_layer(i)]
+
+
+def moe_calls(cfg, layers: Iterable[int], data: int, *, sharded: bool, moe_impl: str = "dense",
+              offload: Iterable[int] = ()) -> Dict[str, int]:
+    """The data-axis collectives of one call of each MoE layer among
+    ``layers`` on a data rank of ``data`` (``models/moe.py``): over rows
+    that a round shards over ranks (``sharded``: a decode round, a fused
+    split round, a serial lane's suffix step) a layer gathers its rows and
+    reduce-scatters its mixture where the experts spread over the data
+    ranks, and gathers its rows under the capacity dispatch where they do
+    not; an expert-offload layer (``offload``) also gathers its combine
+    weights where it gathers its rows; over replicated rows (an admission
+    prefill, a lane's flush and edge prefill) a layer all-reduces its
+    mixture where the experts spread.  Every other layer makes none."""
+
+    moe, split, off = _moe_in(cfg, layers), experts_split(cfg, data), set(offload)
+    gather = sum(sharded * (split or moe_impl == "capacity") + sharded * split * (i in off)
+                 for i in moe)
+    return {"all_reduce": len(moe) * split, "all_gather": int(gather), "broadcast": 0}
+
+
+def moe_call_bytes(cfg, layers: Iterable[int], rows: int, prompt: int, data: int, *,
+                   sharded: bool, moe_impl: str = "dense", offload: Iterable[int] = (),
+                   batch: Optional[int] = None) -> Dict[str, int]:
+    """The result bytes of ``moe_calls`` over ``rows`` rows of ``prompt``
+    tokens a rank sees: a gather's concatenation of every rank's rows in
+    the model's dtype (over the pod's ``data`` ranks, or, under the
+    capacity dispatch, the ``batch`` ranks of every (pod, data) place;
+    default ``data``), an offload layer's float32 combine weights so, a
+    reduction's float32 partials of every row it sums (the pod's gathered
+    rows, or the replicated ones)."""
+
+    moe, split, off = _moe_in(cfg, layers), experts_split(cfg, data), set(offload)
+    it, d = getattr(torch, cfg.dtype).itemsize, cfg.d_model
+    tokens = rows * prompt
+    over = (batch or data) if moe_impl == "capacity" else data
+    out = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    for i in moe:
+        if sharded and (split or moe_impl == "capacity"):
+            out["all_gather"] += over * tokens * d * it
+        if sharded and split and i in off:
+            out["all_gather"] += data * tokens * cfg.moe.num_experts * 4
+        if split:
+            out["all_reduce"] += (data if sharded else 1) * tokens * d * 4
+    return out
 
 
 def data_collectives(cfg, data: int, *, sharded: bool, moe_impl: str = "dense"
                      ) -> Dict[str, int]:
     """The data-axis collectives of one call of ``cfg``'s stack (a decode
-    token, or a prefill) on a data rank of ``data``: an MoE layer whose
-    rows are sharded over the data ranks (``sharded``: a decode round)
-    gathers its rows and reduce-scatters its mixture where the experts
-    spread over the ranks, and gathers its rows under the capacity
-    dispatch where they do not; an MoE layer over replicated rows (a
-    prefill, a split lane) all-reduces its mixture where the experts
-    spread.  Every other layer makes none."""
+    token, or a prefill) on a data rank of ``data``: ``moe_calls`` over
+    every layer."""
 
-    n, split = _moe_layers(cfg), experts_split(cfg, data)
-    gather = n * sharded * (split or moe_impl == "capacity")
-    return {"all_reduce": n * split, "all_gather": gather, "broadcast": 0}
+    return moe_calls(cfg, range(cfg.num_layers), data, sharded=sharded, moe_impl=moe_impl)
 
 
 def data_collective_bytes(cfg, rows: int, prompt: int, data: int, *, sharded: bool,
-                          moe_impl: str = "dense") -> Dict[str, int]:
+                          moe_impl: str = "dense", batch: Optional[int] = None
+                          ) -> Dict[str, int]:
     """The result bytes of ``data_collectives`` over ``rows`` rows of
-    ``prompt`` tokens a data rank sees: a gather's concatenation of every
-    rank's rows in the model's dtype, a reduction's float32 partials of
-    every row it sums (the gathered rows, or the replicated ones)."""
+    ``prompt`` tokens a data rank sees (``moe_call_bytes``; ``batch``: the
+    ranks the rows are blocked over, pod x data)."""
 
-    calls = data_collectives(cfg, data, sharded=sharded, moe_impl=moe_impl)
-    it = getattr(torch, cfg.dtype).itemsize
-    seen = rows * prompt * cfg.d_model * (data if sharded else 1)
-    return {"all_reduce": calls["all_reduce"] * seen * 4,
-            "all_gather": calls["all_gather"] * seen * it, "broadcast": 0}
+    return moe_call_bytes(cfg, range(cfg.num_layers), rows, prompt, data, sharded=sharded,
+                          moe_impl=moe_impl, batch=batch)
+
+
+def lane_data_collectives(cfg, data: int, cuts: Tuple[int, ...],
+                          offloads: Optional[Tuple[Tuple[int, ...], ...]] = None,
+                          moe_impl: str = "dense") -> Dict[str, int]:
+    """The data-axis (and batch-group) collectives of one token of a fused
+    split round over lanes at ``cuts`` (ascending, ``offloads`` each
+    lane's offloaded layers) whose rows a rank holds in blocks: each
+    lane's edge layers over its block, then the shared tail from the
+    shallowest cut once over the joined blocks (``moe_calls``, sharded)."""
+
+    out = moe_calls(cfg, range(min(cuts), cfg.num_layers), data, sharded=True, moe_impl=moe_impl)
+    for k, cut in enumerate(cuts):
+        edge = moe_calls(cfg, range(cut), data, sharded=True, moe_impl=moe_impl,
+                         offload=offloads[k] if offloads else ())
+        out = {name: n + edge[name] for name, n in out.items()}
+    return out
+
+
+def lane_data_collective_bytes(cfg, data: int, cuts: Tuple[int, ...], blocks: Tuple[int, ...],
+                               offloads: Optional[Tuple[Tuple[int, ...], ...]] = None,
+                               moe_impl: str = "dense", batch: Optional[int] = None
+                               ) -> Dict[str, int]:
+    """The result bytes of ``lane_data_collectives`` with ``blocks[k]``
+    rows of lane ``k`` a rank: an edge layer over its lane's block, a tail
+    layer over the blocks of the lanes joined at it."""
+
+    kw = dict(sharded=True, moe_impl=moe_impl, batch=batch)
+    out = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    parts = [moe_call_bytes(cfg, range(cut), blocks[k], 1, data,
+                            offload=offloads[k] if offloads else (), **kw)
+             for k, cut in enumerate(cuts)]
+    parts += [moe_call_bytes(cfg, [i], sum(b for b, c in zip(blocks, cuts) if c <= i), 1, data,
+                             **kw) for i in range(min(cuts), cfg.num_layers)]
+    for part in parts:
+        out = {name: n + part[name] for name, n in out.items()}
+    return out
 
 
 def harvest_bytes(rows: int, steps: int, data: int, prefill: int) -> Dict[str, int]:
-    """The result bytes of one window's harvest over ``rows`` rows of
-    ``steps`` tokens (int64): the data ranks' gather of their blocks, then,
-    with a prefill rank, the broadcast of every row's tokens to it."""
+    """The result bytes of one window's harvest over ``rows`` gathered rows
+    of ``steps`` tokens (int64: every block of the cloud rows and of each
+    pipelined lane, the blocks of ``data`` ranks, pad rows included): the
+    ranks' gather of their blocks, one for the window, then, with a
+    prefill rank, the broadcast of every gathered row to it."""
 
     every = rows * steps * 8
     return {"all_reduce": 0, "all_gather": every if data > 1 else 0,

@@ -46,7 +46,10 @@ Where the reference's record differs, and why:
     batch shards over data, each MoE layer gathers its rows and
     reduce-scatters its float32 mixture over the D ranks; where it does not,
     it all-reduces the mixture; each where the experts spread over data or
-    the capacity dispatch needs every row).  The term is modeled from the
+    the capacity dispatch needs every row; on the pod mesh the rows shard
+    over the 32 (pod, data) ranks, the dense dispatch gathers the rows of
+    the pod's 16 data ranks and the capacity dispatch those of all 32, its
+    batch group).  The term is modeled from the
     counts, not measured.  It is None, with the reason in ``collective_note``, for a
     stack whose widths do not divide over the model axis
     (``check_model_axis``: starcoder2-3b's 24 heads and xlstm-125m's 4 over
@@ -205,14 +208,18 @@ def collective_term(cfg: ModelConfig, shape: InputShape, mesh, rules, moe_impl: 
     note = (f"counted: {n['all_reduce']} all-reduces and {n['all_gather']} all-gathers "
             f"a rank issues for {step} of {rows} rows over {ranks} ranks")
     data = int(mesh.shape.get("data", 1))
+    batch = int(mesh.shape.get("pod", 1)) * data
     sharded = rows < shape.global_batch
     nd = data_collectives(cfg, data, sharded=sharded, moe_impl=moe_impl)
     if nd["all_reduce"] or nd["all_gather"]:
-        db = data_collective_bytes(cfg, rows, prompt, data, sharded=sharded, moe_impl=moe_impl)
+        db = data_collective_bytes(cfg, rows, prompt, data, sharded=sharded, moe_impl=moe_impl,
+                                   batch=batch)
         by_op.update({f"data_{k}": v for k, v in db.items() if k != "broadcast"})
         note += (f"; its experts over {data} data ranks, the rows "
                  f"{'sharded' if sharded else 'replicated'}: {nd['all_gather']} all-gathers "
                  f"and {nd['all_reduce']} all-reduces")
+        if batch > data and sharded and moe_impl == "capacity":
+            note += f" (the capacity table's rows gathered over the {batch} (pod, data) ranks)"
     return by_op, note
 
 

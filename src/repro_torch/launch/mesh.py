@@ -13,9 +13,11 @@ A rank mesh (``make_rank_mesh``) is one rank's view of a mesh whose
 holds the group and its own rank, and column ``m`` of its devices is rank
 ``m``'s device, once a data shard.  Over a rank grid
 (``launch.dist.RankGrid``) the ``data`` axis is ranks too: row ``d``,
-column ``m`` is rank ``(d, m)``'s own device, and the mesh holds the grid
-and the rank's data group; a prefill rank's mesh holds the grid alone.  A
-mesh of one process has no group and rank 0.
+column ``m`` is rank ``(d, m)``'s own device, and the mesh holds the grid,
+the rank's data group and its batch group (the ranks its rows are blocked
+over); a grid with a ``pod`` axis gives a (pod, data, model) mesh whose
+rows are blocked over every (pod, data) rank; a prefill rank's mesh holds
+the grid alone.  A mesh of one process has no group and rank 0.
 """
 
 from __future__ import annotations
@@ -34,10 +36,12 @@ class Mesh:
     ``data_group``: the ``data`` axis's ranks where they are processes
     (None where the data shards share this process's device), and
     ``grid``, the ``launch.dist.RankGrid`` the mesh lies on (None in one
+    process); ``batch_group``: the ranks the rows are blocked over (the
+    data group, or every (pod, data) rank of a pod grid; None in one
     process)."""
 
     def __init__(self, devices, axis_names: Sequence[str], group=None, data_group=None,
-                 grid=None):
+                 grid=None, batch_group=None):
         flat = [torch.device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
         shape = np.asarray(devices, dtype=object).shape
         if len(shape) != len(axis_names):
@@ -50,6 +54,8 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
         self.group = group
         self.data_group = data_group if data_group is not None and data_group.size > 1 else None
+        self.batch_group = (batch_group if batch_group is not None and batch_group.size > 1
+                            else None)
         self.grid = grid
 
     @property
@@ -64,10 +70,11 @@ class Mesh:
 
     @property
     def local_shards(self) -> int:
-        """The data shards this process holds: every one in one process, 1
-        where the data axis is ranks."""
+        """The data shards this process holds: every one in one process (a
+        pod axis folded into them), 1 where the rows are blocked over
+        ranks."""
 
-        return 1 if self.data_group is not None else int(self.shape.get("data", 1))
+        return 1 if self.batch_group is not None else int(self.shape.get("data", 1))
 
     @property
     def prefill_rank(self) -> bool:
@@ -145,8 +152,11 @@ def make_rank_mesh(data: int, group) -> Mesh:
     ``make_test_mesh`` repeats a device).  ``group`` a
     ``launch.dist.RankGrid`` of ``data`` data ranks: row ``d``, column
     ``m`` is rank ``(d, m)``'s device, and the mesh holds the grid, the
-    rank's model group and its data group (a prefill rank's: neither).
-    The mesh keeps the group and this process's rank."""
+    rank's model group, its data group and its batch group (a prefill
+    rank's: none); a grid with a ``pod`` axis above 1 gives a (pod, data,
+    model) mesh over ``("pod", "data", "model")``, entry ``(p, d, m)``
+    rank ``(p, d, m)``'s device.  The mesh keeps the group and this
+    process's rank."""
 
     if data < 1:
         raise ValueError(f"data={data}: at least 1")
@@ -155,12 +165,16 @@ def make_rank_mesh(data: int, group) -> Mesh:
     if isinstance(group, RankGrid):
         if data != group.data:
             raise ValueError(f"data={data} on a grid of {group.data} data ranks")
-        n = group.data * group.model
+        n = group.decode_ranks
         devs = np.empty(n, dtype=object)
         devs[:] = [torch.device(d) for d in group.devices[:n]]
         mg = group.model_group if group.model_group is not None and group.model > 1 else None
-        return Mesh(devs.reshape(group.data, group.model), ("data", "model"), group=mg,
-                    data_group=group.data_group, grid=group)
+        if group.pod > 1:
+            shape, axes = (group.pod, group.data, group.model), ("pod", "data", "model")
+        else:
+            shape, axes = (group.data, group.model), ("data", "model")
+        return Mesh(devs.reshape(shape), axes, group=mg, data_group=group.data_group, grid=group,
+                    batch_group=group.batch_group)
     devs = np.empty((data, group.size), dtype=object)
     for m, d in enumerate(group.devices):
         devs[:, m] = [torch.device(d)] * data

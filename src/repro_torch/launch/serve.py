@@ -290,11 +290,14 @@ def serve_fleet(
     each lane, heterogeneous cuts and expert-offload lanes too, serves its
     robots' edge prefixes and cloud suffixes on every rank's blocks; over
     a rank grid's mesh (``launch.dist.init_rank_grid``) each data shard is
-    a rank, and ``prefill_group=grid.handoff`` puts the prefill on the
-    grid's prefill rank (call ``serve_fleet`` on every rank of the grid;
-    rank (0, 0)'s result is the fleet's); ``prefill_group`` disaggregates
-    the prompt prefill (a stream of its own on a CUDA model, or that
-    rank), its K/V merged at the next window boundary.
+    a rank, each holding its block of the cloud rows and of every lane's
+    rows (a grid with a ``pod`` axis blocks them over every (pod, data)
+    rank), and ``prefill_group=grid.handoff`` puts the prefill on the
+    grid's prefill rank, the split lanes staying on the decode ranks (call
+    ``serve_fleet`` on every rank of the grid; rank (0, 0, 0)'s result is
+    the fleet's); ``prefill_group`` disaggregates the prompt prefill (a
+    stream of its own on a CUDA model, or that rank), its K/V merged at
+    the next window boundary.
 
     ``defer_hot_admission`` (a preempt-rate threshold, e.g. ``0.2``): a
     robot that fires a mid-chunk preempt while its realized preempt rate is

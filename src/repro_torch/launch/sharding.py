@@ -14,9 +14,11 @@ The port runs eagerly, not under GSPMD: ``shard(x, *axes)`` returns ``x``
 itself.  The ``sharding_rules`` context makes a mesh active
 (``active_mesh``): the paged decode attention reads it and splits its rows
 over the ``data`` axis (``kernels.paged_attention.
-paged_decode_attention_sharded``), and where that axis is ranks the MoE
+paged_decode_attention_sharded``), and where the rows are blocked over
+ranks (the data ranks, or every (pod, data) rank of a pod grid) the MoE
 layers read from it that the rows they see are the rank's block
-(``rows_group``); ``no_sharding`` suspends it.
+(``rows_group``) and which of the blocks' rows are real (``rows_layout``);
+``no_sharding`` suspends it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 MeshAxes = Union[str, Tuple[str, ...], None]
 
@@ -69,6 +71,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: Optional[Dict[str, Tuple[str, ...]]] = None
+        self.rows: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
 _CTX = _Ctx()
@@ -84,27 +87,48 @@ def make_rules(mesh, overrides: Optional[Dict[str, Tuple[str, ...]]] = None):
 
 
 @contextlib.contextmanager
-def sharding_rules(mesh, overrides: Optional[Dict[str, Tuple[str, ...]]] = None):
-    """Make ``mesh`` (and its rules) active for the calls inside."""
+def sharding_rules(mesh, overrides: Optional[Dict[str, Tuple[str, ...]]] = None,
+                   rows: Optional[Sequence[Tuple[int, int]]] = None):
+    """Make ``mesh`` (and its rules) active for the calls inside.
+    ``rows``: the row buffers the calls' rows are made of, each as
+    ``(global rows R, rows a block B)`` in the order they are joined
+    (``rows_layout``; None: every row of every block is real)."""
 
-    prev = (_CTX.mesh, _CTX.rules)
+    prev = (_CTX.mesh, _CTX.rules, _CTX.rows)
     _CTX.mesh, _CTX.rules = mesh, make_rules(mesh, overrides)
+    _CTX.rows = tuple(rows) if rows is not None else None
     try:
         yield _CTX.rules
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.rows = prev
 
 
 @contextlib.contextmanager
 def no_sharding():
     """Suspend any active mesh (the disaggregated prefill runs so)."""
 
-    prev = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = None, None
+    prev = (_CTX.mesh, _CTX.rules, _CTX.rows)
+    _CTX.mesh, _CTX.rules, _CTX.rows = None, None, None
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.rows = prev
+
+
+@contextlib.contextmanager
+def rows_scope(rows: Optional[Sequence[Tuple[int, int]]]):
+    """``rows`` ((R, B) each) in place of the active ``sharding_rules``'
+    for the calls inside (a fused split round's lane's edge layers see that
+    lane's block alone); nothing where ``rows`` is None."""
+
+    if rows is None:
+        yield
+        return
+    prev, _CTX.rows = _CTX.rows, tuple(rows)
+    try:
+        yield
+    finally:
+        _CTX.rows = prev
 
 
 def active_mesh():
@@ -114,11 +138,45 @@ def active_mesh():
 
 
 def rows_group():
-    """The data ranks whose blocks of rows the calls inside see (the
-    active mesh's ``data_group``: a scheduler's decode round over data
-    ranks), or None where every rank sees every row."""
+    """The ranks whose blocks of rows the calls inside see (the active
+    mesh's ``batch_group``: the data ranks, or every (pod, data) rank of a
+    pod grid, in a scheduler's decode round or fused split round), or None
+    where every rank sees every row."""
 
-    return getattr(_CTX.mesh, "data_group", None)
+    return getattr(_CTX.mesh, "batch_group", None)
+
+
+def rows_layout() -> Optional[Tuple[Tuple[int, int], ...]]:
+    """The active ``sharding_rules``' ``rows``: ``((R, B), ...)``, one a
+    row buffer joined into the calls' rows (the cloud rows, or each lane of
+    a fused split round in order), each a padded block of ``B = ceil(R /
+    ranks)`` rows a rank; rank ``k``'s block holds global rows ``[k B,
+    (k + 1) B)``, those at ``R`` and above padding.  None: no padding."""
+
+    return _CTX.rows
+
+
+def real_rows(local: int, ranks: int) -> Optional[List[int]]:
+    """The positions, in the concatenation of ``ranks`` ranks' ``local``
+    rows each (rank order), of the real rows in their global order: the
+    row buffers of ``rows_layout`` whose blocks add up to ``local`` (a
+    prefix: a fused round's tail joins the lanes in order), each buffer's
+    rows in turn -> None where every position is real and in order."""
+
+    layout = rows_layout()
+    if layout is None:
+        return None
+    seg, total = [], 0
+    for r, b in layout:
+        if total == local:
+            break
+        seg.append((r, b, total))
+        total += b
+    if total != local:
+        raise ValueError(f"{local} rows a rank are no prefix of the blocks {layout}")
+    out = [k * local + off + i for r, b, off in seg for k in range(ranks) for i in range(b)
+           if k * b + i < r]
+    return None if out == list(range(ranks * local)) else out
 
 
 def _axis_size(mesh, axes: Tuple[str, ...]) -> int:

@@ -263,7 +263,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None, windowed_cache: bool = False,
                  moe_impl: str = "dense", cache_cross_kv: bool = False, group=None,
-                 data_group=None):
+                 data_group=None, batch_group=None):
         """Build ``cfg`` on ``device`` with weights drawn from ``generator``
         (default: a generator on ``device`` seeded with 0).  On
         ``device="meta"`` the model is abstract (the reference's
@@ -293,7 +293,9 @@ class Model(nn.Module):
         ``data_group`` (a ``ModelGroup`` of the data axis, D > 1 ranks): the
         MoE layers spread their experts over it (see the module's
         docstring); a stack without MoE layers holds the same blocks on
-        every data rank."""
+        every data rank.  ``batch_group`` (default ``data_group``): the
+        ranks the engine blocks its rows over (``RankGrid.batch_group``),
+        over which the capacity dispatch gathers its table."""
 
         super().__init__()
         if moe_impl not in MOE_IMPLS:
@@ -305,6 +307,8 @@ class Model(nn.Module):
         self.device = torch.device(device)
         self.group = group if group is not None and group.size > 1 else None
         self.data_group = data_group if data_group is not None and data_group.size > 1 else None
+        self.batch_group = (batch_group if batch_group is not None and batch_group.size > 1
+                            else self.data_group)
         if self.group is not None:
             check_model_axis(cfg, self.group.size)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -439,15 +443,22 @@ class Model(nn.Module):
         """Whether this model's calls may be captured as CUDA graphs: on a
         card, unless a group whose collectives a decode round makes stages
         them through the host (gloo), whose rounds then run eagerly: the
-        model group, and the data group of a stack whose MoE layers
-        exchange rows over it (experts spread over the data ranks, or the
-        capacity dispatch)."""
+        model group, and the batch group of a stack whose MoE layers
+        exchange rows over it or over the data group within it (experts
+        spread over the data ranks, or the capacity dispatch)."""
 
-        data = self.data_group is not None and any(
-            blk.moe.split or self.moe_impl == "capacity"
-            for blk in self.layers if hasattr(blk, "moe"))
+        rows = self.batch_group is not None and self.exchanges_rows
         return (self.device.type == "cuda" and (self.group is None or self.group.graphs)
-                and (not data or self.data_group.graphs))
+                and (not rows or self.batch_group.graphs))
+
+    @property
+    def exchanges_rows(self) -> bool:
+        """Whether a round whose rows are blocked over ranks exchanges them:
+        MoE layers whose experts spread over the data ranks, or the
+        capacity dispatch (its table is global)."""
+
+        return any(blk.moe.split or self.moe_impl == "capacity"
+                   for blk in self.layers if hasattr(blk, "moe"))
 
     @property
     def vocab_padded(self) -> int:

@@ -30,17 +30,26 @@ dtype, as the dense MLP's.
 (the reference's ``"expert": ("data",)`` rule).  Where the data axis is
 ranks (``Model(data_group=...)``, ``dp``) and E divides over them, data
 rank ``d`` holds experts ``[d E / D, (d + 1) E / D)``; else the rule drops
-and every data rank holds all E.  A layer runs in one of two cases:
+and every data rank holds all E.  On a grid with a ``pod`` axis the
+experts spread over the data ranks of the rank's own pod (replicated over
+``pod``, as the reference's rule leaves them).  A layer runs in one of two
+cases:
 
-- rows sharded over data (a scheduler's decode round: the active mesh's
-  ``rows_group``): x is gathered over the data ranks, every token routed
-  (the same float32 router on every rank), the rank's experts run on
-  their tokens, and the mixture is reduce-scattered back to the rank's
-  rows; where the experts do not split the dense dispatch stays on the
-  rank's rows, and the capacity dispatch gathers x all the same;
-- rows replicated over data (an admission prefill, a split lane): the
-  rank's experts run on the tokens, and the mixture is all-reduced over
-  the data ranks.
+- rows sharded over ranks (a scheduler's decode round, or a fused split
+  round: the active mesh's ``rows_group``, the batch group of every (pod,
+  data) rank, the data group where there is no pod axis): under the dense
+  dispatch with split experts x is gathered over the data ranks of the
+  pod, every token routed (the same float32 router on every rank), the
+  rank's experts run on their tokens, and the mixture is reduce-scattered
+  back to the rank's rows; where the experts do not split the dense
+  dispatch stays on the rank's rows; the capacity dispatch gathers x over
+  the batch group, whatever the experts, and builds its table from the
+  real rows in their global order (``launch.sharding.real_rows``: a
+  block's pad rows take no slot), then each pod reduce-scatters its rows
+  over its data ranks (split experts) or each rank takes its block;
+- rows replicated over data (an admission prefill, a split lane's flush
+  or edge prefill): the rank's experts run on the tokens, and the mixture
+  is all-reduced over the data ranks.
 
 The partials of split experts are float32, summed over the data ranks
 and rounded once; the model axis's all-reduce follows.  The capacity
@@ -50,13 +59,15 @@ order, so the tokens dropped are those of one device.
 
 from __future__ import annotations
 
+from typing import List, NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.dist import all_gather_cat, all_reduce_sum, reduce_rows
-from repro_torch.launch.sharding import rows_group
+from repro_torch.launch.sharding import real_rows, rows_group
 from repro_torch.models.layers import _param, block_of, global_shape, normal_
 
 # the dense mixture runs experts in groups whose [E_g, T, max(F, D)]
@@ -134,33 +145,62 @@ def _down(h, p: MoE, sl: slice):
     return torch.bmm(h, p.down[sl].to(h.dtype))
 
 
+class Rows(NamedTuple):
+    """How a layer's rows were gathered: over ``group``, ``local`` rows a
+    rank, ``idx`` the real rows' positions in global order (None: every
+    gathered row, in order)."""
+
+    group: object
+    local: int
+    idx: Optional[List[int]] = None
+
+
 def _gathered(x, p: MoE, capacity: bool):
-    """``x`` [B, S, D] gathered over the data ranks where a decode round
-    shards its rows over them and the layer needs every row (experts spread
-    over the ranks, or the capacity dispatch's global token order) ->
-    (x or the gathered rows, whether it gathered)."""
+    """``x`` [B, S, D], where a round shards its rows over ranks and the
+    layer needs more than the rank's rows: gathered over the pod's data
+    ranks (the dense dispatch over split experts), or over the batch group
+    with its pad rows dropped and its rows in global order (the capacity
+    dispatch) -> (x or the gathered rows, their ``Rows``; None where
+    nothing was gathered)."""
 
-    if p.dp is None or rows_group() is not p.dp or not (p.split or capacity):
-        return x, False
-    return all_gather_cat(x, 0, p.dp), True
+    group = rows_group()
+    if group is None or not (p.split or capacity):
+        return x, None
+    if not capacity:
+        return all_gather_cat(x, 0, p.dp), Rows(p.dp, x.shape[0])
+    xa = all_gather_cat(x, 0, group)
+    idx = real_rows(x.shape[0], group.size)
+    if idx is not None:
+        xa = xa[torch.as_tensor(idx, device=x.device)]
+    return xa, Rows(group, x.shape[0], idx)
 
 
-def _finish(out, p: MoE, gathered: bool, dtype):
+def _finish(out, p: MoE, rows, dtype):
     """A mixture of the rank's experts over the rows it saw -> the rank's
     rows of the whole mixture in ``dtype``: float32 partials of split
     experts summed over the data ranks (reduce-scattered back to the rank's
-    rows where they were gathered) and rounded once, then the model axis's
-    sum."""
+    rows where they were gathered: over a batch group, the rank's pod's
+    rows) and rounded once, then the model axis's sum."""
 
+    if rows is not None and rows.idx is not None:
+        full = out.new_zeros((rows.group.size * rows.local,) + tuple(out.shape[1:]))
+        full[torch.as_tensor(rows.idx, device=out.device)] = out
+        out = full
     if p.split:
-        out = (reduce_rows(out, p.dp) if gathered else all_reduce_sum(out, p.dp)).to(dtype)
-    elif gathered:
-        n = out.shape[0] // p.dp.size
-        out = out.narrow(0, p.dp.rank * n, n)
+        if rows is None:
+            out = all_reduce_sum(out, p.dp)
+        else:
+            if rows.group is not p.dp:
+                n = p.dp.size * rows.local
+                out = out.narrow(0, rows.group.rank // p.dp.size * n, n)
+            out = reduce_rows(out, p.dp)
+        out = out.to(dtype)
+    elif rows is not None:
+        out = out.narrow(0, rows.group.rank * rows.local, rows.local)
     return all_reduce_sum(out, p.tp)
 
 
-def moe_apply_experts(x, combine, p: MoE, gathered: bool = False):
+def moe_apply_experts(x, combine, p: MoE, rows=None):
     """x [B,S,D], combine [B,S,E] -> the experts' mixture [B,S,D].
 
     Each expert's output is the reference's, ``((silu(x Wg) * x Wu) *
@@ -169,7 +209,7 @@ def moe_apply_experts(x, combine, p: MoE, gathered: bool = False):
     one expert at a time.  On a rank of ``p.tp`` the mixture of its
     ``d_ff`` block is summed over the ranks; with the experts spread over
     the data ranks (``p.dp``) the rank's experts' float32 mixture is summed
-    over those (``gathered``: x holds every data rank's rows, and the
+    over those (``rows``: x holds the rows ``_gathered`` gathered, and the
     result is this rank's)."""
 
     b, s, d = x.shape
@@ -185,15 +225,28 @@ def moe_apply_experts(x, combine, p: MoE, gathered: bool = False):
         part = h.sum(0, dtype=torch.float32) if p.split else h.sum(0)
         acc = part if acc is None else acc + part
     out = acc.reshape(b, s, d)
-    return _finish(out if p.split else out.to(x.dtype), p, gathered, x.dtype)
+    return _finish(out if p.split else out.to(x.dtype), p, rows, x.dtype)
 
 
 def moe_forward(x, p: MoE, cfg: ModelConfig):
     """x [B,S,D] -> (out [B,S,D], aux loss): route, then the dense mixture."""
 
-    xa, gathered = _gathered(x, p, capacity=False)
+    xa, rows = _gathered(x, p, capacity=False)
     combine, aux = router_probs(xa, p.router, cfg.moe.num_experts_per_tok)
-    return moe_apply_experts(xa, combine, p, gathered), aux
+    return moe_apply_experts(xa, combine, p, rows), aux
+
+
+def moe_apply_offloaded(h2, combine, p: MoE):
+    """The cloud half of an expert-offload split (``h2`` and its
+    ``combine`` routed edge-side): ``moe_apply_experts``, with both
+    gathered over the pod's data ranks where a round shards its rows and
+    the experts split (the dense dispatch's case: two gathers, one
+    reduce-scatter)."""
+
+    xa, rows = _gathered(h2, p, capacity=False)
+    if rows is not None:
+        combine = all_gather_cat(combine, 0, rows.group)
+    return moe_apply_experts(xa, combine, p, rows)
 
 
 def capacity_slots(selected, cap: int):
@@ -229,7 +282,7 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
 
     m = cfg.moe
     dtype = x.dtype
-    x, gathered = _gathered(x, p, capacity=True)
+    x, seen = _gathered(x, p, capacity=True)
     b, s, d = x.shape
     k, e = m.num_experts_per_tok, m.num_experts
     cf = capacity_factor or m.capacity_factor
@@ -269,4 +322,4 @@ def moe_forward_capacity(x, p: MoE, cfg: ModelConfig, capacity_factor=None):
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
-    return _finish(out.reshape(b, s, d), p, gathered, dtype), aux
+    return _finish(out.reshape(b, s, d), p, seen, dtype), aux

@@ -209,7 +209,7 @@ def mlstm_forward(x_res, p: MLSTM, cfg: ModelConfig, state=None, step: bool = Fa
     return _sum_over(y, p.out_proj, p.tp), new_state
 
 
-def zero_mlstm_state(batch: int, nh: int, dh: int, device="cpu"):
+def zero_mlstm_state(batch: int, nh: int, dh: int, device="cuda"):
     """(C, n, m) of ``batch`` rows: zeros, the stabilizer at -1e30."""
 
     z = dict(dtype=torch.float32, device=device)
@@ -217,7 +217,7 @@ def zero_mlstm_state(batch: int, nh: int, dh: int, device="cpu"):
             torch.full((batch, nh), M_FLOOR, **z))
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device="cpu", ranks: int = 1):
+def init_mlstm_state(cfg: ModelConfig, batch: int, device="cuda", ranks: int = 1):
     """A zero state of one mLSTM layer; a rank's H / ``ranks`` heads of it
     over a model axis."""
 
@@ -295,7 +295,7 @@ def slstm_forward(x_res, p: SLSTM, cfg: ModelConfig, state=None, step: bool = Fa
     return _sum_over(ACTIVATIONS["gelu"](gate) * val, p.down, p.tp), state
 
 
-def zero_slstm_state(batch: int, units: int, d: int, device="cpu"):
+def zero_slstm_state(batch: int, units: int, d: int, device="cuda"):
     """(c, n, h, m): c, n, m [batch, units] and h [batch, d] (whole: every
     rank reads all of h), zeros, the stabilizer at -1e30."""
 
@@ -304,7 +304,7 @@ def zero_slstm_state(batch: int, units: int, d: int, device="cpu"):
             torch.zeros((batch, d), **z), torch.full((batch, units), M_FLOOR, **z))
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device="cpu", ranks: int = 1):
+def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda", ranks: int = 1):
     """A zero state of one sLSTM layer; a rank's D / ``ranks`` units of c, n
     and m over a model axis (h whole)."""
 

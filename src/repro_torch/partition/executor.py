@@ -29,7 +29,7 @@ split state, and updated in place (the reference returns new arrays).
 ``expert_offload`` lists edge-side MoE layers whose expert FFNs live
 cloud-side: the edge runs the layer's mixer, norm2 and router
 (``Model._moe_pre_dispatch``), ships the hidden states and combine weights
-up, the cloud applies the experts (``moe_apply_experts``) and ships the
+up, the cloud applies the experts (``moe_apply_offloaded``) and ships the
 mixture down; the seam is the fused MoE block op for op, so tokens do not
 change.  The port runs eagerly (or replays a CUDA graph), so the reference's
 whole-edge jit and its host-composed per-layer programs (``_gs_block_calls``)
@@ -73,9 +73,10 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import EpisodeTokenizer
+from repro_torch.launch.sharding import rows_scope
 from repro_torch.models.layers import embed_lookup, rms_norm
 from repro_torch.models.model import Model
-from repro_torch.models.moe import moe_apply_experts
+from repro_torch.models.moe import moe_apply_offloaded
 from repro_torch.obs.clock import clock
 from repro_torch.partition.planner import TOKEN_ID_BYTES, interior_net_ms
 from repro_torch.runtime.channel import ChannelConfig, roundtrip_ms
@@ -169,7 +170,7 @@ class PartitionExecutor:
                 x = m._block_mix_step(i, x, c, length)
             if i in offload:
                 h2, combine = m._moe_pre_dispatch(i, x)                 # uplink
-                x = x + moe_apply_experts(h2, combine, m.layers[i].moe)  # downlink
+                x = x + moe_apply_offloaded(h2, combine, m.layers[i].moe)  # downlink
             else:
                 x = m._block_ffn(i, x)
         return x
@@ -425,8 +426,12 @@ class PartitionExecutor:
         ``logits`` [R_i, V] (read, then overwritten with the window's last),
         ``edge`` caches {layer: ...} [R_i, ...], ``state`` {layer: recurrent
         state} and int32 ``lens`` [R_i] (read only: the caller tracks the
-        lengths).  ``pts`` / ``caps``: per-lane page tables / capacities.
-        ``toks``: a per-lane tuple of [R_i, n_steps] tokens.
+        lengths); over ranks, where ``R_i`` is the rank's block of the
+        lane's rows, ``rows`` (the lane's global rows, its block), which
+        the lane's edge layers see as the active mesh's ``rows_layout``
+        (the tail sees every joined lane's).  ``pts`` / ``caps``: per-lane
+        page tables / capacities.  ``toks``: a per-lane tuple of [R_i,
+        n_steps] tokens.
         """
 
         m, cfg = self.model, self.cfg
@@ -449,9 +454,10 @@ class PartitionExecutor:
                     ls = logits[k].masked_fill(floor, -1e9) if token_floor else logits[k]
                     tok = ls.argmax(dim=-1)
                     toks_out[k].append(tok)
-                    xs.append(self._edge_blocks(self._embed_token(tok[:, None]), lane["edge"],
-                                                length=lens[k], cut=cuts[k],
-                                                offload=off_sets[k]))
+                    with rows_scope((lane["rows"],) if "rows" in lane else None):
+                        xs.append(self._edge_blocks(self._embed_token(tok[:, None]), lane["edge"],
+                                                    length=lens[k], cut=cuts[k],
+                                                    offload=off_sets[k]))
                 # progressive tail: lane k joins at layer cuts[k]; offs slice
                 # its rows back out
                 x_cat = pt_cat = len_cat = cap_cat = None

@@ -75,30 +75,44 @@ the rows stay a multiple of the data size, and each decode round runs
 under ``sharding_rules(mesh)``, so its paged attention launches once a
 shard a layer over that shard's block of rows
 (``kernels.paged_attention.paged_decode_attention_sharded``).  The split
-lanes draw from the same shard-aware pool; their rounds are not
-row-sharded.  In one process the shards share one device: a mesh over
+lanes draw from the same shard-aware pool; in one process their rounds
+are not row-sharded.  In one process the shards share one device (a
+``pod`` axis folds into them: the rows stay a multiple of ``data``, the
+allocator keeps ``data`` shards, as the reference's does); a mesh over
 more than one distinct device, or on another device than the model's,
-raises ``NotImplementedError`` naming the ranks that serve it, and a
-``pod`` axis above 1 names its ROADMAP item (queue I, item 8).
+raises ``NotImplementedError`` naming the ranks that serve it.
 
 **Data ranks.**  Over a rank grid's mesh (``launch.dist.RankGrid``,
 ``make_rank_mesh``) each data shard is a rank of its own, SPMD: every rank
 makes the same admissions, reservations, rounds, cancels and harvests
 from the same requests (the allocator, ``PoolStats`` and every
-reservation are the one process's).  Data rank ``d`` holds and decodes
-rows ``[d R / D, (d + 1) R / D)`` (logits, page table, lengths,
-capacities, recurrent state), its paged attention one launch a layer over
-them, and a pool of every global page id, of which it writes and reads its
-own rows' pages (a row's pages come from the least-loaded shard, so they
-need not lie in its rank's block of ids).  The admission prefill runs
-whole on every data rank, each merging its own rows; a window's tokens are
-gathered over the data ranks at its close, one collective a window, so
-every rank harvests every row; doubling the rows gathers each row buffer
-once and each rank keeps its block of the doubled rows.  Split lanes run
-whole on every data rank.  A decode round of a dense stack makes no
-data-axis collective, so it stays a CUDA graph under gloo; an MoE stack's
-round exchanges its rows over the data ranks and follows the group's
-backend (``Model.graphs``, ``round_mode``).
+reservation are the one process's).  The rows of every buffer (the cloud
+rows, each split lane's) are blocked over the N ranks of the batch group
+(the data ranks; on a grid with a ``pod`` axis every (pod, data) rank):
+of a buffer of R rows (the reference's counts: the cloud rows a multiple
+of ``data``, a lane's from ``attach_partition``'s ``rows``, both
+doubling) rank ``k`` holds the padded block of rows ``[k B, (k + 1) B)``,
+``B = ceil(R / N)``, those at R and above pad rows that no sequence takes
+(``_block``, ``_own``).  A rank holds and decodes its blocks (logits,
+page table, lengths, capacities, recurrent state; a lane's edge rows and
+suffix state), its paged attention one launch a layer over them, and a
+pool of every global page id, of which it writes and reads its own rows'
+pages (a row's pages come from the least-loaded shard, so they need not
+lie in its rank's block of ids).  The admission prefill, and a lane's
+flush, run whole on every data rank, each merging its own rows; a
+window's tokens, the cloud rows' and every lane's blocks in one buffer,
+are gathered over the ranks at its close, one collective a window, so
+every rank harvests every row (a serial lane gathers its window's tokens
+once, at its end: each robot's edge steps on its row's rank alone, unless
+its edge layers exchange over the data ranks); doubling a buffer's rows
+gathers each row buffer once and each rank keeps its block of the doubled
+rows, and a row that changes rank takes its pages' K/V along
+(``_move_pages``, one gather a pool tensor) and, on a serial lane, its
+robot's edge caches (``_move_edge_caches``).  A decode or fused split
+round of a dense stack makes no data-axis collective, so it stays a CUDA
+graph under gloo; an MoE stack's round exchanges its rows over the data
+ranks (the capacity dispatch over the batch group) and follows the
+group's backend (``Model.graphs``, ``round_mode``).
 
 **Model axis.**  A rank mesh (``launch.mesh.make_rank_mesh``) over a
 tensor-parallel model (``Model(group=...)``, the same group) runs the
@@ -128,7 +142,8 @@ over two boundaries (the reference's ``_dispatch_prefill`` and
 ``_merge_pending``): at a boundary the admitted prompts' batched prefill is
 issued after the window's rounds, and the sequences stay ``pending``
 (capacity 0: the window's writes on their rows go to the trash page, and
-harvest skips them); at the next boundary, before any new reservation, the
+harvest skips them; a split lane's admissions flush at once, as the
+reference's do); at the next boundary, before any new reservation, the
 prefill's K/V and logits merge into the live pool
 (``merge_prefill_into_paged``), rows cancelled meanwhile dropped by an
 out-of-range row index with their prompt K/V sent, at length 0, to the
@@ -148,8 +163,11 @@ dense cache (``Model.handoff_layout``, one byte buffer) over the handoff
 group; each decode rank takes its KV heads and state blocks
 (``Model.rank_block``) and its rows, and merges them as above.  Each
 window's tokens go from decode rank 0 to the prefill rank after the data
-ranks' gather.  Split lanes beside a prefill rank are refused (ROADMAP
-queue I, item 12).
+ranks' gather.  Split lanes stay on the decode ranks: only cloud-only
+admissions go to the prefill rank, which makes the same lane
+reservations, releases and counters (``record_chunk_bytes``) but holds no
+lane buffers and runs no lane kernel; the lanes' tokens reach it in the
+window's broadcast, a serial lane's at its window's end.
 
 An encoder-decoder stack is refused, as the reference refuses it: a
 request carries observation tokens only, no encoder frames.
@@ -205,26 +223,26 @@ def _canon(device) -> torch.device:
 # where the refused placements go
 _RANKS = ("serve distinct devices as ranks (launch.dist.init_rank_grid, "
           "launch.mesh.make_rank_mesh)")
-_POD = "(ROADMAP queue I, item 8: the pod axis)"
 _PREFILL_RANK = ("a prefill device of its own is a prefill rank (launch.dist.init_rank_grid("
                  "prefill=1), prefill_group=RankGrid.handoff)")
 
 
 def _check_placement(model, mesh, prefill_group) -> None:
-    """Refuse what the engine does not run: a ``pod`` axis, a ``model``
-    axis that is not the model's group, a one-process mesh over more than
-    one distinct device or on another device than the model's (distinct
-    devices are ranks), a prefill device other than the model's in one
-    process (it is a prefill rank), and a grid's rank whose model or
-    prefill group is not the grid's."""
+    """Refuse what the engine does not run: an axis other than ``pod``,
+    ``data`` and ``model``, a ``model`` axis that is not the model's group,
+    a one-process mesh over more than one distinct device or on another
+    device than the model's (distinct devices are ranks), a prefill device
+    other than the model's in one process (it is a prefill rank), and a
+    grid's rank whose model or prefill group is not the grid's."""
 
     dev = _canon(model.device)
     grid = getattr(mesh, "grid", None)
     if mesh is not None:
-        extra = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
+        extra = {a: n for a, n in mesh.shape.items()
+                 if a not in ("pod", "data", "model") and n > 1}
         if extra:
-            raise NotImplementedError(f"mesh axes {extra}: only the data and model axes shard "
-                                      + _POD)
+            raise NotImplementedError(f"mesh axes {extra}: the engine shards over the pod, data "
+                                      "and model axes")
         ranks = int(mesh.shape.get("model", 1))
         group = model.group
         if mesh.prefill_rank:
@@ -249,9 +267,12 @@ def _check_placement(model, mesh, prefill_group) -> None:
             if devs[0] != dev:
                 raise NotImplementedError(f"a mesh on {devs[0]} for a model on {dev} in one "
                                           "process: " + _RANKS)
-        elif model.cfg.moe is not None and model.data_group is not mesh.data_group:
+        elif model.cfg.moe is not None and (model.data_group is not mesh.data_group
+                                            or model.batch_group is not mesh.batch_group):
             raise ValueError("a data rank's MoE stack spreads its experts over the grid's data "
-                             "group: build the model with data_group=RankGrid.data_group")
+                             "group and exchanges rows over its batch group: build the model "
+                             "with data_group=RankGrid.data_group, "
+                             "batch_group=RankGrid.batch_group")
     if isinstance(prefill_group, ModelGroup):
         if grid is None or prefill_group is not grid.handoff:
             raise ValueError("a handoff group serves the grid it belongs to: pass its rank mesh "
@@ -373,17 +394,20 @@ class ContinuousBatchingScheduler:
             raise NotImplementedError("continuous batching targets decoder-only VLAs")
         _check_placement(model, mesh, prefill_group)
         self.model = model
+        self.mesh = mesh
+        self.data_shards = int(mesh.shape["data"]) if mesh is not None else 1
+        # rows blocked over ranks (the data ranks, or every (pod, data) rank
+        # of a pod grid): this rank's padded block of every row buffer (one
+        # block in one process)
+        grid = getattr(mesh, "grid", None)
+        self._bgroup = mesh.batch_group if mesh is not None else None
+        self._nranks = grid.blocks if grid is not None else 1
+        self._brank = self._bgroup.rank if self._bgroup is not None else 0
         self.round_mode = ("cuda graphs" if model.graphs else "eager") + (
             f", {model.group.size} ranks over {model.group.backend}" if model.group else "")
         if model.group is not None:
             LOG.info("scheduler rank %d of %d: decode rounds %s", model.group.rank,
                      model.group.size, self.round_mode)
-        self.mesh = mesh
-        self.data_shards = int(mesh.shape["data"]) if mesh is not None else 1
-        # data ranks: this rank's block of the rows (one block in one process)
-        self._dgroup = mesh.data_group if mesh is not None else None
-        self._nranks = self._dgroup.size if self._dgroup is not None else 1
-        self._drank = self._dgroup.rank if self._dgroup is not None else 0
         # disaggregated prefill: a prefill rank's handoff group, or the
         # stream (CUDA) of a prefill in this process; the dispatched
         # prefills awaiting their merge: (sequences, logits, cache, event),
@@ -396,8 +420,9 @@ class ContinuousBatchingScheduler:
                                 else f"; prefill on rank {self._handoff.size - 1}")
         else:
             self.prefill_device = torch.device(prefill_group[0]) if prefill_group else None
-        if self._nranks > 1:
-            self.round_mode += f"; rows over {self._nranks} data ranks"
+        if self._nranks > 1 and not self.is_prefill_rank:
+            self.round_mode += (f"; rows over {self._nranks} data ranks" if grid.pod == 1 else
+                                f"; rows over {grid.pod} x {grid.data} pod and data ranks")
         self._prefill_stream = None
         if (self._handoff is None and self.prefill_device is not None
                 and model.device.type == "cuda"):
@@ -428,6 +453,9 @@ class ContinuousBatchingScheduler:
         # CUDA graphs of the decode round, and the host time of admissions
         self.graph_captures = 0
         self.capture_s = 0.0
+        # row doublings over ranks that moved rows, and so their pages
+        # (``_move_pages``)
+        self.page_moves = 0
         self.admit_ms: List[float] = []
         self.merge_ms: List[float] = []  # host time of the disaggregated merges
 
@@ -494,9 +522,6 @@ class ContinuousBatchingScheduler:
         decodes the lane in the fused window; ``pipelined=False`` keeps the
         per-token host ping-pong."""
 
-        if self._handoff is not None:
-            raise NotImplementedError("split lanes beside a prefill rank (ROADMAP queue I, item "
-                                      "12: split lanes with a prefill rank)")
         key = executor.lane_key
         if key in self._lanes:
             raise ValueError(f"lane {key} already attached")
@@ -719,50 +744,126 @@ class ContinuousBatchingScheduler:
     @property
     def local_shards(self) -> int:
         """The data shards whose rows this process decodes: every one in
-        one process, its own on a data rank, none on a prefill rank."""
+        one process, its own on a rank, none on a prefill rank."""
 
-        return 0 if self.is_prefill_rank else self.data_shards // self._nranks
+        if self.is_prefill_rank:
+            return 0
+        return self.mesh.local_shards if self.mesh is not None else 1
+
+    def _block(self, rows: int) -> int:
+        """The padded block of a buffer of ``rows`` global rows that a rank
+        holds, ``ceil(rows / ranks)`` (``rows`` in one process): rank ``k``
+        holds rows ``[k B, (k + 1) B)``, those at ``rows`` and above pad
+        rows that no sequence takes."""
+
+        return -(-rows // self._nranks)
 
     @property
     def _local_rows(self) -> int:
-        """The rows this rank holds: its block of ``rows / data ranks``."""
+        """The cloud rows this rank holds: its block of ``rows``."""
 
-        return self.rows // self._nranks
+        return self._block(self.rows)
 
-    def _own(self, row: int) -> Optional[int]:
-        """Global row ``row``'s index in this rank's block, or None where
-        another data rank (or no rank: the prefill rank) holds it."""
+    def _own(self, row: int, rows: Optional[int] = None) -> Optional[int]:
+        """Global row ``row`` of a buffer of ``rows`` (default the cloud
+        rows') -> its index in this rank's block, or None where another
+        rank (or no rank: the prefill rank) holds it."""
 
         if self.is_prefill_rank:
             return None
-        d, i = divmod(row, self._local_rows)
-        return i if d == self._drank else None
+        d, i = divmod(row, self._block(self.rows if rows is None else rows))
+        return i if d == self._brank else None
+
+    def _regrow(self, old: int, new: int):
+        """-> a function that re-cuts a row buffer of ``old`` global rows to
+        ``new`` (along ``dim``): every rank's block gathered (one collective
+        a buffer over ranks), the real rows kept, zero rows added and this
+        rank's block of the new rows taken."""
+
+        n = self._block(new)
+
+        def grow(t, dim=0):
+            t = all_gather_cat(t, dim, self._bgroup).narrow(dim, 0, old)
+            pad = list(t.shape)
+            pad[dim] = n * self._nranks - old
+            return torch.cat([t, t.new_zeros(pad)], dim).narrow(dim, self._brank * n,
+                                                                n).contiguous()
+
+        return grow
+
+    def _move_pages(self, pools, dim: int, seqs, old: int, new: int) -> bool:
+        """Rows that change rank as a buffer of ``old`` rows is re-cut to
+        ``new`` take their pages' K/V along: every rank's pages of its rows
+        that leave it, gathered over the ranks (one gather a pool tensor of
+        ``pools``, page axis ``dim``), written into the new owner's pools
+        -> whether any row moved (every rank sees the same rows, so all or
+        none gather)."""
+
+        if self._bgroup is None:
+            return False
+        bo, bn = self._block(old), self._block(new)
+        moving = [(s.row // bo, s.row // bn, s.pages) for s in seqs if s.row // bo != s.row // bn]
+        if not moving:
+            return False
+        # each rank's pages of its leaving rows, in order; those this rank takes
+        out, take = [[] for _ in range(self._nranks)], []
+        for src, dst, pages in moving:
+            for p in pages:
+                if dst == self._brank:
+                    take.append((src, len(out[src]), p))
+                out[src].append(p)
+        width = max(len(x) for x in out)
+        dev = self.model.device
+        pad = [self.paged_spec.num_pages] * (width - len(out[self._brank]))  # the trash page
+        mine = torch.as_tensor(out[self._brank] + pad, dtype=torch.long, device=dev)
+        src_idx = torch.as_tensor([k * width + j for k, j, _ in take], dtype=torch.long,
+                                  device=dev)
+        dst_idx = torch.as_tensor([p for _, _, p in take], dtype=torch.long, device=dev)
+        for t in pools:
+            every = all_gather_cat(t.index_select(dim, mine), dim, self._bgroup)
+            if take:
+                t.index_copy_(dim, dst_idx, every.index_select(dim, src_idx))
+        return True
 
     def _grow_rows(self) -> None:
         """Double the row buffers (the page pools are shared and do not
         grow); the graphs of the old row count go with the old buffers.
-        Over data ranks the blocks move: each rank gathers every rank's
-        block, pads the rows and keeps its block of the doubled rows."""
+        Over ranks the blocks move: each rank gathers every rank's block,
+        pads the rows and keeps its block of the doubled rows, and a row
+        that changes rank takes its pages' K/V along (``_move_pages``)."""
 
         old, new = self.rows, self.rows * 2
-        n = new // self._nranks
-
-        def grow(t, dim=0):
-            t = all_gather_cat(t, dim, self._dgroup)
-            pad = list(t.shape)
-            pad[dim] = new - old
-            return torch.cat([t, t.new_zeros(pad)], dim).narrow(dim, self._drank * n,
-                                                                n).contiguous()
-
+        grow = self._regrow(old, new)
         if self._pcache is not None:
             self._logits = grow(self._logits)
-            for name in ("len", "pt", "cap"):
-                self._pcache[name] = grow(self._pcache[name])
-            for name in self.model.state_names:
-                self._pcache[name] = grow(self._pcache[name], 1)
+            for name, dim in self._row_buffers():
+                self._pcache[name] = grow(self._pcache[name], dim)
+            if self._kv_pools():
+                self.page_moves += self._move_pages(self._kv_pools(), 1, self._seqs.values(),
+                                                    old, new)
         self._graphs.clear()
         self._free_rows.extend(range(old, new))
         self.rows = new
+
+    def _row_buffers(self) -> List[Tuple[str, int]]:
+        """The paged cache's row buffers that a doubling re-cuts, with
+        their row axes: lengths, page table, capacities and each stacked
+        recurrent state."""
+
+        return [(n, 0) for n in ("len", "pt", "cap")] + [(n, 1) for n in self.model.state_names]
+
+    def _kv_pools(self) -> List[torch.Tensor]:
+        return [self._pcache[k] for k in ("kp", "vp") if k in self._pcache]
+
+    def grow_gathers(self, moved: bool = False) -> int:
+        """The gathers a doubling of the cloud rows makes over ranks
+        (``_grow_rows``): one for the logits and one a row buffer of the
+        paged cache, and, where rows change rank (``moved``), one a K / V
+        pool (``_move_pages``); none on the prefill rank."""
+
+        if self._pcache is None:
+            return 0
+        return 1 + len(self._row_buffers()) + (len(self._kv_pools()) if moved else 0)
 
     def _take_row(self) -> int:
         if not self._free_rows:
@@ -979,10 +1080,26 @@ class ContinuousBatchingScheduler:
             at += size
         return out.pop("logits"), out
 
-    def _ctx(self):
-        """The mesh's rules around a decode round (nothing without a mesh)."""
+    def _ctx(self, rows=None):
+        """The mesh's rules around a decode round (nothing without a mesh);
+        over ranks with the blocks of the row buffers the round joins
+        (``rows``: (global rows, rows a block) each; the cloud rows' by
+        default)."""
 
-        return sharding_rules(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        if self._bgroup is None:
+            return sharding_rules(self.mesh)
+        return sharding_rules(self.mesh, rows=rows or ((self.rows, self._local_rows),))
+
+    def _lane_ctx(self, lanes):
+        """The rules around a split lane's rounds: over ranks the mesh's,
+        with the lanes' blocks; in one process none (a lane's rounds do
+        not split its rows over the data shards)."""
+
+        if self._bgroup is None:
+            return contextlib.nullcontext()
+        return self._ctx([(l.rows, l.block) for l in lanes])
 
     def _settle_prefill(self) -> None:
         """Before a CUDA graph capture: no prefill in flight on the side
@@ -1051,8 +1168,12 @@ class ContinuousBatchingScheduler:
         pools = {layer: p for layer, p in self._suffix_pools.items() if layer >= lanes[0].cut}
         lane_in = [{"logits": l._logits, "edge": l._edge, "state": l._state,
                     "lens": l._len + self._fused_offset} for l in lanes]
-        return self._fleet_fns[(keys, block)](
-            pools, lane_in, [l._pt for l in lanes], [l._cap for l in lanes])
+        if self._bgroup is not None:
+            for d, l in zip(lane_in, lanes):
+                d["rows"] = (l.rows, l.block)
+        with self._lane_ctx(lanes):
+            return self._fleet_fns[(keys, block)](
+                pools, lane_in, [l._pt for l in lanes], [l._cap for l in lanes])
 
     def _split_fused_step(self, lanes: List["_SplitLane"], block: int,
                           rounds: int) -> Dict[object, torch.Tensor]:
@@ -1080,7 +1201,8 @@ class ContinuousBatchingScheduler:
                 call = self._fleet_graphs[gkey] = GraphedCall(
                     owner_call(self, "_fused_window", keys, block))
         dev = self.model.device
-        toks = [torch.empty((l.rows, rounds * block), dtype=torch.long, device=dev) for l in lanes]
+        toks = [torch.empty((l.block, rounds * block), dtype=torch.long, device=dev)
+                for l in lanes]
         for r in range(rounds):
             self._fused_offset.fill_(r * block)
             if call is None:
@@ -1219,9 +1341,7 @@ class ContinuousBatchingScheduler:
         # serial lanes ping-pong through the host: their window runs to its
         # end here and its results ride this call's return
         for lane in [l for l in self._lanes.values() if l.seqs and not l.pipelined]:
-            for _ in range(rounds):
-                if lane.seqs:
-                    done.extend(lane.step(block))
+            done.extend(lane.serial_window(block, rounds))
         if done and self.obs is not None:
             self._obs_complete(done, clock())
         w = _ScanWindow(steps_left=rounds, n_steps=rounds * block)
@@ -1236,7 +1356,10 @@ class ContinuousBatchingScheduler:
             w.seqs = [s for s in self._seqs.values() if not s.pending]
         planes = [l for l in self._lanes.values() if l.seqs and l.pipelined]
         if planes:
-            w.lane_toks = self._split_fused_step(planes, block, rounds)
+            # the lanes decode on the decode ranks; the prefill rank takes
+            # their tokens at the window's close
+            if not self.is_prefill_rank:
+                w.lane_toks = self._split_fused_step(planes, block, rounds)
             for lane in planes:
                 w.lane_seqs[lane.key] = list(lane.seqs.values())
         if prefill:
@@ -1259,8 +1382,15 @@ class ContinuousBatchingScheduler:
         w, self._window = self._window, None
         self.window_closes += 1
         done: List[ChunkResult] = []
+        # the cloud rows' and every pipelined lane's tokens to the host in
+        # one gather first: a lane that empties drops the fused graphs that
+        # produced them
+        parts = [(self._local_rows, self.rows, w.toks)] if w.cloud else []
+        parts += [(self._lanes[key].block, self._lanes[key].rows, w.lane_toks.get(key))
+                  for key in w.lane_seqs]
+        every = self._window_tokens(parts, w.n_steps) if parts else []
         if w.cloud:
-            toks = self._window_tokens(w)
+            toks = every.pop(0)
             for seq in w.seqs:
                 if seq.dead:
                     continue
@@ -1283,30 +1413,36 @@ class ContinuousBatchingScheduler:
             for seq in w.seqs:
                 if seq.dead and self._seqs.get(seq.row) is seq:
                     self._release(seq)
-        # every lane's tokens to the host first: a lane that empties drops
-        # the fused graphs that produced them
-        lane_toks = {key: t.cpu().numpy() for key, t in w.lane_toks.items()}
-        for key, seqs in w.lane_seqs.items():
-            done.extend(self._lanes[key].harvest(seqs, lane_toks[key], self.round))
+        for (key, seqs), toks in zip(w.lane_seqs.items(), every):
+            done.extend(self._lanes[key].harvest(seqs, toks, self.round))
         if self.obs is not None:
             self._obs_window_close(w, done)
         return done
 
-    def _window_tokens(self, w: _ScanWindow) -> np.ndarray:
-        """Every row's tokens of the window on the host [rows, n_steps]: a
-        data rank's block gathered over the data ranks (one collective a
-        window), then handed from decode rank 0 to the prefill rank, so that
-        every rank harvests the same."""
+    def _window_tokens(self, parts, n_steps: int) -> List[np.ndarray]:
+        """Every row's tokens of a window on the host, [R, n_steps] for each
+        of ``parts`` ((rows a block, global rows R, this rank's block of the
+        tokens [block, n_steps]) each: the cloud rows, a lane): the rank's
+        blocks joined into one buffer, gathered over the ranks the rows are
+        blocked over (one collective a window), then handed from decode
+        rank 0 to the prefill rank, so that every rank harvests the same."""
 
-        toks = w.toks
+        width = sum(b for b, _, _ in parts)
+        toks = None
         if not self.is_prefill_rank:
-            toks = all_gather_cat(toks, 0, self._dgroup)
+            toks = torch.cat([t for _, _, t in parts], 0) if len(parts) > 1 else parts[0][2]
+            toks = all_gather_cat(toks, 0, self._bgroup)
         if self._handoff is not None:
             if toks is None:
-                toks = torch.empty((self.rows, w.n_steps), dtype=torch.long,
+                toks = torch.empty((self._nranks * width, n_steps), dtype=torch.long,
                                    device=self.model.device)
             toks = broadcast(toks, 0, self._handoff)
-        return toks.cpu().numpy()
+        every = toks.cpu().numpy().reshape(self._nranks, width, n_steps)
+        out, at = [], 0
+        for b, r, _ in parts:
+            out.append(every[:, at:at + b].reshape(-1, n_steps)[:r])
+            at += b
+        return out
 
     def drain(self, max_rounds: int = 10_000) -> List[ChunkResult]:
         """Run rounds until queue and batch are empty; return all results."""
@@ -1346,10 +1482,10 @@ class _SplitLane:
     Admission, rows and pages are shared by both modes: ``reserve`` takes a
     row and pages and runs the robot's own batch-1 edge prefill, ``flush``
     prefills the reserved robots' suffixes as one batch into the shared
-    pools.  A serial lane's ``step`` then ping-pongs every token through the
-    host; a pipelined lane installs the robots' edge caches as rows of its
-    device caches and decodes in the scheduler's fused window, ``harvest``
-    taking the tokens at the boundary.
+    pools.  A serial lane's ``serial_window`` then ping-pongs every token
+    through the host; a pipelined lane installs the robots' edge caches as
+    rows of its device caches and decodes in the scheduler's fused window,
+    ``harvest`` taking the tokens at the boundary.
 
     The lane's live buffers, on the model's device: per-row recurrent
     state of its suffix (``_state``), the row-batched edge caches
@@ -1359,6 +1495,16 @@ class _SplitLane:
     graphs captured over them; a released row of a lane that keeps members
     gets capacity 0.  ``peak_bytes`` is the most its buffers held,
     ``drops`` how often they were freed.
+
+    Over ranks the buffers hold the rank's padded block of the lane's rows
+    (``block``: rank ``k`` rows ``[k B, (k + 1) B)``); every rank makes the
+    same reservations and releases, runs every robot's edge prefill and
+    the flushed batch's suffix prefill whole, and merges its own rows.  A
+    serial robot's edge then steps on its row's rank alone, which hands
+    the caches on when a doubling moves the row (``_move_edge_caches``).  A
+    prefill rank holds no buffers and runs no lane kernel: its host state
+    follows the decode ranks', and the lanes' tokens reach it at a
+    window's close.
     """
 
     def __init__(self, sched: ContinuousBatchingScheduler, executor, rows: int,
@@ -1377,6 +1523,23 @@ class _SplitLane:
         self._pt = self._len = self._cap = self._logits = None
         self.peak_bytes = 0
         self.drops = 0
+        self.page_moves = 0  # doublings over ranks that moved rows and their pages
+        # a serial lane whose edge layers exchange over the data ranks (split
+        # experts) steps every robot's edge on every rank, each token's
+        # tokens gathered first, so that the exchanges pair
+        m = sched.model
+        self._edge_exchanges = sched._bgroup is not None and any(
+            m.layers[i].moe.split for i in executor.edge_layers if hasattr(m.layers[i], "moe"))
+
+    @property
+    def block(self) -> int:
+        """The rows of the lane a rank holds: its padded block of ``rows``
+        (every row in one process)."""
+
+        return self.sched._block(self.rows)
+
+    def _own(self, row: int) -> Optional[int]:
+        return self.sched._own(row, self.rows)
 
     @property
     def has_buffers(self) -> bool:
@@ -1387,12 +1550,48 @@ class _SplitLane:
         """Device bytes the lane's row buffers hold now (the shared suffix
         pools are the scheduler's)."""
 
+        return sum(t.numel() * t.element_size() for t in self._buffers())
+
+    def _buffers(self) -> List[torch.Tensor]:
+        """The lane's row buffers (none while it holds none)."""
+
         if self._pt is None:
-            return 0
+            return []
         ts = [self._pt, self._len, self._cap, self._logits]
         for caches in (self._state, self._edge or {}):
             ts += [t for c in caches.values() for t in c.values()]
-        return sum(t.numel() * t.element_size() for t in ts)
+        return ts
+
+    def _suffix_kv(self) -> List[torch.Tensor]:
+        """The shared K and V pools of the lane's suffix attention layers."""
+
+        pools = self.sched._suffix_pools
+        return [pools[i][k] for i in self.ex.cloud_layers if i in pools for k in ("kp", "vp")]
+
+    @property
+    def _edge_on_owner(self) -> bool:
+        """Whether a robot's edge steps run on its row's rank alone (a
+        serial lane over ranks whose edge layers make no exchange), so
+        that a row changing rank takes its edge caches along."""
+
+        return (self.sched._bgroup is not None and not self.pipelined
+                and not self._edge_exchanges)
+
+    def grow_gathers(self, moved: bool = False) -> int:
+        """The gathers a doubling of the lane's rows makes over ranks
+        (``_grow_rows``; none while it holds no buffers): one a row buffer
+        and, where rows change rank (``moved``), one a suffix K / V pool
+        and, where edge steps stay on a row's rank, one a tensor of the
+        moved robots' edge caches (``_move_edge_caches``)."""
+
+        if self._pt is None:
+            return 0
+        n = len(self._buffers())
+        if moved:
+            n += len(self._suffix_kv())
+            if self._edge_on_owner:
+                n += len(_tensors(self.ex.init_edge_rows(0, 1)))
+        return n
 
     @property
     def label(self) -> str:
@@ -1400,18 +1599,18 @@ class _SplitLane:
         return f"cut={self.cut}{off}"
 
     def _ensure_buffers(self) -> None:
-        if self._pt is not None:
+        if self._pt is not None or self.sched.is_prefill_rank:
             return
-        sched, dev = self.sched, self.sched.model.device
+        sched, dev, n = self.sched, self.sched.model.device, self.block
         sched._ensure_suffix_pools(self.ex)
-        self._state = self.ex.init_lane_state(sched.paged_spec, self.rows)
+        self._state = self.ex.init_lane_state(sched.paged_spec, n)
         if self.pipelined:
-            self._edge = self.ex.init_edge_rows(self.rows, sched.prompt_len + sched.total_tokens)
+            self._edge = self.ex.init_edge_rows(n, sched.prompt_len + sched.total_tokens)
         i32 = dict(dtype=torch.int32, device=dev)
-        self._pt = torch.zeros((self.rows, sched.pages_per_req), **i32)
-        self._len = torch.zeros((self.rows,), **i32)
-        self._cap = torch.zeros((self.rows,), **i32)
-        self._logits = torch.zeros((self.rows, sched._vdim), dtype=torch.float32, device=dev)
+        self._pt = torch.zeros((n, sched.pages_per_req), **i32)
+        self._len = torch.zeros((n,), **i32)
+        self._cap = torch.zeros((n,), **i32)
+        self._logits = torch.zeros((n, sched._vdim), dtype=torch.float32, device=dev)
         self.peak_bytes = max(self.peak_bytes, self.buffer_bytes)
 
     def _drop_buffers(self) -> None:
@@ -1440,21 +1639,59 @@ class _SplitLane:
 
     def _grow_rows(self) -> None:
         """Double the lane's rows; every fused graph goes (the buffers it
-        was captured over are replaced)."""
+        was captured over are replaced).  Over ranks each buffer is
+        gathered once and re-cut to the rank's block of the new rows, and a
+        row that changes rank takes its pages' suffix K/V along."""
 
         old, new = self.rows, self.rows * 2
-        pad = new - old
         if self._pt is not None:
-            self._state = self.ex.pad_lane_state(self._state, pad)
+            grow = self.sched._regrow(old, new)
+
+            def rows_of(caches):
+                return {i: {k: grow(t) for k, t in c.items()} for i, c in caches.items()}
+
+            self._state = rows_of(self._state)
             if self._edge is not None:
-                self._edge = self.ex.pad_edge_rows(self._edge, pad)
+                self._edge = rows_of(self._edge)
             self._pt, self._len, self._cap, self._logits = (
-                torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
-                for t in (self._pt, self._len, self._cap, self._logits))
+                grow(t) for t in (self._pt, self._len, self._cap, self._logits))
+            moved = self.sched._move_pages(self._suffix_kv(), 0, self.seqs.values(), old, new)
+            if moved and self._edge_on_owner:
+                self._move_edge_caches(old, new)
+            self.page_moves += moved
             self.sched._fleet_graphs.clear()
             self.peak_bytes = max(self.peak_bytes, self.buffer_bytes)
         self._free_rows.extend(range(old, new))
         self.rows = new
+
+    def _move_edge_caches(self, old: int, new: int) -> None:
+        """The robots whose rows change rank as the lane's ``old`` rows are
+        re-cut to ``new`` take their batch-1 edge caches to the new owner
+        (a serial robot's edge steps on its row's rank alone, so the other
+        ranks' copies are as its reservation left them): each rank's
+        caches of its leaving rows as rows of the edge caches' shape,
+        gathered over the ranks (one gather a tensor), each new owner
+        taking its own."""
+
+        sched = self.sched
+        bo, bn = sched._block(old), sched._block(new)
+        out, take = [[] for _ in range(sched._nranks)], []
+        for seq in self.seqs.values():
+            src, dst = seq.row // bo, seq.row // bn
+            if src != dst:
+                if dst == sched._brank:
+                    take.append((seq, src, len(out[src])))
+                out[src].append(seq)
+        width = max(len(x) for x in out)
+        mine = out[sched._brank]
+        rows = self.ex.init_edge_rows(width, sched.prompt_len + sched.total_tokens)
+        self.ex.merge_edge_rows(rows, [s.edge_cache for s in mine], range(len(mine)))
+        every = {i: {k: all_gather_cat(t, 0, sched._bgroup) for k, t in c.items()}
+                 for i, c in rows.items()}
+        for seq, src, j in take:
+            at = src * width + j
+            seq.edge_cache = {i: {k: t[at:at + 1].clone() for k, t in c.items()}
+                              for i, c in every.items()}
 
     def _take_row(self) -> int:
         if not self._free_rows:
@@ -1471,7 +1708,9 @@ class _SplitLane:
         del self.seqs[seq.row]
         self._free_rows.append(seq.row)
         if self.seqs:
-            self._cap[seq.row] = 0
+            loc = self._own(seq.row)
+            if loc is not None:
+                self._cap[loc] = 0
         else:
             self._drop_buffers()
 
@@ -1481,7 +1720,10 @@ class _SplitLane:
         row = self._take_row()
         self.ex.record_chunk_bytes(sched.prompt_len, sched.total_tokens)
         # the edge prefix runs on the robot's own device: a batch-1 prefill
-        x_cut, edge_cache = self.ex.edge_prefill(req.obs[None], sched.total_tokens)
+        # (on every decode rank; the prefill rank keeps the host state only)
+        x_cut = edge_cache = None
+        if not sched.is_prefill_rank:
+            x_cut, edge_cache = self.ex.edge_prefill(req.obs[None], sched.total_tokens)
         seq = _SplitSeq(robot_id=req.robot_id, row=row, remaining=sched.total_tokens,
                         length=sched.prompt_len, pages=pages, request=req,
                         admitted_round=sched.round, edge_cache=edge_cache, x_cut=x_cut)
@@ -1497,39 +1739,50 @@ class _SplitLane:
                 for i in self.ex.cloud_layers]
 
     def flush(self, new: List[_SplitSeq]) -> None:
-        """One batched cloud-suffix prefill over the reserved admissions."""
+        """One batched cloud-suffix prefill over the reserved admissions,
+        whole on every decode rank; each merges its own rows (the others'
+        suffix K/V go to the trash page at length 0)."""
 
         sched = self.sched
+        if sched.is_prefill_rank:
+            for seq in new:
+                seq.x_cut = None
+            return
         self._ensure_buffers()
         dev = sched.model.device
-        n = _bucket(len(new))
-        s = sched.prompt_len
+        n, s, local = _bucket(len(new)), sched.prompt_len, self.block
         x = torch.zeros((n, s, self.ex.cfg.d_model), dtype=sched.model.dtype, device=dev)
         pt_new = np.zeros((n, sched.pages_per_req), np.int32)
-        row_idx = np.full((n,), self.rows, np.int64)  # padding rows: dropped
+        row_idx = np.full((n,), local, np.int64)  # padding and other ranks' rows: dropped
         lens = np.zeros((n,), np.int32)
         caps = np.zeros((n,), np.int32)
         for i, seq in enumerate(new):
             x[i] = seq.x_cut[0]
             seq.x_cut = None
+            loc = self._own(seq.row)
+            if loc is None:
+                continue
             pt_new[i] = seq.pages
-            row_idx[i] = seq.row
+            row_idx[i] = loc
             lens[i] = s
             caps[i] = sched.cap_tokens
         i32 = dict(dtype=torch.int32, device=dev)
         pt_t, lens_t, caps_t = (torch.as_tensor(a, **i32) for a in (pt_new, lens, caps))
         _, logits = self.ex.suffix_prefill(x, self._layers_view(), pt_t, row_idx, lens_t, caps_t)
-        k = len(new)
-        rows = torch.as_tensor(row_idx[:k], dtype=torch.long, device=dev)
-        self._pt.index_copy_(0, rows, pt_t[:k])
-        self._len.index_copy_(0, rows, lens_t[:k])
-        self._cap.index_copy_(0, rows, caps_t[:k])
-        self._logits.index_copy_(0, rows, logits[:k].float())
+        keep = np.flatnonzero(row_idx < local)
+        if keep.size:
+            src = torch.as_tensor(keep, dtype=torch.long, device=dev)
+            rows = torch.as_tensor(row_idx[keep], dtype=torch.long, device=dev)
+            self._pt.index_copy_(0, rows, pt_t.index_select(0, src))
+            self._len.index_copy_(0, rows, lens_t.index_select(0, src))
+            self._cap.index_copy_(0, rows, caps_t.index_select(0, src))
+            self._logits.index_copy_(0, rows, logits.index_select(0, src).float())
         if self.pipelined:
             # the robots' batch-1 edge caches become rows of the lane's
-            # device caches (a full-row overwrite)
-            self.ex.merge_edge_rows(self._edge, [seq.edge_cache for seq in new],
-                                    [seq.row for seq in new])
+            # device caches (a full-row overwrite), each on its rank
+            own = [(seq.edge_cache, self._own(seq.row)) for seq in new]
+            self.ex.merge_edge_rows(self._edge, [c for c, loc in own if loc is not None],
+                                    [loc for _, loc in own if loc is not None])
             for seq in new:
                 seq.edge_cache = None
 
@@ -1542,54 +1795,100 @@ class _SplitLane:
             submitted_ts=seq.request.submit_ts, admitted_ts=seq.admit_ts,
         )
 
-    def step(self, block: int) -> List[ChunkResult]:
-        """Serial mode: one round of per-token host ping-pong decode."""
+    def serial_window(self, block: int, rounds: int) -> List[ChunkResult]:
+        """Serial mode: ``rounds`` rounds of ``block`` tokens of per-token
+        host ping-pong (each robot's batch-1 edge step, then one batched
+        suffix step over the rank's block), then the window's tokens of
+        every row gathered over the ranks once (and handed to the prefill
+        rank) -> the chunks it completed, in completion order."""
 
         sched = self.sched
-        dev = sched.model.device
-        done: List[ChunkResult] = []
-        floor = sched._token_floor
-        for _ in range(block):
+        steps = rounds * block
+        start = [(seq, seq.remaining) for seq in self.seqs.values()]
+        toks = None if sched.is_prefill_rank else np.zeros((self.block, steps), np.int64)
+        done = []
+        for j in range(steps):
             active = [s for s in self.seqs.values() if s.remaining > 0]
             if not active:
                 break
-            logits = self._logits.cpu().numpy()
-            xs = torch.zeros((self.rows, 1, self.ex.cfg.d_model), dtype=sched.model.dtype,
-                             device=dev)
-            for seq in active:
-                ls = logits[seq.row].copy()
-                ls[:floor] = -1e9
-                tok = int(np.argmax(ls))
-                seq.tokens.append(tok)
-                seq.remaining -= 1
-                # ping-pong: the token ships edge-ward, the edge prefix runs
-                # it, the cut activation ships back
-                x_cut, seq.edge_cache = self.ex.edge_step(tok, seq.edge_cache, seq.length)
-                xs[seq.row] = x_cut[0]
-                seq.length += 1
-            out, _ = self.ex.suffix_step(xs, self._layers_view(), self._pt, self._len,
-                                         self._cap)
-            rows = torch.as_tensor([s.row for s in active], dtype=torch.long, device=dev)
-            self._logits.index_copy_(0, rows, out.index_select(0, rows).float())
-            self._len.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+            self._serial_token(active, toks, j)
             for seq in active:
                 if seq.remaining == 0:
                     self.release(seq)
-                    done.append(self._result(seq, sched.round))
-        return done
+                    done.append((seq, self._result(seq, sched.round)))
+        if toks is not None:
+            toks = torch.as_tensor(toks, device=sched.model.device)
+        every = sched._window_tokens([(self.block, self.rows, toks)], steps)[0]
+        for seq, remaining in start:
+            seq.tokens.extend(int(t) for t in every[seq.row, :remaining - seq.remaining])
+        for seq, res in done:
+            res.tokens = np.asarray(seq.tokens, np.int64)
+        return [res for _, res in done]
+
+    def _serial_token(self, active: List[_SplitSeq], toks, j: int) -> None:
+        """One token of the serial ping-pong for the ``active`` sequences:
+        the rank's rows' greedy tokens into column ``j`` of ``toks``, their
+        edge steps, one suffix step over the rank's block."""
+
+        sched = self.sched
+        prefill = sched.is_prefill_rank
+        picked: Dict[int, int] = {}
+        if not prefill:
+            logits = self._logits.cpu().numpy()
+            for seq in active:
+                loc = self._own(seq.row)
+                if loc is not None:
+                    ls = logits[loc].copy()
+                    ls[:sched._token_floor] = -1e9
+                    picked[seq.row] = int(np.argmax(ls))
+                    toks[loc, j] = picked[seq.row]
+            if self._edge_exchanges:
+                picked = self._every_token(active, toks[:, j])
+            xs = torch.zeros((self.block, 1, self.ex.cfg.d_model), dtype=sched.model.dtype,
+                             device=sched.model.device)
+        for seq in active:
+            seq.remaining -= 1
+            if seq.row in picked:
+                # ping-pong: the token ships edge-ward, the edge prefix runs
+                # it, the cut activation ships back
+                x_cut, seq.edge_cache = self.ex.edge_step(picked[seq.row], seq.edge_cache,
+                                                          seq.length)
+                loc = self._own(seq.row)
+                if loc is not None:
+                    xs[loc] = x_cut[0]
+            seq.length += 1
+        if prefill:
+            return
+        with sched._lane_ctx([self]):
+            out, _ = self.ex.suffix_step(xs, self._layers_view(), self._pt, self._len, self._cap)
+        own = [loc for loc in (self._own(s.row) for s in active) if loc is not None]
+        if own:
+            rows = torch.as_tensor(own, dtype=torch.long, device=sched.model.device)
+            self._logits.index_copy_(0, rows, out.index_select(0, rows).float())
+            self._len.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+
+    def _every_token(self, active: List[_SplitSeq], mine: np.ndarray) -> Dict[int, int]:
+        """Every active row's token of this step, the rank's ``mine`` [block]
+        gathered over the ranks (one gather a token: a serial lane whose
+        edge layers exchange over the data ranks)."""
+
+        sched = self.sched
+        every = all_gather_cat(torch.as_tensor(mine, device=sched.model.device), 0,
+                               sched._bgroup).cpu().numpy()
+        return {seq.row: int(every[seq.row]) for seq in active}
 
     def harvest(self, seqs: List[_SplitSeq], toks, completed_round: int) -> List[ChunkResult]:
         """Pipelined mode, window boundary: take each live sequence's tokens
-        (the over-decoded tail dropped), advance its length, release the
-        completed and the dead (cancelled mid-window) ones."""
+        (``toks``: every row's [rows, steps] on the host; the over-decoded
+        tail dropped), advance its length, release the completed and the
+        dead (cancelled mid-window) ones."""
 
         done: List[ChunkResult] = []
-        toks = np.asarray(toks)  # on the host (``_close_window``)
         n_steps = toks.shape[1]
         live = [s for s in seqs if not s.dead]
-        if live:
-            rows = torch.as_tensor([s.row for s in live], dtype=torch.long,
-                                   device=self._len.device)
+        own = [loc for loc in (self._own(s.row) for s in live) if loc is not None]
+        if own:
+            rows = torch.as_tensor(own, dtype=torch.long, device=self._len.device)
             self._len.index_add_(0, rows, torch.full_like(rows, n_steps, dtype=torch.int32))
         for seq in live:
             take = min(seq.remaining, n_steps)

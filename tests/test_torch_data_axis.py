@@ -5,36 +5,50 @@ A module fixture writes the f32 smoke stacks' weights (the port's one-rank
 ``Model.init``, in the reference's layout), then runs side by side: the
 reference in two processes of its own on 8 forced host devices
 (``tests/torch_sharded_ref.py --params``: the data-shard ``SCENARIOS``, 8
-shards, a mixed fleet, prefill on the last device and 7 + 1; and
-``--model-axis --part engine,fleet,split,split24 --only ...``: ``tp42``,
-``jb42``, ``qm24``, ``pc42``, the rapid fleet on (4, 2), ``sp42`` and
-``sx24``), and 8 gloo CPU ranks of ``tests/torch_data_axis_rank.py``, which
-lay the grids of ``GRIDS`` over one world in turn: every data shard a rank,
-the prefill a rank of its own.  Each process has a limit of its own and is
+shards, a mixed fleet, prefill on the last device, 7 + 1 and 7 + 1 with a
+split lane; ``--model-axis --part engine,fleet,split,split24 --only ...``:
+``tp42``, ``jb42``, ``qm24``, ``pc42``, the rapid fleet on (4, 2), ``sp42``,
+``sx24``, ``ss42``, ``sh24`` and ``sj42``; and ``--model-axis --part
+pod,split_fleet_p``: the engine on a (pod 2, data 2, model 2) mesh and the
+split fleet beside a prefill device), and 8 gloo CPU ranks of
+``tests/torch_data_axis_rank.py``, which lay the grids of ``GRIDS`` over
+one world in turn: every data shard a rank, the prefill a rank of its own,
+a pod a third grid axis.  Each process has a limit of its own and is
 killed past it.  The ranks' records are held to:
 
 1. the reference's ``SCENARIOS`` (``cloud8`` and ``mixed8`` on 8 data
-   ranks, ``disagg`` on a decode rank and a prefill rank, ``combo7`` on 7
-   data ranks and a prefill rank): results, tokens, every reservation, the
-   final ``PoolStats`` and counters equal;
+   ranks, ``disagg`` on a decode rank and a prefill rank, ``combo7`` and
+   ``mixed7p`` on 7 data ranks and a prefill rank): results, tokens, every
+   reservation, the final ``PoolStats`` and counters equal;
 2. ``tp42``, ``jb42``, ``pc42`` on data 4 x model 2 and ``qm24`` on 2 x 4,
-   and the rapid fleet on (4, 2): the same, tokens by the greedy-margin
-   rule;
-3. ``sp42`` and ``sx24``: split lanes, whole on every data rank;
+   the rapid fleet on (4, 2), ``pod_tp`` and ``pod_qm`` on pod 2 x data 2 x
+   model 2, and the split fleet on data 2 x model 2 beside a prefill rank:
+   the same, tokens by the greedy-margin rule;
+3. ``sp42``, ``sx24``, ``ss42``, ``sh24`` and ``sj42``: split lanes, each
+   data rank holding its block of every lane's rows;
 4. every rank's host state equal, the prefill rank's too;
 5. the bytes: a rank's expert bytes 1/D of a model-axis rank's (whole
-   where E does not divide over D), its rows and its full-view pool as
-   declared, and the data axis's collectives of every admission prefill,
-   decode round, harvest, handoff and row growth exactly ``launch.dist``'s
-   counts; the MoE layer over sharded rows equal to one process's;
-6. three controls caught: a rank that skips the MoE's data-axis reduction,
-   a capacity table built from a rank's own rows, a prefill rank that
-   hands off nothing.
+   where E does not divide over D), its rows, its lanes' buffers
+   (``ceil(R / N)`` rows of R) and its full-view pool as declared, and the
+   data axis's and batch group's collectives of every admission prefill,
+   decode round, harvest, handoff, lane edge prefill, flush, fused round
+   and serial token exactly ``launch.dist``'s counts, and of every row
+   growth the gathers of the buffers it re-cuts (``grow_gathers``); the
+   MoE layer over sharded rows, and the capacity layer over padded blocks,
+   equal to one process's; rows that change rank at a doubling taking
+   their pages and a serial robot's edge caches along;
+6. the controls caught: a rank that skips the MoE's data-axis reduction,
+   a capacity table built from a rank's own rows, one built with the pad
+   rows, a prefill rank that hands off nothing, a prefill rank that takes
+   no lane tokens, rows moved without their pages or edge caches.
 
-Then the rank grid, the expert blocks and the counts without processes.
+Then the rank grid, the pod grid, the padded blocks, the expert blocks and
+the counts without processes.
 """
 
 import os
+import signal
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,14 +71,19 @@ from repro_torch.models.model import Model  # noqa: E402
 
 from test_torch_model_axis import finish, launch, load  # noqa: E402
 from test_torch_scheduler import _obs_tokens, assert_tokens_match  # noqa: E402
-from torch_data_axis_rank import (CANCEL_SEED, GRID_OF, GRIDS, LAYER_CASES,  # noqa: E402
-                                  LAYER_ROWS, PREFILL_RUNS, SPLIT_RUN, TP_RUN,
-                                  cancel_pending, layer_inputs)
-from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from torch_data_axis_rank import (CANCEL_SEED, GRID_OF, GRIDS, GROW_GRID,  # noqa: E402
+                                  GROW_KW, GROW_SEED, LANE_RUNS, LAYER_CASES, LAYER_ROWS,
+                                  PAD_CASE, PREFILL_RUNS, SPLIT_RUN, TP_RUN, cancel_pending,
+                                  grow_run, layer_inputs)
+from repro_torch.launch.mesh import Mesh, make_test_mesh  # noqa: E402
+from repro_torch.launch.sharding import real_rows, sharding_rules  # noqa: E402
+from repro_torch.partition import PartitionExecutor  # noqa: E402
+from repro_torch.runtime.kv_cache import PagedSpec  # noqa: E402
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler  # noqa: E402
 from torch_model_axis_rank import Recording  # noqa: E402
-from torch_model_axis_cases import (ENGINE_KW, FLEET_KEYS, SCENARIOS, SMOKE_LAYERS,  # noqa: E402
-                                    SPLIT_SCENARIOS, TP_FLEET, TP_SCENARIOS, obs_pair)
+from torch_model_axis_cases import (ENGINE_KW, FLEET_KEYS, POD_SCENARIOS, SCENARIOS,  # noqa: E402
+                                    SMOKE_LAYERS, SPLIT_FLEET, SPLIT_FLEET_P, SPLIT_SCENARIOS,
+                                    TP_FLEET, TP_SCENARIOS, lane_cut, obs_pair)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -76,6 +95,9 @@ ARCHS = ("openvla-7b", "jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "phi3.5-mo
 SCENARIO = {s[0]: s for s in SCENARIOS}
 TP = {s[0]: s for s in TP_SCENARIOS if s[0] in TP_RUN}
 SPLIT = {s[0]: s for s in SPLIT_SCENARIOS if s[0] in SPLIT_RUN}
+POD = {s[0]: s for s in POD_SCENARIOS}
+LANES = {s[0]: s for s in LANE_RUNS}
+GROW_RUNS = ("grow", "grow_nomove", "grow_serial", "grow_serial_stale")
 HOST_KEYS = ("results", "tokens", "reserved", "pool", "counters")
 PROMPT = 14  # a request's prompt: qd and tau of 7 joints
 
@@ -108,10 +130,13 @@ def runs(tmp_path_factory):
             [sys.executable, ref_script, str(tmp / "axis.npz"), "--model-axis", "--part",
              "engine,fleet,split,split24", "--only", ",".join(TP_RUN + SPLIT_RUN), "--params",
              str(params_path)], env, tmp / "axis.log"),
+        "reference pod and split fleet": launch(
+            [sys.executable, ref_script, str(tmp / "pod.npz"), "--model-axis", "--part",
+             "pod,split_fleet_p", "--params", str(params_path)], env, tmp / "pod.log"),
     }
     out_dir = tmp / "ranks"
     out_dir.mkdir()
-    renv = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
+    renv = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1", PYTHONFAULTHANDLER="1",
                 PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests"),
                                             os.environ.get("PYTHONPATH", "")]))
     script = ROOT / "tests" / "torch_data_axis_rank.py"
@@ -119,7 +144,7 @@ def runs(tmp_path_factory):
                                   str(out_dir / "store"), str(params_path), str(out_dir)],
                                  renv, out_dir / f"rank{r}.log") for r in range(WORLD)}
     try:
-        finish(ranks, SPAWN_TIMEOUT_S, start)
+        finish_or_dump(ranks, SPAWN_TIMEOUT_S, start)
         finish(refs, REF_TIMEOUT_S, start)
     finally:
         for proc, _ in (*ranks.values(), *refs.values()):
@@ -129,7 +154,31 @@ def runs(tmp_path_factory):
     ref = dict(weights)
     ref.update(load(tmp / "sharded.npz"))
     ref.update(load(tmp / "axis.npz"))
+    ref.update(load(tmp / "pod.npz"))
     return {"ref": ref, "ranks": [load(out_dir / f"rank{r}.npz") for r in range(WORLD)]}
+
+
+def finish_or_dump(ranks, limit_s, start):
+    """``finish`` for the rank processes; where one fails or outlasts
+    the limit, every rank still alive gets SIGABRT first (the ranks run
+    under ``PYTHONFAULTHANDLER``, so each log ends with its threads'
+    stacks: the collective each waits in), and the error carries those
+    logs' tails."""
+
+    try:
+        finish(ranks, limit_s, start)
+    except AssertionError as e:
+        live = {name: (p, log) for name, (p, log) in ranks.items() if p.poll() is None}
+        for p, _ in live.values():
+            p.send_signal(signal.SIGABRT)
+        for p, _ in live.values():
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+        tails = "".join(f"\n--- {name}\n{Path(log).read_text()[-2000:]}"
+                        for name, (_, log) in live.items())
+        raise AssertionError(f"{e}{tails}") from None
 
 
 def grid_ranks(runs, gname):
@@ -143,10 +192,22 @@ def grid_of(name):
 
     if name in GRID_OF:
         return GRID_OF[name]
-    if name in {p[0] for p in PREFILL_RUNS}:
+    if name in {p[0] for p in PREFILL_RUNS} | {"split_fleet_p"}:
         return "d2m2p1"
+    if name in POD:
+        return "p2d2m2"
+    if name in GROW_RUNS:
+        return GROW_GRID
+    if name in LANES:
+        return LANES[name][2]
     s = TP.get(name) or SPLIT[name]
-    return next(g for g, d, m, _ in GRIDS if (d, m) == (s[2], s[3]))
+    return next(g for g, d, m, _, pod in GRIDS if (d, m, pod) == (s[2], s[3], 1))
+
+
+def grid_dims(gname):
+    """(data, model, prefill, pod) of grid ``gname``."""
+
+    return next(g[1:] for g in GRIDS if g[0] == gname)
 
 
 def one_rank(ref, arch, moe_impl="dense"):
@@ -231,13 +292,61 @@ def test_fleet_matches_reference(runs):
     assert ref["fleet42/cancelled"] > 0
 
 
+@pytest.mark.parametrize("name", list(POD))
+def test_pod_scenarios_match_reference(runs, name):
+    """``pod_tp`` and ``pod_qm`` (qwen3-moe-smoke, its experts over the two
+    data ranks of each pod) on pod 2 x data 2 x model 2 ranks: host state
+    equal to the reference's (pod, data, model) mesh (8 rows, blocked over
+    the four (pod, data) ranks; the allocator's 2 data shards), tokens by
+    the greedy-margin rule, the rounds eager (gloo)."""
+
+    _, arch, pod, data, model_axis, n, seed, impl = POD[name]
+    ref = runs["ref"]
+    st = one_rank(ref, arch, impl)
+    rng = np.random.default_rng(seed)
+    obs = [obs_pair(rng) for _ in range(n)]
+    recs = grid_ranks(runs, "p2d2m2")
+    assert len(recs) == pod * data * model_axis
+    assert ref[f"{name}/counters"][5] == 8 and len(ref[f"{name}/pool"]) == 2 + 2 * data
+    for rec in recs:
+        assert_host_state(rec, ref, name)
+        for row, want, got in zip(ref[f"{name}/results"], ref[f"{name}/tokens"],
+                                  rec[f"{name}/tokens"]):
+            assert_tokens_match(st, _obs_tokens(st.tok, *obs[row[0]]), want, got,
+                                f"robot {row[0]}")
+        assert bytes(rec[f"{name}/round_mode"]).decode() == (
+            f"eager, {model_axis} ranks over gloo; rows over {pod} x {data} pod and data ranks")
+        rows, local = rec[f"{name}/shapes"][:2]
+        assert local == -(-rows // (pod * data))
+    assert {tuple(r["grid/p2d2m2"][[3, 0, 1]]) for r in recs} == {
+        (p, d, m) for p in range(pod) for d in range(data) for m in range(model_axis)}
+
+
+def test_split_fleet_beside_a_prefill_rank_matches_reference(runs):
+    """The rapid fleet with ``SPLIT_FLEET``'s robots split, pipelined, on
+    data 2 x model 2 ranks beside a prefill rank: every action, offload,
+    service round, cancel and round count of the reference's run with the
+    prefill on the fifth device, on every rank, the prefill rank's too."""
+
+    ref = runs["ref"]
+    recs = grid_ranks(runs, "d2m2p1")
+    assert len(recs) == SPLIT_FLEET_P["data"] * SPLIT_FLEET_P["model"] + 1
+    for rec in recs:
+        for key in FLEET_KEYS:
+            np.testing.assert_array_equal(rec[f"split_fleet_p/{key}"],
+                                          ref[f"split_fleet_p/{key}"], err_msg=key)
+    assert ref["split_fleet_p/offloads"].sum() > 0
+
+
 @pytest.mark.parametrize("name", list(SPLIT))
 def test_split_scenarios_match_reference(runs, name):
-    """``sp42`` (a pipelined lane on openvla-smoke) and ``sx24``
-    (qwen3-moe-smoke's expert-offload lane, whose experts all-reduce over
-    the data ranks): the lanes whole on every data rank, host state equal,
-    tokens equal (the MoE one by the greedy-margin rule), the first lane
-    prefill's logits within 2e-5."""
+    """``sp42`` (a pipelined lane on openvla-smoke), ``ss42`` (a serial
+    lane), ``sh24`` (lanes at cuts 0 and 1), ``sj42`` (jamba-smoke's lane
+    state) and ``sx24`` (qwen3-moe-smoke's expert-offload lane, whose
+    experts exchange over the data ranks): each data rank holding its
+    block of every lane's rows, host state equal, tokens equal (the MoE one
+    by the greedy-margin rule), the first lane prefill's logits within
+    2e-5."""
 
     _, arch, data, model_axis, keys, pipelined, n, seed = SPLIT[name]
     ref = runs["ref"]
@@ -262,12 +371,17 @@ def test_every_rank_host_state_equal(runs, gname):
     fleet the same actions."""
 
     recs = grid_ranks(runs, gname)
-    names = {n for n in (*SCENARIO, *TP, *SPLIT) if grid_of(n) == gname}
+    names = {n for n in (*SCENARIO, *TP, *SPLIT, *POD) if grid_of(n) == gname}
     names |= ({"fleet42"} if gname == "d4m2" else {"disagg_zeros", "cancel_pending"}
               if gname == "d1p1" else set())
-    names |= {p[0] for p in PREFILL_RUNS} if gname == "d2m2p1" else set()
+    names |= ({p[0] for p in PREFILL_RUNS} | {"split_fleet_p"}) if gname == "d2m2p1" else set()
+    # the control's prefill rank takes no lane tokens: its host state alone
+    names |= {"mixed7p_nolane"} if gname == "d7p1" else set()
+    names |= set(GROW_RUNS) if gname == GROW_GRID else set()
+    names |= {n for n, _, g, *_ in LANE_RUNS if g == gname}
     keys = [k for k in recs[0] if k.split("/")[0] in names
-            and k.split("/")[-1] in HOST_KEYS + FLEET_KEYS]
+            and k.split("/")[-1] in HOST_KEYS + FLEET_KEYS
+            and k != "mixed7p_nolane/tokens"]
     assert keys
     for rec in recs[1:]:
         for k in keys:
@@ -392,63 +506,183 @@ def test_rank_rows_and_full_view_pool(runs, name):
                         cfg.resolved_head_dim]
 
 
-def expected_event(cfg, kind, figures, data, prefill, impl):
-    """``launch.dist``'s [calls..., bytes...] of the data axis for one
-    event of ``kind`` with its ``figures``."""
+def _bucket(n):
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def expected_event(cfg, kind, figures, data, prefill, impl, batch=None, offload=None):
+    """``launch.dist``'s [calls..., bytes...] of the data axis and the
+    batch group (``batch`` ranks, default ``data``) for one event of
+    ``kind`` with its ``figures`` (``offload``: a lane cut's offloaded
+    layers)."""
 
     keys = ("all_reduce", "all_gather", "broadcast")
+    batch = batch or data
+    offload = offload or {}
+    lay = cfg.num_layers
+
+    def row(calls, size, times=1):
+        return [times * calls[k] for k in keys] + [times * size[k] for k in keys]
+
     if kind == "round":
         rows, block = figures
-        calls = dist.data_collectives(cfg, data, sharded=True, moe_impl=impl)
-        size = dist.data_collective_bytes(cfg, rows, 1, data, sharded=True, moe_impl=impl)
-        return [block * calls[k] for k in keys] + [block * size[k] for k in keys]
+        return row(dist.data_collectives(cfg, data, sharded=True, moe_impl=impl),
+                   dist.data_collective_bytes(cfg, rows, 1, data, sharded=True, moe_impl=impl,
+                                              batch=batch), block)
     if kind == "prefill":
         n, s = figures
-        calls = dist.data_collectives(cfg, data, sharded=False, moe_impl=impl)
-        size = dist.data_collective_bytes(cfg, n, s, data, sharded=False, moe_impl=impl)
-        return [calls[k] for k in keys] + [size[k] for k in keys]
+        return row(dist.data_collectives(cfg, data, sharded=False, moe_impl=impl),
+                   dist.data_collective_bytes(cfg, n, s, data, sharded=False, moe_impl=impl))
     if kind == "harvest":
-        size = dist.harvest_bytes(*figures, data, prefill)
-        return [0, int(data > 1), int(prefill)] + [size[k] for k in keys]
+        size = dist.harvest_bytes(*figures, batch, prefill)
+        return [0, int(batch > 1), int(prefill)] + [size[k] for k in keys]
     if kind == "handoff":
-        n = 1 << max(int(figures[0]) - 1, 0).bit_length()
-        return [0, 0, 1, 0, 0, dist.handoff_bytes(cfg, n, PROMPT)]
+        return [0, 0, 1, 0, 0, dist.handoff_bytes(cfg, _bucket(figures[0]), PROMPT)]
+    if kind == "edge":
+        layers, off = range(figures[0]), offload.get(figures[0], ())
+        return row(dist.moe_calls(cfg, layers, data, sharded=False, moe_impl=impl, offload=off),
+                   dist.moe_call_bytes(cfg, layers, 1, PROMPT, data, sharded=False,
+                                       moe_impl=impl, offload=off))
+    if kind == "flush":
+        cut, n = figures
+        layers = range(cut, lay)
+        return row(dist.moe_calls(cfg, layers, data, sharded=False, moe_impl=impl),
+                   dist.moe_call_bytes(cfg, layers, _bucket(n), PROMPT, data, sharded=False,
+                                       moe_impl=impl))
+    if kind == "fused":
+        block, *lanes = figures
+        cuts = tuple(c for c in lanes[::2] if c >= 0)
+        blocks = tuple(b for b in lanes[1::2] if b >= 0)
+        offs = tuple(offload.get(c, ()) for c in cuts)
+        return row(dist.lane_data_collectives(cfg, data, cuts, offs, impl),
+                   dist.lane_data_collective_bytes(cfg, data, cuts, blocks, offs, impl, batch),
+                   block)
+    if kind == "serial":
+        # the suffix step over the rank's block; where the edge layers
+        # exchange, the token gather and every active robot's edge step
+        cut, rows, active, exchanges = figures
+        layers = range(cut, lay)
+        calls = dist.moe_calls(cfg, layers, data, sharded=True, moe_impl=impl)
+        size = dist.moe_call_bytes(cfg, layers, rows, 1, data, sharded=True, moe_impl=impl,
+                                   batch=batch)
+        if exchanges:
+            edge = dist.moe_calls(cfg, range(cut), data, sharded=False, moe_impl=impl)
+            edge_size = dist.moe_call_bytes(cfg, range(cut), 1, 1, data, sharded=False,
+                                            moe_impl=impl)
+            calls = {k: n + active * edge[k] + (k == "all_gather") for k, n in calls.items()}
+            size = {k: n + active * edge_size[k] + (k == "all_gather") * batch * rows * 8
+                    for k, n in size.items()}
+        return row(calls, size)
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("name", ["cloud8", "mixed8", "disagg", "combo7", "jb42", "pc42",
-                                  "qm24", "jbp"])
-def test_data_collectives_are_dists_counts(runs, name):
-    """Every admission prefill, decode round, window harvest and handoff of
-    the run issued exactly the data axis's collectives and bytes that
-    ``launch.dist`` counts for it (``data_collectives`` /
-    ``data_collective_bytes``, ``harvest_bytes``, ``handoff_bytes``); a row
-    growth gathers each row buffer once over the data ranks."""
+def run_dims(name):
+    """(arch, moe_impl, data, prefill, pod, lane keys, pipelined) of a
+    recorded run."""
 
     if name in SCENARIO:
-        arch, impl, data, prefill = "openvla-7b", "dense", max(SCENARIO[name][3], 1), \
-            int(SCENARIO[name][4])
-    elif name == "jbp":
-        arch, impl, data, prefill = "jamba-1.5-large-398b", "dense", 2, 1
-    else:
-        _, arch, data, _, _, _, impl = TP[name]
-        prefill = 0
+        _, _, _, data, disagg, cut = SCENARIO[name]
+        return ("openvla-7b", "dense", max(data, 1), int(disagg), 1,
+                () if cut is None else (cut,), True)
+    if name == "jbp":
+        return "jamba-1.5-large-398b", "dense", 2, 1, 1, (), True
+    if name in POD:
+        _, arch, pod, data, _, _, _, impl = POD[name]
+        return arch, impl, data, 0, pod, (), True
+    if name in SPLIT:
+        _, arch, data, _, keys, pipelined, _, _ = SPLIT[name]
+        return arch, "dense", data, 0, 1, keys, pipelined
+    if name in GROW_RUNS:
+        return "openvla-7b", "dense", grid_dims(GROW_GRID)[0], 0, 1, (1,), name == "grow"
+    if name in LANES:
+        _, arch, gname, key, pipelined, impl, _, _ = LANES[name]
+        return arch, impl, grid_dims(gname)[0], 0, 1, (key,), pipelined
+    _, arch, data, _, _, _, impl = TP[name]
+    return arch, impl, data, 0, 1, (), True
+
+
+@pytest.mark.parametrize("name", ["cloud8", "mixed8", "disagg", "combo7", "jb42", "pc42",
+                                  "qm24", "jbp", "mixed7p", "sp42", "sx24", "ss42", "sh24",
+                                  "sj42", "pod_tp", "pod_qm", "grow", "grow_serial", "sxs",
+                                  "spc"])
+def test_data_collectives_are_dists_counts(runs, name):
+    """Every admission prefill, decode round, window harvest and handoff of
+    the run issued exactly the data axis's (and, on a pod grid, the batch
+    group's) collectives and bytes that ``launch.dist`` counts for it
+    (``data_collectives`` / ``data_collective_bytes``, ``harvest_bytes``,
+    ``handoff_bytes``); so did every lane's edge prefill and flush
+    (``moe_calls`` over replicated rows), fused round
+    (``lane_data_collectives``) and serial token; a row growth gathers each
+    buffer it re-cuts once over the ranks, and each pool and edge cache of
+    the rows that change rank (the scheduler's and a lane's
+    ``grow_gathers``)."""
+
+    arch, impl, data, prefill, pod, keys, pipelined = run_dims(name)
     cfg = smoke(arch)
+    offload = {lane_cut(k)[0]: lane_cut(k)[1] for k in keys}
     seen = set()
     for rec in grid_ranks(runs, grid_of(name)):
         is_prefill = rec[f"grid/{grid_of(name)}"][2]
-        for kind in ("prefill", "round", "harvest", "handoff"):
+        # the prefill rank is in no data or batch group
+        d, batch = (1, 1) if is_prefill else (data, pod * data)
+        for kind in ("prefill", "round", "harvest", "handoff", "edge", "flush", "fused",
+                     "serial"):
             for ev in rec[f"{name}/events/{kind}"]:
                 k = len(ev) - 6
-                d = 1 if is_prefill else data  # the prefill rank is in no data group
-                want = expected_event(cfg, kind, list(ev[:k]), d, prefill, impl)
+                want = expected_event(cfg, kind, list(ev[:k]), d, prefill, impl, batch, offload)
                 assert list(ev[k:]) == want, (kind, list(ev))
                 seen.add(kind)
-        n_state = len(Model(cfg, device="meta").state_names)
-        for ev in rec[f"{name}/events/grow"]:
-            assert list(ev[1:4]) == [0, (4 + n_state) * (data > 1), 0]
+        for kind in ("grow", "lane_grow"):
+            for _, moved, gathers, *calls in rec[f"{name}/events/{kind}"]:
+                assert calls[:3] == [0, gathers * (batch > 1), 0], (kind, moved)
     assert {"round", "harvest"} <= seen
     assert ("handoff" in seen) == bool(prefill)
+    assert ({"edge", "flush"} <= seen) == bool(keys)
+    assert ("fused" in seen) == (bool(keys) and pipelined)
+    assert ("serial" in seen) == (bool(keys) and not pipelined)
+
+
+def lane_bytes(cfg, model_axis, m, cut, pipelined, rows):
+    """One lane's row buffers' bytes at ``rows`` rows on model-axis rank
+    ``m`` (a meta model): its suffix state, its edge rows (pipelined), page
+    table, lengths, capacities and float32 logits."""
+
+    g = stub(m, model_axis, "model") if model_axis > 1 else None
+    model = Model(cfg, device="meta", group=g)
+    ex = PartitionExecutor(model, cut)
+    pages = -(-(PROMPT + 8 * 7) // 16)
+    spec = PagedSpec(num_pages=ENGINE_KW["num_pages"], page_size=16, max_pages_per_seq=pages)
+    ts = [t for c in ex.init_lane_state(spec, rows).values() for t in c.values()]
+    if pipelined:
+        ts += [t for c in ex.init_edge_rows(rows, PROMPT + 8 * 7).values() for t in c.values()]
+    size = sum(t.numel() * t.element_size() for t in ts)
+    return size + rows * (pages + 2) * 4 + rows * model.vocab_padded * 4
+
+
+@pytest.mark.parametrize("name", ["mixed7p", "sp42", "sx24", "ss42", "sh24", "sj42"])
+def test_lane_buffers_are_the_ranks_block(runs, name):
+    """A rank's lane holds its padded block of the lane's R rows, ``B =
+    ceil(R / N)`` over N data ranks: its buffers' bytes are exactly B / R
+    of one process's (the same model-axis rank's) at R rows; a prefill
+    rank holds none; every rank sees the same rows."""
+
+    arch, _, data, _, _, keys, pipelined = run_dims(name)
+    cfg = smoke(arch)
+    model_axis = 1 if name in SCENARIO else SPLIT[name][3]
+    recs = grid_ranks(runs, grid_of(name))
+    for rec in recs:
+        lanes = rec[f"{name}/lanes"]
+        assert len(lanes) == len(keys)
+        for cut, rows, block, peak in lanes:
+            assert block == -(-rows // data)
+            if rec[f"grid/{grid_of(name)}"][2]:
+                assert peak == 0
+                continue
+            one = lane_bytes(cfg, model_axis, rec[f"grid/{grid_of(name)}"][1], cut, pipelined,
+                             rows)
+            assert peak * rows == one * block, (cut, rows, block)
+        np.testing.assert_array_equal(lanes[:, :3], recs[0][f"{name}/lanes"][:, :3])
+    assert any(r[f"{name}/lanes"][:, 2].max() < r[f"{name}/lanes"][:, 1].max() for r in recs)
 
 
 @pytest.mark.parametrize("case", LAYER_CASES, ids=[f"{g}-{a}" for g, a, _ in LAYER_CASES])
@@ -515,6 +749,169 @@ def test_control_own_rows_capacity_table_caught(runs):
     by_d = {int(r["grid/d8"][0]): r[f"layer/d8/{arch}/own_table"] for r in grid_ranks(runs, "d8")}
     got = np.concatenate([by_d[d] for d in range(8)])
     assert not np.allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", list(LANES))
+def test_lanes_whose_experts_exchange_match_one_process(runs, name):
+    """``sxs`` (a serial lane on qwen3-moe-smoke whose edge layer's experts
+    spread over the 2 data ranks: each token's tokens gathered, every
+    robot's edge stepped on every rank) and ``spc`` (a pipelined lane on
+    phi3.5-moe-smoke under the capacity dispatch over 4 data ranks, each
+    lane's table over its real rows): results, reservations and pool equal
+    to one process's run over a (data D) mesh, tokens by the greedy-margin
+    rule."""
+
+    _, arch, gname, key, pipelined, impl, n, seed = LANES[name]
+    data = grid_dims(gname)[0]
+    st = one_rank(runs["ref"], arch, impl)
+    sched = Recording(st.tmodel, st.tok, mesh=make_test_mesh(data=data, devices=[CPU] * data),
+                      **ENGINE_KW)
+    sched.attach_partition(PartitionExecutor(st.tmodel, key), pipelined=pipelined)
+    lane = sched._lanes[key]
+    reserve = lane.reserve
+
+    def recorded(req):  # the lane's reservations too, as the ranks record them
+        seq = reserve(req)
+        sched.reserved.append([req.robot_id, seq.row, *seq.pages])
+        return seq
+
+    lane.reserve = recorded
+    rng = np.random.default_rng(seed)
+    obs = [obs_pair(rng) for _ in range(n)]
+    for r, (qd, tau) in enumerate(obs):
+        sched.submit(r, qd, tau, partitioned=r % 2 == 1)
+    results = sched.drain()
+    want = [(r.robot_id, r.submitted_round, r.admitted_round, r.completed_round,
+             int(r.kind == "split")) for r in results]
+    pool = sched.pool_stats()
+    for rec in grid_ranks(runs, gname):
+        np.testing.assert_array_equal(rec[f"{name}/results"], want)
+        np.testing.assert_array_equal(rec[f"{name}/reserved"], sched.reserved)
+        np.testing.assert_array_equal(rec[f"{name}/pool"][:2], [pool.pages_in_use,
+                                                               pool.high_water])
+        for row, got in zip(want, rec[f"{name}/tokens"]):
+            w = next(r.tokens for r in results if r.robot_id == row[0])
+            assert_tokens_match(st, _obs_tokens(st.tok, *obs[row[0]]), w, got, f"robot {row[0]}")
+        assert rec[f"{name}/lanes"][0, 2] == -(-rec[f"{name}/lanes"][0, 1] // data)
+
+
+def grow_one_process(runs, pipelined):
+    """``grow_run`` in one process over a (data 2) mesh, its lane pipelined
+    or serial -> (its results' rows, the results, the scheduler)."""
+
+    st = one_rank(runs["ref"], "openvla-7b")
+    sched = Recording(st.tmodel, st.tok, mesh=make_test_mesh(data=2, devices=[CPU] * 2),
+                      **GROW_KW)
+    sched.attach_partition(PartitionExecutor(st.tmodel, 1), pipelined=pipelined)
+    lane = sched._lanes[1]
+    reserve = lane.reserve
+
+    def recorded(req):  # the lane's reservations too, as the ranks record them
+        seq = reserve(req)
+        sched.reserved.append([req.robot_id, seq.row, *seq.pages])
+        return seq
+
+    lane.reserve = recorded
+    results = grow_run(sched, np.random.default_rng(GROW_SEED))
+    want = [(r.robot_id, r.submitted_round, r.admitted_round, r.completed_round,
+             int(r.kind == "split")) for r in results]
+    assert sched.rows == 4 and sched._lanes[1].rows == 4
+    return want, results, sched
+
+
+def assert_grow_run(runs, name, control):
+    """Every rank's ``name`` run equal to one process's, rows of the
+    cloud and of the lane changing rank; ``control``'s results equal and
+    its tokens not."""
+
+    want, results, sched = grow_one_process(runs, name == "grow")
+    pool = sched.pool_stats()
+    for rec in grid_ranks(runs, GROW_GRID):
+        np.testing.assert_array_equal(rec[f"{name}/results"], want)
+        np.testing.assert_array_equal(rec[f"{name}/tokens"],
+                                      np.stack([r.tokens for r in results]))
+        np.testing.assert_array_equal(rec[f"{name}/reserved"], sched.reserved)
+        np.testing.assert_array_equal(rec[f"{name}/pool"][:2],
+                                      [pool.pages_in_use, pool.high_water])
+        cloud, lane = rec[f"{name}/page_moves"]
+        assert cloud > 0 and lane > 0
+        np.testing.assert_array_equal(rec[f"{control}/results"], want)
+        assert not np.array_equal(rec[f"{control}/tokens"], rec[f"{name}/tokens"])
+
+
+def test_rows_that_change_rank_take_their_pages(runs):
+    """Cloud rows and a lane's rows doubling while their sequences decode
+    on data 2 x model 4 ranks: the rows that change rank take their pages'
+    K/V along (a gather of the K and V pools' moved pages), so results,
+    tokens, reservations and pool equal one process's run over a (data 2)
+    mesh; without the pages' moves (a control) the tokens are not."""
+
+    assert_grow_run(runs, "grow", "grow_nomove")
+
+
+def test_serial_rows_that_change_rank_take_their_edge_caches(runs):
+    """The same with a serial lane, whose robots' edge steps run on their
+    rows' ranks alone: a robot whose row changes rank takes its edge
+    caches to the new owner, so the run equals one process's; without
+    that (a control: the new owner steps the caches its reservation left)
+    the tokens are not."""
+
+    assert_grow_run(runs, "grow_serial", "grow_serial_stale")
+
+
+def test_control_prefill_rank_without_lane_tokens_caught(runs):
+    """``mixed7p`` with a prefill rank that takes no lane tokens at a
+    window's close: the decode ranks' tokens stay the reference's, the
+    prefill rank's split robots' do not."""
+
+    ref = runs["ref"]
+    split = ref["mixed7p/results"][:, 4] == 1
+    for rec in grid_ranks(runs, "d7p1"):
+        got = rec["mixed7p_nolane/tokens"]
+        np.testing.assert_array_equal(got[~split], ref["mixed7p/tokens"][~split])
+        if rec["grid/d7p1"][2]:
+            assert not np.array_equal(got[split], ref["mixed7p/tokens"][split])
+        else:
+            np.testing.assert_array_equal(got, ref["mixed7p/tokens"])
+
+
+def pad_case_want(runs):
+    gname, arch, rows, block = PAD_CASE
+    one = one_rank(runs["ref"], arch, "capacity").tmodel
+    x = torch.as_tensor(layer_inputs(one.cfg.d_model)[:rows])
+    with torch.no_grad():
+        return moe_lib.moe_forward_capacity(x, one.layers[1].moe, one.cfg)[0].numpy()
+
+
+def pad_case_got(runs, key):
+    gname, arch, rows, block = PAD_CASE
+    by_d = {int(r[f"grid/{gname}"][0]): r[f"pad/{gname}/{arch}{key}"]
+            for r in grid_ranks(runs, gname)}
+    return np.concatenate([by_d[d] for d in sorted(by_d)])
+
+
+def test_capacity_layer_over_padded_blocks(runs):
+    """phi3.5-moe-smoke's capacity layer over R = 6 rows in blocks of 2 on
+    4 data ranks (rank 3's block all padding): the ranks' real rows equal
+    one process's layer over the 6 rows (its cap and drops), one gather
+    over the batch group and one reduce-scatter of the split experts."""
+
+    gname, arch, rows, block = PAD_CASE
+    want = pad_case_want(runs)
+    got = pad_case_got(runs, "")
+    assert got.shape[0] == 4 * block
+    np.testing.assert_allclose(got[:rows], want, atol=ATOL, rtol=RTOL)
+    for rec in grid_ranks(runs, gname):
+        assert list(rec[f"pad/{gname}/{arch}/counts"][:3]) == [1, 1, 0]
+
+
+def test_control_pad_rows_in_capacity_table_caught(runs):
+    """The same layer with every block's pad rows routed into the table
+    (cap and slots of 8 rows) is not one process's layer over the 6."""
+
+    rows = PAD_CASE[2]
+    got = pad_case_got(runs, "/with_pad")
+    assert not np.allclose(got[:rows], pad_case_want(runs), atol=ATOL, rtol=RTOL)
 
 
 def test_control_empty_handoff_caught(runs):
@@ -644,8 +1041,7 @@ def test_handoff_bytes_and_data_counts():
 def test_grid_placement_refusals():
     """A data rank's MoE stack built without the grid's data group, a handoff
     group with no grid, and a grid with a prefill rank served without its
-    handoff group are refused; split lanes beside a prefill rank name
-    their ROADMAP item."""
+    handoff group are refused; split lanes beside a prefill rank attach."""
 
     from repro_torch.partition import PartitionExecutor
     from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
@@ -667,5 +1063,80 @@ def test_grid_placement_refusals():
         ContinuousBatchingScheduler(model, tok, prefill_group=handoff)
     sched = ContinuousBatchingScheduler(model, tok, mesh=mesh, prefill_group=handoff)
     assert sched._local_rows == sched.rows // 2 and sched.prefill_device == CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP queue I, item 12"):
-        sched.attach_partition(PartitionExecutor(model, 1))
+    sched.attach_partition(PartitionExecutor(model, 1))
+    assert sched._lanes[1].block == 1 and not sched._lanes[1].has_buffers
+
+
+def test_pod_grid_mesh_and_groups():
+    """A pod grid's rank (p, d, m) is world rank (p D + d) M + m; its mesh
+    is (pod, data, model) with the rows blocked over the batch group (one
+    local shard), the experts cut over the data group alone."""
+
+    devs = (CPU,) * 8
+    grid = dist.RankGrid(2, 2, 0, 5, "gloo", CPU, devs, stub(1, 2, "model"), stub(0, 2, "data"),
+                         None, 2, stub(2, 4, "batch"))
+    assert (grid.p, grid.d, grid.m, grid.is_prefill, grid.blocks) == (1, 0, 1, False, 4)
+    assert grid.batch_group.size == 4 and grid.decode_ranks == 8
+    mesh = make_rank_mesh(2, grid)
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 2} and mesh.local_shards == 1
+    assert mesh.batch_group is grid.batch_group and mesh.data_rank == 0
+    spec = logical_to_pspec((8, 16, 32), ("expert", "embed", "mlp"), mesh)
+    assert local_index((8, 16, 32), spec, mesh, 1) == (slice(0, 4), slice(None), slice(16, 32))
+    flat = dist.RankGrid(4, 2, 0, 5, "gloo", CPU, devs, stub(1, 2, "model"), stub(2, 4, "data"),
+                         None)
+    assert flat.batch_group is flat.data_group and (flat.p, flat.d, flat.m) == (0, 2, 1)
+    assert make_rank_mesh(4, flat).batch_group is flat.data_group
+    prefill = dist.RankGrid(2, 2, 1, 8, "gloo", CPU, devs + (CPU,), None, None,
+                            stub(8, 9, "handoff"), 2)
+    assert prefill.is_prefill and prefill.blocks == 4
+
+
+@pytest.mark.parametrize("rows,ranks", [(2, 7), (6, 4), (8, 4), (14, 4)])
+def test_padded_blocks_and_real_rows(rows, ranks):
+    """A buffer of R rows over N ranks: blocks of ceil(R / N), rank k rows
+    [k B, (k + 1) B), the rest pad rows; ``real_rows`` lists the real rows'
+    places in the ranks' gathered blocks in global order, two buffers
+    joined lane after lane (None where nothing is padded or moved)."""
+
+    block = -(-rows // ranks)
+    for k in range(ranks):
+        sched = SimpleNamespace(_nranks=ranks, _brank=k, is_prefill_rank=False, rows=rows)
+        sched._block = lambda n, s=sched: ContinuousBatchingScheduler._block(s, n)
+        assert sched._block(rows) == block
+        own = [ContinuousBatchingScheduler._own(sched, r, rows) for r in range(rows)]
+        assert own == [r - k * block if r // block == k else None for r in range(rows)]
+    mesh = Mesh(np.asarray([CPU], dtype=object).reshape(1, 1), ("data", "model"))
+    with sharding_rules(mesh, rows=((rows, block),)):
+        idx = real_rows(block, ranks)
+    want = [r for r in range(ranks * block) if r < rows]
+    assert (idx or list(range(ranks * block))) == want
+    assert (idx is None) == (rows == ranks * block)
+    with sharding_rules(mesh, rows=((rows, block), (2, 1))):
+        both = real_rows(block + 1, ranks)
+    lane = [k * (block + 1) + block for k in range(ranks) if k < 2]
+    assert both == [k * (block + 1) + i for k in range(ranks) for i in range(block)
+                    if k * block + i < rows] + lane
+    with sharding_rules(mesh, rows=((rows, block), (2, 1))):
+        assert real_rows(block, ranks) == idx
+        with pytest.raises(ValueError, match="no prefix"):
+            real_rows(block + 2, ranks)
+
+
+def test_one_process_pod_mesh_folds_into_the_data_shards():
+    """In one process a (pod 2, data 2, model 1) mesh on the CPU serves as
+    its (data 2) mesh: the same results, tokens, reservations and pool."""
+
+    cfg = smoke("openvla-7b")
+    model = Model(cfg, device="cpu")
+    tok = EpisodeTokenizer(cfg.vocab_size)
+    pod = Mesh(np.asarray([CPU] * 4, dtype=object).reshape(2, 2, 1), ("pod", "data", "model"))
+    runs = []
+    for mesh in (pod, make_test_mesh(data=2, devices=[CPU] * 2)):
+        sched = Recording(model, tok, mesh=mesh, **ENGINE_KW)
+        rng = np.random.default_rng(0)
+        for r in range(6):
+            sched.submit(r, *obs_pair(rng))
+        res = sched.drain()
+        runs.append(([(r.robot_id, r.completed_round, *r.tokens) for r in res], sched.reserved,
+                     sched.pool_stats(), sched.rows, sched.local_shards))
+    assert runs[0] == runs[1] and runs[0][4] == 2

@@ -282,6 +282,26 @@ def test_dryrun_collective_term_counts_the_experts_over_data(arch, shape_name, v
     assert dist.experts_split(cfg, 16)
 
 
+@pytest.mark.parametrize("variant", ["baseline", "optimized"])
+def test_dryrun_pod_term_counts_the_batch_group(variant):
+    """On the pod mesh (2 x 16 x 16) the rows shard over the 32 (pod, data)
+    ranks: the dense dispatch (baseline) gathers the rows of the pod's 16
+    data ranks, the capacity dispatch (optimized) gathers its table's rows
+    over the whole batch group of 32; both reduce-scatter over the 16 data
+    ranks that hold the experts."""
+
+    arch, shape_name = "phi3.5-moe-42b-a6.6b", "decode_32k"
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    rec = dryrun.run_combo(arch, shape_name, True, verbose=False, variant=variant)
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    rows, d = shape.global_batch // 32, cfg.d_model
+    br = rec["collective_breakdown"]
+    over = 32 if variant == "optimized" else 16
+    assert br["data_all_gather"] == layers * over * rows * d * 2 / 1e9
+    assert br["data_all_reduce"] == layers * 16 * rows * d * 4 / 1e9
+    assert ("over the 32 (pod, data) ranks" in rec["collective_note"]) == (over == 32)
+
+
 @pytest.mark.parametrize("arch,shape_name,words", [
     ("starcoder2-3b", "decode_32k", "24 heads"), ("xlstm-125m", "prefill_32k", "4 heads"),
     ("xlstm-125m", "long_500k", "4 heads"), ("gemma2-9b", "train_4k", "no training over a model"),

@@ -421,8 +421,9 @@ REFUSED = {
                     RANKS),
     "model axis on a MoE stack": (_rank_training("qwen3-moe-235b-a22b"), "ROADMAP queue I"),
     "model axis on jamba-smoke": (_rank_training("jamba-1.5-large-398b"), "ROADMAP queue I"),
-    "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU] * 2, dtype=object).reshape(
-        2, 1, 1), ("pod", "data", "model"))), r"ROADMAP queue I, item 8: the pod axis"),
+    "pod axis": (_scheduler(mesh=lambda: Mesh(np.asarray([CPU, torch.device("meta")],
+                                                         dtype=object).reshape(2, 1, 1),
+                                              ("pod", "data", "model"))), RANKS),
     "rank mesh with data on distinct devices": (_rank_mesh_on_two_devices, RANKS),
     "mesh elsewhere": (_scheduler(mesh=lambda: make_test_mesh(data=2, devices=["meta"] * 2)),
                        RANKS),
@@ -433,9 +434,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_refuses_what_cannot_be_checked(st, what):
-    """A one-process mesh over distinct devices or on another device, and a
-    prefill device of its own in one process, name the ranks that serve
-    them; a ``pod`` axis and training over ranks name their ROADMAP item."""
+    """A one-process mesh over distinct devices (its pods too) or on
+    another device, and a prefill device of its own in one process, name
+    the ranks that serve them; training over ranks names its ROADMAP
+    item."""
 
     ask, words = REFUSED[what]
     with pytest.raises(NotImplementedError, match=words):

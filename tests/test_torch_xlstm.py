@@ -13,6 +13,8 @@ reference refuses an mLSTM prompt that its chunk does not divide, and so
 does the port.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -89,7 +91,7 @@ def test_mlstm_step_matches_reference():
     args = (q[:, 0], k[:, 0], v[:, 0], i_gate[:, 0], logf[:, 0])
     st = _mlstm_state()
     for state_t, state_j in ((_t(st), _j(st)),
-                             (tx.zero_mlstm_state(B, NH, DH),
+                             (tx.zero_mlstm_state(B, NH, DH, "cpu"),
                               _j([np.zeros((B, NH, DH, DH), np.float32),
                                   np.zeros((B, NH, DH), np.float32),
                                   np.full((B, NH), -1e30, np.float32)]))):
@@ -103,7 +105,7 @@ def test_mlstm_chunked_equals_stepping(with_state):
     """The chunked form over S = 32 (chunks of 8) equals 32 single steps."""
 
     x = _t(_mlstm_inputs(seed=2))
-    st = _t(_mlstm_state(seed=3)) if with_state else tx.zero_mlstm_state(B, NH, DH)
+    st = _t(_mlstm_state(seed=3)) if with_state else tx.zero_mlstm_state(B, NH, DH, "cpu")
     y, end = tx.mlstm_chunked(*x, chunk=8, state=st)
     ys, state = [], st
     for t in range(S):
@@ -147,6 +149,19 @@ def test_slstm_forward_matches_reference(step):
         jout, jnew = jx.slstm_forward(jnp.asarray(x), {k: jnp.asarray(v) for k, v in raw.items()},
                                       jcfg, state=state_j, step=step)
         _close((out, *new), (jout, *jnew))
+
+
+@pytest.mark.parametrize("name", ["zero_mlstm_state", "init_mlstm_state", "zero_slstm_state",
+                                  "init_slstm_state"])
+def test_state_builders_default_to_the_card(name):
+    """The xLSTM state builders default to ``device="cuda"``, as
+    ``init_mamba_state`` does: a caller that means the CPU passes it."""
+
+    from repro_torch.models import ssm as tssm
+
+    default = inspect.signature(getattr(tx, name)).parameters["device"].default
+    assert default == "cuda"
+    assert inspect.signature(tssm.init_mamba_state).parameters["device"].default == default
 
 
 def test_bf16_stack_keeps_float32_gate_biases():

@@ -13,6 +13,7 @@ SCENARIOS = (
     ("mixed8", 6, 21, 8, False, 1),
     ("disagg", 6, 5, 0, True, None),
     ("combo7", 6, 9, 7, True, None),
+    ("mixed7p", 6, 21, 7, True, 1),
 )
 # every smoke stack at 2 layers (jamba-smoke's first two: mamba + MLP,
 # attn + MoE; the others have 2)
@@ -26,6 +27,12 @@ TP_SCENARIOS = (
     ("jb42", "jamba-1.5-large-398b", 4, 2, 6, 4, "dense"),
     ("qm24", "qwen3-moe-235b-a22b", 2, 4, 6, 5, "dense"),
     ("pc42", "phi3.5-moe-42b-a6.6b", 4, 2, 6, 6, "capacity"),
+)
+# (name, arch, pod, data, model, robots, seed, moe_impl): the engine over a
+# (pod, data, model) mesh
+POD_SCENARIOS = (
+    ("pod_tp", "openvla-7b", 2, 2, 2, 6, 0, "dense"),
+    ("pod_qm", "qwen3-moe-235b-a22b", 2, 2, 2, 6, 5, "dense"),
 )
 # serve_fleet(trigger="rapid") on openvla-smoke over (data, model)
 TP_FLEET = dict(data=4, model=2, kw=dict(n_robots=8, max_steps=300, seed=3, scan_rounds=2,
@@ -114,6 +121,8 @@ SPLIT_SCENARIOS = (
 # the rapid fleet with split robots over (data, model): ``TP_FLEET``'s
 # settings, these robots at this cut
 SPLIT_FLEET = dict(split_robots=[1, 3, 5, 7], cut=1)
+# the same over (data, model) with the prefill on the next device
+SPLIT_FLEET_P = dict(data=2, model=2)
 # the executor cases of one rank against the reference executor on one
 # device: (arch, cut, worlds); each runs two robots' prompts through
 # ``split_prefill`` and two ``split_decode_step`` tokens, and the same

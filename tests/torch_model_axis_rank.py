@@ -593,9 +593,24 @@ def record_lanes():
         return seq
 
     def recording_flush(self, new):
-        flush(self, new)
-        if getattr(self.sched, "first_lane", ()) is None:
-            self.sched.first_lane = np.stack([self._logits[s.row].numpy() for s in new])
+        if getattr(self.sched, "first_lane", ()) is not None:
+            return flush(self, new)
+        # the suffix prefill's logits of the new rows (whole on every rank,
+        # each of which keeps its own rows; none on a prefill rank)
+        prefill, got = self.ex.suffix_prefill, []
+
+        def kept(*args):
+            out = prefill(*args)
+            got.append(out[1][:len(new)].float().numpy())
+            return out
+
+        self.ex.suffix_prefill = kept
+        try:
+            flush(self, new)
+        finally:
+            del self.ex.suffix_prefill
+        if got:
+            self.sched.first_lane = got[0]
 
     sched_lib._SplitLane.reserve = recording_reserve
     sched_lib._SplitLane.flush = recording_flush

@@ -42,7 +42,11 @@ prefill's logits of each, the reference executor's ``split_prefill`` /
 (2, 4) meshes (a pipelined lane, heterogeneous lanes and qwen3-moe's
 expert-offload lane);
 ``--part split_fleet``: ``serve_fleet(trigger="rapid")`` over (4, 2) with
-the robots of ``SPLIT_FLEET`` split.  Both hand ``_SplitLane.flush`` a
+the robots of ``SPLIT_FLEET`` split; ``--part split_fleet_p``: the same
+over (data 2, model 2) with the prefill on the fifth device
+(``SPLIT_FLEET_P``); ``--part pod``: the engine on openvla-smoke and
+qwen3-moe-smoke over a (pod 2, data 2, model 2) mesh (``POD_SCENARIOS``).
+The split parts hand ``_SplitLane.flush`` a
 writable copy of the lane's logits: under jax 0.9 ``harvest`` leaves them
 read-only and ``flush`` writes into them, so the pipelined lane fails on
 its second admission otherwise (a fault of the reference, which stays as
@@ -52,7 +56,7 @@ engine's paged attention is its CPU oracle with the output of an idle row
 (length 0) set to 0, as the Pallas kernel and the port give it (the
 oracle gives the mean of the values it gathers).  ``--part`` runs one
 part alone, ``engine`` (the scenarios), ``fleet``, ``xlstm``, ``encdec``,
-``split``, ``split24`` or ``split_fleet``,
+``split``, ``split24``, ``split_fleet``, ``split_fleet_p`` or ``pod``,
 so that the parts can run side by side (``--part a,b`` runs several, one after
 another); ``--only NAME,...`` runs those scenarios of ``TP_SCENARIOS`` and
 ``SPLIT_SCENARIOS`` alone (and no executor or policy case);
@@ -82,10 +86,11 @@ from repro.partition.executor import PartitionExecutor, PartitionedPolicy
 from repro.runtime import scheduler as sched_mod
 from repro.runtime.kv_cache import PagedSpec
 from torch_model_axis_cases import (AXIS_STACKS, ENCDEC_MESHES, ENCDEC_MODES, ENCDEC_PLAN,
-                                    ENGINE_KW, EXEC_CASES, POLICY_CASE, SCENARIOS, SMOKE_LAYERS,
-                                    SPLIT_FLEET, SPLIT_SCENARIOS, TP_FLEET, TP_SCENARIOS,
-                                    XLSTM_SCENARIOS, encdec_batch, encdec_mode, encdec_pages,
-                                    exec_inputs, fleet_record, lane_cut, obs_pair, split_key)
+                                    ENGINE_KW, EXEC_CASES, POD_SCENARIOS, POLICY_CASE, SCENARIOS,
+                                    SMOKE_LAYERS, SPLIT_FLEET, SPLIT_FLEET_P, SPLIT_SCENARIOS,
+                                    TP_FLEET, TP_SCENARIOS, XLSTM_SCENARIOS, encdec_batch,
+                                    encdec_mode, encdec_pages, exec_inputs, fleet_record, lane_cut,
+                                    obs_pair, split_key)
 
 WRAPPER = dict(b=8, h=8, kv=2, d=64, page=16, pool=24, maxp=4, seed=7)
 
@@ -188,6 +193,24 @@ def encdec_part(out, devs, stack):
             out[f"{key}/last"] = np.asarray(last)
 
 
+def pod_part(out, devs, recording, stack):
+    """``POD_SCENARIOS``: the engine over a (pod, data, model) mesh, whose
+    batch rule is ``("pod", "data")``."""
+
+    for name, arch, pod, data, model_axis, n, seed, impl in POD_SCENARIOS:
+        model, params, tok = stack(arch)
+        if impl != model.moe_impl:
+            model = Model(model.cfg, moe_impl=impl)
+        k = pod * data * model_axis
+        mesh = jax.sharding.Mesh(np.asarray(devs[:k]).reshape(pod, data, model_axis),
+                                 ("pod", "data", "model"))
+        sched = recording(model, params, tok, mesh=mesh, **ENGINE_KW)
+        rng = np.random.default_rng(seed)
+        for r in range(n):
+            sched.submit(r, *obs_pair(rng))
+        record(out, name, sched, sched.drain())
+
+
 def writable_flush():
     """``_SplitLane.flush`` handed a writable copy of the lane's logits (jax
     0.9's ``harvest`` leaves them read-only, and ``flush`` writes into
@@ -285,20 +308,24 @@ def model_axis_part(out, devs, recording, stack, part, only):
 
     if part == "xlstm":
         return xlstm_part(out, devs, recording, stack)
+    if part == "pod":
+        return pod_part(out, devs, recording, stack)
     if part == "encdec":
         return encdec_part(out, devs, stack)
-    if part in ("split", "split24", "split_fleet"):
+    if part in ("split", "split24", "split_fleet", "split_fleet_p"):
         writable_flush()
     if part in ("split", "split24"):
         return split_part(out, devs, recording, stack, 4 if part == "split24" else 2, only)
-    if part == "split_fleet":
+    if part in ("split_fleet", "split_fleet_p"):
         model, params, tok = stack("openvla-7b")
-        f, sf = TP_FLEET, SPLIT_FLEET
-        mesh = make_test_mesh(data=f["data"], model=f["model"],
-                              devices=devs[:f["data"] * f["model"]])
-        fleet_record(out, "spfleet", serve_fleet(
-            model, params, tok, mesh=mesh, partition_executor=PartitionExecutor(
-                model, params, sf["cut"]), split_robots=sf["split_robots"], **f["kw"]))
+        f, sf = (TP_FLEET if part == "split_fleet" else SPLIT_FLEET_P), SPLIT_FLEET
+        n = f["data"] * f["model"]
+        mesh = make_test_mesh(data=f["data"], model=f["model"], devices=devs[:n])
+        prefill = [devs[n]] if part == "split_fleet_p" else None
+        fleet_record(out, "spfleet" if prefill is None else "split_fleet_p", serve_fleet(
+            model, params, tok, mesh=mesh, prefill_group=prefill,
+            partition_executor=PartitionExecutor(model, params, sf["cut"]),
+            split_robots=sf["split_robots"], **TP_FLEET["kw"]))
         return
 
     for name, arch, data, model_axis, n, seed, impl in TP_SCENARIOS:
